@@ -6,16 +6,25 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 Phases:
-1. environment: the card's name and power limit; the CUDA kernels are built
-   from ``tagrec_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
-2. every kernel of the DGCF serving path against its plain PyTorch version
-   on the card, at the path's own shapes (the hetrec-scale joint graph,
-   F=4, N=M=15000, r=8 all-zero and r=80, dx=16, base=1.0), with its time,
-   its least possible time (bound) and the plain version's time;
-3. the serving path as a user drives it: DGCF at the preset's full width ->
-   ``export_tables`` -> ``save_export`` -> ``Retriever.from_export`` ->
-   3 top-k requests of 256 users; the kernels' launch counts are read around
-   the export, and the path is checked against the CPU path on a small graph;
+1. environment: the card's name and power limit; the six CUDA kernels are
+   built from ``tagrec_tpu_torch/csrc`` (one ``nvcc`` per source, in
+   parallel);
+2. DGCF serving: each routing kernel against its plain PyTorch version on
+   the card, at the path's own shapes (the hetrec-scale joint graph, F=4,
+   N=M=15000, r=8 all-zero and r=80, dx=16, base=1.0), with its time, its
+   least possible time (bound) and the plain version's time; then DGCF at
+   the preset's full width -> ``export_tables`` -> ``save_export`` ->
+   ``Retriever.from_export`` -> 3 top-k requests of 256 users, the launches
+   counted around the export; the forward against the CPU path on a small
+   graph;
+3. KGAT ``bi_inter``: each flash-attention kernel against its plain version
+   at the path's shapes (three row types, dq 64, dx 64 and 32), with its
+   time, bound, plain time and, for apply, one
+   ``scaled_dot_product_attention`` call as a yardstick; serving (forward ->
+   export -> artifact -> 3 top-k requests), then training (5 BPR steps and
+   3 TransE steps through the Trainer's one Adam), the launches counted per
+   forward and per step, one BPR step profiled; forward and BPR gradients
+   against the CPU path on a small graph;
 4. the ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check or exception exits non-zero before the last line.  With no
@@ -37,9 +46,14 @@ import traceback
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 RTOL, ATOL = 1e-4, 1e-5  # kernel vs plain float32: sums in another order
+BWD_RTOL = 5e-4          # the flash backward's sums are longer
 
 N_USER, N_ITEM, N_TAG, N_EDGES, TAG_PER_INTER = 2000, 10000, 3000, 400_000, 0.3
 N_REQUESTS, REQUEST_USERS, TOP_K = 3, 256, 20
+KGAT_BPR_STEPS, KGAT_TRANSE_STEPS = 5, 3
+FLASH = ("dot_flash_stats", "dot_flash_apply", "dot_bwd_row", "dot_bwd_col")
+# KGAT's propagation inputs per forward: dx 64 at layers 0 and 1, 32 at 2
+KGAT_DX = ((64, 2), (32, 1))
 
 
 class SmokeFailure(RuntimeError):
@@ -161,42 +175,99 @@ def kernel_phase(torch, fr, mask):
     return records
 
 
-def profile_forward(torch, model):
-    """Where one forward's device time goes: torch.profiler's CUDA kernel
-    events, summed by kernel, against the profiled span (the device's idle
-    share is what the kernels leave of it)."""
+def profile_device(torch, fn, label: str, names):
+    """Where ``fn()``'s device time goes: torch.profiler's CUDA kernel events,
+    summed by kernel (``names`` maps a fragment of the kernel's name to a
+    label; the rest is "other"), against the profiled span (the device's
+    idle share is what the kernels leave of it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with torch.no_grad():
-            model.forward()
+        fn()
         torch.cuda.synchronize()
     events = list(prof.events())
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
     if not dev:
-        print("forward profile: no device events (device time not measured)")
+        print(f"{label} profile: no device events (device time not measured)")
         return
     span_us = (max(e.time_range.end for e in events)
                - min(e.time_range.start for e in events))
     by_kernel = {}
     for e in dev:
-        key = ("routed_mm" if "routed_kernel<true>" in e.name else
-               "routed_rowsum" if "routed_kernel<false>" in e.name else "other")
+        key = next((v for k, v in names.items() if k in e.name), "other")
         by_kernel.setdefault(key, []).append(e.time_range.elapsed_us() / 1e3)
     busy_ms = sum(sum(v) for v in by_kernel.values())
     for key, ms in sorted(by_kernel.items()):
-        print(f"forward profile: {key}: {len(ms)} device ops, {sum(ms):.3f} ms "
+        print(f"{label} profile: {key}: {len(ms)} device ops, {sum(ms):.3f} ms "
               f"[{', '.join(f'{t:.3f}' for t in ms[:12])}"
               f"{', ...' if len(ms) > 12 else ''}]")
-    print(f"forward profile: device busy {busy_ms:.3f} ms of a "
+    print(f"{label} profile: device busy {busy_ms:.3f} ms of a "
           f"{span_us / 1e3:.3f} ms span (idle share "
           f"{1 - busy_ms * 1e3 / span_us:.4f}, profiler on)")
 
 
+def steady_forward(torch, model, label: str):
+    """Median host-clock time of 3 synchronised forwards, and the peak
+    device memory over them."""
+    torch.cuda.reset_peak_memory_stats()
+    fwd = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            model.forward()
+        torch.cuda.synchronize()
+        fwd.append((time.perf_counter() - t0) * 1e3)
+    print(f"{label} forward steady state: {sorted(fwd)[1]:.3f} ms (median of "
+          f"3, host clock); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def serve_requests(torch, graph, u_t, i_t, tmp, name: str):
+    """Artifact -> Retriever -> 3 top-k requests, each checked against a host
+    reference of the same request."""
+    import numpy as np
+
+    from tagrec_tpu_torch import serving
+
+    path = os.path.join(tmp, f"{name}_export.npz")
+    train = graph.user_items["train"]
+    serving.save_export(path, u_t, i_t, model_name=name, train_pos=train)
+    retriever = serving.Retriever.from_export(path, device="cuda")
+    rng = np.random.default_rng(0)
+    req_ms = []
+    for q in range(N_REQUESTS):
+        users = rng.choice(graph.n_user, REQUEST_USERS, replace=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, scores = retriever.topk(users, TOP_K)
+        req_ms.append((time.perf_counter() - t0) * 1e3)
+        check(ids.shape == (REQUEST_USERS, TOP_K) and np.isfinite(scores).all(),
+              f"{name} request {q}: ids {ids.shape}, finite "
+              f"{np.isfinite(scores).all()}")
+        for b, u in enumerate(users):
+            check(not set(ids[b].tolist()) & set(train.get(int(u), [])),
+                  f"{name} request {q}: user {u} served a train positive")
+        # host reference of the same request: masked sigmoid scores, top-k
+        ref = 1.0 / (1.0 + np.exp(-(u_t[users].astype(np.float64)
+                                    @ i_t.T.astype(np.float64))))
+        for b, u in enumerate(users):
+            ref[b, train.get(int(u), [])] = serving.MASK_SCORE
+        ref_top = -np.sort(-ref, axis=1)[:, :TOP_K]
+        check(np.allclose(scores, ref_top, rtol=0, atol=1e-5),
+              f"{name} request {q}: top-k scores differ from the host "
+              f"reference by {np.abs(scores - ref_top).max():.3e}")
+    print(f"{name} top-k: {N_REQUESTS} requests of {REQUEST_USERS} users, "
+          f"k={TOP_K}: {', '.join(f'{t:.3f}' for t in req_ms)} ms per request "
+          "(host clock)")
+
+
 def serving_phase(torch, fr, graph, model, tmp):
-    """Drive export -> artifact -> retriever; returns the kernel launches
-    counted in the export's forward."""
+    """DGCF: drive export -> artifact -> retriever; returns the kernel
+    launches counted in the export's forward."""
+    import numpy as np
+
     from tagrec_tpu_torch import serving
 
     fr.routed_rowsum.launches = 0
@@ -214,54 +285,19 @@ def serving_phase(torch, fr, graph, model, tmp):
           f"expected {n_iter} launches of each kernel, got {launches}")
     check(u_t.shape == (graph.n_user, 64) and i_t.shape == (graph.n_item, 64),
           f"table shapes {u_t.shape} {i_t.shape}")
-    import numpy as np
-
     check(np.isfinite(u_t).all() and np.isfinite(i_t).all(),
           "exported tables are not finite")
+    steady_forward(torch, model, "DGCF")
 
-    fwd = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    def forward():
         with torch.no_grad():
             model.forward()
-        torch.cuda.synchronize()
-        fwd.append((time.perf_counter() - t0) * 1e3)
-    print(f"forward steady state: {sorted(fwd)[1]:.3f} ms (median of 3, host "
-          f"clock); peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    profile_forward(torch, model)
-
-    path = os.path.join(tmp, "dgcf_export.npz")
-    train = graph.user_items["train"]
-    serving.save_export(path, u_t, i_t, model_name="dgcf", train_pos=train)
-    retriever = serving.Retriever.from_export(path, device="cuda")
-    rng = np.random.default_rng(0)
-    req_ms = []
-    for q in range(N_REQUESTS):
-        users = rng.choice(graph.n_user, REQUEST_USERS, replace=False)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ids, scores = retriever.topk(users, TOP_K)
-        req_ms.append((time.perf_counter() - t0) * 1e3)
-        check(ids.shape == (REQUEST_USERS, TOP_K) and np.isfinite(scores).all(),
-              f"request {q}: ids {ids.shape}, finite {np.isfinite(scores).all()}")
-        for b, u in enumerate(users):
-            check(not set(ids[b].tolist()) & set(train.get(int(u), [])),
-                  f"request {q}: user {u} served a train positive")
-        # host reference of the same request: masked sigmoid scores, top-k
-        ref = 1.0 / (1.0 + np.exp(-(u_t[users].astype(np.float64)
-                                    @ i_t.T.astype(np.float64))))
-        for b, u in enumerate(users):
-            ref[b, train.get(int(u), [])] = serving.MASK_SCORE
-        ref_top = -np.sort(-ref, axis=1)[:, :TOP_K]
-        check(np.allclose(scores, ref_top, rtol=0, atol=1e-5),
-              f"request {q}: top-k scores differ from the host reference by "
-              f"{np.abs(scores - ref_top).max():.3e}")
-    print(f"top-k: {N_REQUESTS} requests of {REQUEST_USERS} users, k={TOP_K}: "
-          f"{', '.join(f'{t:.3f}' for t in req_ms)} ms per request (host clock)")
-    return launches, forward_ms
+    profile_device(torch, forward, "forward",
+                   {"routed_kernel<true>": "routed_mm",
+                    "routed_kernel<false>": "routed_rowsum"})
+    serve_requests(torch, graph, u_t, i_t, tmp, "dgcf")
+    return launches
 
 
 def small_graph_check(torch):
@@ -285,12 +321,355 @@ def small_graph_check(torch):
     check(ok, "the CUDA forward disagrees with the CPU forward")
 
 
-def run(torch):
+# ------------------------------------------------------------------- KGAT
+
+def flash_counts(fa):
+    return {name: getattr(fa, name).launches for name in FLASH}
+
+
+def reset_flash_counts(fa):
+    for name in FLASH:
+        getattr(fa, name).launches = 0
+
+
+def compare(torch, got, want, rtol: float):
+    """(allclose at rtol/ATOL, max abs error, max rel error where |want| >
+    ATOL)."""
+    err = (got - want).abs()
+    big = want.abs() > ATOL
+    max_rel = float((err[big] / want.abs()[big]).max()) if bool(big.any()) else 0.0
+    return (bool(torch.allclose(got, want, rtol=rtol, atol=ATOL)),
+            float(err.max()), max_rel)
+
+
+def flash_inputs(torch, ns: int, nd: int, dx: int, seed: int):
+    """One row type's kernel inputs in the ranges the path produces: q =
+    tanh of unit-scale values; k = e @ W_r with xavier e (an entity table
+    [13000, 64]) and xavier W_r (transE [6, 64, 64]); x and g at unit
+    scale, larger than the path's, so that the tolerance bites harder."""
+    import math
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def uniform(shape, a):
+        return (torch.rand(shape, generator=g, device="cuda") * 2 - 1) * a
+
+    q2 = torch.tanh(torch.randn((2, ns, 64), generator=g, device="cuda"))
+    e = uniform((nd, 64), math.sqrt(6.0 / (13000 + 64)))
+    w = uniform((64, 64), math.sqrt(6.0 / (64 * 64 + 6 * 64)))
+    x = torch.randn((nd, dx), generator=g, device="cuda")
+    grad = torch.randn((ns, dx), generator=g, device="cuda")
+    return q2, (e @ w).contiguous(), x, grad
+
+
+def check_flash_kernels(torch, fa, q2, k, mask, split, x, g, label, recs):
+    """The four kernels against their plain versions on one set of inputs;
+    keeps the largest abs error of each kernel in ``recs``."""
+    m, z = fa.dot_flash_stats(q2, k, mask, split)
+    out = fa.dot_flash_apply(q2, k, mask, m, z, x, split)
+    delta = torch.sum(g * out, dim=1)
+    dq2 = fa.dot_bwd_row(q2, k, mask, m, z, x, g, delta, split)
+    dk, dxo = fa.dot_bwd_col(q2, k, mask, m, z, x, g, delta, split)
+    torch.cuda.synchronize()
+    want_m, want_z = fa.dot_flash_stats_plain(q2, k, mask, split)
+    want_dk, want_dx = fa.dot_bwd_col_plain(q2, k, mask, m, z, x, g, delta,
+                                            split)
+    cases = {
+        "dot_flash_stats": ([(m, want_m), (z, want_z)], RTOL),
+        "dot_flash_apply": ([(out, fa.dot_flash_apply_plain(
+            q2, k, mask, m, z, x, split))], RTOL),
+        "dot_bwd_row": ([(dq2, fa.dot_bwd_row_plain(
+            q2, k, mask, m, z, x, g, delta, split))], BWD_RTOL),
+        "dot_bwd_col": ([(dk, want_dk), (dxo, want_dx)], BWD_RTOL),
+    }
+    for name, (pairs, rtol) in cases.items():
+        res = [compare(torch, got, want, rtol) for got, want in pairs]
+        ok = all(r[0] for r in res)
+        max_abs = max(r[1] for r in res)
+        print(f"{name} {label}: max_abs_err {max_abs:.3e} max_rel_err "
+              f"{max(r[2] for r in res):.3e} (rtol {rtol}, atol {ATOL}) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} {label} disagrees with its plain version")
+        check(all(bool(torch.isfinite(got).all()) for got, _ in pairs),
+              f"{name} {label} not finite")
+        recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], max_abs)
+
+
+def time_flash_kernels(torch, fa, q2, k, mask, split, x, g, nnz, n_launch,
+                       label, recs):
+    """Each kernel's and plain version's time on one set of inputs, and the
+    bound of the launch, added ``n_launch[name]`` times into ``recs``."""
+    m, z = fa.dot_flash_stats(q2, k, mask, split)
+    out = fa.dot_flash_apply(q2, k, mask, m, z, x, split)
+    delta = torch.sum(g * out, dim=1)
+    timed = {
+        "dot_flash_stats": (
+            lambda: fa.dot_flash_stats(q2, k, mask, split),
+            lambda: fa.dot_flash_stats_plain(q2, k, mask, split)),
+        "dot_flash_apply": (
+            lambda: fa.dot_flash_apply(q2, k, mask, m, z, x, split),
+            lambda: fa.dot_flash_apply_plain(q2, k, mask, m, z, x, split)),
+        "dot_bwd_row": (
+            lambda: fa.dot_bwd_row(q2, k, mask, m, z, x, g, delta, split),
+            lambda: fa.dot_bwd_row_plain(q2, k, mask, m, z, x, g, delta,
+                                         split)),
+        "dot_bwd_col": (
+            lambda: fa.dot_bwd_col(q2, k, mask, m, z, x, g, delta, split),
+            lambda: fa.dot_bwd_col_plain(q2, k, mask, m, z, x, g, delta,
+                                         split)),
+    }
+    # least time of one launch: each input read and output written once
+    # (4-byte floats, 1-byte mask), and the float32 operations of the mask's
+    # edges only (per edge: the score 2dq, the softmax term 3-4, dP 2dx,
+    # dS 2, each product 2dq or 2dx)
+    (ns, nd), dq, dx = mask.shape, q2.shape[2], x.shape[1]
+    vec = ns * 4
+    base = 2 * ns * dq * 4 + nd * dq * 4 + ns * nd
+    xg = nd * dx * 4 + ns * dx * 4
+    io = {"dot_flash_stats": base + 2 * vec,
+          "dot_flash_apply": base + 2 * vec + xg,
+          "dot_bwd_row": base + 3 * vec + xg + 2 * ns * dq * 4,
+          "dot_bwd_col": base + 3 * vec + xg + nd * (dq + dx) * 4}
+    per_edge = {"dot_flash_stats": 2 * dq + 4,
+                "dot_flash_apply": 2 * dq + 3 + 2 * dx,
+                "dot_bwd_row": 4 * dq + 2 * dx + 5,
+                "dot_bwd_col": 4 * dq + 4 * dx + 5}
+    for name, (kern, plain) in timed.items():
+        if not n_launch[name]:
+            continue
+        ms = time_ms(torch, kern, runs=15)
+        plain_ms = time_ms(torch, plain, runs=5)
+        t_bytes = io[name] / PEAK_BYTES_PER_S * 1e3
+        t_ops = nnz * per_edge[name] / PEAK_F32_OPS_PER_S * 1e3
+        dense_ms = ns * nd * per_edge[name] / PEAK_F32_OPS_PER_S * 1e3
+        rec, n = recs[name], n_launch[name]
+        rec["ms"] += n * ms
+        rec["plain_ms"] += n * plain_ms
+        rec["bound_ms"] += n * max(t_bytes, t_ops)
+        rec["t_bytes"] += n * t_bytes
+        rec["t_ops"] += n * t_ops
+        rec["dense_ms"] += n * dense_ms
+        print(f"{name} {label}: kernel {ms:.3f} ms (median of 15), plain "
+              f"{plain_ms:.3f} ms (median of 5), bound "
+              f"{max(t_bytes, t_ops):.4f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}), dense "
+              f"float32 sweep at peak {dense_ms:.3f} ms; x{n} per pass")
+    return out
+
+
+def time_sdpa(torch, q2, k, mask_b, split, x, out, label):
+    """The yardstick of dot_flash_apply: one scaled_dot_product_attention
+    call computing the same P @ x (q' = [q0 | q1], k' = k in plane 0's half
+    left of the split and plane 1's half right of it, so q' k'^T = S).
+    Returns its median time."""
+    dq = q2.shape[2]
+    qc = torch.cat([q2[0], q2[1]], dim=1)[None, None]
+    kc = torch.zeros((k.shape[0], 2 * dq), device="cuda")
+    kc[:split, :dq] = k[:split]
+    kc[split:, dq:] = k[split:]
+    kc = kc[None, None]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qc, kc, x[None, None], attn_mask=mask_b[None, None], scale=1.0)
+
+    has = mask_b.any(dim=1)  # rows with no edge come out NaN there
+    err = float((sdpa()[0, 0][has] - out[has]).abs().max())
+    ms = time_ms(torch, sdpa, runs=5)
+    print(f"dot_flash_apply {label}: scaled_dot_product_attention {ms:.3f} ms "
+          f"(median of 5), max abs diff to the kernel on rows with an edge "
+          f"{err:.3e}")
+    return ms
+
+
+def flash_kernel_phase(torch, fa, model):
+    """Each flash-attention kernel against its plain version at the path's
+    shapes: the three row types' masks, dq 64, dx 64 and 32.  Returns the
+    per-kernel records; ms, plain_ms, bound_ms and library_ms are summed over
+    one forward's launches (stats, apply) or one BPR step's (bwd_row,
+    bwd_col): one stats launch per row type, and dx 64 twice and 32 once
+    per row type for the others."""
+    F = torch.nn.functional
+    recs = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                "bound_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0, "dense_ms": 0.0,
+                "library_ms": None} for n in FLASH}
+    recs["dot_flash_apply"]["library_ms"] = 0.0
+    shapes = []
+    for a, (mask, split) in enumerate(zip(model.flash_masks(),
+                                          model.flash_splits())):
+        ns, nd = mask.shape
+        nnz = int(mask.sum(dtype=torch.int64))
+        tiles = F.pad(mask, (0, -nd % 64, 0, -ns % 64)).reshape(
+            -(-ns // 64), 64, -(-nd // 64), 64).ne(0).any(3).any(1)
+        print(f"row type {a}: mask {ns}x{nd}, split {split}, {nnz} edges "
+              f"({100.0 * nnz / (ns * nd):.3f}% dense); "
+              f"{100.0 * float(tiles.float().mean()):.2f}% of 64x64 tiles "
+              "hold an edge")
+        shapes.append(f"{ns}x{nd}/{split}")
+        for dx, per_pass in KGAT_DX:
+            label = f"type {a} dx={dx}"
+            q2, k, x, g = flash_inputs(torch, ns, nd, dx, seed=100 * a + dx)
+            # correctness at the path's scale, then with k at unit scale
+            check_flash_kernels(torch, fa, q2, k, mask, split, x, g,
+                                f"{label} k path", recs)
+            check_flash_kernels(torch, fa, q2, k * (0.3 / float(k.std())),
+                                mask, split, x, g, f"{label} k unit", recs)
+            # one stats sweep per row type, whatever dx
+            n_launch = {name: per_pass for name in FLASH}
+            n_launch["dot_flash_stats"] = int(dx == KGAT_DX[0][0])
+            out = time_flash_kernels(torch, fa, q2, k, mask, split, x, g, nnz,
+                                     n_launch, label, recs)
+            recs["dot_flash_apply"]["library_ms"] += per_pass * time_sdpa(
+                torch, q2, k, mask.bool(), split, x, out, label)
+    for name, rec in recs.items():
+        t_bytes, t_ops = rec.pop("t_bytes"), rec.pop("t_ops")
+        dense_ms = rec.pop("dense_ms")
+        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        per = "BPR step" if name.startswith("dot_bwd") else "forward"
+        rec["shape"] = (f"Ns x Nd / split {', '.join(shapes)}; dq=64; per "
+                        f"{per}: " + ("one launch per row type"
+                                      if name == "dot_flash_stats" else
+                                      "dx=64, 64, 32 per row type"))
+        lib = ("none" if rec["library_ms"] is None
+               else f"{rec['library_ms']:.3f} ms")
+        print(f"{name}: {rec['ms']:.3f} ms per {per} (plain "
+              f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}), dense float32 sweep at peak "
+              f"{dense_ms:.3f} ms, library {lib})")
+    return recs
+
+
+def kgat_serving_phase(torch, fa, graph, model, tmp):
+    """KGAT: export -> artifact -> retriever; returns the launches counted in
+    the export's forward."""
+    import numpy as np
+
+    from tagrec_tpu_torch import serving
+
+    reset_flash_counts(fa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u_t, i_t = serving.export_tables(model, n_item=graph.n_item)
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    launches = flash_counts(fa)
+    print(f"KGAT export_tables: forward {forward_ms:.3f} ms (first call, host "
+          f"clock), launches {launches}")
+    want = {"dot_flash_stats": 3, "dot_flash_apply": 9, "dot_bwd_row": 0,
+            "dot_bwd_col": 0}
+    check(launches == want, f"expected {want} in a forward, got {launches}")
+    width = model.cfg.dim_latent + sum(model.cfg.dim_layer_list)
+    check(u_t.shape == (graph.n_user, width)
+          and i_t.shape == (graph.n_item, width),
+          f"KGAT table shapes {u_t.shape} {i_t.shape}")
+    check(np.isfinite(u_t).all() and np.isfinite(i_t).all(),
+          "KGAT exported tables are not finite")
+    print(f"KGAT tables: user {u_t.shape}, item {i_t.shape}, finite")
+    steady_forward(torch, model, "KGAT")
+    serve_requests(torch, graph, u_t, i_t, tmp, "kgat")
+    return launches
+
+
+# fragments of the kernels' demangled names (Adam's foreach kernels are
+# named multi_tensor_apply_kernel, hence the namespace)
+FLASH_KERNEL_NAMES = {"dot_flash::stats_kernel": "dot_flash_stats",
+                      "dot_flash::apply_kernel": "dot_flash_apply",
+                      "dot_flash::bwd_row_kernel": "dot_bwd_row",
+                      "dot_flash::bwd_col_kernel": "dot_bwd_col"}
+
+
+def kgat_training_phase(torch, fa, pipe, trainer):
+    """5 BPR steps then 3 TransE steps through the Trainer's one Adam, the
+    launches counted, the losses and every parameter checked finite, after
+    each step; then one BPR step profiled.  Returns the launches summed over
+    the steps."""
+    bpr, transe = pipe.phases
+    params = list(pipe.model.parameters())
+    per_bpr = {"dot_flash_stats": 3, "dot_flash_apply": 9, "dot_bwd_row": 9,
+               "dot_bwd_col": 9}
+    total = dict.fromkeys(FLASH, 0)
+
+    def run(phase, steps, want):
+        times, last = [], [0.0]
+
+        def on_step(i, parts):
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - last[0]) * 1e3)
+            got = flash_counts(fa)
+            reset_flash_counts(fa)
+            check(got == want, f"{phase.name} step {i}: launches {got}, "
+                               f"expected {want}")
+            check(bool(torch.isfinite(parts).all()),
+                  f"{phase.name} step {i}: loss {parts.tolist()}")
+            check(all(bool(torch.isfinite(p).all()) for p in params),
+                  f"{phase.name} step {i}: a parameter is not finite")
+            for name in FLASH:
+                total[name] += got[name]
+            last[0] = time.perf_counter()
+
+        reset_flash_counts(fa)
+        torch.cuda.synchronize()
+        last[0] = time.perf_counter()
+        losses = trainer.run_phase(phase, max_steps=steps, on_step=on_step)
+        check(len(times) == steps, f"{phase.name}: {len(times)} steps run")
+        print(f"KGAT {phase.name}: {steps} steps, ms per step (host clock, "
+              f"synchronised): {', '.join(f'{t:.3f}' for t in times)}; median "
+              f"{sorted(times)[steps // 2]:.3f}; losses "
+              f"{[round(float(v), 6) for v in losses.sum(axis=1)]}; launches "
+              f"per step {want}")
+
+    run(bpr, KGAT_BPR_STEPS, per_bpr)
+    run(transe, KGAT_TRANSE_STEPS, dict.fromkeys(FLASH, 0))
+    state = bpr.epoch_reset(trainer.generator, bpr.data)
+    batch = bpr.make_batch(trainer.generator, 0, state, bpr.data)
+    profile_device(torch, lambda: trainer.step(bpr, batch), "KGAT BPR step",
+                   {**FLASH_KERNEL_NAMES, "multi_tensor_apply": "adam (foreach)",
+                    "gemm": "matmul (cuBLAS)"})
+    return total
+
+
+def kgat_small_graph_check(torch):
+    """KGAT's forward and the gradients of one BPR loss on a small graph:
+    CUDA kernels against the CPU plain path, with the same seeded weights."""
+    import numpy as np
+
     from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.data.synthetic import synthetic_graph
+    from tagrec_tpu_torch.models import model_class
+
+    g = synthetic_graph(n_user=40, n_item=90, n_tag=25, avg_deg=8, seed=7)
+    rng = np.random.default_rng(0)
+    batch = np.stack([rng.integers(0, g.n_user, 64),
+                      rng.integers(0, g.n_item, 64),
+                      rng.integers(0, g.n_item, 64)], axis=1)
+    cfg = model_preset("kgat", agg_type="bi_inter", reg=1e-4)
+    outs, grads = [], []
+    for dev in ("cuda", "cpu"):
+        model = model_class("kgat")(g, cfg, device=dev,
+                                    generator=torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            outs.append([t.cpu() for t in model.forward()])
+        sum(model.bpr_loss(torch.as_tensor(batch, device=dev))).backward()
+        grads.append([p.grad.cpu() for p in model.parameters()])
+    err = max(float((a - b).abs().max()) for a, b in zip(*outs))
+    ok = all(torch.allclose(a, b, rtol=RTOL, atol=ATOL) for a, b in zip(*outs))
+    g_err = max(float((a - b).abs().max()) for a, b in zip(*grads))
+    g_ok = all(torch.allclose(a, b, rtol=BWD_RTOL, atol=ATOL)
+               for a, b in zip(*grads))
+    print(f"KGAT small-graph forward, cuda vs cpu: max_abs_err {err:.3e} "
+          f"{'ok' if ok else 'FAIL'}; BPR gradients: max_abs_err {g_err:.3e} "
+          f"(rtol {BWD_RTOL}) {'ok' if g_ok else 'FAIL'}")
+    check(ok and g_ok, "the CUDA KGAT disagrees with the CPU KGAT")
+
+
+def run(torch):
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
     from tagrec_tpu_torch.data.synthetic import synthetic_graph_large
     from tagrec_tpu_torch.models import model_class
     from tagrec_tpu_torch.ops import _build
+    from tagrec_tpu_torch.ops import flash_attention as fa
     from tagrec_tpu_torch.ops import flash_routing as fr
+    from tagrec_tpu_torch.training.train import Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -300,8 +679,14 @@ def run(torch):
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    _build.build(["routed_rowsum", "routed_mm"])
+    reports = _build.build(["routed_rowsum", "routed_mm", "dot_flash_stats",
+                            "dot_flash_apply", "dot_flash_bwd_row",
+                            "dot_flash_bwd_col"])
     print(f"kernels built in {time.perf_counter() - t0:.1f} s (nvcc, parallel)")
+    for name, out in reports.items():
+        for line in out.splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
 
     t0 = time.perf_counter()
     graph = synthetic_graph_large(N_USER, N_ITEM, N_TAG, N_EDGES, TAG_PER_INTER,
@@ -313,18 +698,45 @@ def run(torch):
 
     records = kernel_phase(torch, fr, model.mask)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, _ = serving_phase(torch, fr, graph, model, tmp)
+        launches = serving_phase(torch, fr, graph, model, tmp)
     small_graph_check(torch)
+    del model
+
+    t0 = time.perf_counter()
+    tcfg = TrainConfig()
+    pipe = build_pipeline(graph, model_preset("kgat", agg_type="bi_inter"),
+                          tcfg, generator=torch.Generator().manual_seed(0),
+                          device="cuda")
+    print(f"KGAT bi_inter and its phases built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    records.update(flash_kernel_phase(torch, fa, pipe.model))
+    with tempfile.TemporaryDirectory() as tmp:
+        served = kgat_serving_phase(torch, fa, graph, pipe.model, tmp)
+    trainer = Trainer(pipe.model, pipe.phases, tcfg,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    trained = kgat_training_phase(torch, fa, pipe, trainer)
+    launches.update({name: served[name] + trained[name] for name in FLASH})
+    print(f"KGAT launches over the export and the {KGAT_BPR_STEPS} + "
+          f"{KGAT_TRANSE_STEPS} steps: {launches}")
+    kgat_small_graph_check(torch)
 
     kernels = []
-    sources = {"routed_rowsum": ("tagrec_tpu_torch/csrc/routed_rowsum.cu",
-                                 "tagrec_tpu/ops/flash_routing.py:112"),
-               "routed_mm": ("tagrec_tpu_torch/csrc/routed_mm.cu",
-                             "tagrec_tpu/ops/flash_routing.py:98")}
+    sources = {"routed_rowsum": ("routed_rowsum.cu", "flash_routing.py:112"),
+               "routed_mm": ("routed_mm.cu", "flash_routing.py:98"),
+               "dot_flash_stats": ("dot_flash_stats.cu",
+                                   "flash_attention.py:76"),
+               "dot_flash_apply": ("dot_flash_apply.cu",
+                                   "flash_attention.py:110"),
+               "dot_bwd_row": ("dot_flash_bwd_row.cu",
+                               "flash_attention.py:125"),
+               "dot_bwd_col": ("dot_flash_bwd_col.cu",
+                               "flash_attention.py:145")}
     for name, (src, replaces) in sources.items():
         rec = records[name]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"tagrec_tpu_torch/csrc/{src}",
+                        "replaces": f"tagrec_tpu/ops/{replaces}",
+                        "launches": launches[name],
                         **{k: rec[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "shape")}})

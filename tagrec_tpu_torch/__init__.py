@@ -3,6 +3,9 @@
 The JAX package ``tagrec_tpu`` stays the reference; this package imports
 nothing from it.  Slice 1: DGCF inference -> serving export -> top-k
 retrieval, with the factor-routing kernels written in CUDA C++ (``csrc/``).
+Slice 2: KGAT ``bi_inter`` serving and training (BPR + TransE under one
+Adam) on the dense flash tier, with the four two-segment flash-attention
+kernels in CUDA C++.
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``, where every kernel wrapper runs its plain PyTorch version.
 """

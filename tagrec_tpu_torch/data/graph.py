@@ -1,9 +1,10 @@
 """Heterogeneous graph container + joint-adjacency algebra (pure numpy).
 
-The port's copy of tagrec_tpu/data/graph.py, cut to what the DGCF serving
-slice uses: a duplicate-summing COO, the joint {user, item, tag} adjacency,
-its normalizations and the dataset loader.  Both packages give the same
-arrays for the same inputs (tests/test_torch_dgcf.py).
+The port's copy of tagrec_tpu/data/graph.py, cut to what the ported slices
+use: a duplicate-summing COO, the joint {user, item, tag} adjacency, its
+normalizations, the six typed relations of KGAT and the dataset loader.
+Both packages give the same arrays for the same inputs
+(tests/test_torch_dgcf.py, tests/test_torch_kgat.py).
 """
 
 from __future__ import annotations
@@ -224,3 +225,17 @@ class HeteroGraph:
         else:
             adj = joint_adjacency(self.ui_adj)
         return normalize_adj(adj, norm_type).sorted_by_row()
+
+    def relation_edges(self) -> Dict[int, np.ndarray]:
+        """Six globally-indexed directed relations [ui, iu, ut, tu, it, ti],
+        each [2, E].  Items offset +n_user, tags +n_user+n_item."""
+        off_i, off_t = self.n_user, self.n_user + self.n_item
+        ui, ut, it = self.ui_adj, self.ut_adj, self.it_adj
+        return {
+            0: np.stack([ui.row, ui.col + off_i]),
+            1: np.stack([ui.col + off_i, ui.row]),
+            2: np.stack([ut.row, ut.col + off_t]),
+            3: np.stack([ut.col + off_t, ut.row]),
+            4: np.stack([it.row + off_i, it.col + off_t]),
+            5: np.stack([it.col + off_t, it.row + off_i]),
+        }

@@ -1,8 +1,10 @@
-"""Model zoo of the port (tagrec_tpu/models).  This slice holds DGCF only."""
+"""Model zoo of the port (tagrec_tpu/models): DGCF (dense forward) and KGAT
+(dense flash tier)."""
 
 from tagrec_tpu_torch.models.dgcf import DGCF
+from tagrec_tpu_torch.models.kgat import KGAT
 
-MODEL_REGISTRY = {"dgcf": DGCF}
+MODEL_REGISTRY = {"dgcf": DGCF, "kgat": KGAT}
 
 
 def model_class(name: str):
@@ -13,4 +15,4 @@ def model_class(name: str):
     return MODEL_REGISTRY[name]
 
 
-__all__ = ["DGCF", "MODEL_REGISTRY", "model_class"]
+__all__ = ["DGCF", "KGAT", "MODEL_REGISTRY", "model_class"]

@@ -8,6 +8,8 @@ from typing import List, Sequence
 
 import torch
 
+from tagrec_tpu_torch.ops.losses import bpr_loss, l2reg_loss
+
 
 def _fan_in_out(shape: Sequence[int]):
     """torch.nn.init._calculate_fan_in_and_fan_out semantics: for an
@@ -48,3 +50,14 @@ def predict_sigmoid(user_emb_sel: torch.Tensor,
                     item_emb: torch.Tensor) -> torch.Tensor:
     """sigmoid(U_sel @ I^T) — the shared predict_rating surface."""
     return torch.sigmoid(user_emb_sel @ item_emb.T)
+
+
+def bpr_with_reg(u_all, i_all, u_reg_src, i_reg_src, batch, loss_kind: str,
+                 reg: float):
+    """BPR on the propagated tables plus ``reg`` times the L2 term on the
+    given regularization source, for a [B, 3] (user, pos, neg) batch ->
+    (loss, reg term)."""
+    users, pos, neg = batch[:, 0], batch[:, 1], batch[:, 2]
+    loss = bpr_loss(u_all[users], i_all[pos], i_all[neg], loss_kind)
+    return loss, reg * l2reg_loss(u_reg_src[users], i_reg_src[pos],
+                                  i_reg_src[neg])

@@ -1,0 +1,224 @@
+"""KGAT on the tag tripartite graph, dense flash tier (tagrec_tpu/models/kgat.py).
+
+Entities are items then tags (global ids offset by n_user) under six
+relations [ui, iu, ut, tu, it, ti].  With ``agg_type="bi_inter"`` each layer
+propagates over the attention adjacency
+
+    pi(h, t) = (W_r e_t) . tanh(W_r e_h + e_r),  row softmax over each head's
+                                                   out-edges
+
+with NGCF-style bi-interaction, the bias folded into the weight
+(``x @ (W + b)``, quirk #4), a per-layer L2 normalize and the concat of
+[ego, layer_1..L] (width 64 + 64 + 32 + 16 = 176 at the preset).  The
+attention runs per row type through the flash kernels of
+``ops.flash_attention``: one stats sweep per row type, then one apply per
+row type per layer, and its backward; the [N, N] attention never exists.
+
+Quirk #3: the shipped preset sets ``agg_type="bi_agg"``, which skips
+propagation; the model then builds no masks and ``forward`` returns the ego
+tables.  Only the dense flash tier is ported: the true-KG mode, the
+``dense_xla`` tier and the EdgeMap tier raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tagrec_tpu_torch.config import ModelConfig
+from tagrec_tpu_torch.data.graph import HeteroGraph
+from tagrec_tpu_torch.device import resolve
+from tagrec_tpu_torch.models import base
+from tagrec_tpu_torch.ops import dense_adj, flash_attention, losses
+from tagrec_tpu_torch.ops.propagate import l2_normalize, message_dropout
+
+# relation id for (row type -> col type) sectors, in relation_edges order
+# [ui, iu, ut, tu, it, ti]
+REL_OF = ((-1, 0, 2), (1, -1, 4), (3, 5, -1))
+
+
+def _pad_len(n: int) -> int:
+    return -(-n // flash_attention.TILE_I) * flash_attention.TILE_I
+
+
+class KGAT(nn.Module):
+    """Parameters ``user``, ``entity``, ``relation``, ``transE`` and
+    ``mat.{W1,b1,W2,b2}_k``, drawn in that order from ``generator`` (a CPU
+    ``torch.Generator``); under ``bi_inter`` the three row types' flash masks
+    are int8 buffers ``fmask_0..2`` on ``device``."""
+
+    def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
+                 generator: torch.Generator, device="cuda", kg=None):
+        super().__init__()
+        dev = resolve(device)
+        if kg is not None:
+            raise NotImplementedError(
+                "KGAT over a true knowledge graph needs the relation-dense "
+                "tier (ROADMAP.md A14)")
+        self.cfg = cfg
+        self.num_user = graph.n_user
+        self.num_entity = graph.n_item + graph.n_tag
+        self.num_relation = 6
+        self.n = self.num_user + self.num_entity
+        self.dims = [cfg.dim_latent] + list(cfg.dim_layer_list)
+        self.skip_adj = cfg.agg_type != "bi_inter"
+
+        def xavier(*shape):
+            return nn.Parameter(base.xavier_uniform(shape, generator, dev))
+
+        self.user = xavier(self.num_user, cfg.dim_latent)
+        self.entity = xavier(self.num_entity, cfg.dim_latent)
+        self.relation = xavier(self.num_relation, cfg.dim_relation)
+        self.transE = xavier(self.num_relation, cfg.dim_latent,
+                             cfg.dim_relation)
+        mat = {}
+        for k in range(cfg.num_layer):
+            d_in, d_out = self.dims[k], self.dims[k + 1]
+            mat[f"W1_{k}"] = xavier(d_in, d_out)
+            mat[f"b1_{k}"] = xavier(1, d_out)
+            mat[f"W2_{k}"] = xavier(d_in, d_out)
+            mat[f"b2_{k}"] = xavier(1, d_out)
+        self.mat = nn.ParameterDict(mat)
+        if self.skip_adj:  # quirk #3: no adjacency is ever read
+            return
+
+        if cfg.adj_mode == "dense_xla":
+            raise NotImplementedError(
+                "adj_mode='dense_xla' needs the chunked dense tier "
+                "(ROADMAP.md A12)")
+        if not dense_adj.use_dense(cfg.adj_mode, self.n, self.n):
+            raise NotImplementedError(
+                f"adj_mode={cfg.adj_mode!r} on a {self.n}-node graph needs "
+                "the EdgeMap tier (ROADMAP.md A17)")
+        self.segs = ((0, graph.n_user),
+                     (graph.n_user, graph.n_item),
+                     (graph.n_user + graph.n_item, graph.n_tag))
+        rel_edges = graph.relation_edges()
+        rows = np.concatenate([rel_edges[k][0] for k in range(6)])
+        cols = np.concatenate([rel_edges[k][1] for k in range(6)])
+        rels = np.concatenate([np.full(rel_edges[k].shape[1], k,
+                                       dtype=np.int64) for k in range(6)])
+        for a, m in enumerate(self._build_flash_masks(rows, cols, rels)):
+            self.register_buffer(f"fmask_{a}", torch.from_numpy(m).to(dev))
+
+    def _build_flash_masks(self, rows, cols, rels):
+        """Per-row-type int8 masks [pad(la), pad(l1) + pad(l2)] in the
+        two-segment column layout of ``ops.flash_attention`` (host)."""
+        masks = []
+        for a in range(3):
+            c1, c2 = [c for c in range(3) if c != a]
+            sa, la = self.segs[a]
+            s1, l1 = self.segs[c1]
+            s2, l2 = self.segs[c2]
+            m = np.zeros((_pad_len(la), _pad_len(l1) + _pad_len(l2)), np.int8)
+            for c, sc, off in ((c1, s1, 0), (c2, s2, _pad_len(l1))):
+                sel = rels == REL_OF[a][c]
+                m[rows[sel] - sa, cols[sel] - sc + off] = 1
+            masks.append(m)
+        return masks
+
+    def flash_masks(self):
+        return [getattr(self, f"fmask_{a}") for a in range(3)]
+
+    def flash_splits(self):
+        """Per row type, the column offset where its second segment starts
+        (JAX's ``split_j * TILE_J``)."""
+        return [_pad_len(self.segs[[c for c in range(3) if c != a][0]][1])
+                for a in range(3)]
+
+    def _flash_att_mm(self, q, proj):
+        """Per row type: one stats sweep over the two-segment columns (the
+        softmax spans all of a head's out-edges), then ``att_mm(x)`` runs one
+        apply per row type; the stats stay outside autograd."""
+        tile = flash_attention.TILE_I
+
+        def pad0(t):
+            return flash_attention._pad_axis(t, tile, 0)
+
+        plans = []
+        for a, (mask, split) in enumerate(zip(self.flash_masks(),
+                                              self.flash_splits())):
+            c1, c2 = [c for c in range(3) if c != a]
+            r1, r2 = REL_OF[a][c1], REL_OF[a][c2]
+            sa, la = self.segs[a]
+            s1, l1 = self.segs[c1]
+            s2, l2 = self.segs[c2]
+            q2 = torch.stack([pad0(q[r1, sa:sa + la]), pad0(q[r2, sa:sa + la])])
+            kcat = torch.cat([pad0(proj[r1, s1:s1 + l1]),
+                              pad0(proj[r2, s2:s2 + l2])])
+            ms, zs = flash_attention.dot_flash_stats(q2.detach(), kcat.detach(),
+                                                     mask, split)
+            plans.append((q2, kcat, mask, ms, zs, split, la, (s1, l1, s2, l2)))
+
+        def att_mm(x):
+            outs = []
+            for q2, kcat, mask, ms, zs, split, la, (s1, l1, s2, l2) in plans:
+                xcat = torch.cat([pad0(x[s1:s1 + l1]), pad0(x[s2:s2 + l2])])
+                out = flash_attention.dot_flash_apply(q2, kcat, mask, ms, zs,
+                                                      xcat, split)
+                outs.append(out[:la])
+            return torch.cat(outs, dim=0)
+
+        return att_mm
+
+    def _propagate(self, all_embed, training: bool, generator):
+        """Bi-interaction propagation over the attention adjacency."""
+        cfg = self.cfg
+        # head side tanh(W_r e + e_r), tail side W_r e, per relation
+        proj = torch.einsum("nd,rde->rne", all_embed, self.transE)
+        q = torch.tanh(proj + self.relation[:, None, :])
+        att_mm = self._flash_att_mm(q, proj)
+        x = all_embed
+        outs = [x]
+        for k in range(cfg.num_layer):
+            nei = att_mm(x)
+            sum_emb = F.leaky_relu(
+                (nei + x) @ (self.mat[f"W1_{k}"] + self.mat[f"b1_{k}"]), 0.2)
+            bi_emb = F.leaky_relu(
+                (nei * x) @ (self.mat[f"W2_{k}"] + self.mat[f"b2_{k}"]), 0.2)
+            x = sum_emb + bi_emb
+            x = message_dropout(x, cfg.message_drop_list[k], generator,
+                                training)
+            outs.append(l2_normalize(x))
+        return torch.cat(outs, dim=1)
+
+    def forward(self, *, training: bool = False, generator=None):
+        """-> (user table, entity table); ``generator`` (on the model's
+        device) draws the message dropout when ``training``."""
+        all_embed = torch.cat([self.user, self.entity], dim=0)
+        if not self.skip_adj:
+            all_embed = self._propagate(all_embed, training, generator)
+        # else quirk #3: propagation skipped, the ego tables returned
+        return all_embed[:self.num_user], all_embed[self.num_user:]
+
+    def bpr_loss(self, batch, *, generator=None, training: bool = True):
+        """BPR on a [B, 3] (user, item+, item-) batch, the L2 term on the
+        propagated rows -> (loss, reg * l2)."""
+        u_all, e_all = self.forward(training=training, generator=generator)
+        # items are the first n_item entity rows; batch ids are item ids
+        return base.bpr_with_reg(u_all, e_all, u_all, e_all, batch,
+                                 self.cfg.mul_loss_func, self.cfg.reg)
+
+    def transe_loss(self, batch):
+        """Per-relation projected squared-norm TransE on a [B, 4]
+        (h, r, t+, t-) batch -> (loss, cor_reg * l2)."""
+        h, r, tp, tn = batch[:, 0], batch[:, 1], batch[:, 2], batch[:, 3]
+        all_embed = torch.cat([self.user, self.entity], dim=0)
+        w = self.transE[r]                                   # [B, d, dr]
+        r_e = self.relation[r]
+        h_e = torch.einsum("bd,bde->be", all_embed[h], w)
+        p_e = torch.einsum("bd,bde->be", all_embed[tp], w)
+        n_e = torch.einsum("bd,bde->be", all_embed[tn], w)
+        kg_loss = losses.transe_loss_sq(h_e, r_e, p_e, n_e)
+        reg = losses.l2reg_loss(h_e, r_e, p_e, n_e)
+        return kg_loss, self.cfg.cor_reg * reg
+
+    @torch.no_grad()
+    def predict(self, users):
+        """[B, num_entity] sigmoid scores of ``users`` against every entity
+        (items and tags), as JAX's ``predict``."""
+        u_all, e_all = self.forward()
+        users = torch.as_tensor(users, device=u_all.device)
+        return base.predict_sigmoid(u_all[users], e_all)

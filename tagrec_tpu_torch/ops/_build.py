@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -51,13 +51,15 @@ def _stale(name: str) -> bool:
                for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh")))
 
 
-def build(names: Sequence[str]) -> None:
+def build(names: Sequence[str]) -> Dict[str, str]:
     """Compile every stale ``csrc/<name>.cu`` in parallel; raise with the
     compiler's output if one fails.  Each library is written to a temporary
-    name and renamed into place, so a concurrent loader never sees half."""
+    name and renamed into place, so a concurrent loader never sees half.
+    Returns the compiler's output (ptxas's register and spill report) of
+    each library built."""
     todo = [n for n in names if _stale(n)]
     if not todo:
-        return
+        return {}
     os.makedirs(BUILD, exist_ok=True)
     exe = nvcc()
     procs = []
@@ -70,16 +72,18 @@ def build(names: Sequence[str]) -> None:
         cmd = [exe, *NVCC_FLAGS, "-o", tmp, src]
         procs.append((name, tmp, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    errors = []
+    errors, reports = [], {}
     for name, tmp, cmd, p in procs:
         out, _ = p.communicate()
         if p.returncode == 0:
             os.replace(tmp, _lib_path(name))
+            reports[name] = out
         else:
             os.remove(tmp)
             errors.append(f"{' '.join(cmd)}\n{out}")
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return reports
 
 
 def load(name: str) -> ctypes.CDLL:

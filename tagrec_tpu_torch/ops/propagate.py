@@ -1,5 +1,5 @@
-"""Propagation helpers (tagrec_tpu/ops/propagate.py); this slice needs only
-the L2 normalize."""
+"""Propagation helpers (tagrec_tpu/ops/propagate.py); the ported slices need
+the L2 normalize and message dropout."""
 
 from __future__ import annotations
 
@@ -13,3 +13,14 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
     gradient is 0, not NaN)."""
     sq = torch.sum(x * x, dim=dim, keepdim=True)
     return x / torch.sqrt(torch.clamp(sq, min=eps * eps))
+
+
+def message_dropout(x: torch.Tensor, rate: float,
+                    generator: torch.Generator, training: bool) -> torch.Tensor:
+    """Inverted dropout (torch.nn.functional.dropout semantics), its mask
+    drawn from ``generator``, which lies on ``x``'s device."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)

@@ -1,36 +1,64 @@
 """Weights from the JAX package into the port (tagrec_tpu/training/checkpoint.py).
 
-A JAX checkpoint is ``<path>.npz`` with one array per pytree leaf
-(``leaf_0``, ``leaf_1``, ...) plus a ``<path>.tree`` JSON sidecar holding
-``n_leaves`` and JAX's treedef string.  For the params tree
-``{"embed": [user, item, tag]}`` the leaves are user, item, tag in order.
-The treedef string is JAX's own format and is not parsed here; the leaf
-count and every shape are checked instead.
+A JAX params tree is a nest of dicts and lists of arrays: DGCF's is
+``{"embed": [user, item, tag]}``, KGAT's ``{"user", "entity", "relation",
+"transE", "mat": {"W1_0", ...}}``.  Its leaf at path (k1, k2, ...) fills the
+model parameter named ``"k1.k2..."`` (``embed.0``, ``mat.W1_0``).
+
+A JAX checkpoint is ``<path>.npz`` with one array per leaf (``leaf_0``,
+``leaf_1``, ...) in JAX's flatten order, dict keys sorted at every level and
+lists in order, plus a ``<path>.tree`` JSON sidecar holding ``n_leaves`` and
+JAX's treedef string.  The treedef string is JAX's own format and is not
+parsed here; the leaf count and every shape are checked instead.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Sequence
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 
-def params_from_jax(model: nn.Module, tree: Dict[str, Sequence]) -> nn.Module:
-    """Copy a JAX params tree ``{"embed": [u, i(, t)]}`` (numpy arrays) into
-    ``model.embed``, checking count and shapes; returns ``model``."""
-    embed = list(tree["embed"])
-    if len(embed) != len(model.embed):
-        raise ValueError(f"params tree has {len(embed)} embedding tables, "
-                         f"model has {len(model.embed)}")
+def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
+    """(dotted path, leaf) pairs of a params tree, in JAX's flatten order."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves(tree[key], f"{prefix}{key}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from _leaves(sub, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def jax_leaf_order(model: nn.Module) -> List[str]:
+    """The model's parameter names in the order JAX flattens its tree: dict
+    keys sorted as strings, list indices as numbers."""
+    def key(name):
+        return tuple((0, int(p), "") if p.isdigit() else (1, 0, p)
+                     for p in name.split("."))
+    return sorted((n for n, _ in model.named_parameters()), key=key)
+
+
+def params_from_jax(model: nn.Module, tree: Dict) -> nn.Module:
+    """Copy a JAX params tree (numpy arrays) into ``model``'s parameters of
+    the same paths, checking that the two hold the same leaves and shapes;
+    returns ``model``."""
+    leaves = dict(_leaves(tree))
+    params = dict(model.named_parameters())
+    if leaves.keys() != params.keys():
+        raise ValueError(
+            f"params tree leaves {sorted(leaves)} do not match the model's "
+            f"parameters {sorted(params)}")
     with torch.no_grad():
-        for i, (p, arr) in enumerate(zip(model.embed, embed)):
-            arr = np.asarray(arr, dtype=np.float32)
+        for name, p in params.items():
+            arr = np.asarray(leaves[name], dtype=np.float32)
             if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"embed[{i}] shape {arr.shape} != model's "
+                raise ValueError(f"{name} shape {arr.shape} != model's "
                                  f"{tuple(p.shape)}")
             p.copy_(torch.tensor(arr))
     return model
@@ -41,18 +69,24 @@ def load(path: str, model: nn.Module) -> nn.Module:
     ``checkpoint.save`` into ``model``; returns ``model``."""
     npz_path = path if path.endswith(".npz") else path + ".npz"
     data = np.load(npz_path)
-    n_tables = len(model.embed)
+    names = jax_leaf_order(model)
     # save() writes the sidecar at the pre-savez path + ".tree"
     sidecar = next((p for p in (path + ".tree", npz_path + ".tree")
                     if os.path.exists(p)), None)
     if sidecar is not None:
         with open(sidecar) as f:
             n_saved = json.load(f).get("n_leaves")
-        if n_saved != n_tables:
+        if n_saved != len(names):
             raise ValueError(f"checkpoint {path} holds {n_saved} leaves, "
-                             f"expected {n_tables}")
-    if len(data.files) != n_tables:
+                             f"expected {len(names)}")
+    if len(data.files) != len(names):
         raise ValueError(f"checkpoint has {len(data.files)} leaves, "
-                         f"expected {n_tables}")
-    return params_from_jax(
-        model, {"embed": [data[f"leaf_{i}"] for i in range(n_tables)]})
+                         f"expected {len(names)}")
+    tree = {}
+    for i, name in enumerate(names):
+        node = tree
+        *parents, last = name.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = data[f"leaf_{i}"]
+    return params_from_jax(model, tree)

@@ -1,0 +1,144 @@
+"""Multi-phase training loop (tagrec_tpu/training/train.py).
+
+An epoch runs the model's phases in order (BPR, then TransE for KGAT), all
+stepping ONE shared Adam.  Batches have fixed shapes: steps = E // batch and
+the remainder is dropped.  Sampling (shuffles, negatives) runs on the
+tables' device from one ``torch.Generator``.  The step loop is plain Python;
+a step ends without a host sync, and the losses come back to the host once
+per phase.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from tagrec_tpu_torch.config import TrainConfig
+from tagrec_tpu_torch.ops import sampling
+from tagrec_tpu_torch.training import optim
+
+
+@dataclass
+class PhaseSpec:
+    """One training phase.
+
+    epoch_reset(gen, data)           -> epoch state (e.g. shuffled edges)
+    make_batch(gen, i, state, data)  -> the batch of step i
+    loss_fn(batch, gen)              -> tuple of scalar loss terms, summed for
+                                        the gradient and logged apart
+    """
+
+    name: str
+    steps_per_epoch: int
+    epoch_reset: Callable
+    make_batch: Callable
+    loss_fn: Callable
+    data: object = None
+
+
+def bpr_phase(name: str, edges: np.ndarray, pos_table: sampling.PosTable,
+              batch: int, loss_fn, neg_rounds: int = 16) -> PhaseSpec:
+    """BPR over all train interactions: each epoch shuffles every (u, i+)
+    pair and pairs each with one uniform negative outside the user's
+    positives."""
+    batch = min(batch, len(edges))  # tiny datasets: one full batch
+    steps = max(len(edges) // batch, 1)
+    data = {"edges": torch.as_tensor(np.asarray(edges, dtype=np.int64),
+                                     device=pos_table.table.device),
+            "pt": pos_table}
+
+    def epoch_reset(gen, data):
+        e = data["edges"]
+        return e[torch.randperm(e.shape[0], generator=gen, device=e.device)]
+
+    def make_batch(gen, i, shuffled, data):
+        sl = shuffled[i * batch:(i + 1) * batch]
+        users, pos = sl[:, 0], sl[:, 1]
+        neg = sampling.sample_negatives(gen, data["pt"], users,
+                                        rounds=neg_rounds)
+        return torch.stack([users, pos, neg], dim=1)
+
+    return PhaseSpec(name, steps, epoch_reset, make_batch, loss_fn, data)
+
+
+def triple_phase(name: str, triples: np.ndarray, n_rel: int, n_ids: int,
+                 batch: int, loss_fn, neg_rounds: int = 16,
+                 window: bool = False, device="cuda") -> PhaseSpec:
+    """TransE phase over (h, r, t) triples; each batch draws a corrupted tail
+    outside the observed (h, r, *) set.
+
+    ``window=False``: each epoch shuffles all triples and takes disjoint
+    batches.  ``window=True`` reproduces the reference KGAT sampler (quirk
+    #5): the triples are never shuffled, and step i trains on
+    ``triples[i : i + batch]``, i stepping by one, for ``len // batch``
+    steps."""
+    ts, keys = sampling.build_triple_set(triples, n_rel, n_ids, device=device)
+    batch = min(batch, len(triples))  # tiny datasets: one full batch
+    steps = max(len(triples) // batch, 1)
+    data = {"trips": torch.as_tensor(np.asarray(triples, dtype=np.int64),
+                                     device=device),
+            "keys": keys, "ts": ts}
+
+    def epoch_reset(gen, data):
+        if window:  # quirk #5: no shuffle, ever
+            return data["trips"], data["keys"]
+        perm = torch.randperm(data["trips"].shape[0], generator=gen,
+                              device=data["trips"].device)
+        return data["trips"][perm], data["keys"][perm]
+
+    def make_batch(gen, i, state, data):
+        trips, tkeys = state
+        start = i if window else i * batch
+        neg = sampling.sample_negatives_from_set(
+            gen, data["ts"], tkeys[start:start + batch], rounds=neg_rounds)
+        return torch.cat([trips[start:start + batch], neg[:, None]], dim=1)
+
+    return PhaseSpec(name, steps, epoch_reset, make_batch, loss_fn, data)
+
+
+class Trainer:
+    """Steps ``phases`` in order over one Adam on ``model``'s parameters,
+    drawing every sample from ``generator``."""
+
+    def __init__(self, model: torch.nn.Module, phases: List[PhaseSpec],
+                 cfg: TrainConfig, *, generator: torch.Generator):
+        self.model = model
+        self.phases = phases
+        self.cfg = cfg
+        self.generator = generator
+        self.opt = optim.make_optimizer(model.parameters(), cfg)
+
+    def step(self, phase: PhaseSpec, batch) -> torch.Tensor:
+        """One optimizer step on ``batch`` -> the loss terms [n_terms]."""
+        self.opt.zero_grad(set_to_none=True)
+        parts = phase.loss_fn(batch, self.generator)
+        sum(parts).backward()
+        self.opt.step()
+        return torch.stack([p.detach() for p in parts])
+
+    def run_phase(self, phase: PhaseSpec, max_steps: Optional[int] = None,
+                  on_step: Optional[Callable] = None) -> np.ndarray:
+        """One epoch of ``phase``, cut to ``max_steps`` steps when given ->
+        the loss terms [steps, n_terms]; raises on a non-finite loss.
+        ``on_step(i, parts)``, when given, runs after each step."""
+        state = phase.epoch_reset(self.generator, phase.data)
+        steps = phase.steps_per_epoch
+        if max_steps is not None:
+            steps = min(steps, max_steps)
+        parts = []
+        for i in range(steps):
+            parts.append(self.step(phase, phase.make_batch(
+                self.generator, i, state, phase.data)))
+            if on_step is not None:
+                on_step(i, parts[-1])
+        parts = torch.stack(parts).cpu().numpy()
+        if not np.isfinite(parts).all():
+            raise FloatingPointError(f"non-finite loss in phase {phase.name}")
+        return parts
+
+    def run_epoch(self, max_steps: Optional[int] = None):
+        """Every phase in order -> {phase name: loss terms [steps, n]}."""
+        return {ph.name: self.run_phase(ph, max_steps) for ph in self.phases}
