@@ -6,8 +6,8 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 Phases:
-1. environment: the card's name and power limit; the six CUDA kernels are
-   built from ``tagrec_tpu_torch/csrc`` (one ``nvcc`` per source, in
+1. environment: the card's name and power limit; the eight CUDA kernels
+   are built from ``tagrec_tpu_torch/csrc`` (one ``nvcc`` per source, in
    parallel);
 2. DGCF serving: each routing kernel against its plain PyTorch version on
    the card, at the path's own shapes (the hetrec-scale joint graph, F=4,
@@ -25,7 +25,18 @@ Phases:
    3 TransE steps through the Trainer's one Adam), the launches counted per
    forward and per step, one BPR step profiled; forward and BPR gradients
    against the CPU path on a small graph;
-4. the ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+4. LightGCN on the 10x graph (150,000 joint nodes, so the hybrid tier:
+   hub block + degree-bucketed ELL): the tier and bucket shapes; each
+   gather kernel against its plain version at every bucket's shape and at
+   the two row gathers of an SpMM, with its time, bound, plain time and one
+   PyTorch call (``embedding_bag``, ``index_select``) as a yardstick;
+   serving (export -> artifact -> 3 top-k requests), 5 BPR steps through
+   the Trainer with the launches checked per step, one BPR step profiled,
+   the peak device memory, one evaluation over every test user and one
+   4-group breakdown; forward and BPR gradients against the CPU path on a
+   small graph with hub columns; then LightGCN at hetrec scale on the dense
+   sector tier (no kernel), a few BPR steps;
+5. the ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check or exception exits non-zero before the last line.  With no
 CUDA device, or outside the repository, it exits non-zero at once.
@@ -51,7 +62,13 @@ BWD_RTOL = 5e-4          # the flash backward's sums are longer
 N_USER, N_ITEM, N_TAG, N_EDGES, TAG_PER_INTER = 2000, 10000, 3000, 400_000, 0.3
 N_REQUESTS, REQUEST_USERS, TOP_K = 3, 256, 20
 KGAT_BPR_STEPS, KGAT_TRANSE_STEPS = 5, 3
+ROUTING = ("routed_rowsum", "routed_mm")
 FLASH = ("dot_flash_stats", "dot_flash_apply", "dot_bwd_row", "dot_bwd_col")
+GATHER = ("gather_reduce", "gather_rows")
+# LightGCN's hybrid tier: the "10x" graph of DESIGN.md section 7 (150,000
+# joint nodes, past the 2 GiB dense budget), n_user, n_item, n_tag, n_edges
+LGCN_10X = (20000, 100000, 30000, 4_000_000)
+LGCN_BPR_STEPS, HETREC_BPR_STEPS = 5, 5
 # KGAT's propagation inputs per forward: dx 64 at layers 0 and 1, 32 at 2
 KGAT_DX = ((64, 2), (32, 1))
 
@@ -88,6 +105,89 @@ def time_ms(torch, fn, runs: int):
     torch.cuda.synchronize()
     ms = sorted(a.elapsed_time(b) for a, b in times)
     return ms[len(ms) // 2]
+
+
+def counts(mod, names):
+    """The launch counters of ``mod``'s kernel wrappers ``names``."""
+    return {name: getattr(mod, name).launches for name in names}
+
+
+def reset_counts(mod, names):
+    for name in names:
+        getattr(mod, name).launches = 0
+
+
+def launch_checker(mod, names, want, label):
+    """A per-step callback for ``training_steps``: the step's launches of
+    ``mod``'s kernels, checked against ``want``; the counters reset."""
+    def on_launches(i):
+        got = counts(mod, names)
+        reset_counts(mod, names)
+        check(got == want, f"{label} step {i}: launches {got}, expected "
+                           f"{want}")
+        return got
+    return on_launches
+
+
+def training_steps(torch, trainer, phase, steps, label, on_launches=None):
+    """``steps`` steps of ``phase`` through the Trainer, each synchronised,
+    timed and checked finite (losses and every parameter); ``on_launches(i)``
+    after each step checks and returns its launch counts.  Returns the
+    launches summed over the steps."""
+    params = list(trainer.model.parameters())
+    times, last, total = [], [0.0], {}
+
+    def on_step(i, parts):
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - last[0]) * 1e3)
+        check(bool(torch.isfinite(parts).all()),
+              f"{label} step {i}: loss {parts.tolist()}")
+        check(all(bool(torch.isfinite(p).all()) for p in params),
+              f"{label} step {i}: a parameter is not finite")
+        for name, v in (on_launches(i) if on_launches else {}).items():
+            total[name] = total.get(name, 0) + v
+        last[0] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    last[0] = time.perf_counter()
+    losses = trainer.run_phase(phase, max_steps=steps, on_step=on_step)
+    check(len(times) == steps, f"{label}: {len(times)} steps run")
+    print(f"{label}: {steps} steps, ms per step (host clock, synchronised): "
+          f"{', '.join(f'{t:.3f}' for t in times)}; median "
+          f"{sorted(times)[steps // 2]:.3f}; losses "
+          f"{[round(float(v), 6) for v in losses.sum(axis=1)]}")
+    return total
+
+
+def small_graph_grad_check(torch, label, make_model):
+    """The forward and the gradients of one BPR loss of
+    ``make_model(graph, device)`` on a small graph: CUDA kernels against the
+    CPU plain path, with the same seeded weights."""
+    import numpy as np
+
+    from tagrec_tpu_torch.data.synthetic import synthetic_graph
+
+    g = synthetic_graph(n_user=40, n_item=90, n_tag=25, avg_deg=8, seed=7)
+    rng = np.random.default_rng(0)
+    batch = np.stack([rng.integers(0, g.n_user, 64),
+                      rng.integers(0, g.n_item, 64),
+                      rng.integers(0, g.n_item, 64)], axis=1)
+    outs, grads = [], []
+    for dev in ("cuda", "cpu"):
+        model = make_model(g, dev)
+        with torch.no_grad():
+            outs.append([t.cpu() for t in model.forward()])
+        sum(model.bpr_loss(torch.as_tensor(batch, device=dev))).backward()
+        grads.append([p.grad.cpu() for p in model.parameters()])
+    err = max(float((a - b).abs().max()) for a, b in zip(*outs))
+    ok = all(torch.allclose(a, b, rtol=RTOL, atol=ATOL) for a, b in zip(*outs))
+    g_err = max(float((a - b).abs().max()) for a, b in zip(*grads))
+    g_ok = all(torch.allclose(a, b, rtol=BWD_RTOL, atol=ATOL)
+               for a, b in zip(*grads))
+    print(f"{label} small-graph forward, cuda vs cpu: max_abs_err {err:.3e} "
+          f"{'ok' if ok else 'FAIL'}; BPR gradients: max_abs_err {g_err:.3e} "
+          f"(rtol {BWD_RTOL}) {'ok' if g_ok else 'FAIL'}")
+    check(ok and g_ok, f"the CUDA {label} disagrees with the CPU {label}")
 
 
 def kernel_inputs(torch, f, n, r, dx, seed):
@@ -270,14 +370,12 @@ def serving_phase(torch, fr, graph, model, tmp):
 
     from tagrec_tpu_torch import serving
 
-    fr.routed_rowsum.launches = 0
-    fr.routed_mm.launches = 0
+    reset_counts(fr, ROUTING)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     u_t, i_t = serving.export_tables(model, n_item=graph.n_item)
     forward_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"routed_rowsum": fr.routed_rowsum.launches,
-                "routed_mm": fr.routed_mm.launches}
+    launches = counts(fr, ROUTING)
     n_iter = model.cfg.num_layer * model.cfg.iterate_k
     print(f"export_tables: forward {forward_ms:.3f} ms (first call, host "
           f"clock), launches {launches}")
@@ -322,15 +420,6 @@ def small_graph_check(torch):
 
 
 # ------------------------------------------------------------------- KGAT
-
-def flash_counts(fa):
-    return {name: getattr(fa, name).launches for name in FLASH}
-
-
-def reset_flash_counts(fa):
-    for name in FLASH:
-        getattr(fa, name).launches = 0
-
 
 def compare(torch, got, want, rtol: float):
     """(allclose at rtol/ATOL, max abs error, max rel error where |want| >
@@ -546,12 +635,12 @@ def kgat_serving_phase(torch, fa, graph, model, tmp):
 
     from tagrec_tpu_torch import serving
 
-    reset_flash_counts(fa)
+    reset_counts(fa, FLASH)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     u_t, i_t = serving.export_tables(model, n_item=graph.n_item)
     forward_ms = (time.perf_counter() - t0) * 1e3
-    launches = flash_counts(fa)
+    launches = counts(fa, FLASH)
     print(f"KGAT export_tables: forward {forward_ms:.3f} ms (first call, host "
           f"clock), launches {launches}")
     want = {"dot_flash_stats": 3, "dot_flash_apply": 9, "dot_bwd_row": 0,
@@ -583,42 +672,19 @@ def kgat_training_phase(torch, fa, pipe, trainer):
     each step; then one BPR step profiled.  Returns the launches summed over
     the steps."""
     bpr, transe = pipe.phases
-    params = list(pipe.model.parameters())
     per_bpr = {"dot_flash_stats": 3, "dot_flash_apply": 9, "dot_bwd_row": 9,
                "dot_bwd_col": 9}
     total = dict.fromkeys(FLASH, 0)
-
-    def run(phase, steps, want):
-        times, last = [], [0.0]
-
-        def on_step(i, parts):
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - last[0]) * 1e3)
-            got = flash_counts(fa)
-            reset_flash_counts(fa)
-            check(got == want, f"{phase.name} step {i}: launches {got}, "
-                               f"expected {want}")
-            check(bool(torch.isfinite(parts).all()),
-                  f"{phase.name} step {i}: loss {parts.tolist()}")
-            check(all(bool(torch.isfinite(p).all()) for p in params),
-                  f"{phase.name} step {i}: a parameter is not finite")
-            for name in FLASH:
-                total[name] += got[name]
-            last[0] = time.perf_counter()
-
-        reset_flash_counts(fa)
-        torch.cuda.synchronize()
-        last[0] = time.perf_counter()
-        losses = trainer.run_phase(phase, max_steps=steps, on_step=on_step)
-        check(len(times) == steps, f"{phase.name}: {len(times)} steps run")
-        print(f"KGAT {phase.name}: {steps} steps, ms per step (host clock, "
-              f"synchronised): {', '.join(f'{t:.3f}' for t in times)}; median "
-              f"{sorted(times)[steps // 2]:.3f}; losses "
-              f"{[round(float(v), 6) for v in losses.sum(axis=1)]}; launches "
-              f"per step {want}")
-
-    run(bpr, KGAT_BPR_STEPS, per_bpr)
-    run(transe, KGAT_TRANSE_STEPS, dict.fromkeys(FLASH, 0))
+    for phase, steps, want in ((bpr, KGAT_BPR_STEPS, per_bpr),
+                               (transe, KGAT_TRANSE_STEPS,
+                                dict.fromkeys(FLASH, 0))):
+        label = f"KGAT {phase.name}"
+        reset_counts(fa, FLASH)
+        got = training_steps(torch, trainer, phase, steps, label,
+                             launch_checker(fa, FLASH, want, label))
+        print(f"{label}: launches per step {want}")
+        for name in FLASH:
+            total[name] += got[name]
     state = bpr.epoch_reset(trainer.generator, bpr.data)
     batch = bpr.make_batch(trainer.generator, 0, state, bpr.data)
     profile_device(torch, lambda: trainer.step(bpr, batch), "KGAT BPR step",
@@ -628,37 +694,296 @@ def kgat_training_phase(torch, fa, pipe, trainer):
 
 
 def kgat_small_graph_check(torch):
-    """KGAT's forward and the gradients of one BPR loss on a small graph:
-    CUDA kernels against the CPU plain path, with the same seeded weights."""
-    import numpy as np
-
+    """KGAT bi_inter on a small graph, cuda against cpu."""
     from tagrec_tpu_torch.config import model_preset
-    from tagrec_tpu_torch.data.synthetic import synthetic_graph
     from tagrec_tpu_torch.models import model_class
 
-    g = synthetic_graph(n_user=40, n_item=90, n_tag=25, avg_deg=8, seed=7)
-    rng = np.random.default_rng(0)
-    batch = np.stack([rng.integers(0, g.n_user, 64),
-                      rng.integers(0, g.n_item, 64),
-                      rng.integers(0, g.n_item, 64)], axis=1)
     cfg = model_preset("kgat", agg_type="bi_inter", reg=1e-4)
-    outs, grads = [], []
-    for dev in ("cuda", "cpu"):
-        model = model_class("kgat")(g, cfg, device=dev,
-                                    generator=torch.Generator().manual_seed(3))
-        with torch.no_grad():
-            outs.append([t.cpu() for t in model.forward()])
-        sum(model.bpr_loss(torch.as_tensor(batch, device=dev))).backward()
-        grads.append([p.grad.cpu() for p in model.parameters()])
-    err = max(float((a - b).abs().max()) for a, b in zip(*outs))
-    ok = all(torch.allclose(a, b, rtol=RTOL, atol=ATOL) for a, b in zip(*outs))
-    g_err = max(float((a - b).abs().max()) for a, b in zip(*grads))
-    g_ok = all(torch.allclose(a, b, rtol=BWD_RTOL, atol=ATOL)
-               for a, b in zip(*grads))
-    print(f"KGAT small-graph forward, cuda vs cpu: max_abs_err {err:.3e} "
-          f"{'ok' if ok else 'FAIL'}; BPR gradients: max_abs_err {g_err:.3e} "
-          f"(rtol {BWD_RTOL}) {'ok' if g_ok else 'FAIL'}")
-    check(ok and g_ok, "the CUDA KGAT disagrees with the CPU KGAT")
+    small_graph_grad_check(torch, "KGAT", lambda g, dev: model_class("kgat")(
+        g, cfg, device=dev, generator=torch.Generator().manual_seed(3)))
+
+
+# --------------------------------------------------------------- LightGCN
+
+# fragments of the gather kernels' demangled names
+GATHER_KERNEL_NAMES = {"gather::reduce": "gather_reduce",
+                       "gather::rows": "gather_rows"}
+
+
+def lightgcn_tier(torch, model):
+    """Print the adjacency the model built: the hub block and each degree
+    bucket (rows x width, edges, slots); returns the per-SpMM launches
+    {gather_reduce: buckets, gather_rows: 2}."""
+    adj = model.adj
+    check(adj.bwd is adj.fwd, "bi_norm's pair should share one structure")
+    h = adj.fwd
+    check(type(h).__name__ == "Hybrid" and h.dense_cols is not None,
+          f"expected the hybrid tier with hub columns, got {type(h).__name__}")
+    n = h.dense_block.shape[0]
+    hub_edges = int((h.dense_block != 0).sum())
+    print(f"LightGCN tier: hybrid; hub block {n} x {h.dense_block.shape[1]} "
+          f"({h.dense_block.numel() * 4 / 1e9:.3f} GB float32), {hub_edges} "
+          "edges")
+    slots = edges = 0
+    for b, p in enumerate(h.ell.parts):
+        rows, k = p.idx.shape
+        e = int(p.deg.sum())
+        slots, edges = slots + rows * k, edges + e
+        print(f"LightGCN bucket {b + 1}: {rows} x {k}, {e} edges, "
+              f"{rows * k} slots ({100.0 * e / (rows * k):.1f}% filled)")
+    print(f"LightGCN buckets: {len(h.ell.parts)}, {slots} slots, {edges} tail "
+          f"edges; {hub_edges + edges} edges in all")
+    return {"gather_reduce": len(h.ell.parts), "gather_rows": 2}
+
+
+def gather_kernel_phase(torch, dg, model):
+    """Each gather kernel against its plain version at the path's shapes:
+    gather_reduce over every bucket of the forward structure, gather_rows
+    over ``inv_perm`` and ``dense_cols``.  ms, plain_ms and library_ms are
+    summed over one SpMM's launches; bound_ms is that of the SpMM's bytes
+    and operations together, with x counted once for gather_reduce (its
+    launches, one per bucket, run back to back and x fits the L2)."""
+    F = torch.nn.functional
+    h = model.adj.fwd
+    n, d = h.dense_block.shape[0], model.cfg.dim_latent
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((n, d), generator=g, device="cuda")
+    recs = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                   "library_ms": 0.0, "io_bytes": 0, "ops": 0}
+            for name in GATHER}
+    recs["gather_reduce"]["io_bytes"] = x.numel() * 4
+
+    def record(name, label, kern, plain, lib, io_bytes, ops, exact):
+        """``io_bytes``: what this launch alone moves (for gather_reduce,
+        without x)."""
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        if exact:
+            ok = bool(torch.equal(got, want))
+        else:
+            ok = bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL))
+        err = float((got - want).abs().max())
+        lib_err = float((lib() - got).abs().max())
+        print(f"{name} {label}: max_abs_err {err:.3e} "
+              f"({'bit for bit' if exact else f'rtol {RTOL}, atol {ATOL}'}) "
+              f"{'ok' if ok else 'FAIL'}; library call differs by {lib_err:.3e}")
+        check(ok, f"{name} {label} disagrees with its plain version")
+        check(bool(torch.isfinite(got).all()), f"{name} {label} not finite")
+        ms = time_ms(torch, kern, runs=15)
+        plain_ms = time_ms(torch, plain, runs=5)
+        lib_ms = time_ms(torch, lib, runs=15)
+        rec = recs[name]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("io_bytes", io_bytes), ("ops", ops)):
+            rec[key] += v
+        print(f"{name} {label}: kernel {ms:.4f} ms (median of 15), plain "
+              f"{plain_ms:.4f} ms (median of 5), library {lib_ms:.4f} ms "
+              f"(median of 15); {io_bytes} bytes, {ops} operations")
+
+    shapes = []
+    for b, p in enumerate(h.ell.parts):
+        rows, k = p.idx.shape
+        edges = int(p.deg.sum())
+        shapes.append(f"{rows}x{k}")
+        record("gather_reduce", f"bucket {b + 1} ({rows} x {k})",
+               lambda: dg.gather_reduce(x, p.idx, p.val),
+               lambda: dg.gather_reduce_plain(x, p.idx, p.val),
+               lambda: F.embedding_bag(p.idx, x, per_sample_weights=p.val,
+                                       mode="sum"),
+               rows * k * 8 + rows * d * 4, 2 * edges * d, exact=False)
+    for label, idx in (("inv_perm", h.ell.inv_perm), ("dense_cols", h.dense_cols)):
+        r = idx.shape[0]
+        record("gather_rows", f"{label} (R={r} of {n} x {d})",
+               lambda: dg.gather_rows(x, idx),
+               lambda: dg.gather_rows_plain(x, idx),
+               lambda: torch.index_select(x, 0, idx),
+               r * 4 + 2 * r * d * 4, 0, exact=True)
+    for name, rec in recs.items():
+        t_bytes = rec.pop("io_bytes") / PEAK_BYTES_PER_S * 1e3
+        t_ops = rec.pop("ops") / PEAK_F32_OPS_PER_S * 1e3
+        rec["bound_ms"] = max(t_bytes, t_ops)
+        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        rec["shape"] = (f"per SpMM, x {n}x{d}: " + (
+            f"buckets {', '.join(shapes)}" if name == "gather_reduce"
+            else f"R={n} (inv_perm) and R={h.dense_cols.shape[0]} (dense_cols)"))
+        print(f"{name}: {rec['ms']:.4f} ms per SpMM (plain {rec['plain_ms']:.4f}"
+              f" ms, library {rec['library_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}))")
+    return recs
+
+
+def lightgcn_serving_phase(torch, dg, graph, model, per_spmm, tmp):
+    """Export -> artifact -> retriever; returns the export's launches."""
+    import numpy as np
+
+    from tagrec_tpu_torch import serving
+
+    reset_counts(dg, GATHER)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u_t, i_t = serving.export_tables(model, n_item=graph.n_item)
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts(dg, GATHER)
+    n_layer = model.cfg.num_layer
+    want = {k: n_layer * v for k, v in per_spmm.items()}
+    print(f"LightGCN export_tables: forward {forward_ms:.3f} ms (first call, "
+          f"host clock), launches {launches}")
+    check(launches == want, f"expected {want} in a forward, got {launches}")
+    check(u_t.shape == (graph.n_user, 64) and i_t.shape == (graph.n_item, 64),
+          f"LightGCN table shapes {u_t.shape} {i_t.shape}")
+    check(np.isfinite(u_t).all() and np.isfinite(i_t).all(),
+          "LightGCN exported tables are not finite")
+    steady_forward(torch, model, "LightGCN")
+    reset_counts(dg, GATHER)
+    serve_requests(torch, graph, u_t, i_t, tmp, "lightgcn")
+    return launches
+
+
+def lightgcn_training_phase(torch, dg, pipe, trainer, per_spmm):
+    """5 BPR steps with the launches of each step checked, the peak device
+    memory, then one BPR step profiled.  Returns the launches summed over
+    the steps."""
+    (bpr,) = pipe.phases
+    n_layer = pipe.model.cfg.num_layer
+    per_step = {k: 2 * n_layer * v for k, v in per_spmm.items()}
+    print(f"LightGCN launches per BPR step expected: {per_step} ({n_layer} "
+          f"layers, forward and backward, {per_spmm['gather_reduce']} buckets)")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(dg, GATHER)
+    total = training_steps(torch, trainer, bpr, LGCN_BPR_STEPS,
+                           "LightGCN 10x BPR",
+                           launch_checker(dg, GATHER, per_step, "BPR"))
+    print(f"LightGCN 10x BPR: launches per step {per_step}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    state = bpr.epoch_reset(trainer.generator, bpr.data)
+    batch = bpr.make_batch(trainer.generator, 0, state, bpr.data)
+    profile_device(torch, lambda: trainer.step(bpr, batch), "LightGCN BPR step",
+                   {**GATHER_KERNEL_NAMES, "multi_tensor_apply": "adam (foreach)",
+                    "gemm": "matmul (cuBLAS)"})
+    return total
+
+
+def lightgcn_eval_phase(torch, dg, pipe):
+    """One evaluation over every test user and one 4-group breakdown, timed
+    and checked; returns the launches of their two forwards."""
+    import math
+
+    n_test = len(pipe.graph.user_items["test"])
+    reset_counts(dg, GATHER)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pipe.evaluator.run(pipe.model)
+    full_s = time.perf_counter() - t0
+    print(f"LightGCN evaluation of {n_test} test users: {full_s:.3f} s (host "
+          f"clock) {json.dumps(res)}")
+    check(all(len(res[k]) == 2 for k in ("recall", "precision", "hr", "ndcg"))
+          and all(math.isfinite(v) for vs in res.values() for v in vs)
+          and 0.0 < res["auc"][0] < 1.0, f"evaluation results {res}")
+    t0 = time.perf_counter()
+    groups = pipe.evaluator.run(pipe.model, group_k=4)
+    group_s = time.perf_counter() - t0
+    print(f"LightGCN 4-group evaluation: {group_s:.3f} s (host clock)")
+    for key, r in groups.items():
+        print(f"  {key}: {json.dumps(r)}")
+    check(len(groups) >= 2 and sum(int(k.split("-")[-1]) for k in groups)
+          == n_test, f"groups {list(groups)} do not cover {n_test} users")
+    return counts(dg, GATHER)
+
+
+def lightgcn_small_graph_check(torch):
+    """LightGCN on a small graph's hybrid tier, hub columns forced
+    (``hub_min_degree`` 12), cuda against cpu."""
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.models import model_class
+    from tagrec_tpu_torch.ops import ell
+
+    cfg = model_preset("lightgcn", adj_mode="hybrid", reg=1e-4)
+
+    def make(g, dev):
+        model = model_class("lightgcn")(
+            g, cfg, device=dev, generator=torch.Generator().manual_seed(3))
+        model.adj = ell.to_device(ell.build_adj_pair(
+            g.joint_norm_adj("bi_norm", True), symmetric=True, mode="hybrid",
+            hub_min_degree=12), dev)
+        check(model.adj.fwd.dense_cols is not None
+              and len(model.adj.fwd.ell.parts) > 1, "no hub columns")
+        return model
+
+    small_graph_grad_check(torch, "LightGCN hybrid", make)
+
+
+def lightgcn_hetrec_dense(torch, dg, graph):
+    """bench.py's configuration: LightGCN at hetrec scale on the dense
+    sector tier (torch.matmul, no kernel of the port), a few BPR steps,
+    then one profiled."""
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+    from tagrec_tpu_torch.training.train import Trainer
+
+    tcfg = TrainConfig()
+    pipe = build_pipeline(graph, model_preset("lightgcn"), tcfg,
+                          generator=torch.Generator().manual_seed(0),
+                          device="cuda")
+    check(type(pipe.model.adj.fwd).__name__ == "DenseSectors",
+          f"hetrec LightGCN tier {type(pipe.model.adj.fwd).__name__}")
+    print(f"LightGCN hetrec: dense sectors {pipe.model.adj.fwd.coords}")
+    trainer = Trainer(pipe.model, pipe.phases, tcfg,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    reset_counts(dg, GATHER)
+    training_steps(torch, trainer, pipe.phases[0], HETREC_BPR_STEPS,
+                   "LightGCN hetrec dense-sector BPR")
+    check(counts(dg, GATHER) == dict.fromkeys(GATHER, 0),
+          "the dense sector tier launched a gather kernel")
+    bpr = pipe.phases[0]
+    batch = bpr.make_batch(trainer.generator, 0,
+                           bpr.epoch_reset(trainer.generator, bpr.data),
+                           bpr.data)
+    profile_device(torch, lambda: trainer.step(bpr, batch),
+                   "LightGCN hetrec BPR step",
+                   {"multi_tensor_apply": "adam (foreach)",
+                    "gemm": "matmul (cuBLAS)"})
+
+
+def lightgcn_paths(torch, dg, hetrec_graph):
+    """LightGCN at 10x on the hybrid tier (kernels, serving, training,
+    evaluation), the small-graph check, then hetrec's dense tier.  Returns
+    (kernel records, launches over the 10x path)."""
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+    from tagrec_tpu_torch.data.synthetic import synthetic_graph_large
+    from tagrec_tpu_torch.training.train import Trainer
+
+    t0 = time.perf_counter()
+    graph = synthetic_graph_large(*LGCN_10X, TAG_PER_INTER, seed=0)
+    n_train = len(graph.edge_index["train"])
+    print(f"10x graph {graph.num}, {n_train} train interactions, built in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    t0 = time.perf_counter()
+    tcfg = TrainConfig()
+    pipe = build_pipeline(graph, model_preset("lightgcn"), tcfg,
+                          generator=torch.Generator().manual_seed(0),
+                          device="cuda")
+    print(f"LightGCN 10x pipeline (adjacency, samplers, evaluator) built in "
+          f"{time.perf_counter() - t0:.1f} s (host and transfer)")
+    per_spmm = lightgcn_tier(torch, pipe.model)
+    records = gather_kernel_phase(torch, dg, pipe.model)
+    with tempfile.TemporaryDirectory() as tmp:
+        served = lightgcn_serving_phase(torch, dg, graph, pipe.model, per_spmm,
+                                        tmp)
+    trainer = Trainer(pipe.model, pipe.phases, tcfg,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    trained = lightgcn_training_phase(torch, dg, pipe, trainer, per_spmm)
+    evaluated = lightgcn_eval_phase(torch, dg, pipe)
+    launches = {k: served[k] + trained[k] + evaluated[k] for k in GATHER}
+    print(f"LightGCN 10x launches over the export, {LGCN_BPR_STEPS} BPR steps "
+          f"and 2 evaluations: {launches}")
+    del pipe, trainer
+    torch.cuda.empty_cache()
+    lightgcn_small_graph_check(torch)
+    lightgcn_hetrec_dense(torch, dg, hetrec_graph)
+    return records, launches
 
 
 def run(torch):
@@ -667,6 +992,7 @@ def run(torch):
     from tagrec_tpu_torch.data.synthetic import synthetic_graph_large
     from tagrec_tpu_torch.models import model_class
     from tagrec_tpu_torch.ops import _build
+    from tagrec_tpu_torch.ops import dma_gather as dg
     from tagrec_tpu_torch.ops import flash_attention as fa
     from tagrec_tpu_torch.ops import flash_routing as fr
     from tagrec_tpu_torch.training.train import Trainer
@@ -681,7 +1007,8 @@ def run(torch):
     t0 = time.perf_counter()
     reports = _build.build(["routed_rowsum", "routed_mm", "dot_flash_stats",
                             "dot_flash_apply", "dot_flash_bwd_row",
-                            "dot_flash_bwd_col"])
+                            "dot_flash_bwd_col", "gather_reduce",
+                            "gather_rows"])
     print(f"kernels built in {time.perf_counter() - t0:.1f} s (nvcc, parallel)")
     for name, out in reports.items():
         for line in out.splitlines():
@@ -719,7 +1046,15 @@ def run(torch):
     print(f"KGAT launches over the export and the {KGAT_BPR_STEPS} + "
           f"{KGAT_TRANSE_STEPS} steps: {launches}")
     kgat_small_graph_check(torch)
+    del pipe, trainer
+    torch.cuda.empty_cache()
 
+    gather_records, gather_launches = lightgcn_paths(torch, dg, graph)
+    records.update(gather_records)
+    launches.update(gather_launches)
+
+    check(all(launches.get(name, 0) > 0 for name in records),
+          f"a kernel was never launched on its main path: {launches}")
     kernels = []
     sources = {"routed_rowsum": ("routed_rowsum.cu", "flash_routing.py:112"),
                "routed_mm": ("routed_mm.cu", "flash_routing.py:98"),
@@ -730,7 +1065,9 @@ def run(torch):
                "dot_bwd_row": ("dot_flash_bwd_row.cu",
                                "flash_attention.py:125"),
                "dot_bwd_col": ("dot_flash_bwd_col.cu",
-                               "flash_attention.py:145")}
+                               "flash_attention.py:145"),
+               "gather_reduce": ("gather_reduce.cu", "dma_gather.py:162"),
+               "gather_rows": ("gather_rows.cu", "dma_gather.py:63")}
     for name, (src, replaces) in sources.items():
         rec = records[name]
         kernels.append({"name": name, "route": "cuda",

@@ -6,6 +6,10 @@ retrieval, with the factor-routing kernels written in CUDA C++ (``csrc/``).
 Slice 2: KGAT ``bi_inter`` serving and training (BPR + TransE under one
 Adam) on the dense flash tier, with the four two-segment flash-attention
 kernels in CUDA C++.
+Slice 3: LightGCN training, evaluation and serving on the ELL formats of
+``ops.ell`` (dense sectors within the dense budget, hybrid hub block + ELL
+buckets above it), with the row gather and the ELL gather-reduce kernels in
+CUDA C++.
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``, where every kernel wrapper runs its plain PyTorch version.
 """

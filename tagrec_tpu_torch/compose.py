@@ -1,14 +1,13 @@
-"""Composition root (tagrec_tpu/compose.py), cut to the KGAT branch: the
-model, the BPR phase over the train interactions and the TransE phase over
-the six tag-graph relations, both stepping the Trainer's one Adam.  The
-evaluator is not ported yet (ROADMAP.md A7): ``Pipeline.evaluator`` is
-None.
+"""Composition root (tagrec_tpu/compose.py), cut to the families the port
+trains: LightGCN (one BPR phase) and KGAT (BPR over the train interactions
+and TransE over the six tag-graph relations, both stepping the Trainer's
+one Adam), each with the full-catalog evaluator.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List
 
 import numpy as np
 import torch
@@ -18,7 +17,10 @@ from tagrec_tpu_torch.data.graph import HeteroGraph
 from tagrec_tpu_torch.device import resolve
 from tagrec_tpu_torch.models import model_class
 from tagrec_tpu_torch.ops import sampling
+from tagrec_tpu_torch.training.evaluate import Evaluator
 from tagrec_tpu_torch.training.train import PhaseSpec, bpr_phase, triple_phase
+
+TRAINED = ("kgat", "lightgcn")
 
 
 @dataclass
@@ -26,7 +28,7 @@ class Pipeline:
     model: torch.nn.Module
     phases: List[PhaseSpec]
     graph: HeteroGraph
-    evaluator: Optional[object] = None  # ROADMAP.md A7
+    evaluator: Evaluator
 
 
 def relation_triples(graph: HeteroGraph) -> np.ndarray:
@@ -40,30 +42,32 @@ def relation_triples(graph: HeteroGraph) -> np.ndarray:
 
 def build_pipeline(graph: HeteroGraph, mcfg: ModelConfig, tcfg: TrainConfig,
                    *, generator: torch.Generator, device="cuda") -> Pipeline:
-    """KGAT's model and phases on ``device``; ``generator`` (CPU) draws the
-    weights."""
-    if mcfg.name != "kgat":
+    """The model, its phases and the evaluator on ``device``;
+    ``generator`` (CPU) draws the weights."""
+    if mcfg.name not in TRAINED:
         raise NotImplementedError(
-            f"training {mcfg.name!r} is not ported: the port trains KGAT "
-            "only (DGCF training is next, ROADMAP.md 'What is left')")
+            f"training {mcfg.name!r} is not ported: the port trains "
+            f"{' and '.join(TRAINED)} (DGCF training is next, ROADMAP.md "
+            "'What is left')")
     dev = resolve(device)
-    model = model_class("kgat")(graph, mcfg, generator=generator, device=dev)
+    model = model_class(mcfg.name)(graph, mcfg, generator=generator,
+                                   device=dev)
     pt = sampling.build_pos_table(graph.user_items["train"], graph.n_user,
                                   graph.n_item, device=dev)
 
     def bpr_loss_fn(batch, gen):
         return model.bpr_loss(batch, generator=gen)
 
-    def transe_loss_fn(batch, gen):
-        return model.transe_loss(batch)
+    phases = [bpr_phase("bpr", graph.edge_index["train"], pt, tcfg.train_batch,
+                        bpr_loss_fn, neg_rounds=tcfg.neg_resample_rounds)]
+    if mcfg.name == "kgat":
+        def transe_loss_fn(batch, gen):
+            return model.transe_loss(batch)
 
-    phases = [
-        bpr_phase("bpr", graph.edge_index["train"], pt, tcfg.train_batch,
-                  bpr_loss_fn, neg_rounds=tcfg.neg_resample_rounds),
-        triple_phase("transe", relation_triples(graph), 6, graph.n_nodes,
-                     mcfg.transe_batch, transe_loss_fn,
-                     neg_rounds=tcfg.neg_resample_rounds,
-                     window=mcfg.transe_sampler == "reference_windows",
-                     device=dev),
-    ]
-    return Pipeline(model=model, phases=phases, graph=graph)
+        phases.append(triple_phase(
+            "transe", relation_triples(graph), 6, graph.n_nodes,
+            mcfg.transe_batch, transe_loss_fn,
+            neg_rounds=tcfg.neg_resample_rounds,
+            window=mcfg.transe_sampler == "reference_windows", device=dev))
+    return Pipeline(model=model, phases=phases, graph=graph,
+                    evaluator=Evaluator(graph, tcfg, device=dev))

@@ -47,6 +47,15 @@ class COO:
     def nnz(self) -> int:
         return len(self.row)
 
+    def transpose(self) -> "COO":
+        return COO(self.col.copy(), self.row.copy(), self.val.copy(),
+                   (self.shape[1], self.shape[0]))
+
+    def to_dense(self) -> np.ndarray:
+        d = np.zeros(self.shape, dtype=np.float32)
+        d[self.row, self.col] = self.val
+        return d
+
     def row_sum(self) -> np.ndarray:
         return np.bincount(self.row, weights=self.val,
                            minlength=self.shape[0]).astype(np.float32)

@@ -1,10 +1,11 @@
-"""Model zoo of the port (tagrec_tpu/models): DGCF (dense forward) and KGAT
-(dense flash tier)."""
+"""Model zoo of the port (tagrec_tpu/models): DGCF (dense forward), KGAT
+(dense flash tier) and LightGCN (dense sectors, hybrid and ELL tiers)."""
 
 from tagrec_tpu_torch.models.dgcf import DGCF
 from tagrec_tpu_torch.models.kgat import KGAT
+from tagrec_tpu_torch.models.lightgcn import LightGCN
 
-MODEL_REGISTRY = {"dgcf": DGCF, "kgat": KGAT}
+MODEL_REGISTRY = {"dgcf": DGCF, "kgat": KGAT, "lightgcn": LightGCN}
 
 
 def model_class(name: str):
@@ -15,4 +16,4 @@ def model_class(name: str):
     return MODEL_REGISTRY[name]
 
 
-__all__ = ["DGCF", "KGAT", "MODEL_REGISTRY", "model_class"]
+__all__ = ["DGCF", "KGAT", "LightGCN", "MODEL_REGISTRY", "model_class"]

@@ -1,0 +1,344 @@
+"""ELL (padded fixed-width) adjacency formats (tagrec_tpu/ops/ell.py).
+
+Host builders in numpy, with the JAX package's layouts, so that both give
+the same arrays for the same COO: every row stores a zero-padded row of
+neighbour ids and edge values, its width the row's bucket's largest degree
+rounded up to 8.  Rows are bucketed by degree quantiles so that a few hub
+rows do not widen every row; on zipf graphs the most popular columns go to
+one dense hub block instead (the hybrid form); at small scale the whole
+adjacency is dense, split into the joint graph's nonzero type sectors.
+
+The device containers hold tensors on one device: ids int32 and values
+float32, converted once by ``to_device``, never per call.  ``ops.propagate``
+runs them: ``ops.dma_gather.gather_reduce`` over each bucket, then
+``gather_rows`` to restore row order, and ``torch.matmul`` for the dense
+blocks.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+class EllHost(NamedTuple):
+    idx: np.ndarray  # [N, K] int32 neighbour ids, 0 in pad slots
+    val: np.ndarray  # [N, K] float32 edge values, 0 in pad slots
+    deg: np.ndarray  # [N] int32 true neighbour count
+    n_cols: int
+
+
+class Ell(NamedTuple):
+    idx: torch.Tensor  # [N, K] int32
+    val: torch.Tensor  # [N, K] float32
+    deg: torch.Tensor  # [N] int32
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m if x > 0 else m
+
+
+def build_ell(row, col, val, n_rows: int, n_cols: int, pad_multiple: int = 8,
+              width: Optional[int] = None) -> EllHost:
+    """Pack COO edges into padded [N, K] tables, each row's edges in their
+    input order.  K is the largest row degree rounded up to
+    ``pad_multiple``, or ``width``."""
+    row = np.asarray(row, dtype=np.int64)
+    order = np.argsort(row, kind="stable")
+    row, col, val = row[order], np.asarray(col)[order], np.asarray(val)[order]
+    deg = np.bincount(row, minlength=n_rows).astype(np.int32)
+    k = _round_up(int(deg.max()) if len(deg) else 0, pad_multiple)
+    if width is not None:
+        if width < int(deg.max(initial=0)):
+            raise ValueError(f"width {width} is below the largest row degree "
+                             f"{int(deg.max())}")
+        k = width
+    idx = np.zeros((n_rows, k), dtype=np.int32)
+    v = np.zeros((n_rows, k), dtype=np.float32)
+    starts = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(deg, out=starts[1:])
+    slot = np.arange(len(row)) - starts[row]
+    idx[row, slot] = col.astype(np.int32)
+    v[row, slot] = val.astype(np.float32)
+    return EllHost(idx=idx, val=v, deg=deg, n_cols=n_cols)
+
+
+def ell_from_coo(coo, pad_multiple: int = 8,
+                 width: Optional[int] = None) -> EllHost:
+    return build_ell(coo.row, coo.col, coo.val, coo.shape[0], coo.shape[1],
+                     pad_multiple=pad_multiple, width=width)
+
+
+def ell_mask(ell: Ell) -> torch.Tensor:
+    """[N, K] bool, True on the slots that hold an edge."""
+    k = ell.idx.shape[1]
+    return (torch.arange(k, device=ell.deg.device)[None, :]
+            < ell.deg[:, None])
+
+
+# ------------------------------------------------------------ degree buckets
+
+class EllBucketsHost(NamedTuple):
+    buckets: List[EllHost]    # one table per bucket, over its own rows
+    rows: List[np.ndarray]    # the global row ids of each bucket
+    inv_perm: np.ndarray      # [N]: concat(bucket outputs)[inv_perm] is row order
+    n_rows: int
+    n_cols: int
+
+
+class EllBuckets(NamedTuple):
+    parts: Tuple[Ell, ...]
+    inv_perm: torch.Tensor    # [N] int32
+
+
+def auto_boundaries(deg: np.ndarray,
+                    quantiles=(0.25, 0.5, 0.75, 0.9, 0.97, 0.995)) \
+        -> Tuple[int, ...]:
+    """Degree-quantile bucket boundaries, deduplicated and increasing."""
+    pos = deg[deg > 0]
+    if len(pos) == 0:
+        return ()
+    qs = sorted({int(np.quantile(pos, q)) for q in quantiles})
+    mx = int(pos.max())
+    return tuple(q for q in qs if 0 < q < mx)
+
+
+def build_ell_buckets(row, col, val, n_rows: int, n_cols: int,
+                      boundaries: Optional[Tuple[int, ...]] = None,
+                      pad_multiple: int = 8) -> EllBucketsHost:
+    """Bucket rows by degree at ``boundaries`` (degree quantiles when None)
+    and pack each bucket; rows of degree 0 join the first bucket."""
+    row = np.asarray(row, dtype=np.int64)
+    deg = np.bincount(row, minlength=n_rows)
+    order = np.argsort(row, kind="stable")
+    row_s = row[order]
+    col_s, val_s = np.asarray(col)[order], np.asarray(val)[order]
+    if boundaries is None:
+        boundaries = auto_boundaries(deg)
+    top = max(int(deg.max(initial=0)), 1)
+    buckets, rows_list = [], []
+    lo = -1
+    for b in list(boundaries) + [top]:
+        sel = np.flatnonzero((deg > lo) & (deg <= b))
+        lo = b
+        if len(sel):
+            local_of = np.full(n_rows, -1, dtype=np.int64)
+            local_of[sel] = np.arange(len(sel))
+            e_sel = local_of[row_s] >= 0
+            buckets.append(build_ell(local_of[row_s[e_sel]], col_s[e_sel],
+                                     val_s[e_sel], len(sel), n_cols,
+                                     pad_multiple=pad_multiple))
+            rows_list.append(sel)
+        if b >= deg.max(initial=0):
+            break
+    perm = np.concatenate(rows_list)
+    inv_perm = np.empty(n_rows, dtype=np.int64)
+    inv_perm[perm] = np.arange(n_rows)
+    return EllBucketsHost(buckets=buckets, rows=rows_list, inv_perm=inv_perm,
+                          n_rows=n_rows, n_cols=n_cols)
+
+
+# ------------------------------------------------- hybrid and dense forms
+
+class HybridHost(NamedTuple):
+    """Dense hub-column block plus bucketed ELL over the other edges.
+    ``dense_cols`` None with a block present: the block is the whole
+    adjacency (``build_dense``)."""
+
+    ell: EllBucketsHost
+    dense_cols: Optional[np.ndarray]   # [H] int32 hub column ids
+    dense_block: Optional[np.ndarray]  # [N, H] float32 values
+
+
+class Hybrid(NamedTuple):
+    ell: EllBuckets
+    dense_cols: Optional[torch.Tensor]   # [H] int32
+    dense_block: Optional[torch.Tensor]  # [N, H] float32
+
+
+def _empty_buckets(n_rows: int, n_cols: int) -> EllBucketsHost:
+    return EllBucketsHost(buckets=[], rows=[],
+                          inv_perm=np.zeros(0, dtype=np.int64),
+                          n_rows=n_rows, n_cols=n_cols)
+
+
+def build_dense(coo) -> HybridHost:
+    """The whole adjacency as one dense float32 block."""
+    return HybridHost(ell=_empty_buckets(*coo.shape), dense_cols=None,
+                      dense_block=coo.to_dense())
+
+
+# Byte budget of the hub block, which sets how many hub columns the hybrid
+# form takes by default (at least 512).
+HUB_BLOCK_BUDGET_BYTES = 1 << 30
+
+
+def build_hybrid(coo, hub_min_degree: int = 96, max_hub_cols=None,
+                 boundaries=None, pad_multiple: int = 8) -> HybridHost:
+    """Hub columns (in-degree >= ``hub_min_degree``, the ``max_hub_cols``
+    most popular; by default as many as fill HUB_BLOCK_BUDGET_BYTES) as a
+    dense block, the other edges as bucketed ELL."""
+    n_rows, n_cols = coo.shape
+    if max_hub_cols is None:
+        max_hub_cols = max(HUB_BLOCK_BUDGET_BYTES // (n_rows * 4) // 128 * 128,
+                           512)
+    indeg = np.bincount(coo.col, minlength=n_cols)
+    hub = np.flatnonzero(indeg >= hub_min_degree)
+    if len(hub) > max_hub_cols:
+        hub = np.sort(hub[np.argsort(-indeg[hub])[:max_hub_cols]])
+    if len(hub) == 0:
+        return HybridHost(
+            ell=build_ell_buckets(coo.row, coo.col, coo.val, n_rows, n_cols,
+                                  boundaries=boundaries,
+                                  pad_multiple=pad_multiple),
+            dense_cols=None, dense_block=None)
+    col_of = np.full(n_cols, -1, dtype=np.int64)
+    col_of[hub] = np.arange(len(hub))
+    is_hub = col_of[coo.col] >= 0
+    block = np.zeros((n_rows, len(hub)), dtype=np.float32)
+    block[coo.row[is_hub], col_of[coo.col[is_hub]]] = coo.val[is_hub]
+    tail = ~is_hub
+    ell = build_ell_buckets(coo.row[tail], coo.col[tail], coo.val[tail],
+                            n_rows, n_cols, boundaries=boundaries,
+                            pad_multiple=pad_multiple)
+    return HybridHost(ell=ell, dense_cols=hub.astype(np.int32),
+                      dense_block=block)
+
+
+class DenseSectorsHost(NamedTuple):
+    """The joint {user, item, tag} adjacency's nonzero type sectors as dense
+    blocks; its diagonal sectors are structurally zero."""
+
+    blocks: tuple  # ((row sector, col sector, [rows, cols] float32), ...)
+    sizes: tuple   # node count of each sector
+
+
+class DenseSectors(NamedTuple):
+    blocks: Tuple[torch.Tensor, ...]
+    coords: Tuple[Tuple[int, int], ...]
+    sizes: Tuple[int, ...]
+
+
+def build_dense_sectors(coo, sectors) -> DenseSectorsHost:
+    """Split a square COO over per-type sectors into dense blocks, keeping
+    the blocks that hold an edge."""
+    sizes = tuple(int(s) for s in sectors)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    if not offs[-1] == coo.shape[0] == coo.shape[1]:
+        raise ValueError(f"sectors {sizes} do not tile a {coo.shape} "
+                         "adjacency")
+    ri_of = np.searchsorted(offs, coo.row, side="right") - 1
+    ci_of = np.searchsorted(offs, coo.col, side="right") - 1
+    blocks = []
+    for ri in range(len(sizes)):
+        for ci in range(len(sizes)):
+            sel = (ri_of == ri) & (ci_of == ci)
+            if not sel.any():
+                continue
+            b = np.zeros((sizes[ri], sizes[ci]), dtype=np.float32)
+            np.add.at(b, (coo.row[sel] - offs[ri], coo.col[sel] - offs[ci]),
+                      coo.val[sel])
+            blocks.append((ri, ci, b))
+    return DenseSectorsHost(blocks=tuple(blocks), sizes=sizes)
+
+
+# ------------------------------------------------------------- the pair
+
+class AdjPairHost(NamedTuple):
+    fwd: object  # HybridHost or DenseSectorsHost
+    bwd: object  # its transpose; the same object when symmetric
+
+
+class AdjPair(NamedTuple):
+    """Forward and transpose adjacency: the backward of A @ x is A^T @ g,
+    another SpMM over ``bwd`` (``ops.propagate.pair_spmm``)."""
+
+    fwd: object  # Hybrid or DenseSectors
+    bwd: object
+
+
+# Auto-dense when the full float32 matrix fits this.
+DENSE_ADJ_BUDGET_BYTES = 2 << 30
+
+
+def build_adj_pair(coo, symmetric: bool = False, boundaries=None,
+                   pad_multiple: int = 8, hub_min_degree: int = 96,
+                   max_hub_cols=None, mode: str = "auto",
+                   dense_budget: int = DENSE_ADJ_BUDGET_BYTES,
+                   sectors=None) -> AdjPairHost:
+    """Forward and transpose adjacency of ``coo``.
+
+    mode: "auto" (dense when N*M*4 bytes fit ``dense_budget``, else
+    hybrid), "dense", "hybrid", or "ell" (hybrid with no hub block).
+    ``sectors``: per-type sizes of a square joint adjacency; the dense form
+    then keeps only its nonzero sector blocks.  ``symmetric=True`` (bi_norm
+    and plain joint adjacencies) shares the forward for the backward."""
+    if mode == "auto":
+        mode = ("dense" if coo.shape[0] * coo.shape[1] * 4 <= dense_budget
+                else "hybrid")
+    if mode not in ("dense", "hybrid", "ell"):
+        raise ValueError(f"mode {mode!r}: auto, dense, hybrid or ell")
+    if mode == "ell":
+        hub_min_degree, max_hub_cols = 1 << 30, 0
+
+    def build_one(c):
+        if mode == "dense" and sectors is not None:
+            return build_dense_sectors(c, sectors)
+        if mode == "dense":
+            return build_dense(c)
+        return build_hybrid(c, hub_min_degree=hub_min_degree,
+                            max_hub_cols=max_hub_cols, boundaries=boundaries,
+                            pad_multiple=pad_multiple)
+
+    fwd = build_one(coo)
+    return AdjPairHost(fwd=fwd, bwd=fwd if symmetric
+                       else build_one(coo.transpose()))
+
+
+# ------------------------------------------------------------- to device
+
+def _ids(a: np.ndarray, n: int, device) -> torch.Tensor:
+    """int32 ids on ``device``, checked to lie in [0, n) once here: the
+    gather kernels do not check them."""
+    a = np.asarray(a)
+    if a.size and (a.min() < 0 or a.max() >= n):
+        raise ValueError(f"ids outside [0, {n})")
+    return torch.as_tensor(a.astype(np.int32), device=device)
+
+
+def _f32(a: np.ndarray, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
+
+
+def to_device(h, device):
+    """The device container of a host form (EllHost, EllBucketsHost,
+    HybridHost, DenseSectorsHost or AdjPairHost), its tensors on
+    ``device``."""
+    if isinstance(h, AdjPairHost):
+        fwd = to_device(h.fwd, device)
+        return AdjPair(fwd=fwd, bwd=fwd if h.bwd is h.fwd
+                       else to_device(h.bwd, device))
+    if isinstance(h, DenseSectorsHost):
+        return DenseSectors(blocks=tuple(_f32(b, device)
+                                         for _, _, b in h.blocks),
+                            coords=tuple((ri, ci) for ri, ci, _ in h.blocks),
+                            sizes=h.sizes)
+    if isinstance(h, HybridHost):
+        n_cols = h.ell.n_cols
+        return Hybrid(
+            ell=to_device(h.ell, device),
+            dense_cols=None if h.dense_cols is None
+            else _ids(h.dense_cols, n_cols, device),
+            dense_block=None if h.dense_block is None
+            else _f32(h.dense_block, device))
+    if isinstance(h, EllBucketsHost):
+        n_out = sum(b.idx.shape[0] for b in h.buckets)
+        return EllBuckets(parts=tuple(to_device(b, device)
+                                      for b in h.buckets),
+                          inv_perm=_ids(h.inv_perm, max(n_out, 1), device))
+    if isinstance(h, EllHost):
+        return Ell(idx=_ids(h.idx, h.n_cols, device), val=_f32(h.val, device),
+                   deg=torch.as_tensor(h.deg.astype(np.int32), device=device))
+    raise TypeError(f"no device form for {type(h).__name__}")

@@ -23,10 +23,11 @@ import numpy as np
 import torch
 
 from tagrec_tpu_torch.device import resolve
+from tagrec_tpu_torch.ops import metrics
 
 EXPORT_VERSION = 1
-MASK_SCORE = -1024.0  # the evaluator's train-positive sentinel
-PAD_ID = 1 << 30      # train_pad filler; out of range, so never masked
+MASK_SCORE = metrics.MASK_VALUE  # the evaluator's train-positive sentinel
+PAD_ID = metrics.PAD_ID          # train_pad filler; out of range, so never masked
 
 
 # ----------------------------------------------------------------- export
@@ -64,7 +65,7 @@ def save_export(path: str, user_table: np.ndarray, item_table: np.ndarray,
     path = _norm_artifact_path(path)
     arrays = {"user_table": user_table, "item_table": item_table}
     if train_pos is not None:
-        pad, deg = _pad_positives(train_pos, user_table.shape[0])
+        pad, deg = metrics.pad_lists(train_pos, user_table.shape[0], PAD_ID)
         arrays["train_pad"] = pad
         arrays["train_deg"] = deg
     meta = {"version": EXPORT_VERSION, "model": model_name,
@@ -96,17 +97,6 @@ def load_export(path: str):
             raise ValueError(
                 f"artifact version {v} is newer than supported {EXPORT_VERSION}")
     return data, meta
-
-
-def _pad_positives(pos: dict, n_user: int):
-    deg = np.zeros(n_user, dtype=np.int32)
-    for u, it in pos.items():
-        deg[u] = len(it)
-    p = max(int(deg.max()), 1)
-    pad = np.full((n_user, p), PAD_ID, dtype=np.int32)
-    for u, it in pos.items():
-        pad[u, : len(it)] = it
-    return pad, deg
 
 
 # --------------------------------------------------------------- retriever
@@ -144,12 +134,7 @@ class Retriever:
 
     def _block_topk(self, users: torch.Tensor, k: int):
         scores = torch.sigmoid(self._U[users] @ self._I.T)      # [B, I]
-        tp = self._train_pad[users]                             # [B, P]
-        # the PAD_ID filler (and any id out of range) masks nothing; index_put_
-        # would raise on it, so it is filtered, not dropped as under JAX
-        keep = (tp >= 0) & (tp < self.n_item)
-        rows = torch.arange(users.shape[0], device=users.device)[:, None]
-        scores[rows.expand_as(tp)[keep], tp[keep]] = MASK_SCORE
+        metrics.mask_train_positives(scores, self._train_pad[users])
         return torch.topk(scores, k, dim=1)
 
     def topk(self, users, k: int = 20):

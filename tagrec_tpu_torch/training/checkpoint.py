@@ -1,4 +1,5 @@
-"""Weights from the JAX package into the port (tagrec_tpu/training/checkpoint.py).
+"""Params checkpoints in the JAX package's format, both ways
+(tagrec_tpu/training/checkpoint.py).
 
 A JAX params tree is a nest of dicts and lists of arrays: DGCF's is
 ``{"embed": [user, item, tag]}``, KGAT's ``{"user", "entity", "relation",
@@ -8,8 +9,9 @@ model parameter named ``"k1.k2..."`` (``embed.0``, ``mat.W1_0``).
 A JAX checkpoint is ``<path>.npz`` with one array per leaf (``leaf_0``,
 ``leaf_1``, ...) in JAX's flatten order, dict keys sorted at every level and
 lists in order, plus a ``<path>.tree`` JSON sidecar holding ``n_leaves`` and
-JAX's treedef string.  The treedef string is JAX's own format and is not
-parsed here; the leaf count and every shape are checked instead.
+JAX's treedef string.  ``load`` does not parse the treedef string: it
+checks the leaf count and every shape instead.  ``save`` writes the string
+JAX writes for the same tree, so JAX's ``load`` reads the port's files.
 """
 
 from __future__ import annotations
@@ -64,6 +66,53 @@ def params_from_jax(model: nn.Module, tree: Dict) -> nn.Module:
     return model
 
 
+def _tree_of(named: Dict[str, object]) -> Dict:
+    """The nest of dicts (and lists, where every key is an index) that
+    dotted names describe."""
+    tree: Dict = {}
+    for name, leaf in named.items():
+        node = tree
+        *parents, last = name.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(tree)
+
+
+def _treedef(tree) -> str:
+    """JAX's treedef string of a nest of dicts and lists of leaves."""
+    def body(node):
+        if isinstance(node, dict):
+            return "{" + ", ".join(f"{k!r}: {body(node[k])}"
+                                   for k in sorted(node)) + "}"
+        if isinstance(node, list):
+            return "[" + ", ".join(body(v) for v in node) + "]"
+        return "*"
+    return f"PyTreeDef({body(tree)})"
+
+
+def save(path: str, model: nn.Module) -> None:
+    """Write ``model``'s parameters as the JAX package's ``checkpoint.save``
+    writes a params tree: ``<path>`` (.npz) with ``leaf_i`` in JAX's flatten
+    order and a ``<path>.tree`` sidecar, so both packages' ``load`` read
+    it."""
+    names = jax_leaf_order(model)
+    params = dict(model.named_parameters())
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **{f"leaf_{i}": params[n].detach().cpu().numpy()
+                      for i, n in enumerate(names)})
+    with open(path + ".tree", "w") as f:
+        json.dump({"treedef": _treedef(_tree_of(dict.fromkeys(names))),
+                   "n_leaves": len(names)}, f)
+
+
 def load(path: str, model: nn.Module) -> nn.Module:
     """Load a params checkpoint written by the JAX package's
     ``checkpoint.save`` into ``model``; returns ``model``."""
@@ -82,11 +131,5 @@ def load(path: str, model: nn.Module) -> nn.Module:
     if len(data.files) != len(names):
         raise ValueError(f"checkpoint has {len(data.files)} leaves, "
                          f"expected {len(names)}")
-    tree = {}
-    for i, name in enumerate(names):
-        node = tree
-        *parents, last = name.split(".")
-        for part in parents:
-            node = node.setdefault(part, {})
-        node[last] = data[f"leaf_{i}"]
-    return params_from_jax(model, tree)
+    return params_from_jax(model, _tree_of(
+        {name: data[f"leaf_{i}"] for i, name in enumerate(names)}))

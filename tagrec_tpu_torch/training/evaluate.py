@@ -1,0 +1,127 @@
+"""Full-catalog top-k evaluation, the reference protocol
+(tagrec_tpu/training/evaluate.py).
+
+One forward per pass gives the user and item tables; then, per block of
+``test_batch`` users: sigmoid(U_sel @ I^T) over every item (or every entity,
+for KGAT), the train positives masked to -1024, top-k, recall / precision /
+HR / NDCG at each k of ``topks`` and the mean AUC, optionally broken down
+into cold-start user groups.  Per-block sums stay on the device and come to
+the host once per pass.
+"""
+
+from __future__ import annotations
+
+from collections import defaultdict
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from tagrec_tpu_torch.config import TrainConfig
+from tagrec_tpu_torch.data.graph import HeteroGraph
+from tagrec_tpu_torch.device import resolve
+from tagrec_tpu_torch.ops import metrics as M
+
+
+def _padded(lists: Dict[int, List[int]], n_user: int, fill: int, device):
+    """([n_user, P] int64 ids padded with ``fill``, [n_user] int64 counts) on
+    ``device``."""
+    pad, deg = M.pad_lists(lists, n_user, fill)
+    return (torch.as_tensor(pad, dtype=torch.int64, device=device),
+            torch.as_tensor(deg, dtype=torch.int64, device=device))
+
+
+class Evaluator:
+    """Evaluates a model's tables on ``device``: the test split, or the
+    validation split when ``cfg.has_val`` and not ``istest``."""
+
+    def __init__(self, graph: HeteroGraph, cfg: TrainConfig, *, mesh=None,
+                 device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharded evaluation needs the parallel port (ROADMAP.md A18)")
+        dev = resolve(device)
+        self.cfg = cfg
+        self.pos_ui = graph.user_items["train"]
+        self.true_ui = {"test": graph.user_items["test"]}
+        if cfg.has_val:
+            self.true_ui["val"] = graph.user_items["val"]
+        self._train_pad, self._train_deg = _padded(self.pos_ui, graph.n_user,
+                                                   M.PAD_ID, dev)
+        self._test = {split: _padded(tui, graph.n_user, -1, dev)
+                      for split, tui in self.true_ui.items()}
+
+    def run(self, model, istest: bool = False, group_k: int = 0) -> Dict:
+        """{metric: [value per k]} plus {"auc": [mean]}; with ``group_k`` > 1,
+        one such dict per user group, keyed ``inter<{bound}-{n_users}`` as
+        the reference keys them."""
+        split = "val" if (not istest and self.cfg.has_val) else "test"
+        true_ui = self.true_ui[split]
+        with torch.no_grad():
+            embs = model.forward()
+        u_all, i_all = embs[0], embs[1]
+        if group_k > 1:
+            return {f"inter<{bound}-{len(users)}":
+                    self._eval_users(u_all, i_all, split, users)
+                    for bound, users in user_group_split(
+                        true_ui, self.pos_ui, group_k).items()}
+        return self._eval_users(u_all, i_all, split, sorted(true_ui))
+
+    @torch.no_grad()
+    def _eval_users(self, u_all, i_all, split: str, users: List[int]) -> Dict:
+        topks = tuple(self.cfg.topks)
+        test_pad, test_deg = self._test[split]
+        users_t = torch.as_tensor(np.asarray(users, dtype=np.int64),
+                                  device=u_all.device)
+        sums = []
+        for i in range(0, len(users), self.cfg.test_batch):
+            u = users_t[i:i + self.cfg.test_batch]
+            scores = torch.sigmoid(u_all[u] @ i_all.T)
+            masked = M.mask_train_positives(scores, self._train_pad[u])
+            top = torch.topk(masked, max(topks), dim=1).indices
+            te, td = test_pad[u], test_deg[u]
+            block = M.batch_metric_sums(M.hit_labels(top, te), td, topks)
+            block["auc"] = M.batch_auc_sum(masked, te, td,
+                                           self._train_deg[u])[None]
+            sums.append(torch.cat([block[k] for k in
+                                   ("recall", "precision", "hr", "ndcg",
+                                    "auc")]))
+        # one transfer per pass; blocks summed in order in float32, as JAX
+        acc = np.zeros(4 * len(topks) + 1, dtype=np.float32)
+        for row in torch.stack(sums).cpu().numpy():
+            acc += row
+        n, nk = len(users), len(topks)
+        out = {name: [float(v) / n for v in acc[j * nk:(j + 1) * nk]]
+               for j, name in enumerate(("recall", "precision", "hr", "ndcg"))}
+        out["auc"] = [float(acc[-1] / n)]
+        return out
+
+
+def user_group_split(test_ui: Dict[int, List[int]],
+                     train_ui: Dict[int, List[int]],
+                     k: int) -> Dict[int, List[int]]:
+    """Cold-start user groups (the reference's training/utils.py:58-109,
+    its default "interaction" measure).
+
+    Test users are ordered by their interaction count n (train + test) and
+    cut into about ``k`` groups holding equal numbers of interactions; a
+    group is keyed by the largest n it holds.  A group closes at the first
+    n whose running interaction total reaches the next of the bounds
+    total/k, 2 total/k, ..., total (integer steps)."""
+    by_n = defaultdict(list)
+    for u, items in test_ui.items():
+        by_n[len(items) + len(train_ui.get(u, ()))].append(u)
+    ns = sorted(by_n)
+    measure = np.cumsum([n * len(by_n[n]) for n in ns])
+    total = int(measure[-1])
+    step = total // k if k >= 1 else 0
+    if step < 1:
+        raise ValueError(f"cannot cut a measure of {total} into {k} groups")
+    bounds = list(range(step, total + 1, step))
+    bounds[-1] = total
+    groups, pending, nxt = {}, [], 0
+    for n, m in zip(ns, measure):
+        pending += by_n[n]
+        if nxt < len(bounds) and m >= bounds[nxt]:
+            groups[n], pending, nxt = pending, [], nxt + 1
+    return groups

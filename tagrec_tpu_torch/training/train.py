@@ -1,17 +1,19 @@
 """Multi-phase training loop (tagrec_tpu/training/train.py).
 
-An epoch runs the model's phases in order (BPR, then TransE for KGAT), all
-stepping ONE shared Adam.  Batches have fixed shapes: steps = E // batch and
-the remainder is dropped.  Sampling (shuffles, negatives) runs on the
-tables' device from one ``torch.Generator``.  The step loop is plain Python;
-a step ends without a host sync, and the losses come back to the host once
-per phase.
+An epoch runs the model's phases in order (BPR for LightGCN; BPR, then
+TransE for KGAT), all stepping ONE shared Adam.  Batches have fixed shapes:
+steps = E // batch and the remainder is dropped.  Sampling (shuffles,
+negatives) runs on the tables' device from one ``torch.Generator``.  The
+step loop is plain Python; a step ends without a host sync, and the losses
+come back to the host once per phase.  ``Trainer.run`` adds the periodic
+evaluation and the early stop.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -104,7 +106,10 @@ class Trainer:
     drawing every sample from ``generator``."""
 
     def __init__(self, model: torch.nn.Module, phases: List[PhaseSpec],
-                 cfg: TrainConfig, *, generator: torch.Generator):
+                 cfg: TrainConfig, *, generator: torch.Generator, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "SPMD training needs the parallel port (ROADMAP.md A18)")
         self.model = model
         self.phases = phases
         self.cfg = cfg
@@ -142,3 +147,33 @@ class Trainer:
     def run_epoch(self, max_steps: Optional[int] = None):
         """Every phase in order -> {phase name: loss terms [steps, n]}."""
         return {ph.name: self.run_phase(ph, max_steps) for ph in self.phases}
+
+    def run(self, evaluator, early_stop, *, log=print,
+            state_path: Optional[str] = None) -> Dict:
+        """``cfg.epochs`` epochs of every phase, an evaluation after every
+        ``cfg.test_interval``-th epoch (epoch 0 first) fed to ``early_stop``,
+        which may end the run; raises FloatingPointError on a non-finite
+        loss.  -> {"best_epoch", "best_result"}; the model keeps the last
+        epoch's parameters, ``early_stop.best_params`` the best ones."""
+        if state_path is not None:
+            raise NotImplementedError(
+                "resuming from a train state needs the train-state "
+                "checkpoints (ROADMAP.md A10)")
+        cfg = self.cfg
+        for ep in range(cfg.epochs):
+            for phase in self.phases:
+                t0 = time.time()
+                parts = self.run_phase(phase)
+                log(f"[Epoch:{ep}][{phase.name}][{time.time() - t0:.2f}s] "
+                    f"avg_loss: {parts.sum(axis=1).mean():.5f} "
+                    f"parts_sum: {[float(v) for v in parts.sum(axis=0)]}")
+            if ep % cfg.test_interval == 0:
+                t0 = time.time()
+                results = evaluator.run(self.model)
+                log(f"[Epoch {ep}][eval {time.time() - t0:.2f}s] {results}")
+                if early_stop(self.model, results, ep):
+                    log(f"early stop trigger at epoch {ep}")
+                    break
+        log(f"best result [{early_stop.best_epoch}:{early_stop.best_result}]")
+        return {"best_epoch": early_stop.best_epoch,
+                "best_result": early_stop.best_result}

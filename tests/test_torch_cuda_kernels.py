@@ -7,13 +7,15 @@ machine they run without the JAX test configuration:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 Tolerance: rtol 1e-4, atol 1e-5 (float32 on both sides, sums taken in
-another order); rtol 5e-4 for the flash backward, whose sums are longer.
+another order); rtol 5e-4 for the flash backward, whose sums are longer,
+and for LightGCN's gradients; the row gather must match bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from tagrec_tpu_torch.ops import dma_gather as dg
 from tagrec_tpu_torch.ops import flash_attention as fa
 from tagrec_tpu_torch.ops import flash_routing as fr
 
@@ -183,3 +185,129 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="widths"):
         wide = torch.cat([q2, q2], dim=2)
         fa.dot_flash_stats(wide, torch.cat([k, k], dim=1), mask, 128)
+
+
+# ------------------------------------------ ELL gather kernels (LightGCN)
+# (M, D, N, K): narrow rows (one warp each; N not a multiple of a block's 8
+# rows), rows past WIDE_K (one block each), LightGCN's D = 64, D = 128 (32
+# lanes a row), 16, 12 (three float4 lanes: no power of two) and 4.
+GATHER_CASES = [(300, 64, 37, 25), (300, 64, 5, 600), (500, 64, 1001, 8),
+                (200, 128, 19, 40), (200, 16, 33, 300), (200, 12, 17, 33),
+                (50, 4, 9, 70)]
+ROWS_CASES = [(300, 64, 150), (300, 64, 7), (80, 4, 33), (1000, 128, 4097)]
+
+
+def _gather_inputs(m, d, n, k, device):
+    rng = np.random.default_rng(m + d + n + k)
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    idx = rng.integers(0, m, size=(n, k)).astype(np.int32)
+    val = rng.standard_normal((n, k)).astype(np.float32)
+    pad = rng.random((n, k)) < 0.2  # pad slots: id 0, value 0
+    idx[pad], val[pad] = 0, 0.0
+    return [torch.from_numpy(a).to(device) for a in (x, idx, val)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,n,k", GATHER_CASES)
+def test_gather_reduce_matches_plain(cuda, m, d, n, k):
+    x, idx, val = _gather_inputs(m, d, n, k, cuda)
+    before = dg.gather_reduce.launches
+    out = dg.gather_reduce(x, idx, val)
+    torch.cuda.synchronize()
+    assert dg.gather_reduce.launches == before + 1
+    torch.testing.assert_close(out, dg.gather_reduce_plain(x, idx, val),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,r", ROWS_CASES)
+def test_gather_rows_equals_indexing(cuda, m, d, r):
+    rng = np.random.default_rng(m + r)
+    x = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32))
+    x[3, 1] = float("nan")
+    x = x.to(cuda)
+    idx = torch.from_numpy(rng.integers(0, m, r).astype(np.int32)).to(cuda)
+    idx[0] = 3
+    before = dg.gather_rows.launches
+    out = dg.gather_rows(x, idx)
+    torch.cuda.synchronize()
+    assert dg.gather_rows.launches == before + 1
+    torch.testing.assert_close(out, x[idx.long()], rtol=0, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [25, 600])
+def test_gather_reduce_computes_pad_slots(cuda, k):
+    """A pad slot multiplies row 0 by 0, as the plain version does: an
+    infinite row 0 gives NaN in the same places on both."""
+    x, idx, val = _gather_inputs(300, 64, 40, k, cuda)
+    x[0, :8] = float("inf")
+    out = dg.gather_reduce(x, idx, val)
+    want = dg.gather_reduce_plain(x, idx, val)
+    torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL,
+                               equal_nan=True)
+    assert torch.isnan(out).any()
+
+
+@pytest.mark.cuda
+def test_gather_kernels_reject_what_they_do_not_take(cuda):
+    x, idx, val = _gather_inputs(300, 64, 37, 25, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        dg.gather_reduce(x.double(), idx, val)
+    with pytest.raises(TypeError, match="int32"):
+        dg.gather_reduce(x, idx.long(), val)
+    with pytest.raises(TypeError, match="int32"):
+        dg.gather_rows(x, idx[:, 0].long())
+    with pytest.raises(ValueError, match="contiguous"):
+        dg.gather_reduce(x, idx.T.contiguous().T, val)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        dg.gather_reduce(x[:, :6].contiguous(), idx, val)
+    with pytest.raises(ValueError, match="one device"):
+        dg.gather_reduce(x, idx, val.cpu())
+    with pytest.raises(ValueError, match="multiple of 4"):
+        dg.gather_rows(x[:, :5].contiguous(), idx[:, 0].contiguous())
+    flat = torch.empty(300 * 64 + 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        dg.gather_reduce(flat[1:].view(300, 64), idx, val)
+    with pytest.raises(ValueError, match="16-byte"):
+        dg.gather_rows(flat[1:].view(300, 64), idx[:, 0].contiguous())
+    with pytest.raises(NotImplementedError, match="forward only"):
+        dg.gather_rows(x.requires_grad_(), idx[:, 0].contiguous())
+
+
+@pytest.mark.cuda
+def test_lightgcn_hybrid_on_the_card_matches_the_cpu(cuda):
+    """LightGCN on the hybrid tier with hub columns: forward and BPR
+    gradients on the card against the CPU's plain path, and the launches of
+    one BPR step (one gather_reduce per bucket and two gather_rows per SpMM,
+    forward and backward)."""
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.data.synthetic import synthetic_graph
+    from tagrec_tpu_torch.models import model_class
+    from tagrec_tpu_torch.ops import ell
+
+    g = synthetic_graph(n_user=40, n_item=90, n_tag=25, avg_deg=8, seed=7)
+    host = ell.build_adj_pair(g.joint_norm_adj("bi_norm", True),
+                              symmetric=True, mode="hybrid", hub_min_degree=12)
+    batch = np.stack([np.arange(32) % g.n_user, np.arange(32) % g.n_item,
+                      (np.arange(32) * 7) % g.n_item], axis=1)
+    outs, grads, launches = [], [], []
+    for dev in (cuda, torch.device("cpu")):
+        model = model_class("lightgcn")(
+            g, model_preset("lightgcn", adj_mode="hybrid", reg=1e-4),
+            device=dev, generator=torch.Generator().manual_seed(3))
+        model.adj = ell.to_device(host, dev)
+        with torch.no_grad():
+            outs.append([t.cpu() for t in model.forward()])
+        before = (dg.gather_reduce.launches, dg.gather_rows.launches)
+        sum(model.bpr_loss(torch.as_tensor(batch, device=dev))).backward()
+        launches.append((dg.gather_reduce.launches - before[0],
+                         dg.gather_rows.launches - before[1]))
+        grads.append([p.grad.cpu() for p in model.parameters()])
+    n_layer, n_buckets = 3, len(host.fwd.ell.buckets)
+    assert launches == [(2 * n_layer * n_buckets, 2 * n_layer * 2), (0, 0)]
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=ATOL)

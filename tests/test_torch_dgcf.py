@@ -139,7 +139,7 @@ def test_unported_modes_and_models_raise():
             model_class("dgcf")(graph, model_preset("dgcf", adj_mode=mode),
                                 device="cpu", generator=gen)
     with pytest.raises(ValueError, match="dgcf"):
-        model_class("lightgcn")
+        model_class("ngcf")
 
 
 def test_entry_points_default_to_the_card():

@@ -15,6 +15,7 @@ import torch
 
 from tagrec_tpu import serving as jserving
 from tagrec_tpu_torch import serving
+from tagrec_tpu_torch.ops import metrics
 
 ATOL, GAP = 1e-6, 1e-6
 N_USER, N_ITEM, DIM = 23, 57, 8
@@ -48,7 +49,7 @@ def _assert_same_lists(ids, scores, want_ids, want_scores):
 ])
 def test_topk_matches_jax(tables, users, block, k):
     u, i, pos = tables
-    pad, _ = serving._pad_positives(pos, N_USER)
+    pad, _ = metrics.pad_lists(pos, N_USER, serving.PAD_ID)
     ids, scores = serving.Retriever(u, i, train_pad=pad, block=block,
                                     device="cpu").topk(users, k)
     want_ids, want_scores = jserving.Retriever(
