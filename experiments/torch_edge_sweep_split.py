@@ -1,0 +1,106 @@
+"""Where the port's edge-sweep kernels spend their time, on one NVIDIA GPU.
+
+routed_mm (DGCF, at every rank of a forward) and dot_flash_apply (KGAT
+bi_inter, each row type, dx 64 and 32) run on three masks at the hetrec
+graph's shapes:
+
+* full: the model's own mask;
+* light rows: the same mask with every row of more than 400 edges
+  cleared (what is left once the heaviest rows' tail is gone);
+* empty: no edge at all (the mask stream and the per-row fixed cost).
+
+Each time is the kernel's device time from torch.profiler, averaged over 10
+launches after one warm-up, so the host's launch overhead is not in it.
+
+    python3 experiments/torch_edge_sweep_split.py     # from the repo root
+
+Needs one GPU; imports neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+HEAVY = 400  # edges: rows past it are cleared in the "light rows" mask
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3
+
+
+def masks(mask: torch.Tensor) -> dict:
+    deg = (mask != 0).sum(dim=1)
+    light = mask * (deg <= HEAVY)[:, None].to(mask.dtype)
+    return {"full": mask, "light rows": light, "empty": torch.zeros_like(mask)}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.data.synthetic import synthetic_graph_large
+    from tagrec_tpu_torch.models import model_class
+    from tagrec_tpu_torch.ops import flash_attention as fa
+    from tagrec_tpu_torch.ops import flash_routing as fr
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    graph = synthetic_graph_large(cs.N_USER, cs.N_ITEM, cs.N_TAG, cs.N_EDGES,
+                                  cs.TAG_PER_INTER, seed=0)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        dgcf = model_class("dgcf")(graph, model_preset("dgcf"), device="cuda",
+                                   generator=gen)
+        n = dgcf.mask.shape[0]
+        variants = masks(dgcf.mask)
+        print(f"DGCF mask {n}x{n}: " + ", ".join(
+            f"{name} {int(mk.sum())} edges" for name, mk in variants.items()))
+        for r in cs.DGCF_RANKS:
+            q, k, x = cs.kernel_inputs(torch, 4, n, r, 16, seed=r)
+            times = {name: device_ms(lambda: fr.routed_mm(q, k, mk, x, 1.0))
+                     for name, mk in variants.items()}
+            print(f"routed_mm r={r}: " + ", ".join(
+                f"{name} {ms:.4f} ms" for name, ms in times.items()))
+        del dgcf, variants
+        kgat = model_class("kgat")(graph, model_preset("kgat",
+                                                       agg_type="bi_inter"),
+                                   device="cuda", generator=gen)
+        for a, (mask, split) in enumerate(zip(kgat.flash_masks(),
+                                              kgat.flash_splits())):
+            ns, nd = mask.shape
+            variants = masks(mask)
+            for dx, _ in cs.KGAT_DX:
+                q2, k, x, _ = cs.flash_inputs(torch, ns, nd, dx, seed=a)
+                m, z = fa.dot_flash_stats(q2, k, mask, split)
+                times = {name: device_ms(lambda: fa.dot_flash_apply(
+                    q2, k, mk, m, z, x, split))
+                    for name, mk in variants.items()}
+                print(f"dot_flash_apply type {a} ({ns}x{nd}, "
+                      f"{int(variants['full'].ne(0).sum())} edges, light rows "
+                      f"{int(variants['light rows'].ne(0).sum())}) dx={dx}: "
+                      + ", ".join(f"{name} {ms:.4f} ms"
+                                  for name, ms in times.items()))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

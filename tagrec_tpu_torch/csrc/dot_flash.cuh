@@ -1,5 +1,6 @@
 // Two-segment dot-score flash attention, shared by dot_flash_stats.cu,
-// dot_flash_apply.cu, dot_flash_bwd_row.cu and dot_flash_bwd_col.cu.
+// dot_flash_bwd_row.cu and dot_flash_bwd_col.cu (the 64 x 64 tile sweeps),
+// and by dot_flash_apply.cu for the softmax rule (row_consts, NEG).
 //
 // For one row type of KGAT's attention, rows i < Ns score columns j < Nd as
 //   S[i, j] = q2[p(j)][i] . k[j],   p(j) = (j >= split) ? 1 : 0
@@ -14,13 +15,14 @@
 // Tiling: BI x BJ = 64 x 64 score tiles, 256 threads as a 16 x 16 grid; a
 // thread holds R x R = 4 x 4 (row, column) pairs, rows ty + 16a and columns
 // tx + 16b, so the products read shared memory without bank conflicts
-// (stride SS = 65 on every transposed tile).  Row kernels (stats, apply,
-// bwd_row) run one block per row tile and walk every column tile; bwd_col runs
-// one block per column tile and walks every row tile.  Every output is
-// written once, without atomics.  A column tile never straddles the split:
-// the wrapper requires split % BJ == 0.  The ragged edges (Ns, Nd not
-// multiples of 64) are masked here.  Widths dq and dx are at most MAXD = 64.
-// Plain float32 FMAs on the CUDA cores; no tensor cores, no async copies.
+// (stride SS = 65 on every transposed tile).  Row kernels (stats, bwd_row)
+// run one block per row tile and walk every column tile; bwd_col runs one
+// block per column tile and walks every row tile.  Every output is written
+// once, without atomics.  A column tile never straddles the split: the
+// wrapper requires split % BJ == 0.  The ragged edges (Ns, Nd not multiples
+// of 64) are masked here.  Widths dq and dx are at most MAXD = 64.  Plain
+// float32 FMAs on the CUDA cores; no tensor cores, no async copies.  (The
+// apply is an edge sweep over the mask rows instead: mask_rows.cuh.)
 
 #pragma once
 
@@ -121,7 +123,6 @@ __device__ __forceinline__ int range_hi(int p, int split, int Nd) {
 // Dynamic shared memory of each kernel, in bytes (ops/flash_attention.py
 // mirrors these to check the limit before a launch).
 inline size_t smem_stats() { return sizeof(float) * 2 * TILE; }
-inline size_t smem_apply() { return sizeof(float) * (3 * TILE + BI * SS); }
 inline size_t smem_bwd_row() { return sizeof(float) * (4 * TILE + BI * SS); }
 inline size_t smem_bwd_col() {
   return sizeof(float) * (4 * TILE + 2 * BI * SS + 3 * BI);

@@ -10,16 +10,16 @@
 // (67 TFLOP/s): at the DGCF hetrec shapes (F=4, N=M=15000, r=80) 1.4e11
 // operations, about 2.2 ms, against 0.07 ms to read the 225 MB mask at
 // 3.35 TB/s.  Only the edges are needed (the mask is 0.44% dense), so
-// the function's least time is the mask read.  Same design as routed_mm
-// (routing.cuh): no [F, N, M] plane in device memory, all-zero mask tiles
-// skipped, register-blocked score FMAs; the row sums are reduced by one
-// owner thread per (factor, row) from the staged P tile.
+// the function's least time is the mask read.  Design (routing.cuh): no
+// [F, N, M] plane in device memory, all-zero mask tiles skipped,
+// register-blocked score FMAs; the row sums are reduced by one owner thread
+// per (factor, row) from the staged P tile.  routed_mm's edge sweep
+// (mask_rows.cuh) is the form this kernel's redesign would take.
 
 #include "routing.cuh"
 
 extern "C" int routed_rowsum_f32(const float* q, const float* k,
                                  const int8_t* mask, float* out, int F, int N,
                                  int M, int r, float base, void* stream) {
-  return routing::launch<false>(q, k, mask, nullptr, out, F, N, M, r, 0, base,
-                                stream);
+  return routing::launch_rowsum(q, k, mask, out, F, N, M, r, base, stream);
 }

@@ -1,29 +1,30 @@
-// Factor-softmax routing sweep shared by routed_rowsum.cu and routed_mm.cu.
+// Factor-softmax routing tile sweep of routed_rowsum.cu.
 //
 // Computes, for every factor f, row n and column m of the routed adjacency
 //   P_f[n, m] = exp(base + q_f[n] . k_f[m]) / sum_g exp(base + q_g[n] . k_g[m])
 //               * mask[n, m]
-// and consumes it at once: routed_rowsum keeps sum_m P_f[n, m], routed_mm keeps
-// sum_m P_f[n, m] * x_f[m, :].  The [F, N, M] plane never reaches device
-// memory.  The softmax runs over the F factors (not over columns) and has no
-// max subtraction: the callers' scores are bounded (DGCF: |S| <= 1 + number
-// of routing iterations, unit-normalized update dots), so exp cannot
-// overflow.  The mask multiplies after normalization.
+// and keeps its row sums sum_m P_f[n, m].  The [F, N, M] plane never
+// reaches device memory.  The softmax runs over the F factors (not over
+// columns) and has no max subtraction: the callers' scores are bounded
+// (DGCF: |S| <= 1 + number of routing iterations, unit-normalized update
+// dots), so exp cannot overflow.  The mask multiplies after normalization.
 //
 // Layout: one block of 256 threads per tile of TI = 32 rows, covering all F
 // factors (the softmax needs them together).  The block loops over column
 // tiles of TJ = 32 inside itself: blocks share nothing and run in any order.
 // Per column tile:
-//   1. k (and x) tiles go to shared memory, transposed so that the score loop
+//   1. the k tile goes to shared memory, transposed so that the score loop
 //      reads consecutive columns from consecutive banks;
 //   2. each thread computes a 2 x 2 block of (row, column) pairs for every
 //      factor in registers, exponentiates, normalizes over F, applies the
 //      mask and stages P in shared memory;
-//   3. the owners of the outputs reduce P (and P @ x) into registers.
+//   3. one owner thread per (factor, row) adds the tile's P row into a
+//      register.
 // A column tile whose mask bytes are all zero contributes exactly zero for
 // finite scores, and the block skips it (__syncthreads_or is block-uniform).
 // Plain float32 on the CUDA cores; the ragged edges (N, M not multiples of
-// the tiles) are masked here, so the wrapper pads nothing.
+// the tiles) are masked here, so the wrapper pads nothing.  (routed_mm is
+// an edge sweep over the mask rows instead: mask_rows.cuh.)
 
 #pragma once
 
@@ -38,26 +39,22 @@ constexpr int NT = 256;      // threads per block, a 16 x 16 grid of 2 x 2 pairs
 constexpr int QS = TI + 1;   // padded shared-memory strides: conflict-free
 constexpr int KS = TJ + 1;   //   transposed stores and row-wise P reads
 constexpr int PS = TJ + 1;
-constexpr int MAXDG = 8;     // routed_mm output columns per thread
 
 // Dynamic shared memory in floats: qT [F][r][QS], kT [F][r][KS],
-// p [F][TI][PS], x [F][TJ][dx].
-inline size_t smem_bytes(int F, int r, int dx) {
+// p [F][TI][PS].
+inline size_t smem_bytes(int F, int r) {
   return sizeof(float) * ((size_t)F * r * QS + (size_t)F * r * KS +
-                          (size_t)F * TI * PS + (size_t)F * TJ * dx);
+                          (size_t)F * TI * PS);
 }
 
-template <bool MM>
 __global__ void __launch_bounds__(NT)
-routed_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const int8_t* __restrict__ mask, const float* __restrict__ x,
-              float* __restrict__ out, int F, int N, int M, int r, int dx,
-              float base) {
+rowsum_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const int8_t* __restrict__ mask, float* __restrict__ out, int F,
+              int N, int M, int r, float base) {
   extern __shared__ float smem[];
   float* qT = smem;
   float* kT = qT + (size_t)F * r * QS;
   float* ps = kT + (size_t)F * r * KS;
-  float* xs = ps + (size_t)F * TI * PS;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -71,18 +68,10 @@ routed_kernel(const float* __restrict__ q, const float* __restrict__ k,
     qT[(f * r + c) * QS + i] = n < N ? q[((size_t)f * N + n) * r + c] : 0.f;
   }
 
-  // Output ownership: row slot (f, i) = tid / G, column group g = tid % G of
-  // DG columns (routed_rowsum: one slot per thread, one column).
-  const int rows = F * TI;
-  const int G = MM ? NT / rows : 1;
-  const int DG = MM ? (dx + G - 1) / G : 1;
-  const int slot = tid / G, g = tid % G;
-  const bool owner = slot < rows;
-  const int of = owner ? slot / TI : 0, oi = owner ? slot % TI : 0;
-  const int d0 = g * DG;
-  float acc[MAXDG];
-#pragma unroll
-  for (int c = 0; c < MAXDG; ++c) acc[c] = 0.f;
+  // Output ownership: thread tid owns row slot (f, i) = (tid / TI, tid % TI)
+  const bool owner = tid < F * TI;
+  const int of = owner ? tid / TI : 0, oi = owner ? tid % TI : 0;
+  float acc = 0.f;
 
   for (int m0 = 0; m0 < M; m0 += TJ) {
     float mk[2][2];
@@ -95,7 +84,7 @@ routed_kernel(const float* __restrict__ q, const float* __restrict__ k,
         mk[a][b] = (n < N && m < M) ? (float)mask[(size_t)n * M + m] : 0.f;
         any |= mk[a][b] != 0.f;
       }
-    // also the barrier that ends the previous tile's reads of kT, ps and xs
+    // also the barrier that ends the previous tile's reads of kT and ps
     if (!__syncthreads_or(any)) continue;
 
     for (int e = tid; e < F * TJ * r; e += NT) {
@@ -103,14 +92,6 @@ routed_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int j = rem / r, c = rem - j * r;
       const int m = m0 + j;
       kT[(f * r + c) * KS + j] = m < M ? k[((size_t)f * M + m) * r + c] : 0.f;
-    }
-    if (MM) {
-      for (int e = tid; e < F * TJ * dx; e += NT) {
-        const int f = e / (TJ * dx), rem = e - f * TJ * dx;
-        const int j = rem / dx, d = rem - j * dx;
-        const int m = m0 + j;
-        xs[e] = m < M ? x[((size_t)f * M + m) * dx + d] : 0.f;
-      }
     }
     __syncthreads();
 
@@ -154,50 +135,29 @@ routed_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     if (owner) {
       const float* prow = ps + (of * TI + oi) * PS;
-      if (MM) {
-        const float* xf = xs + (size_t)of * TJ * dx;
-        for (int j = 0; j < TJ; ++j) {
-          const float p = prow[j];
-#pragma unroll
-          for (int c = 0; c < MAXDG; ++c)
-            if (c < DG && d0 + c < dx)
-              acc[c] = fmaf(p, xf[j * dx + d0 + c], acc[c]);
-        }
-      } else {
-        for (int j = 0; j < TJ; ++j) acc[0] += prow[j];
-      }
+      for (int j = 0; j < TJ; ++j) acc += prow[j];
     }
   }
 
   const int n = n0 + oi;
-  if (!owner || n >= N) return;
-  if (MM) {
-#pragma unroll
-    for (int c = 0; c < MAXDG; ++c)
-      if (c < DG && d0 + c < dx)
-        out[((size_t)of * N + n) * dx + d0 + c] = acc[c];
-  } else {
-    out[(size_t)of * N + n] = acc[0];
-  }
+  if (owner && n < N) out[(size_t)of * N + n] = acc;
 }
 
 // Launches one sweep on `stream`; returns cudaGetLastError() (0 = launched).
-template <bool MM>
-inline int launch(const float* q, const float* k, const int8_t* mask,
-                  const float* x, float* out, int F, int N, int M, int r,
-                  int dx, float base, void* stream) {
-  const size_t smem = smem_bytes(F, r, MM ? dx : 0);
+inline int launch_rowsum(const float* q, const float* k, const int8_t* mask,
+                         float* out, int F, int N, int M, int r, float base,
+                         void* stream) {
+  const size_t smem = smem_bytes(F, r);
   cudaError_t err = cudaFuncSetAttribute(
-      routed_kernel<MM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      rowsum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  routed_kernel<MM><<<(N + TI - 1) / TI, NT, smem, (cudaStream_t)stream>>>(
-      q, k, mask, x, out, F, N, M, r, dx, base);
+  rowsum_kernel<<<(N + TI - 1) / TI, NT, smem, (cudaStream_t)stream>>>(
+      q, k, mask, out, F, N, M, r, base);
   return (int)cudaGetLastError();
 }
 
 }  // namespace routing
 
-extern "C" const char* routing_error_string(int err) {
+extern "C" const char* routed_rowsum_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

@@ -8,13 +8,15 @@ with P_f = softmax over the F factors of (base + q_f @ k_f^T), times the 0/1
 edge mask.  q [F, N, r], k [F, M, r], mask [N, M] (bool or int8),
 x [F, M, dx], all float32.
 
-On a CUDA tensor each wrapper launches its hand-written kernel
-(``csrc/routed_rowsum.cu``, ``csrc/routed_mm.cu``), which never writes the
-[F, N, M] plane to device memory, and counts the launch in its ``launches``
-attribute.  On a CPU tensor it runs the plain PyTorch version beside it, and
-only there: a CUDA tensor never falls back.  Both functions are forward only:
-DGCF detaches the routed adjacency, and the backward of ``routed_mm`` comes
-with the training slice, so ``routed_mm`` raises where a gradient is needed.
+On a CUDA tensor each wrapper launches its hand-written kernel and counts
+the launch in its ``launches`` attribute: ``routed_rowsum`` a tile sweep
+(``csrc/routed_rowsum.cu``) that never writes the [F, N, M] plane to device
+memory, ``routed_mm`` an edge sweep (``csrc/routed_mm.cu``) that streams the
+mask rows once and works only the mask's nonzero entries.  On a CPU tensor
+it runs the plain PyTorch version beside it, and only there: a CUDA tensor
+never falls back.  Both functions are forward only: DGCF detaches the routed
+adjacency, and the backward of ``routed_mm`` comes with the training slice,
+so ``routed_mm`` raises where a gradient is needed.
 """
 
 from __future__ import annotations
@@ -25,15 +27,19 @@ import torch
 
 from tagrec_tpu_torch.ops import _build
 
-# Shape limits of csrc/routing.cuh: one 256-thread block per 32 rows holds
-# every factor's rows, and each routed_mm output slot keeps <= 8 columns.
-_TI, _NT, _MAXDG = 32, 256, 8
+# Shape limits of csrc/routing.cuh (routed_rowsum): one 256-thread block per
+# 32 rows holds every factor's rows.
+_TI, _NT = 32, 256
 _SMEM_LIMIT = 232_448  # bytes of dynamic shared memory a Hopper block may use
+# Limits of csrc/routed_mm.cu: one lane of a 4-lane edge group per factor,
+# q rows of at most 128 staged in shared memory, 16 accumulators a lane, and
+# columns packed in 24 bits of an edge entry.
+_MM_MAX_F, _MM_MAX_R, _MM_MAX_DX, _MAX_COLS = 4, 128, 16, 1 << 24
 
 
-def _smem_bytes(f: int, r: int, dx: int) -> int:
+def _smem_bytes(f: int, r: int) -> int:
     """Mirror of routing::smem_bytes."""
-    return 4 * (2 * f * r * (_TI + 1) + f * _TI * (32 + 1) + f * 32 * dx)
+    return 4 * (2 * f * r * (_TI + 1) + f * _TI * (32 + 1))
 
 
 def _check(q, k, mask, x=None):
@@ -55,22 +61,31 @@ def _check(q, k, mask, x=None):
 
 
 def _check_kernel_args(q, k, mask, x=None):
-    """What the CUDA kernel takes: contiguous float32, shapes in its limits."""
+    """What the CUDA kernels take: contiguous float32, shapes in their
+    limits (routed_rowsum's without x, routed_mm's with it)."""
     tensors = [q, k] + ([x] if x is not None else [])
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("the routing kernels take float32 q, k and x")
     if not all(t.is_contiguous() for t in tensors + [mask]):
         raise ValueError("the routing kernels take contiguous tensors")
     f, _, r = q.shape
-    dx = 0 if x is None else x.shape[2]
-    if not 1 <= f * _TI <= _NT:
-        raise ValueError(f"F={f}: the routing kernels take 1..{_NT // _TI} "
-                         "factors")
-    if x is not None and -(-dx // (_NT // (f * _TI))) > _MAXDG:
-        raise ValueError(f"dx={dx} too wide for F={f}: at most "
-                         f"{_MAXDG * (_NT // (f * _TI))}")
-    if r < 1 or _smem_bytes(f, r, dx) > _SMEM_LIMIT:
-        raise ValueError(f"r={r} out of range for F={f}, dx={dx}")
+    if x is None:
+        if not 1 <= f * _TI <= _NT:
+            raise ValueError(f"F={f}: routed_rowsum takes 1..{_NT // _TI} "
+                             "factors")
+        if r < 1 or _smem_bytes(f, r) > _SMEM_LIMIT:
+            raise ValueError(f"r={r} out of range for F={f}")
+        return
+    if not 1 <= f <= _MM_MAX_F:
+        raise ValueError(f"F={f}: routed_mm takes 1..{_MM_MAX_F} factors")
+    if not 1 <= r <= _MM_MAX_R:
+        raise ValueError(f"r={r} out of range: routed_mm takes 1..{_MM_MAX_R}")
+    if k.shape[1] >= _MAX_COLS:
+        raise ValueError(f"M={k.shape[1]}: routed_mm takes fewer than "
+                         f"{_MAX_COLS} columns")
+    if x.shape[2] > _MM_MAX_DX:
+        raise ValueError(f"dx={x.shape[2]} too wide: routed_mm takes at most "
+                         f"{_MM_MAX_DX}")
 
 
 def _lib(name: str, fn: str, n_ptr: int, n_int: int):
@@ -80,15 +95,16 @@ def _lib(name: str, fn: str, n_ptr: int, n_int: int):
         c.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                       + [ctypes.c_float, ctypes.c_void_p])
         c.restype = ctypes.c_int
-        lib.routing_error_string.argtypes = [ctypes.c_int]
-        lib.routing_error_string.restype = ctypes.c_char_p
     return lib, c
 
 
 def _raise_on(lib, err: int, what: str):
+    """Raise with the CUDA error of a failed launch; every library exports
+    ``<what>_error_string``."""
     if err:
-        raise RuntimeError(f"{what} launch failed: "
-                           f"{lib.routing_error_string(err).decode()}")
+        msg = getattr(lib, f"{what}_error_string")
+        msg.argtypes, msg.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{what} launch failed: {msg(err).decode()}")
 
 
 # ------------------------------------------------------------ plain versions

@@ -79,8 +79,54 @@ def test_kernels_reject_what_they_do_not_take(cuda):
             fr.routed_rowsum(q.double(), k.double(), mask)
         with pytest.raises(ValueError, match="too wide"):
             fr.routed_mm(q, k, mask, torch.cat([x, x], dim=2))
+        with pytest.raises(ValueError, match="factors"):
+            fr.routed_mm(torch.cat([q, q[:1]]), torch.cat([k, k[:1]]), mask,
+                         torch.cat([x, x[:1]]))
+        with pytest.raises(ValueError, match="out of range"):
+            wide = torch.zeros((4, 40, 129), device=cuda)
+            fr.routed_mm(wide, wide, mask, x)
         with pytest.raises(ValueError, match="one device"):
             fr.routed_rowsum(q, k.cpu(), mask)
+
+
+def _edge_rows_mask(n, m, seed):
+    """A 0/1 mask with the rows an edge sweep must get right: empty first
+    and last rows, a row that is all edges, a row whose one edge is the
+    last column, and sparse random rows."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random((n, m)) < 0.05
+    mask[:, m - 1] |= rng.random(n) < 0.5
+    mask[[0, n - 1], :] = False
+    mask[1, :] = True
+    mask[2, :] = False
+    mask[2, m - 1] = True
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [301, 15000])
+def test_routed_mm_edge_rows(cuda, m):
+    """routed_mm's edge sweep at row lengths off the 16-byte words (every
+    row start has another alignment), on full, empty and last-column rows,
+    at DGCF's widths; a bool and an int8 mask give the same output."""
+    rng = np.random.default_rng(m)
+    f, n, r, dx = 4, 9, 80, 16
+    q, k, x = (torch.from_numpy((rng.standard_normal(shape) / np.sqrt(shape[2]))
+                                .astype(np.float32)).to(cuda)
+               for shape in ((f, n, r), (f, m, r), (f, m, dx)))
+    mask = torch.from_numpy(_edge_rows_mask(n, m, seed=m)).to(cuda)
+    before = fr.routed_mm.launches
+    with torch.no_grad():
+        out = fr.routed_mm(q, k, mask, x, 1.0)
+        out8 = fr.routed_mm(q, k, mask.to(torch.int8), x, 1.0)
+    torch.cuda.synchronize()
+    assert fr.routed_mm.launches == before + 2
+    # the plain version in float64: row 1 sums 15,000 terms, and a float32
+    # sum that long drifts past atol near zero whatever its order
+    want = fr.routed_mm_plain(q.double(), k.double(), mask, x.double(), 1.0)
+    torch.testing.assert_close(out, want.float(), rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(out8, out, rtol=0, atol=0)
+    assert torch.all(out[:, [0, n - 1]] == 0)
 
 
 # --------------------------------------- two-segment flash attention (KGAT)
@@ -179,12 +225,61 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="one device"):
         fa.dot_flash_apply(q2, k, mask, m, z, x.cpu(), 128)
     with pytest.raises(ValueError, match="64-column tile"):
-        fa.dot_flash_apply(q2, k, mask, m, z, x, 100)
+        fa.dot_flash_stats(q2, k, mask, 100)
+    fa.dot_flash_apply(q2, k, mask, m, z, x, 100)  # the edge sweep takes it
     with pytest.raises(ValueError, match="widths"):
         fa.dot_flash_apply(q2, k, mask, m, z, torch.cat([x] * 5, dim=1), 128)
     with pytest.raises(ValueError, match="widths"):
         wide = torch.cat([q2, q2], dim=2)
         fa.dot_flash_stats(wide, torch.cat([k, k], dim=1), mask, 128)
+
+
+# (Nd, split): a row length of 5,000 bytes (four warps a row, row starts off
+# the 16-byte words), 301 (one warp a row), splits at 0, at Nd and off the
+# stats' 64-column tiles (the apply's plane is chosen per edge).
+APPLY_EDGE_CASES = [(301, 0), (301, 301), (5000, 1000), (5000, 2537)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nd,split", APPLY_EDGE_CASES)
+def test_dot_flash_apply_edge_rows(cuda, nd, split):
+    """dot_flash_apply's edge sweep on full, empty and last-column rows, at
+    KGAT's widths (dq 64, dx 64), with the stats of the plain version (the
+    stats kernel needs a split on its 64-column tile)."""
+    ns = 11
+    q2, k, _, x, _ = _flash_inputs(ns, nd, 64, 64, cuda)
+    mask = torch.from_numpy(_edge_rows_mask(ns, nd, seed=nd).astype(np.int8))
+    mask = mask.to(cuda)
+    m, z = fa.dot_flash_stats_plain(q2, k, mask, split)
+    before = fa.dot_flash_apply.launches
+    out = fa.dot_flash_apply(q2, k, mask, m, z, x, split)
+    torch.cuda.synchronize()
+    assert fa.dot_flash_apply.launches == before + 1
+    torch.testing.assert_close(
+        out, fa.dot_flash_apply_plain(q2, k, mask, m, z, x, split),
+        rtol=RTOL, atol=ATOL)
+    assert torch.all(out[[0, ns - 1]] == 0)
+
+
+@pytest.mark.cuda
+def test_edge_sweeps_never_read_columns_off_the_edges(cuda):
+    """The edge sweeps read k and x only at a row's edges: a NaN in a column
+    that no row has as an edge stays out of every row (the plain versions,
+    dense products, carry it through 0 * NaN)."""
+    mask = _edge_rows_mask(9, 301, seed=3)
+    mask[:, 100] = False
+    q, k, _, x = _inputs(4, 9, 301, 16, 16, False, cuda)
+    k[:, 100, 0] = float("nan")
+    x[:, 100, 0] = float("nan")
+    with torch.no_grad():
+        out = fr.routed_mm(q, k, torch.from_numpy(mask).to(cuda), x)
+    assert torch.isfinite(out).all()
+    q2, kf, _, xf, _ = _flash_inputs(9, 301, 64, 64, cuda)
+    mask8 = torch.from_numpy(mask.astype(np.int8)).to(cuda)
+    m, z = fa.dot_flash_stats(q2, kf, mask8, 128)
+    kf[100, 0] = xf[100, 0] = float("nan")
+    out = fa.dot_flash_apply(q2, kf, mask8, m, z, xf, 128)
+    assert torch.isfinite(out).all()
 
 
 # ------------------------------------------ ELL gather kernels (LightGCN)
