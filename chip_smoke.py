@@ -21,7 +21,8 @@ Phases:
 3. KGAT ``bi_inter``: each flash-attention kernel against its plain version
    at the path's shapes (three row types, dq 64, dx 64 and 32), with its
    time, bound, plain time and, for apply, one
-   ``scaled_dot_product_attention`` call as a yardstick; serving (forward ->
+   ``scaled_dot_product_attention`` call as a yardstick (``dot_bwd_row``
+   against its plain version evaluated in float64); serving (forward ->
    export -> artifact -> 3 top-k requests), then training (5 BPR steps and
    3 TransE steps through the Trainer's one Adam), the launches counted per
    forward and per step, one BPR step profiled; forward and BPR gradients
@@ -30,7 +31,9 @@ Phases:
    hub block + degree-bucketed ELL): the tier and bucket shapes; each
    gather kernel against its plain version at every bucket's shape and at
    the two row gathers of an SpMM, with its time, bound, plain time and one
-   PyTorch call (``embedding_bag``, ``index_select``) as a yardstick;
+   PyTorch call (``embedding_bag``, ``index_select``) as a yardstick, the
+   kernel and the call timed both by CUDA events and by the profiler's
+   device time;
    serving (export -> artifact -> 3 top-k requests), 5 BPR steps through
    the Trainer with the launches checked per step, one BPR step profiled,
    the peak device memory, one evaluation over every test user and one
@@ -106,6 +109,33 @@ def time_ms(torch, fn, runs: int):
     torch.cuda.synchronize()
     ms = sorted(a.elapsed_time(b) for a, b in times)
     return ms[len(ms) // 2]
+
+
+def device_ms(torch, fn, reps: int = 10):
+    """Mean device time of ``fn()``'s CUDA kernels over ``reps`` calls, from
+    torch.profiler's trace after one warm-up call: without the host's launch
+    cost, which CUDA events around a call of under 0.1 ms take in."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if on_device(e))
+    return us / reps / 1e3
+
+
+def on_device(event) -> bool:
+    """A kernel, copy or set of the device's trace; not a user annotation
+    (such as ``Optimizer.step#Adam.step``), whose device range spans the
+    kernels under it and the gaps between them."""
+    from torch.autograd import DeviceType
+
+    return (event.device_type == DeviceType.CUDA
+            and not getattr(event, "is_user_annotation", False))
 
 
 def counts(mod, names):
@@ -305,28 +335,33 @@ def profile_device(torch, fn, label: str, names):
     summed by kernel (``names`` maps a fragment of the kernel's name to a
     label; the rest is "other"), against the profiled span (the device's
     idle share is what the kernels leave of it)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     events = list(prof.events())
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev = [e for e in events if on_device(e)]
     if not dev:
         print(f"{label} profile: no device events (device time not measured)")
         return
     span_us = (max(e.time_range.end for e in events)
                - min(e.time_range.start for e in events))
-    by_kernel = {}
+    by_kernel, other = {}, {}
     for e in dev:
         key = next((v for k, v in names.items() if k in e.name), "other")
-        by_kernel.setdefault(key, []).append(e.time_range.elapsed_us() / 1e3)
+        ms = e.time_range.elapsed_us() / 1e3
+        by_kernel.setdefault(key, []).append(ms)
+        if key == "other":
+            other.setdefault(e.name[:80], []).append(ms)
     busy_ms = sum(sum(v) for v in by_kernel.values())
     for key, ms in sorted(by_kernel.items()):
         print(f"{label} profile: {key}: {len(ms)} device ops, {sum(ms):.3f} ms "
               f"[{', '.join(f'{t:.3f}' for t in ms[:12])}"
               f"{', ...' if len(ms) > 12 else ''}]")
+    for name, ms in sorted(other.items(), key=lambda kv: -sum(kv[1]))[:4]:
+        print(f"{label} profile: other, largest: {len(ms)} x {name}: "
+              f"{sum(ms):.3f} ms")
     print(f"{label} profile: device busy {busy_ms:.3f} ms of a "
           f"{span_us / 1e3:.3f} ms span (idle share "
           f"{1 - busy_ms * 1e3 / span_us:.4f}, profiler on)")
@@ -390,7 +425,7 @@ def serve_requests(torch, graph, u_t, i_t, tmp, name: str):
 
 # fragments of the routing kernels' demangled names
 ROUTING_KERNEL_NAMES = {"routed_mm::mm_kernel": "routed_mm",
-                        "routing::rowsum_kernel": "routed_rowsum"}
+                        "routed_rowsum::rowsum_kernel": "routed_rowsum"}
 
 
 def serving_phase(torch, fr, graph, model, tmp):
@@ -491,21 +526,33 @@ def check_flash_kernels(torch, fa, q2, k, mask, split, x, g, label, recs):
     want_m, want_z = fa.dot_flash_stats_plain(q2, k, mask, split)
     want_dk, want_dx = fa.dot_bwd_col_plain(q2, k, mask, m, z, x, g, delta,
                                             split)
+    # dot_bwd_row is held against its plain version evaluated in float64 on
+    # the same inputs, as the routing kernels are: its heaviest rows sum up
+    # to 5,691 terms of dS k that cancel (the float32 plain version's own
+    # distance is printed too)
+    row64 = [t.double() for t in (q2, k)] + [mask] + [
+        t.double() for t in (m, z, x, g, delta)]
+    want_dq2 = fa.dot_bwd_row_plain(*row64, split)
+    row32_err = float((fa.dot_bwd_row_plain(q2, k, mask, m, z, x, g, delta,
+                                            split).double() - want_dq2)
+                      .abs().max())
     cases = {
         "dot_flash_stats": ([(m, want_m), (z, want_z)], RTOL),
         "dot_flash_apply": ([(out, fa.dot_flash_apply_plain(
             q2, k, mask, m, z, x, split))], RTOL),
-        "dot_bwd_row": ([(dq2, fa.dot_bwd_row_plain(
-            q2, k, mask, m, z, x, g, delta, split))], BWD_RTOL),
+        "dot_bwd_row": ([(dq2.double(), want_dq2)], BWD_RTOL),
         "dot_bwd_col": ([(dk, want_dk), (dxo, want_dx)], BWD_RTOL),
     }
     for name, (pairs, rtol) in cases.items():
         res = [compare(torch, got, want, rtol) for got, want in pairs]
         ok = all(r[0] for r in res)
         max_abs = max(r[1] for r in res)
+        against = ("against the float64 plain version; the float32 plain "
+                   f"version's max_abs_err {row32_err:.3e} "
+                   if name == "dot_bwd_row" else "")
         print(f"{name} {label}: max_abs_err {max_abs:.3e} max_rel_err "
-              f"{max(r[2] for r in res):.3e} (rtol {rtol}, atol {ATOL}) "
-              f"{'ok' if ok else 'FAIL'}")
+              f"{max(r[2] for r in res):.3e} {against}(rtol {rtol}, atol "
+              f"{ATOL}) {'ok' if ok else 'FAIL'}")
         check(ok, f"{name} {label} disagrees with its plain version")
         check(all(bool(torch.isfinite(got).all()) for got, _ in pairs),
               f"{name} {label} not finite")
@@ -767,17 +814,20 @@ def lightgcn_tier(torch, model):
 def gather_kernel_phase(torch, dg, model):
     """Each gather kernel against its plain version at the path's shapes:
     gather_reduce over every bucket of the forward structure, gather_rows
-    over ``inv_perm`` and ``dense_cols``.  ms, plain_ms and library_ms are
-    summed over one SpMM's launches; bound_ms is that of the SpMM's bytes
-    and operations together, with x counted once for gather_reduce (its
-    launches, one per bucket, run back to back and x fits the L2)."""
+    over ``inv_perm`` and ``dense_cols``.  ms, plain_ms and library_ms (CUDA
+    events) and device_ms and library_device_ms (the profiler's device time
+    of the kernel and of the library call) are summed over one SpMM's
+    launches; bound_ms is that of the SpMM's bytes and operations together,
+    with x counted once for gather_reduce (its launches, one per bucket, run
+    back to back and x fits the L2)."""
     F = torch.nn.functional
     h = model.adj.fwd
     n, d = h.dense_block.shape[0], model.cfg.dim_latent
     g = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randn((n, d), generator=g, device="cuda")
     recs = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                   "library_ms": 0.0, "io_bytes": 0, "ops": 0}
+                   "library_ms": 0.0, "device_ms": 0.0,
+                   "library_device_ms": 0.0, "io_bytes": 0, "ops": 0}
             for name in GATHER}
     recs["gather_reduce"]["io_bytes"] = x.numel() * 4
 
@@ -801,14 +851,18 @@ def gather_kernel_phase(torch, dg, model):
         ms = time_ms(torch, kern, runs=15)
         plain_ms = time_ms(torch, plain, runs=5)
         lib_ms = time_ms(torch, lib, runs=15)
+        dev_ms, lib_dev_ms = device_ms(torch, kern), device_ms(torch, lib)
         rec = recs[name]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("device_ms", dev_ms), ("library_device_ms", lib_dev_ms),
                        ("io_bytes", io_bytes), ("ops", ops)):
             rec[key] += v
         print(f"{name} {label}: kernel {ms:.4f} ms (median of 15), plain "
               f"{plain_ms:.4f} ms (median of 5), library {lib_ms:.4f} ms "
-              f"(median of 15); {io_bytes} bytes, {ops} operations")
+              f"(median of 15); device time (profiler, mean of 10): kernel "
+              f"{dev_ms:.4f} ms, library {lib_dev_ms:.4f} ms; {io_bytes} "
+              f"bytes, {ops} operations")
 
     shapes = []
     for b, p in enumerate(h.ell.parts):
@@ -838,7 +892,9 @@ def gather_kernel_phase(torch, dg, model):
             else f"R={n} (inv_perm) and R={h.dense_cols.shape[0]} (dense_cols)"))
         print(f"{name}: {rec['ms']:.4f} ms per SpMM (plain {rec['plain_ms']:.4f}"
               f" ms, library {rec['library_ms']:.4f} ms, bound "
-              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}))")
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})); device time "
+              f"{rec['device_ms']:.4f} ms, library's "
+              f"{rec['library_device_ms']:.4f} ms")
     return recs
 
 
@@ -1039,9 +1095,12 @@ def run(torch):
                             "gather_rows"])
     print(f"kernels built in {time.perf_counter() - t0:.1f} s (nvcc, parallel)")
     for name, out in reports.items():
+        entry = ""
         for line in out.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:  # a kernel's mangled name
+                entry = line.split("'")[1][:40]
+            elif "Used" in line or "spill" in line:
+                print(f"ptxas {name} {entry}: {line.strip()}")
 
     t0 = time.perf_counter()
     graph = synthetic_graph_large(N_USER, N_ITEM, N_TAG, N_EDGES, TAG_PER_INTER,
@@ -1110,7 +1169,8 @@ def run(torch):
                         "launches": launches[name],
                         **{k: rec[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
-                            "bound_by", "library_ms", "shape", "r80")
+                            "bound_by", "library_ms", "device_ms",
+                            "library_device_ms", "shape", "r80")
                            if k in rec}})
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,8 @@
 """Where the port's edge-sweep kernels spend their time, on one NVIDIA GPU.
 
-routed_mm (DGCF, at every rank of a forward) and dot_flash_apply (KGAT
-bi_inter, each row type, dx 64 and 32) run on three masks at the hetrec
-graph's shapes:
+routed_rowsum and routed_mm (DGCF, at every rank of a forward), and
+dot_flash_apply and dot_bwd_row (KGAT bi_inter, each row type, dx 64 and
+32) run on three masks at the hetrec graph's shapes:
 
 * full: the model's own mask;
 * light rows: the same mask with every row of more than 400 edges
@@ -10,7 +10,8 @@ graph's shapes:
 * empty: no edge at all (the mask stream and the per-row fixed cost).
 
 Each time is the kernel's device time from torch.profiler, averaged over 10
-launches after one warm-up, so the host's launch overhead is not in it.
+launches after one warm-up (chip_smoke.device_ms), so the host's launch
+overhead is not in it.  The KGAT kernels take each mask's own stats.
 
     python3 experiments/torch_edge_sweep_split.py     # from the repo root
 
@@ -26,22 +27,8 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
-from torch.autograd import DeviceType  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 HEAVY = 400  # edges: rows past it are cleared in the "light rows" mask
-
-
-def device_ms(fn, reps: int = 10) -> float:
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / reps / 1e3
 
 
 def masks(mask: torch.Tensor) -> dict:
@@ -76,10 +63,13 @@ def main() -> int:
             f"{name} {int(mk.sum())} edges" for name, mk in variants.items()))
         for r in cs.DGCF_RANKS:
             q, k, x = cs.kernel_inputs(torch, 4, n, r, 16, seed=r)
-            times = {name: device_ms(lambda: fr.routed_mm(q, k, mk, x, 1.0))
-                     for name, mk in variants.items()}
-            print(f"routed_mm r={r}: " + ", ".join(
-                f"{name} {ms:.4f} ms" for name, ms in times.items()))
+            kernels = {"routed_rowsum": lambda mk: fr.routed_rowsum(q, k, mk,
+                                                                    1.0),
+                       "routed_mm": lambda mk: fr.routed_mm(q, k, mk, x, 1.0)}
+            for kname, kern in kernels.items():
+                print(f"{kname} r={r}: " + ", ".join(
+                    f"{name} {cs.device_ms(torch, lambda: kern(mk)):.4f} ms"
+                    for name, mk in variants.items()))
         del dgcf, variants
         kgat = model_class("kgat")(graph, model_preset("kgat",
                                                        agg_type="bi_inter"),
@@ -89,16 +79,25 @@ def main() -> int:
             ns, nd = mask.shape
             variants = masks(mask)
             for dx, _ in cs.KGAT_DX:
-                q2, k, x, _ = cs.flash_inputs(torch, ns, nd, dx, seed=a)
-                m, z = fa.dot_flash_stats(q2, k, mask, split)
-                times = {name: device_ms(lambda: fa.dot_flash_apply(
-                    q2, k, mk, m, z, x, split))
-                    for name, mk in variants.items()}
-                print(f"dot_flash_apply type {a} ({ns}x{nd}, "
-                      f"{int(variants['full'].ne(0).sum())} edges, light rows "
-                      f"{int(variants['light rows'].ne(0).sum())}) dx={dx}: "
-                      + ", ".join(f"{name} {ms:.4f} ms"
-                                  for name, ms in times.items()))
+                q2, k, x, g = cs.flash_inputs(torch, ns, nd, dx, seed=a)
+                times = {"dot_flash_apply": {}, "dot_bwd_row": {}}
+                for name, mk in variants.items():
+                    m, z = fa.dot_flash_stats(q2, k, mk, split)
+                    delta = torch.sum(
+                        g * fa.dot_flash_apply(q2, k, mk, m, z, x, split), 1)
+                    times["dot_flash_apply"][name] = cs.device_ms(
+                        torch, lambda: fa.dot_flash_apply(q2, k, mk, m, z, x,
+                                                          split))
+                    times["dot_bwd_row"][name] = cs.device_ms(
+                        torch, lambda: fa.dot_bwd_row(q2, k, mk, m, z, x, g,
+                                                      delta, split))
+                for kname, by_mask in times.items():
+                    print(f"{kname} type {a} ({ns}x{nd}, "
+                          f"{int(variants['full'].ne(0).sum())} edges, light "
+                          f"rows {int(variants['light rows'].ne(0).sum())}) "
+                          f"dx={dx}: " + ", ".join(
+                              f"{name} {ms:.4f} ms"
+                              for name, ms in by_mask.items()))
     return 0
 
 

@@ -1,6 +1,8 @@
-// Two-segment dot-score flash attention, shared by dot_flash_stats.cu,
-// dot_flash_bwd_row.cu and dot_flash_bwd_col.cu (the 64 x 64 tile sweeps),
-// and by dot_flash_apply.cu for the softmax rule (row_consts, NEG).
+// Two-segment dot-score flash attention, shared by dot_flash_stats.cu and
+// dot_flash_bwd_col.cu (the 64 x 64 tile sweeps that remain), and by
+// dot_flash_apply.cu and dot_flash_bwd_row.cu (edge sweeps over the mask
+// rows, mask_rows.cuh) for the softmax rule (row_consts, NEG) and the
+// edge lanes' columns (col_of).
 //
 // For one row type of KGAT's attention, rows i < Ns score columns j < Nd as
 //   S[i, j] = q2[p(j)][i] . k[j],   p(j) = (j >= split) ? 1 : 0
@@ -12,22 +14,23 @@
 //   P[i, j]       = exp(S - max(m, NEG)) * mask / (z == 0 ? 1 : z)
 // so a row with no edge (padding rows included) gives P = 0 everywhere.
 //
-// Tiling: BI x BJ = 64 x 64 score tiles, 256 threads as a 16 x 16 grid; a
-// thread holds R x R = 4 x 4 (row, column) pairs, rows ty + 16a and columns
-// tx + 16b, so the products read shared memory without bank conflicts
-// (stride SS = 65 on every transposed tile).  Row kernels (stats, bwd_row)
-// run one block per row tile and walk every column tile; bwd_col runs one
-// block per column tile and walks every row tile.  Every output is written
-// once, without atomics.  A column tile never straddles the split: the
-// wrapper requires split % BJ == 0.  The ragged edges (Ns, Nd not multiples
+// Tiling of the tile sweeps: BI x BJ = 64 x 64 score tiles, 256 threads as
+// a 16 x 16 grid; a thread holds R x R = 4 x 4 (row, column) pairs, rows
+// ty + 16a and columns tx + 16b, so the products read shared memory without
+// bank conflicts (stride SS = 65 on every transposed tile).  stats runs one
+// block per row tile and walks every column tile; bwd_col runs one block per
+// column tile and walks every row tile.  Every output is written once,
+// without atomics.  A column tile never straddles the split: the wrapper
+// requires split % BJ == 0 for them.  The ragged edges (Ns, Nd not multiples
 // of 64) are masked here.  Widths dq and dx are at most MAXD = 64.  Plain
-// float32 FMAs on the CUDA cores; no tensor cores, no async copies.  (The
-// apply is an edge sweep over the mask rows instead: mask_rows.cuh.)
+// float32 FMAs on the CUDA cores; no tensor cores, no async copies.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mask_rows.cuh"
 
 namespace dot_flash {
 
@@ -41,6 +44,19 @@ constexpr int TILE = MAXD * SS;  // floats in one transposed [MAXD][SS] tile
 constexpr float NEG = -1e30f;
 
 static_assert(BI == 16 * R && BJ == 16 * R, "a 16 x 16 thread grid of R x R");
+
+// The edge sweeps: the 4 lanes of an edge take CL columns each of q, k, x
+// and g, and a row's staged rows (q planes, g) lie QS2 floats apart, so
+// that the two planes start in other banks.
+constexpr int CL = MAXD / mask_rows::G;
+constexpr int QS2 = MAXD + 16;
+
+// Column of slot t of lane l: 4l + 16(t / 4) + t % 4 (VEC: float4 reads) or
+// l + 4t.
+template <bool VEC>
+__device__ __forceinline__ int col_of(int l, int t) {
+  return VEC ? 4 * l + 16 * (t / 4) + t % 4 : l + 4 * t;
+}
 
 // dst[c * SS + t] = src[(r0 + t) * w + c] for t < 64, c < MAXD; zero beyond
 // the n rows of src and beyond its width w (so a 16-wide output slot that
@@ -123,7 +139,6 @@ __device__ __forceinline__ int range_hi(int p, int split, int Nd) {
 // Dynamic shared memory of each kernel, in bytes (ops/flash_attention.py
 // mirrors these to check the limit before a launch).
 inline size_t smem_stats() { return sizeof(float) * 2 * TILE; }
-inline size_t smem_bwd_row() { return sizeof(float) * (4 * TILE + BI * SS); }
 inline size_t smem_bwd_col() {
   return sizeof(float) * (4 * TILE + 2 * BI * SS + 3 * BI);
 }

@@ -34,18 +34,8 @@
 // the row (the plain version multiplies P = 0 by it).
 
 #include "dot_flash.cuh"
-#include "mask_rows.cuh"
 
 namespace dot_flash {
-
-constexpr int CL = MAXD / mask_rows::G;  // columns of q, k, x a lane takes
-constexpr int QS2 = MAXD + 16;  // plane stride: the planes in other banks
-
-// Column of slot t of lane l: 4l + 16(t / 4) + t % 4 (VEC) or l + 4t.
-template <bool VEC>
-__device__ __forceinline__ int col_of(int l, int t) {
-  return VEC ? 4 * l + 16 * (t / 4) + t % 4 : l + 4 * t;
-}
 
 template <bool VEC>
 __global__ void __launch_bounds__(mask_rows::NT)

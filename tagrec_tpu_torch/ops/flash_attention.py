@@ -23,10 +23,10 @@ them flat.
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/dot_flash_{stats,apply,bwd_row,bwd_col}.cu``), which never writes an
 [Ns, Nd] plane, and counts the launch in its ``launches`` attribute: stats
-and the two backward sweeps rebuild P tile by tile, the apply works P per
-edge in one pass over the mask rows.  On a CPU tensor it runs the plain
-PyTorch version beside it, chunked over rows, and only there: a CUDA tensor
-never falls back.
+and the column backward rebuild P tile by tile, the apply and the row
+backward work P per edge in one pass over the mask rows.  On a CPU tensor
+it runs the plain PyTorch version beside it, chunked over rows, and only
+there: a CUDA tensor never falls back.
 """
 
 from __future__ import annotations
@@ -43,15 +43,14 @@ TILE_J = 256
 NEG = -1e30
 
 # Limits of the kernels: rows of q, k, x and g at most 64 wide; the tile
-# sweeps of csrc/dot_flash.cuh (stats, bwd_row, bwd_col) also need a split
-# on their 64-column boundary, the apply's edge sweep takes any split and
+# sweeps of csrc/dot_flash.cuh (stats, bwd_col) also need a split on their
+# 64-column boundary, the edge sweeps (apply, bwd_row) take any split and
 # fewer than 2^24 columns (csrc/mask_rows.cuh packs them in 24 bits).
 _BJ, _MAXD, _SS, _MAX_COLS = 64, 64, 65, 1 << 24
 _TILE_BYTES = 4 * _MAXD * _SS
 _SMEM_LIMIT = 232_448  # bytes of dynamic shared memory a Hopper block may use
 _SMEM = {  # mirror of dot_flash::smem_*, the tile sweeps
     "stats": 2 * _TILE_BYTES,
-    "bwd_row": 4 * _TILE_BYTES + 4 * 64 * _SS,
     "bwd_col": 4 * _TILE_BYTES + 8 * 64 * _SS + 4 * 3 * 64,
 }
 
@@ -109,8 +108,6 @@ def _on_card(name: str, q2, mask, split, *tensors, dx: int = 0) -> bool:
         raise ValueError(f"{name} needs at least one row and one column")
     if not 1 <= dq <= _MAXD or not 0 <= dx <= _MAXD:
         raise ValueError(f"dq={dq}, dx={dx}: {name} takes widths 1..{_MAXD}")
-    if name == "apply" and tensors[0].shape[0] >= _MAX_COLS:
-        raise ValueError(f"{name} takes fewer than {_MAX_COLS} columns")
     if name in _SMEM:  # a tile sweep
         if split % _BJ:
             raise ValueError(f"split {split} is off the kernels' {_BJ}-column "
@@ -118,6 +115,8 @@ def _on_card(name: str, q2, mask, split, *tensors, dx: int = 0) -> bool:
         if _SMEM[name] > _SMEM_LIMIT:
             raise ValueError(f"{name} needs {_SMEM[name]} bytes of shared "
                              "memory")
+    elif tensors[0].shape[0] >= _MAX_COLS:  # an edge sweep
+        raise ValueError(f"{name} takes fewer than {_MAX_COLS} columns")
     return True
 
 

@@ -9,14 +9,14 @@ edge mask.  q [F, N, r], k [F, M, r], mask [N, M] (bool or int8),
 x [F, M, dx], all float32.
 
 On a CUDA tensor each wrapper launches its hand-written kernel and counts
-the launch in its ``launches`` attribute: ``routed_rowsum`` a tile sweep
-(``csrc/routed_rowsum.cu``) that never writes the [F, N, M] plane to device
-memory, ``routed_mm`` an edge sweep (``csrc/routed_mm.cu``) that streams the
-mask rows once and works only the mask's nonzero entries.  On a CPU tensor
-it runs the plain PyTorch version beside it, and only there: a CUDA tensor
-never falls back.  Both functions are forward only: DGCF detaches the routed
-adjacency, and the backward of ``routed_mm`` comes with the training slice,
-so ``routed_mm`` raises where a gradient is needed.
+the launch in its ``launches`` attribute: both are edge sweeps
+(``csrc/routed_rowsum.cu``, ``csrc/routed_mm.cu``, one per-edge body in
+``csrc/routed.cuh``) that stream the mask rows once, work only the mask's
+nonzero entries and never write the [F, N, M] plane to device memory.  On a
+CPU tensor it runs the plain PyTorch version beside it, and only there: a
+CUDA tensor never falls back.  Both functions are forward only: DGCF
+detaches the routed adjacency, and the backward of ``routed_mm`` comes with
+the training slice, so ``routed_mm`` raises where a gradient is needed.
 """
 
 from __future__ import annotations
@@ -27,19 +27,10 @@ import torch
 
 from tagrec_tpu_torch.ops import _build
 
-# Shape limits of csrc/routing.cuh (routed_rowsum): one 256-thread block per
-# 32 rows holds every factor's rows.
-_TI, _NT = 32, 256
-_SMEM_LIMIT = 232_448  # bytes of dynamic shared memory a Hopper block may use
-# Limits of csrc/routed_mm.cu: one lane of a 4-lane edge group per factor,
-# q rows of at most 128 staged in shared memory, 16 accumulators a lane, and
-# columns packed in 24 bits of an edge entry.
-_MM_MAX_F, _MM_MAX_R, _MM_MAX_DX, _MAX_COLS = 4, 128, 16, 1 << 24
-
-
-def _smem_bytes(f: int, r: int) -> int:
-    """Mirror of routing::smem_bytes."""
-    return 4 * (2 * f * r * (_TI + 1) + f * _TI * (32 + 1))
+# Limits of csrc/routed.cuh (both kernels): one lane of a 4-lane edge group
+# per factor, q rows of at most 128 staged in shared memory, 16 accumulators
+# a lane (routed_mm's dx), and columns packed in 24 bits of an edge entry.
+_MAX_F, _MAX_R, _MAX_DX, _MAX_COLS = 4, 128, 16, 1 << 24
 
 
 def _check(q, k, mask, x=None):
@@ -62,30 +53,25 @@ def _check(q, k, mask, x=None):
 
 def _check_kernel_args(q, k, mask, x=None):
     """What the CUDA kernels take: contiguous float32, shapes in their
-    limits (routed_rowsum's without x, routed_mm's with it)."""
+    limits (one set for both; x and its width for routed_mm only)."""
     tensors = [q, k] + ([x] if x is not None else [])
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("the routing kernels take float32 q, k and x")
     if not all(t.is_contiguous() for t in tensors + [mask]):
         raise ValueError("the routing kernels take contiguous tensors")
     f, _, r = q.shape
-    if x is None:
-        if not 1 <= f * _TI <= _NT:
-            raise ValueError(f"F={f}: routed_rowsum takes 1..{_NT // _TI} "
-                             "factors")
-        if r < 1 or _smem_bytes(f, r) > _SMEM_LIMIT:
-            raise ValueError(f"r={r} out of range for F={f}")
-        return
-    if not 1 <= f <= _MM_MAX_F:
-        raise ValueError(f"F={f}: routed_mm takes 1..{_MM_MAX_F} factors")
-    if not 1 <= r <= _MM_MAX_R:
-        raise ValueError(f"r={r} out of range: routed_mm takes 1..{_MM_MAX_R}")
+    if not 1 <= f <= _MAX_F:
+        raise ValueError(f"F={f}: the routing kernels take 1..{_MAX_F} "
+                         "factors")
+    if not 1 <= r <= _MAX_R:
+        raise ValueError(f"r={r} out of range: the routing kernels take "
+                         f"1..{_MAX_R}")
     if k.shape[1] >= _MAX_COLS:
-        raise ValueError(f"M={k.shape[1]}: routed_mm takes fewer than "
-                         f"{_MAX_COLS} columns")
-    if x.shape[2] > _MM_MAX_DX:
+        raise ValueError(f"M={k.shape[1]}: the routing kernels take fewer "
+                         f"than {_MAX_COLS} columns")
+    if x is not None and x.shape[2] > _MAX_DX:
         raise ValueError(f"dx={x.shape[2]} too wide: routed_mm takes at most "
-                         f"{_MM_MAX_DX}")
+                         f"{_MAX_DX}")
 
 
 def _lib(name: str, fn: str, n_ptr: int, n_int: int):

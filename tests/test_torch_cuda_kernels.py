@@ -87,6 +87,12 @@ def test_kernels_reject_what_they_do_not_take(cuda):
             fr.routed_mm(wide, wide, mask, x)
         with pytest.raises(ValueError, match="one device"):
             fr.routed_rowsum(q, k.cpu(), mask)
+        # routed_rowsum has routed_mm's limits: the same edge sweep
+        with pytest.raises(ValueError, match="factors"):
+            fr.routed_rowsum(torch.cat([q, q[:1]]), torch.cat([k, k[:1]]),
+                             mask)
+        with pytest.raises(ValueError, match="out of range"):
+            fr.routed_rowsum(wide, wide, mask)
 
 
 def _edge_rows_mask(n, m, seed):
@@ -127,6 +133,29 @@ def test_routed_mm_edge_rows(cuda, m):
     torch.testing.assert_close(out, want.float(), rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(out8, out, rtol=0, atol=0)
     assert torch.all(out[:, [0, n - 1]] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [301, 15000])
+def test_routed_rowsum_edge_rows(cuda, m):
+    """routed_rowsum's edge sweep on the same rows as routed_mm's, at DGCF's
+    widths; a bool and an int8 mask give the same output, and an empty row
+    gets 0."""
+    rng = np.random.default_rng(m + 1)
+    f, n, r = 4, 9, 80
+    q, k = (torch.from_numpy((rng.standard_normal(shape) / np.sqrt(r))
+                             .astype(np.float32)).to(cuda)
+            for shape in ((f, n, r), (f, m, r)))
+    mask = torch.from_numpy(_edge_rows_mask(n, m, seed=m)).to(cuda)
+    before = fr.routed_rowsum.launches
+    d = fr.routed_rowsum(q, k, mask, 1.0)
+    d8 = fr.routed_rowsum(q, k, mask.to(torch.int8), 1.0)
+    torch.cuda.synchronize()
+    assert fr.routed_rowsum.launches == before + 2
+    want = fr.routed_rowsum_plain(q.double(), k.double(), mask, 1.0)
+    torch.testing.assert_close(d, want.float(), rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(d8, d, rtol=0, atol=0)
+    assert torch.all(d[:, [0, n - 1]] == 0)
 
 
 # --------------------------------------- two-segment flash attention (KGAT)
@@ -224,9 +253,14 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
         fa.dot_flash_stats(q2, k.T.contiguous().T, mask, 128)
     with pytest.raises(ValueError, match="one device"):
         fa.dot_flash_apply(q2, k, mask, m, z, x.cpu(), 128)
+    delta = torch.sum(g * fa.dot_flash_apply(q2, k, mask, m, z, x, 128), 1)
     with pytest.raises(ValueError, match="64-column tile"):
         fa.dot_flash_stats(q2, k, mask, 100)
-    fa.dot_flash_apply(q2, k, mask, m, z, x, 100)  # the edge sweep takes it
+    with pytest.raises(ValueError, match="64-column tile"):
+        fa.dot_bwd_col(q2, k, mask, m, z, x, g, delta, 100)
+    # the edge sweeps take it
+    fa.dot_flash_apply(q2, k, mask, m, z, x, 100)
+    fa.dot_bwd_row(q2, k, mask, m, z, x, g, delta, 100)
     with pytest.raises(ValueError, match="widths"):
         fa.dot_flash_apply(q2, k, mask, m, z, torch.cat([x] * 5, dim=1), 128)
     with pytest.raises(ValueError, match="widths"):
@@ -236,7 +270,7 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
 
 # (Nd, split): a row length of 5,000 bytes (four warps a row, row starts off
 # the 16-byte words), 301 (one warp a row), splits at 0, at Nd and off the
-# stats' 64-column tiles (the apply's plane is chosen per edge).
+# stats' 64-column tiles (the edge sweeps choose the plane per edge).
 APPLY_EDGE_CASES = [(301, 0), (301, 301), (5000, 1000), (5000, 2537)]
 
 
@@ -262,6 +296,39 @@ def test_dot_flash_apply_edge_rows(cuda, nd, split):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nd,split", APPLY_EDGE_CASES)
+def test_dot_bwd_row_edge_rows(cuda, nd, split):
+    """dot_bwd_row's edge sweep on full, empty and last-column rows, at
+    KGAT's widths (dq 64, dx 64), with the stats of the plain version; a
+    row whose edges all lie on one side of the split gets exact zeros in
+    the other plane."""
+    ns = 11
+    q2, k, _, x, g = _flash_inputs(ns, nd, 64, 64, cuda)
+    mask = _edge_rows_mask(ns, nd, seed=nd).astype(np.int8)
+    mask[3, split:] = 0  # left of the split only
+    mask[4, :split] = 0  # right of it only
+    mask[3, 0] = mask[4, nd - 1] = 1
+    mask = torch.from_numpy(mask).to(cuda)
+    m, z = fa.dot_flash_stats_plain(q2, k, mask, split)
+    delta = torch.sum(g * fa.dot_flash_apply_plain(q2, k, mask, m, z, x,
+                                                   split), dim=1)
+    before = fa.dot_bwd_row.launches
+    dq2 = fa.dot_bwd_row(q2, k, mask, m, z, x, g, delta, split)
+    torch.cuda.synchronize()
+    assert fa.dot_bwd_row.launches == before + 1
+    # the plain version in float64: row 1 sums Nd terms of dS k that cancel
+    want = fa.dot_bwd_row_plain(
+        *[t.double() for t in (q2, k)], mask,
+        *[t.double() for t in (m, z, x, g, delta)], split)
+    torch.testing.assert_close(dq2, want.float(), rtol=GRAD_RTOL, atol=ATOL)
+    assert torch.all(dq2[:, [0, ns - 1]] == 0)
+    if split > 0:
+        assert torch.all(dq2[1, 3] == 0) and torch.any(dq2[0, 3] != 0)
+    if split < nd:
+        assert torch.all(dq2[0, 4] == 0) and torch.any(dq2[1, 4] != 0)
+
+
+@pytest.mark.cuda
 def test_edge_sweeps_never_read_columns_off_the_edges(cuda):
     """The edge sweeps read k and x only at a row's edges: a NaN in a column
     that no row has as an edge stays out of every row (the plain versions,
@@ -273,13 +340,16 @@ def test_edge_sweeps_never_read_columns_off_the_edges(cuda):
     x[:, 100, 0] = float("nan")
     with torch.no_grad():
         out = fr.routed_mm(q, k, torch.from_numpy(mask).to(cuda), x)
-    assert torch.isfinite(out).all()
-    q2, kf, _, xf, _ = _flash_inputs(9, 301, 64, 64, cuda)
+        d = fr.routed_rowsum(q, k, torch.from_numpy(mask).to(cuda))
+    assert torch.isfinite(out).all() and torch.isfinite(d).all()
+    q2, kf, _, xf, g = _flash_inputs(9, 301, 64, 64, cuda)
     mask8 = torch.from_numpy(mask.astype(np.int8)).to(cuda)
     m, z = fa.dot_flash_stats(q2, kf, mask8, 128)
+    delta = torch.sum(g * fa.dot_flash_apply(q2, kf, mask8, m, z, xf, 128), 1)
     kf[100, 0] = xf[100, 0] = float("nan")
     out = fa.dot_flash_apply(q2, kf, mask8, m, z, xf, 128)
-    assert torch.isfinite(out).all()
+    dq2 = fa.dot_bwd_row(q2, kf, mask8, m, z, xf, g, delta, 128)
+    assert torch.isfinite(out).all() and torch.isfinite(dq2).all()
 
 
 # ------------------------------------------ ELL gather kernels (LightGCN)

@@ -103,6 +103,26 @@ def test_backward_sweeps_match_jax(jax_run):
                                    rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
 
+@pytest.mark.parametrize("split", [0, ND, 100, 333])
+def test_bwd_row_plain_is_the_gradient_in_q2(split):
+    """dot_bwd_row_plain, which the card holds its kernel against, equals
+    autograd's gradient in q2 of the plain stats and apply (the stats
+    differentiated too, so that it is the softmax's gradient), in float64,
+    at splits on the 64-column tile and off it (JAX's tile-aligned split_j
+    cannot express those)."""
+    q2, k, mask, x, g = _t(*_inputs())
+    q2, k, x, g = (t.double() for t in (q2, k, x, g))
+    q2.requires_grad_()
+    m, z = tfa.dot_flash_stats_plain(q2, k, mask, split)
+    out = tfa.dot_flash_apply_plain(q2, k, mask, m, z, x, split)
+    out.backward(g)
+    delta = torch.sum(g * out.detach(), dim=1)
+    dq2 = tfa.dot_bwd_row_plain(q2.detach(), k, mask, m.detach(), z.detach(),
+                                x, g, delta, split)
+    torch.testing.assert_close(dq2, q2.grad, rtol=1e-9, atol=1e-12)
+    assert torch.all(dq2[:, list(EMPTY_ROWS)] == 0)
+
+
 def test_cpu_calls_launch_no_kernel():
     q2, k, mask, x, g = _t(*_inputs())
     x.requires_grad_()

@@ -78,3 +78,20 @@ def test_routed_mm_is_forward_only_and_checks_shapes():
     with pytest.raises(TypeError, match="mask dtype"):
         tfr.routed_rowsum(q, k, mask.float())
 
+
+
+@pytest.mark.parametrize("f,r,match", [(5, 16, "factors"), (0, 16, "factors"),
+                                       (4, 129, "out of range"),
+                                       (4, 0, "out of range")])
+@pytest.mark.parametrize("with_x", [False, True])
+def test_kernel_limits_are_one_set_for_both(f, r, match, with_x):
+    """routed_rowsum's kernel takes routed_mm's F and r limits (one edge
+    sweep serves both); F = 4 and r = 128 pass."""
+    mask = torch.ones((6, 5), dtype=torch.bool)
+    x = torch.zeros((4, 5, 16)) if with_x else None
+    tfr._check_kernel_args(torch.zeros((4, 6, 128)), torch.zeros((4, 5, 128)),
+                           mask, x)
+    x = torch.zeros((f, 5, 16)) if with_x else None
+    with pytest.raises(ValueError, match=match):
+        tfr._check_kernel_args(torch.zeros((f, 6, r)),
+                               torch.zeros((f, 5, r)), mask, x)
