@@ -21,19 +21,20 @@ Phases:
 3. KGAT ``bi_inter``: each flash-attention kernel against its plain version
    at the path's shapes (three row types, dq 64, dx 64 and 32), with its
    time, bound, plain time and, for apply, one
-   ``scaled_dot_product_attention`` call as a yardstick (``dot_bwd_row``
-   against its plain version evaluated in float64); serving (forward ->
+   ``scaled_dot_product_attention`` call as a yardstick (``dot_bwd_row`` and
+   ``dot_bwd_col``, which sweeps the model's transposed masks, against their
+   plain versions evaluated in float64); serving (forward ->
    export -> artifact -> 3 top-k requests), then training (5 BPR steps and
    3 TransE steps through the Trainer's one Adam), the launches counted per
    forward and per step, one BPR step profiled; forward and BPR gradients
    against the CPU path on a small graph;
 4. LightGCN on the 10x graph (150,000 joint nodes, so the hybrid tier:
    hub block + degree-bucketed ELL): the tier and bucket shapes; each
-   gather kernel against its plain version at every bucket's shape and at
-   the two row gathers of an SpMM, with its time, bound, plain time and one
-   PyTorch call (``embedding_bag``, ``index_select``) as a yardstick, the
-   kernel and the call timed both by CUDA events and by the profiler's
-   device time;
+   gather kernel against its plain version at every bucket's shape (with
+   the bucket's degrees, as the path runs it) and at the two row gathers of
+   an SpMM, with its time, bound, plain time and one PyTorch call
+   (``embedding_bag``, ``index_select``) as a yardstick, the kernel and the
+   call timed both by CUDA events and by the profiler's device time;
    serving (export -> artifact -> 3 top-k requests), 5 BPR steps through
    the Trainer with the launches checked per step, one BPR step profiled,
    the peak device memory, one evaluation over every test user and one
@@ -514,42 +515,48 @@ def flash_inputs(torch, ns: int, nd: int, dx: int, seed: int):
     return q2, (e @ w).contiguous(), x, grad
 
 
-def check_flash_kernels(torch, fa, q2, k, mask, split, x, g, label, recs):
-    """The four kernels against their plain versions on one set of inputs;
-    keeps the largest abs error of each kernel in ``recs``."""
+def check_flash_kernels(torch, fa, q2, k, mask, mask_t, split, x, g, label,
+                        recs):
+    """The four kernels against their plain versions on one set of inputs
+    (``mask_t``: the mask's transpose, which dot_bwd_col sweeps); keeps the
+    largest abs error of each kernel in ``recs``."""
     m, z = fa.dot_flash_stats(q2, k, mask, split)
     out = fa.dot_flash_apply(q2, k, mask, m, z, x, split)
     delta = torch.sum(g * out, dim=1)
     dq2 = fa.dot_bwd_row(q2, k, mask, m, z, x, g, delta, split)
-    dk, dxo = fa.dot_bwd_col(q2, k, mask, m, z, x, g, delta, split)
+    dk, dxo = fa.dot_bwd_col(q2, k, mask_t, m, z, x, g, delta, split)
     torch.cuda.synchronize()
     want_m, want_z = fa.dot_flash_stats_plain(q2, k, mask, split)
-    want_dk, want_dx = fa.dot_bwd_col_plain(q2, k, mask, m, z, x, g, delta,
-                                            split)
-    # dot_bwd_row is held against its plain version evaluated in float64 on
-    # the same inputs, as the routing kernels are: its heaviest rows sum up
-    # to 5,691 terms of dS k that cancel (the float32 plain version's own
-    # distance is printed too)
-    row64 = [t.double() for t in (q2, k)] + [mask] + [
-        t.double() for t in (m, z, x, g, delta)]
-    want_dq2 = fa.dot_bwd_row_plain(*row64, split)
-    row32_err = float((fa.dot_bwd_row_plain(q2, k, mask, m, z, x, g, delta,
-                                            split).double() - want_dq2)
-                      .abs().max())
+    # the backward sweeps are held against their plain versions evaluated in
+    # float64 on the same inputs, as the routing kernels are: their heaviest
+    # rows and columns sum thousands of terms of dS k and dS q that cancel
+    # (the float32 plain versions' own distance is printed too)
+    args32 = (q2, k, mask, m, z, x, g, delta, split)
+    args64 = [t.double() for t in (q2, k)] + [mask] + [
+        t.double() for t in (m, z, x, g, delta)] + [split]
+    want_dq2 = fa.dot_bwd_row_plain(*args64)
+    want_dk, want_dx = fa.dot_bwd_col_plain(*args64)
+    err32 = {
+        "dot_bwd_row": float((fa.dot_bwd_row_plain(*args32).double()
+                              - want_dq2).abs().max()),
+        "dot_bwd_col": max(float((a.double() - b).abs().max()) for a, b in
+                           zip(fa.dot_bwd_col_plain(*args32),
+                               (want_dk, want_dx)))}
     cases = {
         "dot_flash_stats": ([(m, want_m), (z, want_z)], RTOL),
         "dot_flash_apply": ([(out, fa.dot_flash_apply_plain(
             q2, k, mask, m, z, x, split))], RTOL),
         "dot_bwd_row": ([(dq2.double(), want_dq2)], BWD_RTOL),
-        "dot_bwd_col": ([(dk, want_dk), (dxo, want_dx)], BWD_RTOL),
+        "dot_bwd_col": ([(dk.double(), want_dk), (dxo.double(), want_dx)],
+                        BWD_RTOL),
     }
     for name, (pairs, rtol) in cases.items():
         res = [compare(torch, got, want, rtol) for got, want in pairs]
         ok = all(r[0] for r in res)
         max_abs = max(r[1] for r in res)
         against = ("against the float64 plain version; the float32 plain "
-                   f"version's max_abs_err {row32_err:.3e} "
-                   if name == "dot_bwd_row" else "")
+                   f"version's max_abs_err {err32[name]:.3e} "
+                   if name in err32 else "")
         print(f"{name} {label}: max_abs_err {max_abs:.3e} max_rel_err "
               f"{max(r[2] for r in res):.3e} {against}(rtol {rtol}, atol "
               f"{ATOL}) {'ok' if ok else 'FAIL'}")
@@ -559,8 +566,8 @@ def check_flash_kernels(torch, fa, q2, k, mask, split, x, g, label, recs):
         recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], max_abs)
 
 
-def time_flash_kernels(torch, fa, q2, k, mask, split, x, g, nnz, n_launch,
-                       label, recs):
+def time_flash_kernels(torch, fa, q2, k, mask, mask_t, split, x, g, nnz,
+                       n_launch, label, recs):
     """Each kernel's and plain version's time on one set of inputs, and the
     bound of the launch, added ``n_launch[name]`` times into ``recs``."""
     m, z = fa.dot_flash_stats(q2, k, mask, split)
@@ -578,14 +585,14 @@ def time_flash_kernels(torch, fa, q2, k, mask, split, x, g, nnz, n_launch,
             lambda: fa.dot_bwd_row_plain(q2, k, mask, m, z, x, g, delta,
                                          split)),
         "dot_bwd_col": (
-            lambda: fa.dot_bwd_col(q2, k, mask, m, z, x, g, delta, split),
+            lambda: fa.dot_bwd_col(q2, k, mask_t, m, z, x, g, delta, split),
             lambda: fa.dot_bwd_col_plain(q2, k, mask, m, z, x, g, delta,
                                          split)),
     }
     # least time of one launch: each input read and output written once
-    # (4-byte floats, 1-byte mask), and the float32 operations of the mask's
-    # edges only (per edge: the score 2dq, the softmax term 3-4, dP 2dx,
-    # dS 2, each product 2dq or 2dx)
+    # (4-byte floats, 1-byte mask or its transpose), and the float32
+    # operations of the mask's edges only (per edge: the score 2dq, the
+    # softmax term 3-4, dP 2dx, dS 2, each product 2dq or 2dx)
     (ns, nd), dq, dx = mask.shape, q2.shape[2], x.shape[1]
     vec = ns * 4
     base = 2 * ns * dq * 4 + nd * dq * 4 + ns * nd
@@ -659,8 +666,8 @@ def flash_kernel_phase(torch, fa, model):
                 "library_ms": None} for n in FLASH}
     recs["dot_flash_apply"]["library_ms"] = 0.0
     shapes = []
-    for a, (mask, split) in enumerate(zip(model.flash_masks(),
-                                          model.flash_splits())):
+    for a, (mask, mask_t, split) in enumerate(zip(
+            model.flash_masks(), model.flash_masks_t(), model.flash_splits())):
         ns, nd = mask.shape
         nnz = int(mask.sum(dtype=torch.int64))
         tiles = F.pad(mask, (0, -nd % 64, 0, -ns % 64)).reshape(
@@ -674,15 +681,16 @@ def flash_kernel_phase(torch, fa, model):
             label = f"type {a} dx={dx}"
             q2, k, x, g = flash_inputs(torch, ns, nd, dx, seed=100 * a + dx)
             # correctness at the path's scale, then with k at unit scale
-            check_flash_kernels(torch, fa, q2, k, mask, split, x, g,
+            check_flash_kernels(torch, fa, q2, k, mask, mask_t, split, x, g,
                                 f"{label} k path", recs)
             check_flash_kernels(torch, fa, q2, k * (0.3 / float(k.std())),
-                                mask, split, x, g, f"{label} k unit", recs)
+                                mask, mask_t, split, x, g, f"{label} k unit",
+                                recs)
             # one stats sweep per row type, whatever dx
             n_launch = {name: per_pass for name in FLASH}
             n_launch["dot_flash_stats"] = int(dx == KGAT_DX[0][0])
-            out = time_flash_kernels(torch, fa, q2, k, mask, split, x, g, nnz,
-                                     n_launch, label, recs)
+            out = time_flash_kernels(torch, fa, q2, k, mask, mask_t, split, x,
+                                     g, nnz, n_launch, label, recs)
             recs["dot_flash_apply"]["library_ms"] += per_pass * time_sdpa(
                 torch, q2, k, mask.bool(), split, x, out, label)
     for name, rec in recs.items():
@@ -813,13 +821,17 @@ def lightgcn_tier(torch, model):
 
 def gather_kernel_phase(torch, dg, model):
     """Each gather kernel against its plain version at the path's shapes:
-    gather_reduce over every bucket of the forward structure, gather_rows
-    over ``inv_perm`` and ``dense_cols``.  ms, plain_ms and library_ms (CUDA
-    events) and device_ms and library_device_ms (the profiler's device time
-    of the kernel and of the library call) are summed over one SpMM's
-    launches; bound_ms is that of the SpMM's bytes and operations together,
-    with x counted once for gather_reduce (its launches, one per bucket, run
-    back to back and x fits the L2)."""
+    gather_reduce over every bucket of the forward structure with the
+    bucket's degrees (as ``ell_mm`` runs it), gather_rows over ``inv_perm``
+    and ``dense_cols``.  ms, plain_ms and library_ms (CUDA events) and
+    device_ms and library_device_ms (the profiler's device time of the
+    kernel and of the library call) are summed over one SpMM's launches;
+    bound_ms is that of the SpMM's bytes and operations together, with x
+    counted once for gather_reduce (its launches, one per bucket, run back
+    to back and x fits the L2), and gather_reduce's bytes those of the real
+    edges: 8 a slot below deg[n], 4 of deg a row (the every-slot bound, 8
+    bytes a slot as a kernel without deg reads them, is printed beside
+    it)."""
     F = torch.nn.functional
     h = model.adj.fwd
     n, d = h.dense_block.shape[0], model.cfg.dim_latent
@@ -863,18 +875,29 @@ def gather_kernel_phase(torch, dg, model):
               f"(median of 15); device time (profiler, mean of 10): kernel "
               f"{dev_ms:.4f} ms, library {lib_dev_ms:.4f} ms; {io_bytes} "
               f"bytes, {ops} operations")
+        return dev_ms
 
     shapes = []
+    slot_bytes = x.numel() * 4  # every slot read, as without deg
+    gathered = gathered_ms = 0
     for b, p in enumerate(h.ell.parts):
         rows, k = p.idx.shape
         edges = int(p.deg.sum())
         shapes.append(f"{rows}x{k}")
-        record("gather_reduce", f"bucket {b + 1} ({rows} x {k})",
-               lambda: dg.gather_reduce(x, p.idx, p.val),
-               lambda: dg.gather_reduce_plain(x, p.idx, p.val),
-               lambda: F.embedding_bag(p.idx, x, per_sample_weights=p.val,
-                                       mode="sum"),
-               rows * k * 8 + rows * d * 4, 2 * edges * d, exact=False)
+        dev_ms = record(
+            "gather_reduce", f"bucket {b + 1} ({rows} x {k})",
+            lambda: dg.gather_reduce(x, p.idx, p.val, p.deg),
+            lambda: dg.gather_reduce_plain(x, p.idx, p.val, p.deg),
+            lambda: F.embedding_bag(p.idx, x, per_sample_weights=p.val,
+                                    mode="sum"),
+            edges * 8 + rows * 4 + rows * d * 4, 2 * edges * d, exact=False)
+        slot_bytes += rows * k * 8 + rows * d * 4
+        gathered += edges * d * 4
+        gathered_ms += dev_ms
+        print(f"gather_reduce bucket {b + 1}: gathered rows of x {edges * d * 4}"
+              f" bytes (edges x D x 4, mostly from the L2), at "
+              f"{edges * d * 4 / dev_ms / 1e9:.3f} TB/s of the kernel's device "
+              "time")
     for label, idx in (("inv_perm", h.ell.inv_perm), ("dense_cols", h.dense_cols)):
         r = idx.shape[0]
         record("gather_rows", f"{label} (R={r} of {n} x {d})",
@@ -882,6 +905,10 @@ def gather_kernel_phase(torch, dg, model):
                lambda: dg.gather_rows_plain(x, idx),
                lambda: torch.index_select(x, 0, idx),
                r * 4 + 2 * r * d * 4, 0, exact=True)
+    print(f"gather_reduce per SpMM: gathered rows of x {gathered} bytes, at "
+          f"{gathered / gathered_ms / 1e9:.3f} TB/s of the kernels' device "
+          f"time; every-slot bound (8 bytes a slot, as without deg) "
+          f"{slot_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms")
     for name, rec in recs.items():
         t_bytes = rec.pop("io_bytes") / PEAK_BYTES_PER_S * 1e3
         t_ops = rec.pop("ops") / PEAK_F32_OPS_PER_S * 1e3

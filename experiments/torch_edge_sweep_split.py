@@ -1,12 +1,14 @@
 """Where the port's edge-sweep kernels spend their time, on one NVIDIA GPU.
 
-routed_rowsum and routed_mm (DGCF, at every rank of a forward), and
+routed_rowsum and routed_mm (DGCF, at every rank of a forward),
 dot_flash_apply and dot_bwd_row (KGAT bi_inter, each row type, dx 64 and
-32) run on three masks at the hetrec graph's shapes:
+32), and dot_bwd_col (the same, over the transposed mask) run on three
+masks at the hetrec graph's shapes:
 
-* full: the model's own mask;
+* full: the model's own mask (for dot_bwd_col its transpose);
 * light rows: the same mask with every row of more than 400 edges
-  cleared (what is left once the heaviest rows' tail is gone);
+  cleared (what is left once the heaviest rows' tail is gone; for
+  dot_bwd_col the rows of the transpose, the attention's columns);
 * empty: no edge at all (the mask stream and the per-row fixed cost).
 
 Each time is the kernel's device time from torch.profiler, averaged over 10
@@ -74,13 +76,20 @@ def main() -> int:
         kgat = model_class("kgat")(graph, model_preset("kgat",
                                                        agg_type="bi_inter"),
                                    device="cuda", generator=gen)
-        for a, (mask, split) in enumerate(zip(kgat.flash_masks(),
-                                              kgat.flash_splits())):
+        for a, (mask, mask_t, split) in enumerate(zip(
+                kgat.flash_masks(), kgat.flash_masks_t(),
+                kgat.flash_splits())):
             ns, nd = mask.shape
             variants = masks(mask)
+            # dot_bwd_col's: light rows of the transpose, and each one's
+            # mask for the stats and the apply
+            variants_t = {name: (mt.T.contiguous(), mt)
+                          for name, mt in masks(mask_t).items()}
             for dx, _ in cs.KGAT_DX:
                 q2, k, x, g = cs.flash_inputs(torch, ns, nd, dx, seed=a)
-                times = {"dot_flash_apply": {}, "dot_bwd_row": {}}
+                times = {"dot_flash_apply": {}, "dot_bwd_row": {},
+                         "dot_bwd_col": {}}
+                edges = {"dot_bwd_col": variants_t["light rows"][1]}
                 for name, mk in variants.items():
                     m, z = fa.dot_flash_stats(q2, k, mk, split)
                     delta = torch.sum(
@@ -91,10 +100,18 @@ def main() -> int:
                     times["dot_bwd_row"][name] = cs.device_ms(
                         torch, lambda: fa.dot_bwd_row(q2, k, mk, m, z, x, g,
                                                       delta, split))
+                for name, (mk, mt) in variants_t.items():
+                    m, z = fa.dot_flash_stats(q2, k, mk, split)
+                    delta = torch.sum(
+                        g * fa.dot_flash_apply(q2, k, mk, m, z, x, split), 1)
+                    times["dot_bwd_col"][name] = cs.device_ms(
+                        torch, lambda: fa.dot_bwd_col(q2, k, mt, m, z, x, g,
+                                                      delta, split))
                 for kname, by_mask in times.items():
+                    light = edges.get(kname, variants["light rows"])
                     print(f"{kname} type {a} ({ns}x{nd}, "
                           f"{int(variants['full'].ne(0).sum())} edges, light "
-                          f"rows {int(variants['light rows'].ne(0).sum())}) "
+                          f"rows {int(light.ne(0).sum())}) "
                           f"dx={dx}: " + ", ".join(
                               f"{name} {ms:.4f} ms"
                               for name, ms in by_mask.items()))

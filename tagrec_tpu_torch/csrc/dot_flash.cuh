@@ -1,8 +1,9 @@
-// Two-segment dot-score flash attention, shared by dot_flash_stats.cu and
-// dot_flash_bwd_col.cu (the 64 x 64 tile sweeps that remain), and by
-// dot_flash_apply.cu and dot_flash_bwd_row.cu (edge sweeps over the mask
-// rows, mask_rows.cuh) for the softmax rule (row_consts, NEG) and the
-// edge lanes' columns (col_of).
+// Two-segment dot-score flash attention, shared by dot_flash_stats.cu (the
+// 64 x 64 tile sweep that remains), and by dot_flash_apply.cu,
+// dot_flash_bwd_row.cu (edge sweeps over the mask rows, mask_rows.cuh) and
+// dot_flash_bwd_col.cu (an edge sweep over the rows of the mask's
+// transpose) for the softmax rule (row_consts, NEG) and the edge lanes'
+// columns (col_of).
 //
 // For one row type of KGAT's attention, rows i < Ns score columns j < Nd as
 //   S[i, j] = q2[p(j)][i] . k[j],   p(j) = (j >= split) ? 1 : 0
@@ -14,16 +15,15 @@
 //   P[i, j]       = exp(S - max(m, NEG)) * mask / (z == 0 ? 1 : z)
 // so a row with no edge (padding rows included) gives P = 0 everywhere.
 //
-// Tiling of the tile sweeps: BI x BJ = 64 x 64 score tiles, 256 threads as
+// Tiling of the tile sweep: BI x BJ = 64 x 64 score tiles, 256 threads as
 // a 16 x 16 grid; a thread holds R x R = 4 x 4 (row, column) pairs, rows
 // ty + 16a and columns tx + 16b, so the products read shared memory without
 // bank conflicts (stride SS = 65 on every transposed tile).  stats runs one
-// block per row tile and walks every column tile; bwd_col runs one block per
-// column tile and walks every row tile.  Every output is written once,
-// without atomics.  A column tile never straddles the split: the wrapper
-// requires split % BJ == 0 for them.  The ragged edges (Ns, Nd not multiples
-// of 64) are masked here.  Widths dq and dx are at most MAXD = 64.  Plain
-// float32 FMAs on the CUDA cores; no tensor cores, no async copies.
+// block per row tile and walks every column tile, and writes every output
+// once, without atomics.  A column tile never straddles the split: the
+// wrapper requires split % BJ == 0 for it.  The ragged edges (Ns, Nd not
+// multiples of 64) are masked here.  Widths dq and dx are at most MAXD = 64.
+// Plain float32 FMAs on the CUDA cores; no tensor cores, no async copies.
 
 #pragma once
 
@@ -122,11 +122,6 @@ __device__ __forceinline__ void row_consts(float& mc, float& iz,
   }
 }
 
-// P = exp(S - mc) * mask * iz on the mask's edges, 0 elsewhere.
-__device__ __forceinline__ float p_of(float s, float mk, float mc, float iz) {
-  return mk > 0.f ? expf(s - mc) * mk * iz : 0.f;
-}
-
 // The two column ranges of a row sweep: plane 0 over [0, min(split, Nd)),
 // plane 1 over [split, Nd).
 __device__ __forceinline__ int range_lo(int p, int split) {
@@ -136,12 +131,9 @@ __device__ __forceinline__ int range_hi(int p, int split, int Nd) {
   return p == 0 ? min(split, Nd) : Nd;
 }
 
-// Dynamic shared memory of each kernel, in bytes (ops/flash_attention.py
-// mirrors these to check the limit before a launch).
+// Dynamic shared memory of the tile sweep, in bytes (ops/flash_attention.py
+// mirrors it to check the limit before a launch).
 inline size_t smem_stats() { return sizeof(float) * 2 * TILE; }
-inline size_t smem_bwd_col() {
-  return sizeof(float) * (4 * TILE + 2 * BI * SS + 3 * BI);
-}
 
 template <typename Kernel>
 inline int prepare(Kernel kernel, size_t smem) {

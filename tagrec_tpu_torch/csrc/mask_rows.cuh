@@ -1,7 +1,8 @@
 // Row-streamed edge sweep over a dense [N, M] byte mask, shared by
-// routed_mm.cu and dot_flash_apply.cu.
+// routed_mm.cu, routed_rowsum.cu, dot_flash_apply.cu, dot_flash_bwd_row.cu
+// and dot_flash_bwd_col.cu (which sweeps the mask's transpose).
 //
-// Both functions are sparse: their callers' masks are 0.4-1.5% dense, and
+// The functions are sparse: their callers' masks are 0.4-1.5% dense, and
 // every term they sum is known per edge without a pass over the row.  So a
 // kernel reads the mask once, row by row, turns each chunk of bytes into a
 // short list of edges, and works only those.  What bounds it is bytes: the

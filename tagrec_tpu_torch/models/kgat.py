@@ -47,7 +47,8 @@ class KGAT(nn.Module):
     """Parameters ``user``, ``entity``, ``relation``, ``transE`` and
     ``mat.{W1,b1,W2,b2}_k``, drawn in that order from ``generator`` (a CPU
     ``torch.Generator``); under ``bi_inter`` the three row types' flash masks
-    are int8 buffers ``fmask_0..2`` on ``device``."""
+    are int8 buffers ``fmask_0..2`` on ``device``, and their contiguous
+    transposes ``fmaskT_0..2`` (the column backward's masks, built once)."""
 
     def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
                  generator: torch.Generator, device="cuda", kg=None):
@@ -101,7 +102,9 @@ class KGAT(nn.Module):
         rels = np.concatenate([np.full(rel_edges[k].shape[1], k,
                                        dtype=np.int64) for k in range(6)])
         for a, m in enumerate(self._build_flash_masks(rows, cols, rels)):
-            self.register_buffer(f"fmask_{a}", torch.from_numpy(m).to(dev))
+            mask = torch.from_numpy(m).to(dev)
+            self.register_buffer(f"fmask_{a}", mask)
+            self.register_buffer(f"fmaskT_{a}", mask.t().contiguous())
 
     def _build_flash_masks(self, rows, cols, rels):
         """Per-row-type int8 masks [pad(la), pad(l1) + pad(l2)] in the
@@ -122,6 +125,9 @@ class KGAT(nn.Module):
     def flash_masks(self):
         return [getattr(self, f"fmask_{a}") for a in range(3)]
 
+    def flash_masks_t(self):
+        return [getattr(self, f"fmaskT_{a}") for a in range(3)]
+
     def flash_splits(self):
         """Per row type, the column offset where its second segment starts
         (JAX's ``split_j * TILE_J``)."""
@@ -138,8 +144,9 @@ class KGAT(nn.Module):
             return flash_attention._pad_axis(t, tile, 0)
 
         plans = []
-        for a, (mask, split) in enumerate(zip(self.flash_masks(),
-                                              self.flash_splits())):
+        for a, (mask, mask_t, split) in enumerate(zip(
+                self.flash_masks(), self.flash_masks_t(),
+                self.flash_splits())):
             c1, c2 = [c for c in range(3) if c != a]
             r1, r2 = REL_OF[a][c1], REL_OF[a][c2]
             sa, la = self.segs[a]
@@ -150,14 +157,16 @@ class KGAT(nn.Module):
                               pad0(proj[r2, s2:s2 + l2])])
             ms, zs = flash_attention.dot_flash_stats(q2.detach(), kcat.detach(),
                                                      mask, split)
-            plans.append((q2, kcat, mask, ms, zs, split, la, (s1, l1, s2, l2)))
+            plans.append((q2, kcat, mask, mask_t, ms, zs, split, la,
+                          (s1, l1, s2, l2)))
 
         def att_mm(x):
             outs = []
-            for q2, kcat, mask, ms, zs, split, la, (s1, l1, s2, l2) in plans:
+            for (q2, kcat, mask, mask_t, ms, zs, split, la,
+                 (s1, l1, s2, l2)) in plans:
                 xcat = torch.cat([pad0(x[s1:s1 + l1]), pad0(x[s2:s2 + l2])])
                 out = flash_attention.dot_flash_apply(q2, kcat, mask, ms, zs,
-                                                      xcat, split)
+                                                      xcat, split, mask_t)
                 outs.append(out[:la])
             return torch.cat(outs, dim=0)
 

@@ -10,12 +10,14 @@ the first segment), columns right of it with plane 1:
 and the row softmax over the 0/1 edge mask spans both segments.
 
 * ``dot_flash_stats(q2, k, mask, split)``   -> m, z [Ns]: the row max and sum
-* ``dot_flash_apply(q2, k, mask, ms, zs, x, split)`` -> P @ x [Ns, dx], with
-  ``P = exp(S - max(m, NEG)) * mask / (z == 0 ? 1 : z)``; differentiable in
-  q2, k and x (the flash decomposition: ``delta = rowsum(g * out)``, then a
-  row sweep for dq2 and a column sweep for dk and dx).
+* ``dot_flash_apply(q2, k, mask, ms, zs, x, split, mask_t)`` -> P @ x
+  [Ns, dx], with ``P = exp(S - max(m, NEG)) * mask / (z == 0 ? 1 : z)``;
+  differentiable in q2, k and x (the flash decomposition: ``delta =
+  rowsum(g * out)``, then a row sweep over the mask for dq2 and a row sweep
+  over its transpose ``mask_t`` for dk and dx).
 
-Shapes: q2 [2, Ns, dq], k [Nd, dq], mask [Ns, Nd] (int8, 0/1),
+Shapes: q2 [2, Ns, dq], k [Nd, dq], mask [Ns, Nd] (int8, 0/1), mask_t
+[Nd, Ns] (its contiguous transpose, a constant the caller builds once),
 x [Nd, dx], m, z [Ns], float32; ``split`` is a column offset (JAX's
 ``split_j * TILE_J``).  JAX keeps m and z as [Ns/256, 256]; the port keeps
 them flat.
@@ -23,10 +25,10 @@ them flat.
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/dot_flash_{stats,apply,bwd_row,bwd_col}.cu``), which never writes an
 [Ns, Nd] plane, and counts the launch in its ``launches`` attribute: stats
-and the column backward rebuild P tile by tile, the apply and the row
-backward work P per edge in one pass over the mask rows.  On a CPU tensor
-it runs the plain PyTorch version beside it, chunked over rows, and only
-there: a CUDA tensor never falls back.
+rebuilds P tile by tile, the apply and the row backward work P per edge in
+one pass over the mask rows, the column backward in one pass over the rows
+of ``mask_t``.  On a CPU tensor it runs the plain PyTorch version beside
+it, chunked over rows, and only there: a CUDA tensor never falls back.
 """
 
 from __future__ import annotations
@@ -43,16 +45,14 @@ TILE_J = 256
 NEG = -1e30
 
 # Limits of the kernels: rows of q, k, x and g at most 64 wide; the tile
-# sweeps of csrc/dot_flash.cuh (stats, bwd_col) also need a split on their
-# 64-column boundary, the edge sweeps (apply, bwd_row) take any split and
-# fewer than 2^24 columns (csrc/mask_rows.cuh packs them in 24 bits).
+# sweep of csrc/dot_flash.cuh (stats) also needs a split on its 64-column
+# boundary, the edge sweeps (apply, bwd_row over the mask, bwd_col over its
+# transpose) take any split and rows of fewer than 2^24 bytes
+# (csrc/mask_rows.cuh packs their columns in 24 bits).
 _BJ, _MAXD, _SS, _MAX_COLS = 64, 64, 65, 1 << 24
 _TILE_BYTES = 4 * _MAXD * _SS
 _SMEM_LIMIT = 232_448  # bytes of dynamic shared memory a Hopper block may use
-_SMEM = {  # mirror of dot_flash::smem_*, the tile sweeps
-    "stats": 2 * _TILE_BYTES,
-    "bwd_col": 4 * _TILE_BYTES + 8 * 64 * _SS + 4 * 3 * 64,
-}
+_SMEM = {"stats": 2 * _TILE_BYTES}  # mirror of dot_flash::smem_stats
 
 
 def _pad_axis(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
@@ -66,16 +66,21 @@ def _pad_axis(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
 
 # ------------------------------------------------------------------ checks
 
-def _check(q2, k, mask, split, x=None, ms=None, zs=None, g=None, delta=None):
-    if q2.dim() != 3 or q2.shape[0] != 2 or k.dim() != 2 or mask.dim() != 2:
-        raise ValueError(f"q2 {tuple(q2.shape)}, k {tuple(k.shape)}, mask "
-                         f"{tuple(mask.shape)} must be [2, Ns, dq], [Nd, dq], "
-                         "[Ns, Nd]")
+def _check(q2, k, mask, split, x=None, ms=None, zs=None, g=None, delta=None,
+           mask_t=None):
+    """Shapes, devices and mask dtypes; ``mask`` [Ns, Nd] and ``mask_t``
+    [Nd, Ns] are each checked where given."""
+    if q2.dim() != 3 or q2.shape[0] != 2 or k.dim() != 2:
+        raise ValueError(f"q2 {tuple(q2.shape)}, k {tuple(k.shape)} must be "
+                         "[2, Ns, dq], [Nd, dq]")
     ns, dq = q2.shape[1], q2.shape[2]
     nd = k.shape[0]
-    if k.shape[1] != dq or tuple(mask.shape) != (ns, nd):
-        raise ValueError(f"shape mismatch: q2 {tuple(q2.shape)}, "
-                         f"k {tuple(k.shape)}, mask {tuple(mask.shape)}")
+    for name, mk, want in (("k", k, (nd, dq)), ("mask", mask, (ns, nd)),
+                           ("mask_t", mask_t, (nd, ns))):
+        if mk is not None and tuple(mk.shape) != want:
+            raise ValueError(f"shape mismatch: q2 {tuple(q2.shape)}, "
+                             f"k {tuple(k.shape)}; {name} {tuple(mk.shape)} "
+                             f"must be {list(want)}")
     if not 0 <= split <= nd:
         raise ValueError(f"split {split} outside the {nd} columns")
     if x is not None and (x.dim() != 2 or x.shape[0] != nd):
@@ -85,16 +90,19 @@ def _check(q2, k, mask, split, x=None, ms=None, zs=None, g=None, delta=None):
             raise ValueError(f"{name} {tuple(t.shape)} must be [Ns={ns}]")
     if g is not None and tuple(g.shape) != (ns, x.shape[1]):
         raise ValueError(f"g {tuple(g.shape)} must be [Ns={ns}, dx]")
-    tensors = [t for t in (q2, k, mask, x, ms, zs, g, delta) if t is not None]
+    tensors = [t for t in (q2, k, mask, x, ms, zs, g, delta, mask_t)
+               if t is not None]
     if len({t.device for t in tensors}) != 1:
         raise ValueError("the flash attention inputs must lie on one device")
-    if mask.dtype != torch.int8:
-        raise TypeError(f"mask dtype {mask.dtype}: int8")
+    for name, mk in (("mask", mask), ("mask_t", mask_t)):
+        if mk is not None and mk.dtype != torch.int8:
+            raise TypeError(f"{name} dtype {mk.dtype}: int8")
 
 
 def _on_card(name: str, q2, mask, split, *tensors, dx: int = 0) -> bool:
     """True for CUDA tensors, after checking what the kernel takes; False for
-    CPU tensors (the plain version runs); raises on any other device."""
+    CPU tensors (the plain version runs); raises on any other device.
+    ``mask`` is the mask the kernel reads: mask_t for bwd_col."""
     if q2.device.type == "cpu":
         return False
     if q2.device.type != "cuda":
@@ -115,8 +123,9 @@ def _on_card(name: str, q2, mask, split, *tensors, dx: int = 0) -> bool:
         if _SMEM[name] > _SMEM_LIMIT:
             raise ValueError(f"{name} needs {_SMEM[name]} bytes of shared "
                              "memory")
-    elif tensors[0].shape[0] >= _MAX_COLS:  # an edge sweep
-        raise ValueError(f"{name} takes fewer than {_MAX_COLS} columns")
+    elif mask.shape[1] >= _MAX_COLS:  # an edge sweep over mask's rows
+        raise ValueError(f"{name} takes mask rows of fewer than {_MAX_COLS} "
+                         "bytes")
     return True
 
 
@@ -252,18 +261,18 @@ def dot_bwd_row(q2, k, mask, ms, zs, x, g, delta, split: int):
     return dq2
 
 
-def dot_bwd_col(q2, k, mask, ms, zs, x, g, delta, split: int):
+def dot_bwd_col(q2, k, mask_t, ms, zs, x, g, delta, split: int):
     """(dk [Nd, dq], dx [Nd, dx]) of dot_flash_apply's backward (JAX
-    ``_dot_bwd_col``)."""
-    _check(q2, k, mask, split, x, ms, zs, g, delta)
+    ``_dot_bwd_col``), from the mask's transpose ``mask_t`` [Nd, Ns]."""
+    _check(q2, k, None, split, x, ms, zs, g, delta, mask_t=mask_t)
     dx_w = x.shape[1]
-    if not _on_card("bwd_col", q2, mask, split, k, ms, zs, x, g, delta,
+    if not _on_card("bwd_col", q2, mask_t, split, k, ms, zs, x, g, delta,
                     dx=dx_w):
-        return dot_bwd_col_plain(q2, k, mask, ms, zs, x, g, delta, split)
+        return dot_bwd_col_plain(q2, k, mask_t.T, ms, zs, x, g, delta, split)
     ns, dq = q2.shape[1], q2.shape[2]
     dk = torch.empty_like(k)
     dx = torch.empty_like(x)
-    _launch("bwd_col", 10, q2.device, q2, k, mask, ms, zs, x, g, delta,
+    _launch("bwd_col", 10, q2.device, q2, k, mask_t, ms, zs, x, g, delta,
             dk, dx, ns, k.shape[0], dq, dx_w, split)
     dot_bwd_col.launches += 1
     return dk, dx
@@ -271,32 +280,41 @@ def dot_bwd_col(q2, k, mask, ms, zs, x, g, delta, split: int):
 
 class _DotFlashApply(torch.autograd.Function):
     """P @ x with the flash backward of JAX ``_dot_flash_bwd``: delta in
-    PyTorch, then the row and column sweeps.  mask, ms and zs get no
-    gradient (the stats reparameterize softmax(S))."""
+    PyTorch, then the row sweep over mask and the column sweep over mask_t.
+    mask, mask_t, ms and zs get no gradient (the stats reparameterize
+    softmax(S))."""
 
     @staticmethod
-    def forward(ctx, q2, k, mask, ms, zs, x, split):
+    def forward(ctx, q2, k, mask, ms, zs, x, split, mask_t):
         out = _dot_apply(q2, k, mask, ms, zs, x, split)
-        ctx.save_for_backward(q2, k, mask, ms, zs, x, out)
+        ctx.save_for_backward(q2, k, mask, ms, zs, x, out, mask_t)
         ctx.split = split
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q2, k, mask, ms, zs, x, out = ctx.saved_tensors
+        q2, k, mask, ms, zs, x, out, mask_t = ctx.saved_tensors
         g = g.contiguous()
         delta = torch.sum(g * out, dim=1)
         dq2 = dot_bwd_row(q2, k, mask, ms, zs, x, g, delta, ctx.split)
-        dk, dx = dot_bwd_col(q2, k, mask, ms, zs, x, g, delta, ctx.split)
-        return dq2, dk, None, None, None, dx, None
+        if mask_t is None:
+            if q2.device.type != "cpu":
+                raise ValueError(
+                    "dot_flash_apply's backward on the card needs mask_t, "
+                    "the mask's contiguous [Nd, Ns] int8 transpose (KGAT's "
+                    "fmaskT_* buffers): pass it to dot_flash_apply")
+            mask_t = mask.T  # a view: the plain version reads it back
+        dk, dx = dot_bwd_col(q2, k, mask_t, ms, zs, x, g, delta, ctx.split)
+        return dq2, dk, None, None, None, dx, None, None
 
 
-def dot_flash_apply(q2, k, mask, ms, zs, x, split: int):
+def dot_flash_apply(q2, k, mask, ms, zs, x, split: int, mask_t=None):
     """out = P @ x [Ns, dx], P the masked row softmax of the two-segment
     scores, normalised by the stats of ``dot_flash_stats``.  Differentiable
-    in q2, k and x."""
-    _check(q2, k, mask, split, x, ms, zs)
-    return _DotFlashApply.apply(q2, k, mask, ms, zs, x, split)
+    in q2, k and x; the backward on the card needs ``mask_t``, the mask's
+    contiguous transpose (a constant: build it once)."""
+    _check(q2, k, mask, split, x, ms, zs, mask_t=mask_t)
+    return _DotFlashApply.apply(q2, k, mask, ms, zs, x, split, mask_t)
 
 
 dot_flash_stats.launches = 0

@@ -24,9 +24,9 @@ def coo_spmm(row, col, val, x, n_rows: int) -> torch.Tensor:
 
 
 def ell_mm(ell: ell_lib.Ell, x: torch.Tensor) -> torch.Tensor:
-    """ELL SpMM: out[n] = sum_k val[n, k] * x[idx[n, k]] (pad slots hold
-    value 0).  Forward only."""
-    return gather_reduce(x, ell.idx, ell.val)
+    """ELL SpMM: out[n] = sum_k val[n, k] * x[idx[n, k]] over the row's
+    deg[n] edges (the pad slots after them are not read).  Forward only."""
+    return gather_reduce(x, ell.idx, ell.val, ell.deg)
 
 
 def ell_buckets_mm(eb: ell_lib.EllBuckets, x: torch.Tensor) -> torch.Tensor:

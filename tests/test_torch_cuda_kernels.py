@@ -193,7 +193,8 @@ def test_flash_kernels_match_plain(cuda, ns, nd, split, dq, dx):
     out = fa.dot_flash_apply(q2, k, mask, m, z, x, split)
     delta = torch.sum(g * out, dim=1)
     dq2 = fa.dot_bwd_row(q2, k, mask, m, z, x, g, delta, split)
-    dk, dx_ = fa.dot_bwd_col(q2, k, mask, m, z, x, g, delta, split)
+    dk, dx_ = fa.dot_bwd_col(q2, k, mask.T.contiguous(), m, z, x, g, delta,
+                             split)
     torch.cuda.synchronize()
     assert _flash_counts() == [before[0] + 1, before[1] + 1, before[2] + 1,
                                before[3] + 1]
@@ -219,14 +220,15 @@ def test_flash_kernels_match_plain(cuda, ns, nd, split, dq, dx):
 @pytest.mark.parametrize("ns,nd,split,dq,dx", FLASH_CASES[:3])
 def test_flash_apply_gradients_match_plain(cuda, ns, nd, split, dq, dx):
     """Autograd through dot_flash_apply on the card (the two backward
-    kernels) against PyTorch's own autograd through the plain stats and
-    apply (the stats differentiated too, so that it is the softmax's
-    gradient)."""
+    kernels, the column sweep over the mask's transpose) against PyTorch's
+    own autograd through the plain stats and apply (the stats differentiated
+    too, so that it is the softmax's gradient)."""
     q2, k, mask, x, g = _flash_inputs(ns, nd, dq, dx, cuda)
+    mask_t = mask.T.contiguous()
 
     def kernel(q2_, k_, x_):
         m, z = fa.dot_flash_stats(q2_.detach(), k_.detach(), mask, split)
-        return fa.dot_flash_apply(q2_, k_, mask, m, z, x_, split)
+        return fa.dot_flash_apply(q2_, k_, mask, m, z, x_, split, mask_t)
 
     def plain(q2_, k_, x_):
         m, z = fa.dot_flash_stats_plain(q2_, k_, mask, split)
@@ -256,11 +258,18 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
     delta = torch.sum(g * fa.dot_flash_apply(q2, k, mask, m, z, x, 128), 1)
     with pytest.raises(ValueError, match="64-column tile"):
         fa.dot_flash_stats(q2, k, mask, 100)
-    with pytest.raises(ValueError, match="64-column tile"):
-        fa.dot_bwd_col(q2, k, mask, m, z, x, g, delta, 100)
     # the edge sweeps take it
     fa.dot_flash_apply(q2, k, mask, m, z, x, 100)
     fa.dot_bwd_row(q2, k, mask, m, z, x, g, delta, 100)
+    fa.dot_bwd_col(q2, k, mask.T.contiguous(), m, z, x, g, delta, 100)
+    torch.cuda.synchronize()
+    # the column sweep reads the mask's transpose, which the card's backward
+    # does not build per step
+    leaf = x.clone().requires_grad_()
+    with pytest.raises(ValueError, match="mask_t"):
+        fa.dot_flash_apply(q2, k, mask, m, z, leaf, 128).backward(g)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.dot_bwd_col(q2, k, mask.T, m, z, x, g, delta, 128)
     with pytest.raises(ValueError, match="widths"):
         fa.dot_flash_apply(q2, k, mask, m, z, torch.cat([x] * 5, dim=1), 128)
     with pytest.raises(ValueError, match="widths"):
@@ -328,6 +337,41 @@ def test_dot_bwd_row_edge_rows(cuda, nd, split):
         assert torch.all(dq2[0, 4] == 0) and torch.any(dq2[1, 4] != 0)
 
 
+# (Ns, Nd, split) of dot_bwd_col, which sweeps the rows of mask_t [Nd, Ns]:
+# rows of 301 bytes (one warp a row) and 5,000 (four warps, row starts off
+# the 16-byte words), splits at 0, at Nd and off the 64-column tile (the
+# plane is fixed per column).
+BWD_COL_EDGE_CASES = [(301, 301, 0), (301, 301, 301), (5000, 301, 100),
+                      (5000, 301, 237)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,nd,split", BWD_COL_EDGE_CASES)
+def test_dot_bwd_col_edge_columns(cuda, ns, nd, split):
+    """dot_bwd_col's edge sweep over the mask's transpose on full, empty and
+    last-row columns, at KGAT's widths (dq 64, dx 64), with the stats of the
+    plain version; an empty column gets exact zeros."""
+    q2, k, _, x, g = _flash_inputs(ns, nd, 64, 64, cuda)
+    mask_t = _edge_rows_mask(nd, ns, seed=ns + split).astype(np.int8)
+    mask_t = torch.from_numpy(mask_t).to(cuda)
+    mask = mask_t.T.contiguous()
+    m, z = fa.dot_flash_stats_plain(q2, k, mask, split)
+    delta = torch.sum(g * fa.dot_flash_apply_plain(q2, k, mask, m, z, x,
+                                                   split), dim=1)
+    before = fa.dot_bwd_col.launches
+    dk, dx = fa.dot_bwd_col(q2, k, mask_t, m, z, x, g, delta, split)
+    torch.cuda.synchronize()
+    assert fa.dot_bwd_col.launches == before + 1
+    # the plain version in float64: column 1 sums Ns terms that cancel
+    want_dk, want_dx = fa.dot_bwd_col_plain(
+        *[t.double() for t in (q2, k)], mask,
+        *[t.double() for t in (m, z, x, g, delta)], split)
+    torch.testing.assert_close(dk, want_dk.float(), rtol=GRAD_RTOL, atol=ATOL)
+    torch.testing.assert_close(dx, want_dx.float(), rtol=GRAD_RTOL, atol=ATOL)
+    for t in (dk, dx):
+        assert torch.all(t[[0, nd - 1]] == 0) and torch.any(t[1] != 0)
+
+
 @pytest.mark.cuda
 def test_edge_sweeps_never_read_columns_off_the_edges(cuda):
     """The edge sweeps read k and x only at a row's edges: a NaN in a column
@@ -350,6 +394,13 @@ def test_edge_sweeps_never_read_columns_off_the_edges(cuda):
     out = fa.dot_flash_apply(q2, kf, mask8, m, z, xf, 128)
     dq2 = fa.dot_bwd_row(q2, kf, mask8, m, z, xf, g, delta, 128)
     assert torch.isfinite(out).all() and torch.isfinite(dq2).all()
+    # the column sweep reads q2 and g only at a column's edges: row 0 has
+    # none
+    kf[100, 0] = xf[100, 0] = 0.0
+    q2[:, 0, 0] = g[0, 0] = float("nan")
+    dk, dx = fa.dot_bwd_col(q2, kf, mask8.T.contiguous(), m, z, xf, g, delta,
+                            128)
+    assert torch.isfinite(dk).all() and torch.isfinite(dx).all()
 
 
 # ------------------------------------------ ELL gather kernels (LightGCN)
@@ -401,11 +452,51 @@ def test_gather_rows_equals_indexing(cuda, m, d, r):
                                equal_nan=True)
 
 
+# (M, D, N, K) with each row's degree: rows of one warp (K <= 256), of one
+# block (K <= SPAN), and rows split across 2 and 3 blocks (K > SPAN).
+DEG_CASES = [(300, 64, 37, 25), (300, 64, 20, 600), (500, 64, 9, 5000),
+             (200, 16, 5, 2100), (200, 12, 17, 33)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,n,k", DEG_CASES)
+def test_gather_reduce_with_deg_reads_only_the_edges(cuda, m, d, n, k):
+    """With deg the kernel sums the slots k < deg[n] only: the values past
+    it are NaN and stay out, on rows of degree 0, of degree K and of a
+    degree that splits the row across blocks; a split row's partial sums
+    add up the same in every run."""
+    x, idx, val = _gather_inputs(m, d, n, k, cuda)
+    rng = np.random.default_rng(k)
+    deg = rng.integers(0, k + 1, n)
+    deg[:3] = 0, k, min(k, dg.SPAN + 1)
+    deg = torch.from_numpy(deg.astype(np.int32)).to(cuda)
+    past = torch.arange(k, device=cuda)[None, :] >= deg[:, None]
+    # values of 1 / sqrt(K), so that a row's sum is of unit scale
+    val = torch.where(past, float("nan"), val / float(np.sqrt(k)))
+    before = dg.gather_reduce.launches
+    out = dg.gather_reduce(x, idx, val, deg)
+    again = dg.gather_reduce(x, idx, val, deg)
+    torch.cuda.synchronize()
+    assert dg.gather_reduce.launches == before + 2
+    # the plain version in float64: the widest rows sum 5,000 terms
+    want = dg.gather_reduce_plain(x.double(), idx, val.double(), deg)
+    torch.testing.assert_close(out, want.float(), rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(again, out, rtol=0, atol=0)
+    assert torch.all(out[0] == 0)
+    # without deg every slot counts (and a row past SPAN is split all the
+    # same): the same sums once the values past deg are 0
+    every = dg.gather_reduce(x, idx, torch.where(past, 0.0, val))
+    torch.testing.assert_close(every, out, rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [25, 600])
 def test_gather_reduce_computes_pad_slots(cuda, k):
-    """A pad slot multiplies row 0 by 0, as the plain version does: an
-    infinite row 0 gives NaN in the same places on both."""
+    """Without deg a pad slot multiplies row 0 by 0, as the plain version
+    and JAX's kernel do: an infinite row 0 gives NaN in the same places on
+    both.  With deg (build_ell's layout: the row's edges, then its pads) the
+    pads are not read: row 0 reaches only the rows that have it as a real
+    neighbour.  One kernel, both contracts."""
     x, idx, val = _gather_inputs(300, 64, 40, k, cuda)
     x[0, :8] = float("inf")
     out = dg.gather_reduce(x, idx, val)
@@ -413,6 +504,20 @@ def test_gather_reduce_computes_pad_slots(cuda, k):
     torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL,
                                equal_nan=True)
     assert torch.isnan(out).any()
+    deg = torch.from_numpy(np.random.default_rng(k).integers(
+        1, k + 1, 40).astype(np.int32)).to(cuda)
+    past = torch.arange(k, device=cuda)[None, :] >= deg[:, None]
+    # id 0 only in the pads and as the first neighbour of every third row
+    idx = torch.where(past, 0, torch.where(idx == 0, 1, idx))
+    idx[::3, 0] = 0
+    val = torch.where(past, 0.0, val)
+    out = dg.gather_reduce(x, idx, val, deg)
+    torch.testing.assert_close(out, dg.gather_reduce_plain(x, idx, val, deg),
+                               rtol=RTOL, atol=ATOL, equal_nan=True)
+    has_0 = ((idx == 0) & ~past).any(dim=1)
+    assert (past.any(dim=1) & ~has_0).any()
+    assert (~torch.isfinite(out[has_0])).any(dim=1).all()
+    assert torch.isfinite(out[~has_0]).all()
 
 
 @pytest.mark.cuda

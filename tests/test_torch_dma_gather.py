@@ -3,7 +3,9 @@ of their wrappers) against the JAX package's Pallas kernels in interpret
 mode, on the same seeded inputs.
 
 gather_rows must equal JAX's bit for bit (a copy); gather_reduce within
-rtol 1e-5, atol 1e-5 (float32 sums of up to 25 terms in another order).
+rtol 1e-5, atol 1e-5 (float32 sums of up to 25 terms in another order),
+with and without the rows' degrees, on random tables and on one that the
+port's build_ell packs from a seeded COO.
 """
 
 import numpy as np
@@ -13,6 +15,7 @@ import torch
 
 from tagrec_tpu.ops import dma_gather as jdg
 from tagrec_tpu_torch.ops import dma_gather as dg
+from tagrec_tpu_torch.ops.ell import build_ell
 
 RTOL, ATOL = 1e-5, 1e-5
 ROWS = (7, 256)
@@ -35,13 +38,30 @@ def _reduce_inputs(n, k):
     return x, idx, val
 
 
+def _ell_inputs():
+    """x and the ELL table (EllHost) that build_ell packs from a seeded COO
+    of 48 rows over 200 columns: degrees 0 to about 18, every edge before
+    every pad, column 0 a real neighbour of a few rows."""
+    rng = np.random.default_rng(5)
+    row = rng.integers(0, 48, 400)
+    row[row == 7] = 8  # row 7 has no edge
+    col = rng.integers(0, 200, 400)
+    col[:3] = 0
+    val = rng.standard_normal(400).astype(np.float32)
+    x = rng.standard_normal((200, 64)).astype(np.float32)
+    return x, build_ell(row, col, val, 48, 200)
+
+
 @pytest.fixture(scope="module")
 def jax_out():
     rows = {r: np.asarray(jdg.gather_rows(*map(jnp.asarray, _rows_inputs(r)),
                                           block_rows=256)) for r in ROWS}
     red = {nk: np.asarray(jdg.gather_reduce(
         *map(jnp.asarray, _reduce_inputs(*nk)), block_n=64)) for nk in REDUCE}
-    return rows, red
+    x, h = _ell_inputs()
+    ell = np.asarray(jdg.gather_reduce(jnp.asarray(x), jnp.asarray(h.idx),
+                                       jnp.asarray(h.val), block_n=64))
+    return rows, red, ell
 
 
 @pytest.mark.parametrize("r", ROWS)
@@ -88,6 +108,33 @@ def test_pad_slots_compute_their_row():
     assert not torch.isnan(out[~has_pad_or_0]).any()
 
 
+def test_gather_reduce_with_deg_equals_jax(jax_out):
+    """On a table of build_ell (edges first, pads after them), the sum over
+    each row's deg slots is JAX's sum over every slot."""
+    x, h = _ell_inputs()
+    assert h.deg.dtype == np.int32 and (h.deg < h.idx.shape[1]).any()
+    got = dg.gather_reduce(*map(torch.from_numpy, (x, h.idx, h.val, h.deg)))
+    np.testing.assert_allclose(got.numpy(), jax_out[2], rtol=RTOL, atol=ATOL)
+    assert np.all(got.numpy()[7] == 0.0)
+
+
+def test_deg_keeps_pad_slots_out_of_the_rows():
+    """With deg the pad slots are not read: a NaN in row 0 of x reaches only
+    the rows that have 0 as a real neighbour (without deg it reaches every
+    row with a pad: test_pad_slots_compute_their_row)."""
+    x, h = _ell_inputs()
+    x[0, 3] = float("nan")
+    idx, deg = torch.from_numpy(h.idx), torch.from_numpy(h.deg)
+    out = dg.gather_reduce(torch.from_numpy(x), idx, torch.from_numpy(h.val),
+                           deg)
+    real = torch.arange(idx.shape[1])[None, :] < deg[:, None]
+    has_0 = ((idx == 0) & real).any(dim=1)
+    padded = ~real.all(dim=1)
+    assert has_0.any() and (padded & ~has_0).any()
+    assert torch.isnan(out[has_0, 3]).all()
+    assert not torch.isnan(out[~has_0]).any()
+
+
 def test_wrappers_refuse_what_they_do_not_take():
     x, idx, val = map(torch.from_numpy, _reduce_inputs(64, 25))
     with pytest.raises(ValueError, match=r"\[N, K\]"):
@@ -100,6 +147,13 @@ def test_wrappers_refuse_what_they_do_not_take():
         dg.gather_rows(x, idx[0].to("meta"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         dg.gather_reduce(*(t.to("meta") for t in (x, idx, val)))
+    deg = torch.full((64,), 25, dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"deg \(63,\) must be \[N=64\]"):
+        dg.gather_reduce(x, idx, val, deg[1:])
+    with pytest.raises(TypeError, match="int32 deg"):
+        dg.gather_reduce(x, idx, val, deg.long())
+    with pytest.raises(ValueError, match="one device"):
+        dg.gather_reduce(x, idx, val, deg.to("meta"))
     with pytest.raises(NotImplementedError, match="forward only"):
         dg.gather_reduce(x.requires_grad_(), idx, val)
     with torch.no_grad():

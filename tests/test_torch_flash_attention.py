@@ -97,7 +97,8 @@ def test_backward_sweeps_match_jax(jax_run):
     q2t, kt, maskt, xt, gt, mt, zt, dlt = _t(*_inputs(), jm, jz,
                                              np.asarray(dl).reshape(-1))
     dq2 = tfa.dot_bwd_row(q2t, kt, maskt, mt, zt, xt, gt, dlt, SPLIT)
-    dk, dx = tfa.dot_bwd_col(q2t, kt, maskt, mt, zt, xt, gt, dlt, SPLIT)
+    dk, dx = tfa.dot_bwd_col(q2t, kt, maskt.T.contiguous(), mt, zt, xt, gt,
+                             dlt, SPLIT)
     for got, want in ((dq2, want_dq2), (dk, want_dk), (dx, want_dx)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=GRAD_RTOL, atol=GRAD_ATOL)
@@ -132,6 +133,41 @@ def test_cpu_calls_launch_no_kernel():
     m, z = tfa.dot_flash_stats(q2, k, mask, SPLIT)
     tfa.dot_flash_apply(q2, k, mask, m, z, x, SPLIT).backward(g)
     assert [f.launches for f in counters] == before
+
+
+def test_mask_t_on_the_cpu_changes_nothing():
+    """The apply's backward takes the column sweep's mask_t where it is
+    given, and the mask itself on the CPU where it is not: the same output
+    and gradients, bit for bit."""
+    q2, k, mask, x, g = _t(*_inputs())
+    m, z = tfa.dot_flash_stats(q2, k, mask, SPLIT)
+    runs = []
+    for mask_t in (None, mask.T.contiguous()):
+        leaves = [t.clone().requires_grad_() for t in (q2, k, x)]
+        out = tfa.dot_flash_apply(leaves[0], leaves[1], mask, m, z, leaves[2],
+                                  SPLIT, mask_t)
+        out.backward(g)
+        runs.append([out.detach()] + [t.grad for t in leaves])
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_mask_t_is_checked():
+    q2, k, mask, x, g = _t(*_inputs())
+    m, z = tfa.dot_flash_stats(q2, k, mask, SPLIT)
+    delta = torch.sum(g * tfa.dot_flash_apply(q2, k, mask, m, z, x, SPLIT), 1)
+    mask_t = mask.T.contiguous()
+    with pytest.raises(ValueError, match=r"mask_t \(256, 512\) must be "
+                                          r"\[512, 256\]"):
+        tfa.dot_flash_apply(q2, k, mask, m, z, x, SPLIT, mask)
+    with pytest.raises(ValueError, match="mask_t"):
+        tfa.dot_bwd_col(q2, k, mask, m, z, x, g, delta, SPLIT)
+    with pytest.raises(TypeError, match="mask_t dtype"):
+        tfa.dot_flash_apply(q2, k, mask, m, z, x, SPLIT, mask_t.bool())
+    with pytest.raises(TypeError, match="mask_t dtype"):
+        tfa.dot_bwd_col(q2, k, mask_t.float(), m, z, x, g, delta, SPLIT)
+    with pytest.raises(ValueError, match="one device"):
+        tfa.dot_flash_apply(q2, k, mask, m, z, x, SPLIT, mask_t.to("meta"))
 
 
 def test_checks_shapes_and_split():

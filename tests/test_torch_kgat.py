@@ -100,6 +100,21 @@ def test_relation_edges_and_masks_equal_jax(tiny_graph, jax_run):
         np.testing.assert_array_equal(m.numpy(), w)
 
 
+def test_transposed_masks_are_buffers_of_the_masks_transposed():
+    """fmaskT_a, the column backward's mask, is fmask_a's contiguous int8
+    transpose, a buffer (not a parameter, so checkpoints do not change)."""
+    model = _port()
+    masks_t = model.flash_masks_t()
+    assert len(masks_t) == 3
+    for a, (m, mt) in enumerate(zip(model.flash_masks(), masks_t)):
+        assert mt is getattr(model, f"fmaskT_{a}")
+        assert mt.dtype == torch.int8 and mt.is_contiguous()
+        torch.testing.assert_close(mt, m.T, rtol=0, atol=0)
+    buffers = {n for n, _ in model.named_buffers()}
+    assert buffers == {f"fmask{t}_{a}" for t in ("", "T") for a in range(3)}
+    assert not any(n.startswith("fmask") for n, _ in model.named_parameters())
+
+
 def test_forward_matches_jax(jax_run):
     model = _port(jax_run["params"])
     with torch.no_grad():
