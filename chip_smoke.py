@@ -9,15 +9,23 @@ Phases:
 1. environment: the card's name and power limit; the eight CUDA kernels
    are built from ``tagrec_tpu_torch/csrc`` (one ``nvcc`` per source, in
    parallel);
-2. DGCF serving: each routing kernel against its plain PyTorch version on
-   the card, at the path's own shapes (the hetrec-scale joint graph, F=4,
-   N=M=15000, dx=16, base=1.0) at every rank of a forward (r=8 all-zero,
-   then 16, 32, 48, 64, 80), with its time, its least possible time (bound)
-   and the plain version's time, summed over the forward and at r=80; then
-   DGCF at the preset's full width -> ``export_tables`` -> ``save_export``
-   -> ``Retriever.from_export`` -> 3 top-k requests of 256 users, the
-   launches counted around the export, one forward profiled; the forward
-   against the CPU path on a small graph;
+2. DGCF and DisenGCN: each routing kernel, and ``routed_mm``'s backward
+   (the ``routed_mm`` kernel over the mask's transpose), against its plain
+   PyTorch version on the card (the backward against the plain version's
+   autograd, all in float64), at the path's own shapes (the hetrec-scale
+   joint graph, F=4, N=M=15000, dx=16, base=1.0) at every rank of a DGCF
+   forward (r=8 all-zero, then 16, 32, 48, 64, 80), with its time, its
+   least possible time (bound) and the plain version's time, summed over
+   the forward (the backward over a BPR step's three launches) and at
+   r=80; at DisenGCN's r=16, base 0; on a non-symmetric mask with its own
+   transpose; then DGCF at the preset's full width -> ``export_tables`` ->
+   ``save_export`` -> ``Retriever.from_export`` -> 3 top-k requests of 256
+   users, the launches counted around the export, one forward profiled;
+   the forward against the CPU path on a small graph; DGCF training
+   (``build_pipeline`` -> 5 BPR steps through the Trainer, the launches
+   checked per step, one step profiled; gradients against the CPU path on
+   a small graph); DisenGCN the same, then export -> artifact -> 3 top-k
+   requests and one evaluation of every test user;
 3. KGAT ``bi_inter``: each flash-attention kernel against its plain version
    at the path's shapes (three row types, dq 64, dx 64 and 32), with its
    time, bound, plain time and, for apply, one
@@ -67,7 +75,8 @@ BWD_RTOL = 5e-4          # the flash backward's sums are longer
 N_USER, N_ITEM, N_TAG, N_EDGES, TAG_PER_INTER = 2000, 10000, 3000, 400_000, 0.3
 N_REQUESTS, REQUEST_USERS, TOP_K = 3, 256, 20
 KGAT_BPR_STEPS, KGAT_TRANSE_STEPS = 5, 3
-ROUTING = ("routed_rowsum", "routed_mm")
+ROUTED_BPR_STEPS = 5  # DGCF and DisenGCN
+ROUTING = ("routed_rowsum", "routed_mm", "routed_mm_bwd")
 FLASH = ("dot_flash_stats", "dot_flash_apply", "dot_bwd_row", "dot_bwd_col")
 GATHER = ("gather_reduce", "gather_rows")
 # LightGCN's hybrid tier: the "10x" graph of DESIGN.md section 7 (150,000
@@ -191,10 +200,11 @@ def training_steps(torch, trainer, phase, steps, label, on_launches=None):
     return total
 
 
-def small_graph_grad_check(torch, label, make_model):
+def small_graph_grad_check(torch, label, make_model, cor=False):
     """The forward and the gradients of one BPR loss of
     ``make_model(graph, device)`` on a small graph: CUDA kernels against the
-    CPU plain path, with the same seeded weights."""
+    CPU plain path, with the same seeded weights; ``cor``: the loss takes
+    distance-correlation ids too."""
     import numpy as np
 
     from tagrec_tpu_torch.data.synthetic import synthetic_graph
@@ -204,12 +214,18 @@ def small_graph_grad_check(torch, label, make_model):
     batch = np.stack([rng.integers(0, g.n_user, 64),
                       rng.integers(0, g.n_item, 64),
                       rng.integers(0, g.n_item, 64)], axis=1)
+    cor_ids = {"user": rng.integers(0, g.n_user, 50),
+               "item": rng.integers(0, g.n_item, 50),
+               "tag": rng.integers(0, g.n_tag, 50)}
     outs, grads = [], []
     for dev in ("cuda", "cpu"):
         model = make_model(g, dev)
         with torch.no_grad():
             outs.append([t.cpu() for t in model.forward()])
-        sum(model.bpr_loss(torch.as_tensor(batch, device=dev))).backward()
+        kw = ({"cor": {k: torch.as_tensor(v, device=dev)
+                       for k, v in cor_ids.items()}} if cor else {})
+        sum(model.bpr_loss(torch.as_tensor(batch, device=dev),
+                           **kw)).backward()
         grads.append([p.grad.cpu() for p in model.parameters()])
     err = max(float((a - b).abs().max()) for a, b in zip(*outs))
     ok = all(torch.allclose(a, b, rtol=RTOL, atol=ATOL) for a, b in zip(*outs))
@@ -243,13 +259,89 @@ def kernel_inputs(torch, f, n, r, dx, seed):
 # the ranks of DGCF's routing iterations in one forward (3 layers x 2
 # iterations): an all-zero rank-8 start, then 16 more per iteration
 DGCF_RANKS = (8, 16, 32, 48, 64, 80)
+# the ranks of the backward sweeps of one BPR step: each layer's last
+# routing iteration, the only routed_mm whose output reaches the loss other
+# than through q and k (which get no gradient)
+DGCF_BWD_RANKS = (16, 48, 80)
 
 
-def kernel_phase(torch, fr, mask):
-    """Each routing kernel against its plain version at every rank of one
-    DGCF forward; returns the per-kernel records, ms, plain_ms and bound_ms
-    summed over the forward's six launches (one per rank), with the r=80
-    launch's own numbers under "r80"."""
+def plain_bwd64(torch, fr, q, k, mask, g, base):
+    """routed_mm's gradient in x by the plain version's autograd, in
+    float64: the reference of the backward kernel, independent of its
+    formulation as the forward over the mask's transpose."""
+    f, m, dx = k.shape[0], k.shape[1], g.shape[2]
+    x = torch.zeros((f, m, dx), dtype=torch.float64, device=q.device,
+                    requires_grad=True)
+    out = fr.routed_mm_plain(q.double(), k.double(), mask, x, base)
+    (dx64,) = torch.autograd.grad(out, x, g.double())
+    return dx64
+
+
+def routing_cases(torch, fr, q, k, mask, mask_t, x, g, base):
+    """{kernel: (kernel call, float32 plain call, float64 reference)} of the
+    routing kernels on one set of inputs (the backward's plain call is what
+    the CPU path runs: the forward's plain version over mask^T)."""
+    q64, k64, x64 = q.double(), k.double(), x.double()
+    return {
+        "routed_rowsum": (lambda: fr.routed_rowsum(q, k, mask, base),
+                          lambda: fr.routed_rowsum_plain(q, k, mask, base),
+                          lambda: fr.routed_rowsum_plain(q64, k64, mask, base)),
+        "routed_mm": (lambda: fr.routed_mm(q, k, mask, x, base),
+                      lambda: fr.routed_mm_plain(q, k, mask, x, base),
+                      lambda: fr.routed_mm_plain(q64, k64, mask, x64, base)),
+        "routed_mm_bwd": (
+            lambda: fr.routed_mm_bwd(q, k, mask_t, g, base),
+            lambda: fr.routed_mm_plain(k, q, mask_t, g, base),
+            lambda: plain_bwd64(torch, fr, q, k, mask, g, base)),
+    }
+
+
+def check_routing(torch, name, label, kern, plain, plain64):
+    """One routing kernel against its plain version evaluated in float64 on
+    the same inputs: the heaviest rows sum up to 5,691 terms, and the
+    float32 plain version's own rounding on such a sum exceeds atol where
+    it cancels to near zero (its distance is printed too).  -> (the
+    kernel's output, max abs error)."""
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain64()
+    err = (got.double() - want).abs()
+    max_abs = float(err.max())
+    max_rel = float((err / want.abs().clamp_min(1e-30)).max())
+    ok = bool(torch.allclose(got.double(), want, rtol=RTOL, atol=ATOL))
+    plain_err = float((plain().double() - want).abs().max())
+    print(f"{name} {label}: max_abs_err {max_abs:.3e} max_rel_err "
+          f"{max_rel:.3e} against the float64 plain version "
+          f"(tolerance rtol {RTOL}, atol {ATOL}) "
+          f"{'ok' if ok else 'FAIL'}; the float32 plain version's "
+          f"max_abs_err {plain_err:.3e}")
+    check(ok, f"{name} {label} disagrees with its plain version")
+    check(bool(torch.isfinite(got).all()), f"{name} {label} not finite")
+    return got, max_abs
+
+
+def routing_bound(name, q, k, mask, x, nnz):
+    """(bytes time, operations time) in ms of one launch: each input read
+    and output written once, and the operations of the mask's edges only
+    (the backward is the forward's launch over mask^T, with g for x)."""
+    f, r, dx = q.shape[0], q.shape[2], x.shape[2]
+    io_bytes = (q.numel() + k.numel()) * 4 + mask.numel()
+    ops_per_edge = f * (2 * r + 4)  # scores, exp, sum over F, scale, row sum
+    if name == "routed_rowsum":
+        io_bytes += q.shape[0] * q.shape[1] * 4
+    else:  # x (or g) read, out written: [F, M, dx] and [F, N, dx]
+        io_bytes += (k.shape[1] + q.shape[1]) * f * dx * 4
+        ops_per_edge = f * (2 * r + 3 + 2 * dx)
+    return (io_bytes / PEAK_BYTES_PER_S * 1e3,
+            nnz * ops_per_edge / PEAK_F32_OPS_PER_S * 1e3)
+
+
+def kernel_phase(torch, fr, mask, mask_t):
+    """Each routing kernel (the backward over ``mask_t``) against its plain
+    version at every rank of one DGCF forward; returns the per-kernel
+    records, ms, plain_ms and bound_ms summed over one forward's six
+    launches (one per rank) or, for the backward, one BPR step's three
+    (DGCF_BWD_RANKS), with the r=80 launch's own numbers under "r80"."""
     f, dx, base = 4, 16, 1.0
     n, m = mask.shape
     nnz = int(mask.sum().item())
@@ -263,50 +355,20 @@ def kernel_phase(torch, fr, mask):
                       "library_ms": None} for name in ROUTING}
     for r in DGCF_RANKS:
         q, k, x = kernel_inputs(torch, f, n, r, dx, seed=r)
-        q64, k64, x64 = q.double(), k.double(), x.double()
-        cases = {
-            "routed_rowsum": (lambda: fr.routed_rowsum(q, k, mask, base),
-                              lambda: fr.routed_rowsum_plain(q, k, mask, base),
-                              lambda: fr.routed_rowsum_plain(q64, k64, mask,
-                                                             base)),
-            "routed_mm": (lambda: fr.routed_mm(q, k, mask, x, base),
-                          lambda: fr.routed_mm_plain(q, k, mask, x, base),
-                          lambda: fr.routed_mm_plain(q64, k64, mask, x64,
-                                                     base)),
-        }
-        # The kernel is held against the plain version evaluated in float64
-        # on the same inputs: the heaviest rows sum up to 5,691 terms, and the
-        # float32 plain version's own rounding on such a sum exceeds atol
-        # where it cancels to near zero (its distance is printed too).
+        g = torch.randn((f, n, dx), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(r))
+        cases = routing_cases(torch, fr, q, k, mask, mask_t, x, g, base)
         for name, (kern, plain, plain64) in cases.items():
-            got = kern()
-            torch.cuda.synchronize()
-            want = plain64()
-            err = (got.double() - want).abs()
-            max_abs = float(err.max())
-            max_rel = float((err / want.abs().clamp_min(1e-30)).max())
-            ok = bool(torch.allclose(got.double(), want, rtol=RTOL, atol=ATOL))
-            plain_err = float((plain().double() - want).abs().max())
-            print(f"{name} r={r}: max_abs_err {max_abs:.3e} max_rel_err "
-                  f"{max_rel:.3e} against the float64 plain version "
-                  f"(tolerance rtol {RTOL}, atol {ATOL}) "
-                  f"{'ok' if ok else 'FAIL'}; the float32 plain version's "
-                  f"max_abs_err {plain_err:.3e}")
-            check(ok, f"{name} r={r} disagrees with its plain version")
-            check(bool(torch.isfinite(got).all()), f"{name} r={r} not finite")
+            _, max_abs = check_routing(torch, name, f"r={r}", kern, plain,
+                                       plain64)
+            records[name]["max_abs_err"] = max(
+                records[name]["max_abs_err"], max_abs)
+            if name == "routed_mm_bwd" and r not in DGCF_BWD_RANKS:
+                continue  # checked; a BPR step does not run it
             ms = time_ms(torch, kern, runs=15)
             plain_ms = time_ms(torch, plain, runs=5)
-            # least time for this data: each input read and output written
-            # once, and the operations of the mask's edges only
-            io_bytes = (q.numel() + k.numel()) * 4 + mask.numel() + got.numel() * 4
-            ops_per_edge = f * (2 * r + 4)  # scores, exp, sum over F, scale, row sum
-            if name == "routed_mm":
-                io_bytes += x.numel() * 4
-                ops_per_edge = f * (2 * r + 3 + 2 * dx)
-            t_bytes = io_bytes / PEAK_BYTES_PER_S * 1e3
-            t_ops = nnz * ops_per_edge / PEAK_F32_OPS_PER_S * 1e3
+            t_bytes, t_ops = routing_bound(name, q, k, mask, x, nnz)
             rec = records[name]
-            rec["max_abs_err"] = max(rec["max_abs_err"], max_abs)
             for key, v in (("ms", ms), ("plain_ms", plain_ms),
                            ("bound_ms", max(t_bytes, t_ops)),
                            ("t_bytes", t_bytes), ("t_ops", t_ops)):
@@ -321,14 +383,83 @@ def kernel_phase(torch, fr, mask):
     for name, rec in records.items():
         t_bytes, t_ops = rec.pop("t_bytes"), rec.pop("t_ops")
         rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        rec["shape"] = (f"F={f} N={n} M={m} r={'/'.join(map(str, DGCF_RANKS))}"
-                        + (f" dx={dx}" if name == "routed_mm" else "")
-                        + "; per forward: one launch per rank")
-        print(f"{name}: {rec['ms']:.4f} ms per forward (plain "
+        bwd = name == "routed_mm_bwd"
+        per = "BPR step" if bwd else "forward"
+        ranks = DGCF_BWD_RANKS if bwd else DGCF_RANKS
+        rec["shape"] = (f"F={f} N={n} M={m} r={'/'.join(map(str, ranks))}"
+                        + ("" if name == "routed_rowsum" else f" dx={dx}")
+                        + f"; per DGCF {per}: one launch per rank")
+        print(f"{name}: {rec['ms']:.4f} ms per DGCF {per} (plain "
               f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']})); at r=80 {rec['r80']['ms']:.4f} ms a "
               f"launch (bound {rec['r80']['bound_ms']:.4f} ms)")
     return records
+
+
+def disengcn_kernel_phase(torch, fr, mask, mask_t, records):
+    """routed_mm and its backward at DisenGCN's shapes (F=4, r = dx = 16,
+    base 0; q, k and x unit rows, as new_fac and fac are) against their
+    plain versions; their ms, plain_ms and bound_ms per DisenGCN BPR step
+    (six forward launches, three backward) go under "disengcn" in
+    ``records``."""
+    from tagrec_tpu_torch.ops.propagate import l2_normalize
+
+    f, dk = 4, 16
+    n = mask.shape[0]
+    nnz = int(mask.sum().item())
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    q, k = (l2_normalize(torch.randn((f, n, dk), generator=gen,
+                                     device="cuda"), dim=2).contiguous()
+            for _ in range(2))
+    g = torch.randn((f, n, dk), generator=gen, device="cuda")
+    cases = routing_cases(torch, fr, q, k, mask, mask_t, k, g, 0.0)
+    # per BPR step: 3 layers x 2 routing rounds forward; backward, the
+    # last round of each layer (the first feeds only the next round's q)
+    per_step = {"routed_mm": 6, "routed_mm_bwd": 3}
+    for name, steps in per_step.items():
+        kern, plain, plain64 = cases[name]
+        _, max_abs = check_routing(torch, name, "DisenGCN r=16", kern, plain,
+                                   plain64)
+        ms = time_ms(torch, kern, runs=15)
+        plain_ms = time_ms(torch, plain, runs=5)
+        t_bytes, t_ops = routing_bound(name, q, k, mask, k, nnz)
+        rec = records[name]
+        rec["max_abs_err"] = max(rec["max_abs_err"], max_abs)
+        rec["disengcn"] = {"ms": steps * ms, "plain_ms": steps * plain_ms,
+                           "bound_ms": steps * max(t_bytes, t_ops),
+                           "bound_by": ("bytes" if t_bytes >= t_ops
+                                        else "operations")}
+        print(f"{name} DisenGCN r=16: kernel {ms:.4f} ms a launch (median "
+              f"of 15), plain {plain_ms:.3f} ms, bound "
+              f"{max(t_bytes, t_ops):.4f} ms; x{steps} per BPR step: "
+              f"{steps * ms:.4f} ms")
+
+
+def asymmetric_mask_check(torch, fr, records):
+    """The routing kernels on a non-symmetric mask whose rows, and its
+    transpose's, are off the 16-byte words (4001 x 2999, 1% dense, with
+    an empty row and column, a full row and column), given its own
+    contiguous transpose: a swapped q and k, or mask for mask_t, cannot
+    pass here."""
+    f, dx = 4, 16
+    n, m = 4001, 2999
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    mask = torch.rand((n, m), generator=gen, device="cuda") < 0.01
+    mask[7], mask[:, 11] = False, False
+    mask[9], mask[:, 13] = True, True
+    mask_t = mask.t().contiguous()
+    for r, base in ((16, 0.0), (80, 1.0)):
+        q = torch.randn((f, n, r), generator=gen, device="cuda") / r ** 0.5
+        k = torch.randn((f, m, r), generator=gen, device="cuda") / r ** 0.5
+        x = torch.randn((f, m, dx), generator=gen, device="cuda")
+        g = torch.randn((f, n, dx), generator=gen, device="cuda")
+        cases = routing_cases(torch, fr, q, k, mask, mask_t, x, g, base)
+        for name, (kern, plain, plain64) in cases.items():
+            _, max_abs = check_routing(
+                torch, name, f"non-symmetric {n}x{m} r={r} base={base}",
+                kern, plain, plain64)
+            records[name]["max_abs_err"] = max(
+                records[name]["max_abs_err"], max_abs)
 
 
 def profile_device(torch, fn, label: str, names):
@@ -445,8 +576,9 @@ def serving_phase(torch, fr, graph, model, tmp):
     n_iter = model.cfg.num_layer * model.cfg.iterate_k
     print(f"export_tables: forward {forward_ms:.3f} ms (first call, host "
           f"clock), launches {launches}")
-    check(launches == {"routed_rowsum": n_iter, "routed_mm": n_iter},
-          f"expected {n_iter} launches of each kernel, got {launches}")
+    check(launches == {"routed_rowsum": n_iter, "routed_mm": n_iter,
+                       "routed_mm_bwd": 0},
+          f"expected {n_iter} launches of each forward kernel, got {launches}")
     check(u_t.shape == (graph.n_user, 64) and i_t.shape == (graph.n_item, 64),
           f"table shapes {u_t.shape} {i_t.shape}")
     check(np.isfinite(u_t).all() and np.isfinite(i_t).all(),
@@ -481,6 +613,119 @@ def small_graph_check(torch):
     print(f"small-graph forward, cuda vs cpu: max_abs_err {err:.3e} "
           f"{'ok' if ok else 'FAIL'}")
     check(ok, "the CUDA forward disagrees with the CPU forward")
+
+
+def routed_training_phase(torch, fr, graph, name, want):
+    """``build_pipeline`` -> ``Trainer.run_phase``: ROUTED_BPR_STEPS BPR
+    steps of ``name`` (DGCF or DisenGCN) at the preset's width on
+    ``graph``, the launches of each step checked against ``want``; then one
+    step profiled.  Returns (pipeline, launches summed over the steps)."""
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+    from tagrec_tpu_torch.training.train import Trainer
+
+    t0 = time.perf_counter()
+    tcfg = TrainConfig()
+    pipe = build_pipeline(graph, model_preset(name), tcfg,
+                          generator=torch.Generator().manual_seed(0),
+                          device="cuda")
+    (bpr,) = pipe.phases
+    # the joint 'plain' mask is symmetric: the backward sweeps the mask
+    # itself, with no second 225 MB buffer
+    check(pipe.model.maskT is None and pipe.model.mask_t is pipe.model.mask,
+          f"{name}: the hetrec mask should be its own transpose")
+    print(f"{name} pipeline built in {time.perf_counter() - t0:.1f} s; "
+          f"{bpr.steps_per_epoch} steps an epoch; the mask is its own "
+          "transpose")
+    trainer = Trainer(pipe.model, pipe.phases, tcfg,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    label = f"{name} BPR"
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fr, ROUTING)
+    total = training_steps(torch, trainer, bpr, ROUTED_BPR_STEPS, label,
+                           launch_checker(fr, ROUTING, want, label))
+    print(f"{label}: launches per step {want}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    batch = bpr.make_batch(trainer.generator, 0, None, bpr.data)
+    profile_device(torch, lambda: trainer.step(bpr, batch), f"{label} step",
+                   {"routed_mm::mm_kernel": "routed_mm (forward, then "
+                                            "routed_mm_bwd)",
+                    "routed_rowsum::rowsum_kernel": "routed_rowsum",
+                    "multi_tensor_apply": "adam (foreach)",
+                    "gemm": "matmul (cuBLAS)"})
+    return pipe, total
+
+
+def dgcf_training_phase(torch, fr, graph):
+    """DGCF training on the hetrec graph, after the small-graph gradient
+    check (with the distance-correlation term); returns its launches."""
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.models import model_class
+
+    cfg = model_preset("dgcf", reg=1e-3, cor_reg=0.1)
+    small_graph_grad_check(torch, "DGCF", lambda g, dev: model_class("dgcf")(
+        g, cfg, device=dev, generator=torch.Generator().manual_seed(3)),
+        cor=True)
+    pipe, total = routed_training_phase(
+        torch, fr, graph, "dgcf",
+        {"routed_rowsum": 6, "routed_mm": 6, "routed_mm_bwd": 3})
+    del pipe
+    torch.cuda.empty_cache()
+    return total
+
+
+def disengcn_phase(torch, fr, graph, tmp):
+    """DisenGCN: the small-graph gradient check; training on the hetrec
+    graph; export -> artifact -> 3 top-k requests; one evaluation of every
+    test user.  Returns the launches of the steps, the export and the
+    evaluation."""
+    import math
+
+    import numpy as np
+
+    from tagrec_tpu_torch import serving
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.models import model_class
+
+    cfg = model_preset("disengcn", reg=1e-3)
+    small_graph_grad_check(torch, "DisenGCN", lambda g, dev: model_class(
+        "disengcn")(g, cfg, device=dev,
+                    generator=torch.Generator().manual_seed(3)))
+    fwd = {"routed_rowsum": 0, "routed_mm": 6, "routed_mm_bwd": 0}
+    pipe, total = routed_training_phase(
+        torch, fr, graph, "disengcn", {**fwd, "routed_mm_bwd": 3})
+    model = pipe.model
+
+    reset_counts(fr, ROUTING)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u_t, i_t = serving.export_tables(model, n_item=graph.n_item)
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    exported = counts(fr, ROUTING)
+    print(f"DisenGCN export_tables: forward {forward_ms:.3f} ms (first call, "
+          f"host clock), launches {exported}")
+    check(exported == fwd, f"expected {fwd} in a forward, got {exported}")
+    check(u_t.shape == (graph.n_user, 64) and i_t.shape == (graph.n_item, 64)
+          and np.isfinite(u_t).all() and np.isfinite(i_t).all(),
+          f"DisenGCN tables {u_t.shape} {i_t.shape}, or not finite")
+    steady_forward(torch, model, "DisenGCN")
+    serve_requests(torch, graph, u_t, i_t, tmp, "disengcn")
+
+    reset_counts(fr, ROUTING)
+    t0 = time.perf_counter()
+    res = pipe.evaluator.run(model)
+    evaluated = counts(fr, ROUTING)
+    print(f"DisenGCN evaluation of {len(graph.user_items['test'])} test "
+          f"users: {time.perf_counter() - t0:.3f} s (host clock), launches "
+          f"{evaluated} {json.dumps(res)}")
+    check(evaluated == fwd, f"expected {fwd} in the evaluation, got "
+                            f"{evaluated}")
+    check(all(len(res[k]) == 2 for k in ("recall", "precision", "hr", "ndcg"))
+          and all(math.isfinite(v) for vs in res.values() for v in vs)
+          and 0.0 < res["auc"][0] < 1.0, f"evaluation results {res}")
+    del pipe, model
+    torch.cuda.empty_cache()
+    return {k: total[k] + exported[k] + evaluated[k] for k in ROUTING}
 
 
 # ------------------------------------------------------------------- KGAT
@@ -1137,11 +1382,21 @@ def run(torch):
     print(f"graph {graph.num} and DGCF built in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    records = kernel_phase(torch, fr, model.mask)
+    records = kernel_phase(torch, fr, model.mask, model.mask_t)
+    disengcn_kernel_phase(torch, fr, model.mask, model.mask_t, records)
+    asymmetric_mask_check(torch, fr, records)
     with tempfile.TemporaryDirectory() as tmp:
         launches = serving_phase(torch, fr, graph, model, tmp)
     small_graph_check(torch)
     del model
+    torch.cuda.empty_cache()
+    trained = dgcf_training_phase(torch, fr, graph)
+    with tempfile.TemporaryDirectory() as tmp:
+        disen = disengcn_phase(torch, fr, graph, tmp)
+    launches = {k: launches[k] + trained[k] + disen[k] for k in ROUTING}
+    print(f"routing launches over DGCF's export and {ROUTED_BPR_STEPS} steps "
+          f"and DisenGCN's {ROUTED_BPR_STEPS} steps, export and evaluation: "
+          f"{launches}")
 
     t0 = time.perf_counter()
     tcfg = TrainConfig()
@@ -1178,6 +1433,7 @@ def run(torch):
     kernels = []
     sources = {"routed_rowsum": ("routed_rowsum.cu", "flash_routing.py:112"),
                "routed_mm": ("routed_mm.cu", "flash_routing.py:98"),
+               "routed_mm_bwd": ("routed_mm.cu", "flash_routing.py:175"),
                "dot_flash_stats": ("dot_flash_stats.cu",
                                    "flash_attention.py:76"),
                "dot_flash_apply": ("dot_flash_apply.cu",
@@ -1197,7 +1453,8 @@ def run(torch):
                         **{k: rec[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "device_ms",
-                            "library_device_ms", "shape", "r80")
+                            "library_device_ms", "shape", "r80",
+                            "disengcn")
                            if k in rec}})
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Composition root (tagrec_tpu/compose.py), cut to the families the port
-trains: LightGCN (one BPR phase) and KGAT (BPR over the train interactions
+trains: LightGCN (one BPR phase), KGAT (BPR over the train interactions
 and TransE over the six tag-graph relations, both stepping the Trainer's
-one Adam), each with the full-catalog evaluator.
+one Adam), and DGCF and DisenGCN (the resampling BPR phase, with the
+distance-correlation ids), each with the full-catalog evaluator.
 """
 
 from __future__ import annotations
@@ -18,9 +19,12 @@ from tagrec_tpu_torch.device import resolve
 from tagrec_tpu_torch.models import model_class
 from tagrec_tpu_torch.ops import sampling
 from tagrec_tpu_torch.training.evaluate import Evaluator
-from tagrec_tpu_torch.training.train import PhaseSpec, bpr_phase, triple_phase
+from tagrec_tpu_torch.training.train import (PhaseSpec, bpr_phase,
+                                             resampling_phase, triple_phase)
 
-TRAINED = ("kgat", "lightgcn")
+TRAINED = ("dgcf", "disengcn", "kgat", "lightgcn")
+# the families still to port, with their ROADMAP.md labels
+NOT_PORTED = {"ngcf": "A11", "disenhan": "A15", "tgcn": "A16"}
 
 
 @dataclass
@@ -45,21 +49,39 @@ def build_pipeline(graph: HeteroGraph, mcfg: ModelConfig, tcfg: TrainConfig,
     """The model, its phases and the evaluator on ``device``;
     ``generator`` (CPU) draws the weights."""
     if mcfg.name not in TRAINED:
+        label = NOT_PORTED.get(mcfg.name)
         raise NotImplementedError(
             f"training {mcfg.name!r} is not ported: the port trains "
-            f"{' and '.join(TRAINED)} (DGCF training is next, ROADMAP.md "
-            "'What is left')")
+            f"{', '.join(TRAINED)}"
+            + (f" ({mcfg.name} is ROADMAP.md {label})" if label else ""))
     dev = resolve(device)
     model = model_class(mcfg.name)(graph, mcfg, generator=generator,
                                    device=dev)
     pt = sampling.build_pos_table(graph.user_items["train"], graph.n_user,
                                   graph.n_item, device=dev)
+    edges = graph.edge_index["train"]
+    if mcfg.name in ("dgcf", "disengcn"):
+        def routed_loss_fn(batch, gen):
+            return model.bpr_loss(batch["bpr"], cor=batch.get("cor"),
+                                  generator=gen)
 
-    def bpr_loss_fn(batch, gen):
-        return model.bpr_loss(batch, generator=gen)
+        # JAX's step count, one more than the batches the edges fill
+        steps = len(edges) // tcfg.train_batch + 1
+        user_ids = np.asarray(sorted(graph.user_items["train"]),
+                              dtype=np.int64)
+        cor_sizes = {"user": (mcfg.cor_batch, graph.n_user),
+                     "item": (mcfg.cor_batch, graph.n_item)}
+        if mcfg.use_tag and graph.has_tags:
+            cor_sizes["tag"] = (mcfg.cor_batch, graph.n_tag)
+        phases = [resampling_phase(
+            "bpr", user_ids, pt, tcfg.train_batch, steps, routed_loss_fn,
+            cor_sizes=cor_sizes, neg_rounds=tcfg.neg_resample_rounds)]
+    else:
+        def bpr_loss_fn(batch, gen):
+            return model.bpr_loss(batch, generator=gen)
 
-    phases = [bpr_phase("bpr", graph.edge_index["train"], pt, tcfg.train_batch,
-                        bpr_loss_fn, neg_rounds=tcfg.neg_resample_rounds)]
+        phases = [bpr_phase("bpr", edges, pt, tcfg.train_batch, bpr_loss_fn,
+                            neg_rounds=tcfg.neg_resample_rounds)]
     if mcfg.name == "kgat":
         def transe_loss_fn(batch, gen):
             return model.transe_loss(batch)

@@ -1,10 +1,12 @@
-// routed_mm: out_f = (softmax_F(base + q_f k_f^T) * mask) @ x_f, forward only.
+// routed_mm: out_f = (softmax_F(base + q_f k_f^T) * mask) @ x_f.
 //
 // Replaces the Pallas TPU kernel tagrec_tpu/ops/flash_routing.py::_mm_kernel
-// (launched by routed_mm through _mm_call).  q [F, N, r], k [F, M, r] f32,
-// mask [N, M] int8 or bool, x [F, M, dx] f32 -> out [F, N, dx] f32.
-// F <= 4, r <= 128, dx <= 16.  The backward of the JAX routed_mm is this
-// same function over mask^T with q and k swapped.
+// (launched by routed_mm through _mm_call, and by its backward
+// _routed_mm_bwd).  q [F, N, r], k [F, M, r] f32, mask [N, M] int8 or bool,
+// x [F, M, dx] f32 -> out [F, N, dx] f32.  F <= 4, r <= 128, dx <= 16.  The
+// backward (ops/flash_routing.py::routed_mm_bwd) is this same launch over
+// the rows of mask^T with q and k swapped and x = the output's gradient:
+// dx_f = P_f^T g_f, at the forward's r and dx.
 //
 // Bound on an H100 (SXM, 700 W): bytes.  At the DGCF hetrec shapes (F = 4,
 // N = M = 15,000, r = 80, dx = 16) the mask is 225 MB, 0.067 ms at

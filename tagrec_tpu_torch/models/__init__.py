@@ -1,11 +1,14 @@
-"""Model zoo of the port (tagrec_tpu/models): DGCF (dense forward), KGAT
-(dense flash tier) and LightGCN (dense sectors, hybrid and ELL tiers)."""
+"""Model zoo of the port (tagrec_tpu/models): DGCF and DisenGCN (dense
+routing tier), KGAT (dense flash tier) and LightGCN (dense sectors, hybrid
+and ELL tiers)."""
 
 from tagrec_tpu_torch.models.dgcf import DGCF
+from tagrec_tpu_torch.models.disengcn import DisenGCN
 from tagrec_tpu_torch.models.kgat import KGAT
 from tagrec_tpu_torch.models.lightgcn import LightGCN
 
-MODEL_REGISTRY = {"dgcf": DGCF, "kgat": KGAT, "lightgcn": LightGCN}
+MODEL_REGISTRY = {"dgcf": DGCF, "disengcn": DisenGCN, "kgat": KGAT,
+                  "lightgcn": LightGCN}
 
 
 def model_class(name: str):
@@ -16,4 +19,5 @@ def model_class(name: str):
     return MODEL_REGISTRY[name]
 
 
-__all__ = ["DGCF", "KGAT", "LightGCN", "MODEL_REGISTRY", "model_class"]
+__all__ = ["DGCF", "DisenGCN", "KGAT", "LightGCN", "MODEL_REGISTRY",
+           "model_class"]

@@ -1,4 +1,4 @@
-"""DGCF (+tags), dense mode, forward only (tagrec_tpu/models/dgcf.py).
+"""DGCF (+tags), dense mode (tagrec_tpu/models/dgcf.py).
 
 Intent-disentangled propagation with per-edge factor routing: the dim-64
 embeddings split into ``factor_k`` chunks; each layer runs ``iterate_k``
@@ -8,7 +8,10 @@ score table is the low-rank series S_t = 1 + sum_tau U_tau V_tau^T, kept as
 the lists of update factors, and it persists across layers.  Each iteration
 runs the two routing kernels (``ops.flash_routing``) at its true rank, so
 the [F, N, N] adjacency never exists.  Final embeddings are the mean over
-[ego, layer_1..L].
+[ego, layer_1..L].  The loss is BPR on the final tables plus L2 on the ego
+rows and, when ``cor_reg`` > 0, the distance correlation of the factor
+chunks; gradients reach the embeddings through ``routed_mm``'s backward
+(the sweep over the mask's transpose).
 
 Only the dense tier is ported; the EdgeMap tier and the chunked XLA tier of
 the JAX model raise ``NotImplementedError``.
@@ -23,14 +26,16 @@ from tagrec_tpu_torch.config import ModelConfig
 from tagrec_tpu_torch.data.graph import HeteroGraph
 from tagrec_tpu_torch.device import resolve
 from tagrec_tpu_torch.models import base
-from tagrec_tpu_torch.ops import dense_adj, flash_routing
+from tagrec_tpu_torch.ops import dense_adj, flash_routing, losses
 from tagrec_tpu_torch.ops.propagate import l2_normalize
 
 
 class DGCF(nn.Module):
     """``embed`` holds the user, item[, tag] tables, drawn from
     ``generator`` (a CPU ``torch.Generator``); the edge mask of the joint
-    graph is a bool buffer [N, N] on ``device``."""
+    graph is a bool buffer [N, N] on ``device``, and ``maskT`` its
+    transpose, None where the mask is symmetric (``mask_t`` is the mask
+    then)."""
 
     def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
                  generator: torch.Generator, device="cuda"):
@@ -44,23 +49,17 @@ class DGCF(nn.Module):
             raise ValueError(f"dim_latent {cfg.dim_latent} is not a multiple "
                              f"of factor_k {cfg.factor_k}")
         self.dim_k = cfg.dim_latent // cfg.factor_k
-        if cfg.adj_mode == "ell":
-            raise NotImplementedError(
-                "adj_mode='ell' needs the EdgeMap tier (ROADMAP.md A17)")
-        if cfg.adj_mode == "dense_xla":
-            raise NotImplementedError(
-                "adj_mode='dense_xla' needs the chunked dense tier "
-                "(ROADMAP.md A12)")
         coo = graph.joint_norm_adj(cfg.norm_type, use_tag)  # 'plain'
-        if not dense_adj.use_dense(cfg.adj_mode, *coo.shape):
-            raise NotImplementedError(
-                f"a {coo.shape[0]}-node graph is over the dense budget of "
-                f"{dense_adj.DENSE_ADJ_BUDGET_BYTES} bytes and needs the "
-                "EdgeMap tier (ROADMAP.md A17)")
-        mask = dense_adj.dense_mask_host(coo.row, coo.col, *coo.shape)
-        self.register_buffer("mask", torch.from_numpy(mask).to(dev))
+        mask, mask_t = dense_adj.routing_masks(coo, cfg.adj_mode, dev)
+        self.register_buffer("mask", mask)
+        self.register_buffer("maskT", mask_t)
         self.embed = nn.ParameterList(
             base.init_embeddings(self.num_list, cfg.dim_latent, generator, dev))
+
+    @property
+    def mask_t(self):
+        """What ``routed_mm``'s backward sweeps: the mask's transpose."""
+        return self.mask if self.maskT is None else self.maskT
 
     def _iterate_update_dense(self, state, ego_embed):
         """One layer: ``iterate_k`` routing iterations.  ``state`` is the pair
@@ -86,7 +85,7 @@ class DGCF(nn.Module):
                              0.0)
             scaled = ego_f * dr[:, :, None]
             agg = flash_routing.routed_mm(ueff, veff, self.mask, scaled,
-                                          base=1.0)
+                                          base=1.0, mask_t=self.mask_t)
             femb = dr[:, :, None] * agg
             # score update factors, stored detached (the routed adjacency is
             # detached, so score gradients never reach the loss)
@@ -99,8 +98,7 @@ class DGCF(nn.Module):
         return (u_list, v_list), ego_embed
 
     def forward(self):
-        """-> (user, item[, tag]) propagated embeddings.  Forward only: run
-        it under ``torch.no_grad()``."""
+        """-> (user, item[, tag]) propagated embeddings."""
         ego = torch.cat(list(self.embed), dim=0)
         state = ([], [])
         outs = [ego]
@@ -110,6 +108,27 @@ class DGCF(nn.Module):
             outs.append(cur)
         final = torch.mean(torch.stack(outs, dim=0), dim=0)
         return base.split_nodes(final, self.num_list)
+
+    def bpr_loss(self, batch, *, cor=None, generator=None,
+                 training: bool = True):
+        """BPR on a [B, 3] (user, item+, item-) batch, the L2 term on the ego
+        rows -> (loss, reg * l2), and ``cor_reg`` times the distance
+        correlation of the factor chunks of the ``cor`` rows ({"user",
+        "item"[, "tag"]: ids}) when ``cor_reg`` > 0 and ``cor`` is given.
+        DGCF has no dropout: ``generator`` and ``training`` are unused."""
+        cfg = self.cfg
+        embs = self.forward()
+        parts = base.bpr_with_reg(embs[0], embs[1], self.embed[0],
+                                  self.embed[1], batch, cfg.mul_loss_func,
+                                  cfg.reg)
+        if cfg.cor_reg > 0.0 and cor is not None:
+            sel = [embs[0][cor["user"]], embs[1][cor["item"]]]
+            if "tag" in cor and len(embs) > 2:
+                sel.append(embs[2][cor["tag"]])
+            chunks = torch.split(torch.cat(sel, dim=0), self.dim_k, dim=1)
+            return parts + (cfg.cor_reg * losses.cor_loss(chunks,
+                                                          cfg.factor_k),)
+        return parts
 
     @torch.no_grad()
     def predict(self, users):

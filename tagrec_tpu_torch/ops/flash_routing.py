@@ -1,22 +1,28 @@
-"""Factor-softmax routing for DGCF's dense mode
+"""Factor-softmax routing for DGCF's and DisenGCN's dense mode
 (tagrec_tpu/ops/flash_routing.py).
 
-* ``routed_rowsum(q, k, mask, base)``  d_f[n] = sum_m P_f[n, m]
-* ``routed_mm(q, k, mask, x, base)``   out_f = P_f @ x_f
+* ``routed_rowsum(q, k, mask, base)``          d_f[n] = sum_m P_f[n, m]
+* ``routed_mm(q, k, mask, x, base, mask_t)``   out_f = P_f @ x_f
+* ``routed_mm_bwd(q, k, mask_t, g, base)``     dx_f = P_f^T @ g_f
 
 with P_f = softmax over the F factors of (base + q_f @ k_f^T), times the 0/1
-edge mask.  q [F, N, r], k [F, M, r], mask [N, M] (bool or int8),
-x [F, M, dx], all float32.
+edge mask.  q [F, N, r], k [F, M, r], mask [N, M] (bool or int8), its
+transpose mask_t [M, N], x [F, M, dx], g [F, N, dx], all float32.
 
 On a CUDA tensor each wrapper launches its hand-written kernel and counts
-the launch in its ``launches`` attribute: both are edge sweeps
+the launch in its ``launches`` attribute: both kernels are edge sweeps
 (``csrc/routed_rowsum.cu``, ``csrc/routed_mm.cu``, one per-edge body in
 ``csrc/routed.cuh``) that stream the mask rows once, work only the mask's
-nonzero entries and never write the [F, N, M] plane to device memory.  On a
-CPU tensor it runs the plain PyTorch version beside it, and only there: a
-CUDA tensor never falls back.  Both functions are forward only: DGCF
-detaches the routed adjacency, and the backward of ``routed_mm`` comes with
-the training slice, so ``routed_mm`` raises where a gradient is needed.
+nonzero entries and never write the [F, N, M] plane to device memory.
+``routed_mm_bwd`` is the ``routed_mm`` kernel over the rows of mask_t with
+q and k swapped, as JAX's ``_routed_mm_bwd`` is ``_mm_call`` over mask.T.
+On a CPU tensor each wrapper runs the plain PyTorch version beside it, and
+only there: a CUDA tensor never falls back.
+
+``routed_rowsum`` is a constant for autograd (JAX's stop_gradient).
+``routed_mm`` is differentiable in x only: the routing weights are
+detached, so q, k and the mask get no gradient (JAX gives them zeros), and
+its backward is ``routed_mm_bwd``, which on the card needs ``mask_t``.
 """
 
 from __future__ import annotations
@@ -118,16 +124,21 @@ def routed_mm_plain(q, k, mask, x, base: float = 0.0, chunk: int = 1024):
 
 # ------------------------------------------------------------------ wrappers
 
+def _on_card(name: str, q) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises on any other."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
+    return q.device.type == "cuda"
+
+
 def routed_rowsum(q, k, mask, base: float = 0.0):
     """d_f[n] = sum_m (softmax_F(base + q_f k_f^T) * mask)[n, m] -> [F, N].
 
     The result is a constant for autograd, as under JAX's stop_gradient."""
     _check(q, k, mask)
-    if q.device.type == "cpu":
+    if not _on_card("routed_rowsum", q):
         with torch.no_grad():
             return routed_rowsum_plain(q, k, mask, base)
-    if q.device.type != "cuda":
-        raise ValueError(f"routed_rowsum runs on cuda or cpu, not {q.device}")
     _check_kernel_args(q, k, mask)
     f, n, r = q.shape
     m = k.shape[1]
@@ -141,20 +152,8 @@ def routed_rowsum(q, k, mask, base: float = 0.0):
     return out
 
 
-def routed_mm(q, k, mask, x, base: float = 0.0):
-    """out_f = (softmax_F(base + q_f k_f^T) * mask) @ x_f -> [F, N, dx].
-
-    Forward only: raises when autograd would need a gradient through it."""
-    _check(q, k, mask, x)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, x)):
-        raise NotImplementedError(
-            "routed_mm is forward only (its backward, the same sweep over "
-            "mask^T, comes with the DGCF training slice): call it under "
-            "torch.no_grad()")
-    if q.device.type == "cpu":
-        return routed_mm_plain(q, k, mask, x, base)
-    if q.device.type != "cuda":
-        raise ValueError(f"routed_mm runs on cuda or cpu, not {q.device}")
+def _routed_mm_kernel(q, k, mask, x, base):
+    """One launch of csrc/routed_mm.cu on q's device; uncounted."""
     _check_kernel_args(q, k, mask, x)
     f, n, r = q.shape
     m, dx = k.shape[1], x.shape[2]
@@ -165,9 +164,69 @@ def routed_mm(q, k, mask, x, base: float = 0.0):
                  out.data_ptr(), f, n, m, r, dx, float(base),
                  torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "routed_mm")
-    routed_mm.launches += 1
     return out
+
+
+def routed_mm_bwd(q, k, mask_t, g, base: float = 0.0):
+    """dx_f = (softmax_F(base + q_f k_f^T) * mask)^T @ g_f -> [F, M, dx]: the
+    gradient of ``routed_mm`` in x (JAX ``_routed_mm_bwd``).  q [F, N, r],
+    k [F, M, r] are the forward's; mask_t [M, N] is the mask's transpose
+    (on the card contiguous, or the mask itself where it is symmetric);
+    g [F, N, dx] the output's gradient."""
+    _check(k, q, mask_t, g)
+    if not _on_card("routed_mm_bwd", q):
+        with torch.no_grad():
+            return routed_mm_plain(k, q, mask_t, g, base)
+    out = _routed_mm_kernel(k, q, mask_t, g, base)
+    routed_mm_bwd.launches += 1
+    return out
+
+
+class _RoutedMM(torch.autograd.Function):
+    """routed_mm with JAX's custom VJP: x gets ``routed_mm_bwd`` of the
+    output's gradient; q, k, mask and mask_t get none."""
+
+    @staticmethod
+    def forward(ctx, q, k, mask, x, base, mask_t):
+        if _on_card("routed_mm", q):
+            out = _routed_mm_kernel(q, k, mask, x, base)
+            routed_mm.launches += 1
+        else:
+            out = routed_mm_plain(q, k, mask, x, base)
+        ctx.save_for_backward(q, k, mask, mask_t)
+        ctx.base = base
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, mask, mask_t = ctx.saved_tensors
+        if mask_t is None:
+            if q.device.type != "cpu":
+                raise ValueError(
+                    "routed_mm's backward on the card needs mask_t, the "
+                    "mask's contiguous [M, N] transpose (or the mask itself "
+                    "where it is symmetric): pass it to routed_mm")
+            mask_t = mask.T  # a view: the plain version reads it back
+        dx = routed_mm_bwd(q, k, mask_t, g.contiguous(), ctx.base)
+        return None, None, None, dx, None, None
+
+
+def routed_mm(q, k, mask, x, base: float = 0.0, mask_t=None):
+    """out_f = (softmax_F(base + q_f k_f^T) * mask) @ x_f -> [F, N, dx].
+
+    Differentiable in x (q, k and the mask are constants, as in JAX); the
+    backward on the card needs ``mask_t``, the mask's contiguous [M, N]
+    transpose or, for a symmetric mask, the mask itself (build it once)."""
+    _check(q, k, mask, x)
+    if mask_t is not None:
+        _check(k, q, mask_t)
+    # q and k get no gradient (JAX's VJP gives them zeros); detached, they
+    # keep autograd from calling a backward whose only way to the loss is
+    # through them (DisenGCN's first routing round feeds only the next
+    # round's q), which would sweep a zero cotangent
+    return _RoutedMM.apply(q.detach(), k.detach(), mask, x, base, mask_t)
 
 
 routed_rowsum.launches = 0
 routed_mm.launches = 0
+routed_mm_bwd.launches = 0

@@ -1,6 +1,6 @@
 """Loss functions (tagrec_tpu/ops/losses.py), cut to what the ported slices
-use: the pairwise BPR loss, the batch-mean L2 term and KGAT's squared-norm
-TransE loss."""
+use: the pairwise BPR loss, the batch-mean L2 term, KGAT's squared-norm
+TransE loss and DGCF's distance-correlation loss."""
 
 from __future__ import annotations
 
@@ -32,3 +32,38 @@ def transe_loss_sq(head_e, rela_e, pos_tail_e, neg_tail_e) -> torch.Tensor:
     pos = torch.sum(torch.square(head_e + rela_e - pos_tail_e), dim=1)
     neg = torch.sum(torch.square(head_e + rela_e - neg_tail_e), dim=1)
     return torch.mean(F.softplus(pos - neg))
+
+
+def _relu0(x: torch.Tensor) -> torch.Tensor:
+    """max(x, 0) with JAX's gradient at a tie (half to each side), which
+    ``torch.clamp`` would give whole: the distance matrix's diagonal sits
+    at 0 exactly."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
+def cor_loss(factor_embs, factor_k: int) -> torch.Tensor:
+    """Distance correlation between neighbouring factor chunks [B, dk],
+    summed over the factor_k - 1 pairs and divided by (k + 1) k / 2, with
+    JAX's 1e-8 and 1e-10 guards."""
+
+    def centered_distance(x):
+        r = torch.sum(x * x, dim=1, keepdim=True)
+        d = torch.sqrt(_relu0(r - 2 * x @ x.T + r.T) + 1e-8)
+        return (d - torch.mean(d, dim=0, keepdim=True)
+                - torch.mean(d, dim=1, keepdim=True) + torch.mean(d))
+
+    def distance_covariance(d1, d2):
+        n = d1.shape[0]
+        return torch.sqrt(_relu0(torch.sum(d1 * d2) / (n * n)) + 1e-8)
+
+    def distance_correlation(x, y):
+        d1, d2 = centered_distance(x), centered_distance(y)
+        dxy = distance_covariance(d1, d2)
+        dxx = distance_covariance(d1, d1)
+        dyy = distance_covariance(d2, d2)
+        return dxy / (torch.sqrt(_relu0(dxx * dyy)) + 1e-10)
+
+    loss = 0.0
+    for i in range(factor_k - 1):
+        loss = loss + distance_correlation(factor_embs[i], factor_embs[i + 1])
+    return loss / ((factor_k + 1.0) * factor_k / 2.0)

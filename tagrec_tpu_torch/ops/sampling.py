@@ -1,4 +1,4 @@
-"""On-device negative sampling (tagrec_tpu/ops/sampling.py).
+"""On-device negative and positive sampling (tagrec_tpu/ops/sampling.py).
 
 Positive sets live on the device; negatives are drawn uniformly with a fixed
 number of masked re-draw rounds in place of a host rejection loop.  After R
@@ -69,6 +69,16 @@ def sample_negatives(generator: torch.Generator, pt: PosTable,
                           generator=generator, device=heads.device)
     bad = torch.any(cands[:, :, None] == rows[None, :, :], dim=-1)  # [R, B]
     return _first_good(cands, bad)
+
+
+def sample_positive(generator: torch.Generator, pt: PosTable,
+                    heads: torch.Tensor) -> torch.Tensor:
+    """One uniformly drawn positive id per head: a draw below 2**31 - 1
+    modulo the head's degree (at least 1), as JAX draws it."""
+    deg = torch.clamp(pt.deg[heads], min=1)
+    j = torch.randint(0, 2**31 - 1, heads.shape, generator=generator,
+                      device=heads.device) % deg
+    return torch.gather(pt.table[heads], 1, j[:, None])[:, 0]
 
 
 class TripleSet(NamedTuple):

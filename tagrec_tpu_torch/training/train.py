@@ -1,8 +1,10 @@
 """Multi-phase training loop (tagrec_tpu/training/train.py).
 
 An epoch runs the model's phases in order (BPR for LightGCN; BPR, then
-TransE for KGAT), all stepping ONE shared Adam.  Batches have fixed shapes:
-steps = E // batch and the remainder is dropped.  Sampling (shuffles,
+TransE for KGAT; DGCF and DisenGCN's resampling BPR), all stepping ONE
+shared Adam.  Batches have fixed shapes: steps = E // batch and the
+remainder is dropped (the resampling phase takes its step count from the
+caller).  Sampling (shuffles,
 negatives) runs on the tables' device from one ``torch.Generator``.  The
 step loop is plain Python; a step ends without a host sync, and the losses
 come back to the host once per phase.  ``Trainer.run`` adds the periodic
@@ -62,6 +64,51 @@ def bpr_phase(name: str, edges: np.ndarray, pos_table: sampling.PosTable,
         neg = sampling.sample_negatives(gen, data["pt"], users,
                                         rounds=neg_rounds)
         return torch.stack([users, pos, neg], dim=1)
+
+    return PhaseSpec(name, steps, epoch_reset, make_batch, loss_fn, data)
+
+
+def resampling_phase(name: str, user_ids: np.ndarray,
+                     pos_table: sampling.PosTable, batch: int, steps: int,
+                     loss_fn, cor_sizes: Optional[Dict[str, tuple]] = None,
+                     neg_rounds: int = 16) -> PhaseSpec:
+    """The DGCF family's phase: every step draws ``batch`` users of
+    ``user_ids``, one positive and one negative each -> {"bpr": [B, 3]},
+    and, per entry ``name: (n, hi)`` of ``cor_sizes``, n ids below hi for
+    the distance-correlation term -> {"cor": {name: [n]}}.
+
+    Users are drawn without replacement within a batch only when
+    ``len(user_ids) > batch``, a strict inequality (at equality the
+    reference draws with replacement, a quirk kept on purpose), with
+    replacement otherwise."""
+    cor_sizes = cor_sizes or {}
+    n_users = len(user_ids)
+    without_replacement = n_users > batch
+    device = pos_table.table.device
+    data = {"users": torch.as_tensor(np.asarray(user_ids, dtype=np.int64),
+                                     device=device),
+            "pt": pos_table}
+
+    def epoch_reset(gen, data):
+        return None  # stateless
+
+    def make_batch(gen, i, _, data):
+        if without_replacement:
+            sel = torch.randperm(n_users, generator=gen,
+                                 device=device)[:batch]
+        else:
+            sel = torch.randint(0, n_users, (batch,), generator=gen,
+                                device=device)
+        users = data["users"][sel]
+        pos = sampling.sample_positive(gen, data["pt"], users)
+        neg = sampling.sample_negatives(gen, data["pt"], users,
+                                        rounds=neg_rounds)
+        out = {"bpr": torch.stack([users, pos, neg], dim=1)}
+        if cor_sizes:
+            out["cor"] = {key: torch.randint(0, hi, (nb,), generator=gen,
+                                             device=device)
+                          for key, (nb, hi) in cor_sizes.items()}
+        return out
 
     return PhaseSpec(name, steps, epoch_reset, make_batch, loss_fn, data)
 

@@ -581,3 +581,96 @@ def test_lightgcn_hybrid_on_the_card_matches_the_cpu(cuda):
         torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=5e-4, atol=ATOL)
+
+
+# ------------------------------------------- routed_mm's backward (DGCF family)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,r,base", [(301, 277, 80, 1.0), (9, 15000, 16, 0.0),
+                                        (1537, 1001, 8, 1.0)])
+def test_routed_mm_backward_matches_plain_autograd(cuda, n, m, r, base):
+    """The backward of routed_mm, the routed_mm kernel over the rows of
+    mask_t with q and k swapped, against the plain version's autograd in x
+    evaluated in float64, on a non-symmetric mask with rows off the 16-byte
+    words (its transpose's rows too); q and k get no gradient."""
+    rng = np.random.default_rng(n + m)
+    f, dx = 4, 16
+    q, k, x, g = (torch.from_numpy((rng.standard_normal(shape)
+                                    / np.sqrt(shape[2])).astype(np.float32))
+                  .to(cuda) for shape in ((f, n, r), (f, m, r), (f, m, dx),
+                                          (f, n, dx)))
+    mask_np = _edge_rows_mask(n, m, seed=n)
+    mask_np[:, 3] = False  # an empty column: its gradient is 0
+    mask = torch.from_numpy(mask_np).to(cuda)
+    mask_t = torch.from_numpy(np.ascontiguousarray(mask_np.T)).to(cuda)
+    q.requires_grad_()
+    x.requires_grad_()
+    before = (fr.routed_mm.launches, fr.routed_mm_bwd.launches)
+    fr.routed_mm(q, k, mask, x, base, mask_t=mask_t).backward(g)
+    torch.cuda.synchronize()
+    assert (fr.routed_mm.launches, fr.routed_mm_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert q.grad is None
+    x64 = x.detach().double().requires_grad_()
+    fr.routed_mm_plain(q.detach().double(), k.double(), mask, x64,
+                       base).backward(g.double())
+    torch.testing.assert_close(x.grad, x64.grad.float(), rtol=RTOL, atol=ATOL)
+    assert torch.all(x.grad[:, 3] == 0)
+    # the wrapper called directly gives the same, from an int8 mask_t too
+    direct = fr.routed_mm_bwd(q.detach(), k, mask_t.to(torch.int8), g, base)
+    torch.testing.assert_close(direct, x.grad, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_routed_mm_backward_needs_mask_t_on_the_card(cuda):
+    q, k, mask, x = _inputs(4, 40, 30, 16, 16, False, cuda)
+    out = fr.routed_mm(q, k, mask, x.requires_grad_(), 1.0)
+    before = fr.routed_mm_bwd.launches
+    with pytest.raises(ValueError, match="mask_t"):
+        out.sum().backward()
+    assert fr.routed_mm_bwd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cfg,rowsum", [
+    ("dgcf", dict(reg=1e-3, cor_reg=0.1), 6), ("disengcn", dict(reg=1e-3), 0)])
+def test_routed_models_on_the_card_match_the_cpu(cuda, name, cfg, rowsum):
+    """DGCF and DisenGCN at the preset's widths on a small graph: forward,
+    loss parts and BPR gradients on the card against the CPU's plain path,
+    and the launches of one BPR step (DGCF: 6 routed_rowsum, 6 routed_mm
+    and 3 backward; DisenGCN: 6 routed_mm and 3 backward: only each
+    layer's last routing iteration reaches the loss other than through q
+    and k)."""
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.data.synthetic import synthetic_graph
+    from tagrec_tpu_torch.models import model_class
+
+    g = synthetic_graph(n_user=40, n_item=90, n_tag=25, avg_deg=8, seed=7)
+    rng = np.random.default_rng(0)
+    batch = np.stack([rng.integers(0, g.n_user, 64),
+                      rng.integers(0, g.n_item, 64),
+                      rng.integers(0, g.n_item, 64)], axis=1)
+    cor = {"user": rng.integers(0, g.n_user, 50),
+           "item": rng.integers(0, g.n_item, 50),
+           "tag": rng.integers(0, g.n_tag, 50)}
+    outs, parts, grads, launches = [], [], [], []
+    counters = (fr.routed_rowsum, fr.routed_mm, fr.routed_mm_bwd)
+    for dev in (cuda, torch.device("cpu")):
+        model = model_class(name)(g, model_preset(name, **cfg), device=dev,
+                                  generator=torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            outs.append([t.cpu() for t in model.forward()])
+        before = [c.launches for c in counters]
+        p = model.bpr_loss(torch.as_tensor(batch, device=dev),
+                           cor={key: torch.as_tensor(v, device=dev)
+                                for key, v in cor.items()})
+        sum(p).backward()
+        launches.append([c.launches - b for c, b in zip(counters, before)])
+        parts.append(torch.stack([t.detach().cpu() for t in p]))
+        grads.append([t.grad.cpu() for t in model.parameters()])
+    assert launches == [[rowsum, 6, 3], [0, 0, 0]]
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(parts[0], parts[1], rtol=RTOL, atol=ATOL)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=ATOL)

@@ -62,21 +62,36 @@ def test_routed_rowsum_matches_jax(r, base, zero):
 
 def test_cpu_calls_launch_no_kernel():
     q, k, x, mask = _torch(*_inputs(8, False))
-    before = (tfr.routed_rowsum.launches, tfr.routed_mm.launches)
+    counters = (tfr.routed_rowsum, tfr.routed_mm, tfr.routed_mm_bwd)
+    before = [c.launches for c in counters]
     with torch.no_grad():
         tfr.routed_rowsum(q, k, mask, 1.0)
         tfr.routed_mm(q, k, mask, x, 1.0)
-    assert (tfr.routed_rowsum.launches, tfr.routed_mm.launches) == before
+    tfr.routed_mm(q, k, mask, x.requires_grad_(), 1.0).sum().backward()
+    assert [c.launches for c in counters] == before
 
 
 def test_routed_mm_is_forward_only_and_checks_shapes():
+    """routed_mm is differentiable in x only, with the backward of JAX's
+    custom VJP (the sweep over the mask's transpose; test_torch_dgcf_training.py
+    holds it against JAX's), and checks shapes and dtypes, mask_t's too."""
     q, k, x, mask = _torch(*_inputs(8, False))
-    with pytest.raises(NotImplementedError, match="forward only"):
-        tfr.routed_mm(q, k, mask, x.requires_grad_(), 1.0)
+    q.requires_grad_()
+    out = tfr.routed_mm(q, k, mask, x.requires_grad_(), 1.0)
+    g = torch.ones_like(out)
+    out.backward(g)
+    assert q.grad is None and k.grad is None
+    with torch.no_grad():
+        want = tfr.routed_mm_plain(k, q, mask.T, g, 1.0)
+    torch.testing.assert_close(x.grad, want, rtol=RTOL, atol=ATOL)
     with pytest.raises(ValueError, match="shape mismatch"):
         tfr.routed_rowsum(q, k[:, :-1], mask)
     with pytest.raises(TypeError, match="mask dtype"):
         tfr.routed_rowsum(q, k, mask.float())
+    with pytest.raises(ValueError, match="shape mismatch"):
+        tfr.routed_mm(q, k, mask, x, 1.0, mask_t=mask)
+    with pytest.raises(TypeError, match="mask dtype"):
+        tfr.routed_mm(q, k, mask, x, 1.0, mask_t=mask.T.float())
 
 
 

@@ -196,9 +196,13 @@ def test_window_batches_equal_jax(tiny_graph):
         np.testing.assert_array_equal(got[:, :3], want[:, :3])
 
 
-def test_only_kgat_trains():
+@pytest.mark.parametrize("name,label", [("ngcf", "A11"), ("disenhan", "A15"),
+                                        ("tgcn", "A16")])
+def test_only_kgat_trains(name, label):
+    """The families still to port raise, each naming its ROADMAP label
+    (LightGCN, KGAT, DGCF and DisenGCN train)."""
     graph = tsyn.synthetic_graph(**TINY)
-    with pytest.raises(NotImplementedError, match="DGCF training"):
-        build_pipeline(graph, model_preset("dgcf"), TrainConfig(),
+    with pytest.raises(NotImplementedError, match=label):
+        build_pipeline(graph, model_preset(name), TrainConfig(),
                        generator=torch.Generator().manual_seed(0),
                        device="cpu")
