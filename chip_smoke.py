@@ -27,14 +27,15 @@ Phases:
    a small graph); DisenGCN the same, then export -> artifact -> 3 top-k
    requests and one evaluation of every test user;
 3. KGAT ``bi_inter``: each flash-attention kernel against its plain version
-   at the path's shapes (three row types, dq 64, dx 64 and 32), with its
-   time, bound, plain time and, for apply, one
-   ``scaled_dot_product_attention`` call as a yardstick (``dot_bwd_row`` and
-   ``dot_bwd_col``, which sweeps the model's transposed masks, against their
-   plain versions evaluated in float64); serving (forward ->
-   export -> artifact -> 3 top-k requests), then training (5 BPR steps and
-   3 TransE steps through the Trainer's one Adam), the launches counted per
-   forward and per step, one BPR step profiled; forward and BPR gradients
+   at the path's shapes (three row types, dq 64, dx 64 and 32; stats also
+   at a split off every 64-column tile), with its time, bound, plain time
+   and, for apply, one ``scaled_dot_product_attention`` call as a yardstick
+   (``dot_bwd_row`` and ``dot_bwd_col``, which sweeps the model's transposed
+   masks, against their plain versions evaluated in float64); serving
+   (forward -> export -> artifact -> 3 top-k requests, one forward
+   profiled), then training (5 BPR steps and 3 TransE steps through the
+   Trainer's one Adam), the launches counted per forward and per step, one
+   BPR step profiled; forward and BPR gradients
    against the CPU path on a small graph;
 4. LightGCN on the 10x graph (150,000 joint nodes, so the hybrid tier:
    hub block + degree-bucketed ELL): the tier and bucket shapes; each
@@ -85,6 +86,9 @@ LGCN_10X = (20000, 100000, 30000, 4_000_000)
 LGCN_BPR_STEPS, HETREC_BPR_STEPS = 5, 5
 # KGAT's propagation inputs per forward: dx 64 at layers 0 and 1, 32 at 2
 KGAT_DX = ((64, 2), (32, 1))
+# stats is also held at the row type's split plus this, off every 64-column
+# tile (the edge sweeps choose the plane per edge)
+STATS_SPLIT_SHIFT = 37
 
 
 class SmokeFailure(RuntimeError):
@@ -796,19 +800,25 @@ def check_flash_kernels(torch, fa, q2, k, mask, mask_t, split, x, g, label,
                         BWD_RTOL),
     }
     for name, (pairs, rtol) in cases.items():
-        res = [compare(torch, got, want, rtol) for got, want in pairs]
-        ok = all(r[0] for r in res)
-        max_abs = max(r[1] for r in res)
         against = ("against the float64 plain version; the float32 plain "
                    f"version's max_abs_err {err32[name]:.3e} "
                    if name in err32 else "")
-        print(f"{name} {label}: max_abs_err {max_abs:.3e} max_rel_err "
-              f"{max(r[2] for r in res):.3e} {against}(rtol {rtol}, atol "
-              f"{ATOL}) {'ok' if ok else 'FAIL'}")
-        check(ok, f"{name} {label} disagrees with its plain version")
-        check(all(bool(torch.isfinite(got).all()) for got, _ in pairs),
-              f"{name} {label} not finite")
-        recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], max_abs)
+        hold_flash(torch, name, label, pairs, rtol, against, recs)
+
+
+def hold_flash(torch, name, label, pairs, rtol, against, recs):
+    """Each (kernel output, plain output) pair allclose at rtol/ATOL and
+    finite; keeps the largest abs error in ``recs[name]``."""
+    res = [compare(torch, got, want, rtol) for got, want in pairs]
+    ok = all(r[0] for r in res)
+    max_abs = max(r[1] for r in res)
+    print(f"{name} {label}: max_abs_err {max_abs:.3e} max_rel_err "
+          f"{max(r[2] for r in res):.3e} {against}(rtol {rtol}, atol "
+          f"{ATOL}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{name} {label} disagrees with its plain version")
+    check(all(bool(torch.isfinite(got).all()) for got, _ in pairs),
+          f"{name} {label} not finite")
+    recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], max_abs)
 
 
 def time_flash_kernels(torch, fa, q2, k, mask, mask_t, split, x, g, nnz,
@@ -857,19 +867,17 @@ def time_flash_kernels(torch, fa, q2, k, mask, mask_t, split, x, g, nnz,
         plain_ms = time_ms(torch, plain, runs=5)
         t_bytes = io[name] / PEAK_BYTES_PER_S * 1e3
         t_ops = nnz * per_edge[name] / PEAK_F32_OPS_PER_S * 1e3
-        dense_ms = ns * nd * per_edge[name] / PEAK_F32_OPS_PER_S * 1e3
         rec, n = recs[name], n_launch[name]
         rec["ms"] += n * ms
         rec["plain_ms"] += n * plain_ms
         rec["bound_ms"] += n * max(t_bytes, t_ops)
         rec["t_bytes"] += n * t_bytes
         rec["t_ops"] += n * t_ops
-        rec["dense_ms"] += n * dense_ms
         print(f"{name} {label}: kernel {ms:.3f} ms (median of 15), plain "
               f"{plain_ms:.3f} ms (median of 5), bound "
               f"{max(t_bytes, t_ops):.4f} ms "
-              f"({'bytes' if t_bytes >= t_ops else 'operations'}), dense "
-              f"float32 sweep at peak {dense_ms:.3f} ms; x{n} per pass")
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}); x{n} per "
+              "pass")
     return out
 
 
@@ -905,9 +913,8 @@ def flash_kernel_phase(torch, fa, model):
     one forward's launches (stats, apply) or one BPR step's (bwd_row,
     bwd_col): one stats launch per row type, and dx 64 twice and 32 once
     per row type for the others."""
-    F = torch.nn.functional
     recs = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                "bound_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0, "dense_ms": 0.0,
+                "bound_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0,
                 "library_ms": None} for n in FLASH}
     recs["dot_flash_apply"]["library_ms"] = 0.0
     shapes = []
@@ -915,12 +922,8 @@ def flash_kernel_phase(torch, fa, model):
             model.flash_masks(), model.flash_masks_t(), model.flash_splits())):
         ns, nd = mask.shape
         nnz = int(mask.sum(dtype=torch.int64))
-        tiles = F.pad(mask, (0, -nd % 64, 0, -ns % 64)).reshape(
-            -(-ns // 64), 64, -(-nd // 64), 64).ne(0).any(3).any(1)
         print(f"row type {a}: mask {ns}x{nd}, split {split}, {nnz} edges "
-              f"({100.0 * nnz / (ns * nd):.3f}% dense); "
-              f"{100.0 * float(tiles.float().mean()):.2f}% of 64x64 tiles "
-              "hold an edge")
+              f"({100.0 * nnz / (ns * nd):.3f}% dense)")
         shapes.append(f"{ns}x{nd}/{split}")
         for dx, per_pass in KGAT_DX:
             label = f"type {a} dx={dx}"
@@ -931,6 +934,13 @@ def flash_kernel_phase(torch, fa, model):
             check_flash_kernels(torch, fa, q2, k * (0.3 / float(k.std())),
                                 mask, mask_t, split, x, g, f"{label} k unit",
                                 recs)
+            if dx == KGAT_DX[0][0]:  # stats at a split off every tile
+                off = split + STATS_SPLIT_SHIFT
+                check(off <= nd, f"split {off} past the {nd} columns")
+                m, z = fa.dot_flash_stats(q2, k, mask, off)
+                want_m, want_z = fa.dot_flash_stats_plain(q2, k, mask, off)
+                hold_flash(torch, "dot_flash_stats", f"type {a} split {off}",
+                           [(m, want_m), (z, want_z)], RTOL, "", recs)
             # one stats sweep per row type, whatever dx
             n_launch = {name: per_pass for name in FLASH}
             n_launch["dot_flash_stats"] = int(dx == KGAT_DX[0][0])
@@ -940,7 +950,6 @@ def flash_kernel_phase(torch, fa, model):
                 torch, q2, k, mask.bool(), split, x, out, label)
     for name, rec in recs.items():
         t_bytes, t_ops = rec.pop("t_bytes"), rec.pop("t_ops")
-        dense_ms = rec.pop("dense_ms")
         rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         per = "BPR step" if name.startswith("dot_bwd") else "forward"
         rec["shape"] = (f"Ns x Nd / split {', '.join(shapes)}; dq=64; per "
@@ -951,8 +960,7 @@ def flash_kernel_phase(torch, fa, model):
                else f"{rec['library_ms']:.3f} ms")
         print(f"{name}: {rec['ms']:.3f} ms per {per} (plain "
               f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']}), dense float32 sweep at peak "
-              f"{dense_ms:.3f} ms, library {lib})")
+              f"({rec['bound_by']}), library {lib})")
     return recs
 
 
@@ -982,6 +990,12 @@ def kgat_serving_phase(torch, fa, graph, model, tmp):
           "KGAT exported tables are not finite")
     print(f"KGAT tables: user {u_t.shape}, item {i_t.shape}, finite")
     steady_forward(torch, model, "KGAT")
+
+    def forward():
+        with torch.no_grad():
+            model.forward()
+
+    profile_device(torch, forward, "KGAT forward", FLASH_KERNEL_NAMES)
     serve_requests(torch, graph, u_t, i_t, tmp, "kgat")
     return launches
 

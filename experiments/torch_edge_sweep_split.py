@@ -1,9 +1,9 @@
 """Where the port's edge-sweep kernels spend their time, on one NVIDIA GPU.
 
 routed_rowsum and routed_mm (DGCF, at every rank of a forward),
-dot_flash_apply and dot_bwd_row (KGAT bi_inter, each row type, dx 64 and
-32), and dot_bwd_col (the same, over the transposed mask) run on three
-masks at the hetrec graph's shapes:
+dot_flash_stats (KGAT bi_inter, each row type), dot_flash_apply and
+dot_bwd_row (each row type, dx 64 and 32), and dot_bwd_col (the same, over
+the transposed mask) run on three masks at the hetrec graph's shapes:
 
 * full: the model's own mask (for dot_bwd_col its transpose);
 * light rows: the same mask with every row of more than 400 edges
@@ -89,6 +89,11 @@ def main() -> int:
                 q2, k, x, g = cs.flash_inputs(torch, ns, nd, dx, seed=a)
                 times = {"dot_flash_apply": {}, "dot_bwd_row": {},
                          "dot_bwd_col": {}}
+                if dx == cs.KGAT_DX[0][0]:  # stats does not depend on dx
+                    times["dot_flash_stats"] = {
+                        name: cs.device_ms(torch, lambda: fa.dot_flash_stats(
+                            q2, k, mk, split))
+                        for name, mk in variants.items()}
                 edges = {"dot_bwd_col": variants_t["light rows"][1]}
                 for name, mk in variants.items():
                     m, z = fa.dot_flash_stats(q2, k, mk, split)

@@ -2,86 +2,130 @@
 //
 // Replaces the Pallas TPU kernel tagrec_tpu/ops/flash_attention.py::
 // _dot_stats_kernel (launched by dot_flash_stats through _dot_stats).
-// q2 [2, Ns, dq], k [Nd, dq] f32, mask [Ns, Nd] int8 (0/1), split (a column
-// offset, a multiple of 64) -> m [Ns], z [Ns] f32: m = max over the row's
-// edges of S (NEG for a row with none), z = sum over them of exp(S - m).
+// q2 [2, Ns, dq], k [Nd, dq] f32 (dq <= 64), mask [Ns, Nd] int8 (0/1),
+// split (any column offset) -> m [Ns], z [Ns] f32, where over the row's
+// edges (i, j) (mask > 0)
+//   S = q2[p(j)][i] . k[j],  p(j) = (j >= split),
+//   m[i] = max(NEG, max S),  z[i] = sum exp(S - m[i]) * mask
+// (the mask byte is the weight, as JAX multiplies by it); a row with no
+// edge gives exactly (NEG, 0).
 //
-// Bound on an H100 (SXM, 700 W): the function reads the mask once (1 byte a
-// pair) and needs the scores of the mask's edges only, 2*dq + 3 operations
-// each; at KGAT's hetrec shapes that is bytes-bound (27 MB of mask for the
-// user rows, about 8 us at 3.35 TB/s).  The kernel computes every pair of
-// the tile (the edges are spread over nearly every 64 x 64 tile, so no tile
-// can be skipped), 2*dq FMAs-worth of operations a pair on the CUDA cores,
-// so it is bound by the dense sweep's arithmetic.  Design: one block per 64
-// rows walks every column tile; each thread keeps its own online (m, z) for
-// its 4 rows over its 4 columns of each tile, and the 16 column lanes of a
-// row are merged once at the end with warp shuffles, so a tile needs no
-// reduction and no barrier beyond the k tile's load.  See dot_flash.cuh.
+// Bound on an H100 (SXM, 700 W): bytes.  At KGAT's hetrec shapes the three
+// row types' masks (117 MB, about 0.035 ms a pass at 3.35 TB/s) are
+// 0.46-1.49% dense, and each edge needs 2*dq + 4 float32 operations (its
+// score and one online-softmax step: about 0.002 ms a pass at 67 TFLOP/s)
+// and a gathered k row from the L2 (at most 3.4 MB).  Each edge's dot is
+// against its own k row: there is no shared tile for the tensor cores, so
+// the kernel is CUDA-core float32 and its effort goes into keeping the mask
+// stream and the gathers in flight.
+//
+// Design (mask_rows.cuh), as dot_flash_apply.cu: a row-streamed edge sweep.
+// wpr warps own a row i, and its two q rows are staged once in shared
+// memory.  A warp works 8 edges at a time, 4 lanes an edge: lane l takes
+// the columns col_of(l, t) of k (as float4 where dq is a multiple of 4 and
+// k lies on a 16-byte boundary, VEC), forms its part of S against the plane
+// of the edge's segment (chosen per edge, so the split needs no alignment),
+// and two shuffles sum the 4 parts.  Each lane group keeps its own online
+// (m, z) from (NEG, 0): an edge above m rescales z by exp(m - S) and adds
+// its byte, any other adds exp(S - m) times its byte, one exponential an
+// edge.  At the row's end three shuffles merge the warp's 8 lane groups by
+// the same rule (from the finite NEG, so two empty groups give exp(0) * 0,
+// never inf - inf), the row's warps meet once in shared memory, and m[i]
+// and z[i] are written once, without atomics.  A column off the row's
+// edges is never read (the plain version masks its score to NEG).
 
 #include "dot_flash.cuh"
 
 namespace dot_flash {
 
-__global__ void __launch_bounds__(NT)
+// (m, z) <- the merge of (m, z) and (mo, zo), two online row statistics.
+__device__ __forceinline__ void merge_stats(float& m, float& z, float mo,
+                                            float zo) {
+  const float mn = fmaxf(m, mo);
+  z = z * expf(m - mn) + zo * expf(mo - mn);
+  m = mn;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(mask_rows::NT)
 stats_kernel(const float* __restrict__ q2, const float* __restrict__ k,
              const int8_t* __restrict__ mask, float* __restrict__ mout,
-             float* __restrict__ zout, int Ns, int Nd, int dq, int split) {
-  extern __shared__ float smem[];
-  float* qT = smem;
-  float* kT = qT + TILE;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int i0 = blockIdx.x * BI;
+             float* __restrict__ zout, int Ns, int Nd, int dq, int split,
+             int wpr) {
+  using mask_rows::FULL;
+  using mask_rows::G;
+  using mask_rows::WARPS;
+  __shared__ mask_rows::Warp ws[WARPS];
+  __shared__ __align__(16) float qs[WARPS * 2 * QS2];
+  __shared__ float part[WARPS][2];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slot = warp / wpr, p = warp % wpr;
+  const int i = blockIdx.x * (WARPS / wpr) + slot;
+  const int l = lane % G;
+  float* qrow = qs + slot * 2 * QS2;
+  if (i < Ns)  // the row's warps stage its two q rows
+    for (int e = p * 32 + lane; e < 2 * dq; e += wpr * 32) {
+      const int pl = e / dq, c = e - pl * dq;
+      qrow[pl * QS2 + c] = q2[((size_t)pl * Ns + i) * dq + c];
+    }
+  __syncthreads();
 
-  float m[R], z[R];
+  float m = NEG, z = 0.f;  // the lane group's online statistics
+  if (i < Ns) {            // uniform over the row's warps
+    auto work = [&](int j, float v, bool valid) {
+      const bool on = valid && v > 0.f;
+      const float* qp = qrow + (j >= split ? QS2 : 0);
+      const float* krow = k + (size_t)j * dq;
+      float s = 0.f;
 #pragma unroll
-  for (int a = 0; a < R; ++a) {
-    m[a] = NEG;
-    z[a] = 0.f;
-  }
-  for (int p = 0; p < 2; ++p) {
-    const int lo = range_lo(p, split), hi = range_hi(p, split, Nd);
-    if (lo >= hi) continue;  // block-uniform
-    __syncthreads();         // the previous range's reads of qT are done
-    load_t(qT, q2 + (size_t)p * Ns * dq, i0, Ns, dq);
-    for (int j0 = lo; j0 < hi; j0 += BJ) {
-      __syncthreads();  // the previous tile's reads of kT are done
-      load_t(kT, k, j0, Nd, dq);
-      __syncthreads();
-      float s[R][R], mk[R][R];
-      tile_dot(s, qT, kT, dq, ty, tx);
-      mask_tile(mk, mask, i0, j0, Ns, Nd, ty, tx);
+      for (int t = 0; t < CL; t += 4) {
+        const int c = col_of<VEC>(l, t);
+        if (VEC) {
+          if (on && c < dq) {
+            const float4 a = *(const float4*)(qp + c);
+            const float4 b = __ldg((const float4*)(krow + c));
+            s = fmaf(a.x, b.x, s);
+            s = fmaf(a.y, b.y, s);
+            s = fmaf(a.z, b.z, s);
+            s = fmaf(a.w, b.w, s);
+          }
+        } else {
 #pragma unroll
-      for (int a = 0; a < R; ++a) {
-        float mt = NEG;
-#pragma unroll
-        for (int b = 0; b < R; ++b)
-          if (mk[a][b] > 0.f) mt = fmaxf(mt, s[a][b]);
-        const float mn = fmaxf(m[a], mt);
-        float acc = z[a] * expf(m[a] - mn);
-#pragma unroll
-        for (int b = 0; b < R; ++b)
-          if (mk[a][b] > 0.f) acc += expf(s[a][b] - mn) * mk[a][b];
-        z[a] = acc;
-        m[a] = mn;
+          for (int u = 0; u < 4; ++u) {
+            const int cu = col_of<VEC>(l, t + u);
+            if (on && cu < dq) s = fmaf(qp[cu], __ldg(krow + cu), s);
+          }
+        }
       }
-    }
+      s += __shfl_xor_sync(FULL, s, 1);
+      s += __shfl_xor_sync(FULL, s, 2);
+      if (on) {
+        if (s > m) {
+          z = z * expf(m - s) + v;
+          m = s;
+        } else {
+          z += expf(s - m) * v;
+        }
+      }
+    };
+    mask_rows::sweep_row<true>(mask + (size_t)i * Nd, Nd, p, wpr, ws[warp],
+                               work);
   }
-  // merge the 16 column lanes of each row (lanes differ in tx only)
+  // the warp's 8 lane groups, then the row's warps
 #pragma unroll
-  for (int a = 0; a < R; ++a) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[a], off);
-      const float zo = __shfl_xor_sync(0xffffffffu, z[a], off);
-      const float mn = fmaxf(m[a], mo);
-      z[a] = z[a] * expf(m[a] - mn) + zo * expf(mo - mn);
-      m[a] = mn;
-    }
-    const int i = i0 + ty + 16 * a;
-    if (tx == 0 && i < Ns) {
-      mout[i] = m[a];
-      zout[i] = z[a];
-    }
+  for (int off = G; off < 32; off <<= 1)
+    merge_stats(m, z, __shfl_xor_sync(FULL, m, off),
+                __shfl_xor_sync(FULL, z, off));
+  if (lane == 0) {
+    part[warp][0] = m;
+    part[warp][1] = z;
+  }
+  __syncthreads();
+  if (i < Ns && p == 0 && lane == 0) {
+    for (int w = 1; w < wpr; ++w)
+      merge_stats(m, z, part[warp + w][0], part[warp + w][1]);
+    mout[i] = m;
+    zout[i] = z;
   }
 }
 
@@ -93,10 +137,17 @@ extern "C" int dot_flash_stats_f32(const float* q2, const float* k,
                                    int Ns, int Nd, int dq, int split,
                                    void* stream) {
   using namespace dot_flash;
-  const size_t smem = smem_stats();
-  const int err = prepare(stats_kernel, smem);
-  if (err) return err;
-  stats_kernel<<<(Ns + BI - 1) / BI, NT, smem, (cudaStream_t)stream>>>(
-      q2, k, mask, m, z, Ns, Nd, dq, split);
+  if (dq < 1 || dq > MAXD || Nd < 0 || Nd >= mask_rows::MAX_COLS)
+    return (int)cudaErrorInvalidValue;
+  if (Ns <= 0) return 0;
+  const int wpr = mask_rows::warps_per_row(Nd);
+  const int blocks = mask_rows::blocks_for(Ns, wpr);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dq % 4 == 0 && (uintptr_t)k % 16 == 0)
+    stats_kernel<true><<<blocks, mask_rows::NT, 0, st>>>(
+        q2, k, mask, m, z, Ns, Nd, dq, split, wpr);
+  else
+    stats_kernel<false><<<blocks, mask_rows::NT, 0, st>>>(
+        q2, k, mask, m, z, Ns, Nd, dq, split, wpr);
   return (int)cudaGetLastError();
 }

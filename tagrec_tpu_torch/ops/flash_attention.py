@@ -24,11 +24,13 @@ them flat.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/dot_flash_{stats,apply,bwd_row,bwd_col}.cu``), which never writes an
-[Ns, Nd] plane, and counts the launch in its ``launches`` attribute: stats
-rebuilds P tile by tile, the apply and the row backward work P per edge in
-one pass over the mask rows, the column backward in one pass over the rows
-of ``mask_t``.  On a CPU tensor it runs the plain PyTorch version beside
-it, chunked over rows, and only there: a CUDA tensor never falls back.
+[Ns, Nd] plane, and counts the launch in its ``launches`` attribute.  Each
+kernel is an edge sweep: stats, the apply and the row backward make one
+pass over the mask rows (stats keeps an online max and sum, the others
+work P per edge from the stats), the column backward one pass over the
+rows of ``mask_t``.  On a CPU tensor it runs the plain PyTorch version
+beside it, chunked over rows, and only there: a CUDA tensor never falls
+back.
 """
 
 from __future__ import annotations
@@ -44,15 +46,11 @@ TILE_I = 256   # the model's padding unit (JAX's Pallas tile)
 TILE_J = 256
 NEG = -1e30
 
-# Limits of the kernels: rows of q, k, x and g at most 64 wide; the tile
-# sweep of csrc/dot_flash.cuh (stats) also needs a split on its 64-column
-# boundary, the edge sweeps (apply, bwd_row over the mask, bwd_col over its
-# transpose) take any split and rows of fewer than 2^24 bytes
-# (csrc/mask_rows.cuh packs their columns in 24 bits).
-_BJ, _MAXD, _SS, _MAX_COLS = 64, 64, 65, 1 << 24
-_TILE_BYTES = 4 * _MAXD * _SS
-_SMEM_LIMIT = 232_448  # bytes of dynamic shared memory a Hopper block may use
-_SMEM = {"stats": 2 * _TILE_BYTES}  # mirror of dot_flash::smem_stats
+# Limits of the kernels, all edge sweeps (stats, apply and bwd_row over the
+# mask, bwd_col over its transpose): rows of q, k, x and g at most 64 wide,
+# any split, and mask rows of fewer than 2^24 bytes (csrc/mask_rows.cuh
+# packs their columns in 24 bits).
+_MAXD, _MAX_COLS = 64, 1 << 24
 
 
 def _pad_axis(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
@@ -99,7 +97,7 @@ def _check(q2, k, mask, split, x=None, ms=None, zs=None, g=None, delta=None,
             raise TypeError(f"{name} dtype {mk.dtype}: int8")
 
 
-def _on_card(name: str, q2, mask, split, *tensors, dx: int = 0) -> bool:
+def _on_card(name: str, q2, mask, *tensors, dx: int = 0) -> bool:
     """True for CUDA tensors, after checking what the kernel takes; False for
     CPU tensors (the plain version runs); raises on any other device.
     ``mask`` is the mask the kernel reads: mask_t for bwd_col."""
@@ -116,14 +114,7 @@ def _on_card(name: str, q2, mask, split, *tensors, dx: int = 0) -> bool:
         raise ValueError(f"{name} needs at least one row and one column")
     if not 1 <= dq <= _MAXD or not 0 <= dx <= _MAXD:
         raise ValueError(f"dq={dq}, dx={dx}: {name} takes widths 1..{_MAXD}")
-    if name in _SMEM:  # a tile sweep
-        if split % _BJ:
-            raise ValueError(f"split {split} is off the kernels' {_BJ}-column "
-                             "tile")
-        if _SMEM[name] > _SMEM_LIMIT:
-            raise ValueError(f"{name} needs {_SMEM[name]} bytes of shared "
-                             "memory")
-    elif mask.shape[1] >= _MAX_COLS:  # an edge sweep over mask's rows
+    if mask.shape[1] >= _MAX_COLS:  # an edge sweep over mask's rows
         raise ValueError(f"{name} takes mask rows of fewer than {_MAX_COLS} "
                          "bytes")
     return True
@@ -225,7 +216,7 @@ def dot_flash_stats(q2, k, mask, split: int):
     is a constant for autograd, as under JAX's stop_gradient."""
     _check(q2, k, mask, split)
     with torch.no_grad():
-        if not _on_card("stats", q2, mask, split, k):
+        if not _on_card("stats", q2, mask, k):
             return dot_flash_stats_plain(q2, k, mask, split)
         ns, dq = q2.shape[1], q2.shape[2]
         m = torch.empty(ns, device=q2.device, dtype=torch.float32)
@@ -237,7 +228,7 @@ def dot_flash_stats(q2, k, mask, split: int):
 
 
 def _dot_apply(q2, k, mask, ms, zs, x, split):
-    if not _on_card("apply", q2, mask, split, k, ms, zs, x, dx=x.shape[1]):
+    if not _on_card("apply", q2, mask, k, ms, zs, x, dx=x.shape[1]):
         return dot_flash_apply_plain(q2, k, mask, ms, zs, x, split)
     ns, dq = q2.shape[1], q2.shape[2]
     out = torch.empty((ns, x.shape[1]), device=q2.device, dtype=torch.float32)
@@ -251,7 +242,7 @@ def dot_bwd_row(q2, k, mask, ms, zs, x, g, delta, split: int):
     """dq2 [2, Ns, dq] of dot_flash_apply's backward (JAX ``_dot_bwd_row``)."""
     _check(q2, k, mask, split, x, ms, zs, g, delta)
     dx = x.shape[1]
-    if not _on_card("bwd_row", q2, mask, split, k, ms, zs, x, g, delta, dx=dx):
+    if not _on_card("bwd_row", q2, mask, k, ms, zs, x, g, delta, dx=dx):
         return dot_bwd_row_plain(q2, k, mask, ms, zs, x, g, delta, split)
     ns, dq = q2.shape[1], q2.shape[2]
     dq2 = torch.empty_like(q2)
@@ -266,8 +257,7 @@ def dot_bwd_col(q2, k, mask_t, ms, zs, x, g, delta, split: int):
     ``_dot_bwd_col``), from the mask's transpose ``mask_t`` [Nd, Ns]."""
     _check(q2, k, None, split, x, ms, zs, g, delta, mask_t=mask_t)
     dx_w = x.shape[1]
-    if not _on_card("bwd_col", q2, mask_t, split, k, ms, zs, x, g, delta,
-                    dx=dx_w):
+    if not _on_card("bwd_col", q2, mask_t, k, ms, zs, x, g, delta, dx=dx_w):
         return dot_bwd_col_plain(q2, k, mask_t.T, ms, zs, x, g, delta, split)
     ns, dq = q2.shape[1], q2.shape[2]
     dk = torch.empty_like(k)

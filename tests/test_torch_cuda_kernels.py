@@ -159,9 +159,9 @@ def test_routed_rowsum_edge_rows(cuda, m):
 
 
 # --------------------------------------- two-segment flash attention (KGAT)
-# (Ns, Nd, split, dq, dx): ragged sizes (not multiples of the 64 x 64
-# tiles), a split inside the columns, at 0 and at Nd, KGAT's widths (dq 64,
-# dx 64 and 32), and narrow ones.  Gradients: rtol 5e-4 (longer sums).
+# (Ns, Nd, split, dq, dx): ragged sizes (not multiples of 64), a split inside
+# the columns, at 0 and at Nd, KGAT's widths (dq 64, dx 64 and 32), and
+# narrow ones.  Gradients: rtol 5e-4 (longer sums).
 FLASH_CASES = [(70, 200, 128, 64, 16), (301, 333, 64, 64, 32),
                (256, 512, 256, 64, 64), (129, 100, 0, 16, 7),
                (65, 192, 192, 33, 64)]
@@ -256,9 +256,11 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="one device"):
         fa.dot_flash_apply(q2, k, mask, m, z, x.cpu(), 128)
     delta = torch.sum(g * fa.dot_flash_apply(q2, k, mask, m, z, x, 128), 1)
-    with pytest.raises(ValueError, match="64-column tile"):
-        fa.dot_flash_stats(q2, k, mask, 100)
-    # the edge sweeps take it
+    # every kernel takes a split off the 64-column tile
+    m100, z100 = fa.dot_flash_stats(q2, k, mask, 100)
+    want_m, want_z = fa.dot_flash_stats_plain(q2, k, mask, 100)
+    torch.testing.assert_close(m100, want_m, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(z100, want_z, rtol=RTOL, atol=ATOL)
     fa.dot_flash_apply(q2, k, mask, m, z, x, 100)
     fa.dot_bwd_row(q2, k, mask, m, z, x, g, delta, 100)
     fa.dot_bwd_col(q2, k, mask.T.contiguous(), m, z, x, g, delta, 100)
@@ -275,20 +277,47 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="widths"):
         wide = torch.cat([q2, q2], dim=2)
         fa.dot_flash_stats(wide, torch.cat([k, k], dim=1), mask, 128)
+    # an edge keeps 24 bits of column (csrc/mask_rows.cuh)
+    long_k = torch.zeros((1 << 24, 1), device=cuda)
+    long_mask = torch.zeros((1, 1 << 24), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="fewer than"):
+        fa.dot_flash_stats(torch.zeros((2, 1, 1), device=cuda), long_k,
+                           long_mask, 0)
 
 
 # (Nd, split): a row length of 5,000 bytes (four warps a row, row starts off
-# the 16-byte words), 301 (one warp a row), splits at 0, at Nd and off the
-# stats' 64-column tiles (the edge sweeps choose the plane per edge).
+# the 16-byte words), 301 (one warp a row), splits at 0, at Nd and off every
+# 64-column tile (the edge sweeps choose the plane per edge).
 APPLY_EDGE_CASES = [(301, 0), (301, 301), (5000, 1000), (5000, 2537)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nd,split", APPLY_EDGE_CASES)
+def test_dot_flash_stats_edge_rows(cuda, nd, split):
+    """dot_flash_stats' edge sweep on full, empty and last-column rows, at
+    KGAT's width (dq 64); an empty row gets exactly (NEG, 0)."""
+    ns = 11
+    q2, k, _, _, _ = _flash_inputs(ns, nd, 64, 64, cuda)
+    mask = torch.from_numpy(_edge_rows_mask(ns, nd, seed=nd).astype(np.int8))
+    mask = mask.to(cuda)
+    before = fa.dot_flash_stats.launches
+    m, z = fa.dot_flash_stats(q2, k, mask, split)
+    torch.cuda.synchronize()
+    assert fa.dot_flash_stats.launches == before + 1
+    # the plain version in float64: row 1 sums Nd terms
+    want_m, want_z = fa.dot_flash_stats_plain(q2.double(), k.double(), mask,
+                                              split)
+    torch.testing.assert_close(m, want_m.float(), rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(z, want_z.float(), rtol=RTOL, atol=ATOL)
+    assert torch.all(m[[0, ns - 1]] == fa.NEG)
+    assert torch.all(z[[0, ns - 1]] == 0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nd,split", APPLY_EDGE_CASES)
 def test_dot_flash_apply_edge_rows(cuda, nd, split):
     """dot_flash_apply's edge sweep on full, empty and last-column rows, at
-    KGAT's widths (dq 64, dx 64), with the stats of the plain version (the
-    stats kernel needs a split on its 64-column tile)."""
+    KGAT's widths (dq 64, dx 64), with the stats of the plain version."""
     ns = 11
     q2, k, _, x, _ = _flash_inputs(ns, nd, 64, 64, cuda)
     mask = torch.from_numpy(_edge_rows_mask(ns, nd, seed=nd).astype(np.int8))
@@ -376,7 +405,8 @@ def test_dot_bwd_col_edge_columns(cuda, ns, nd, split):
 def test_edge_sweeps_never_read_columns_off_the_edges(cuda):
     """The edge sweeps read k and x only at a row's edges: a NaN in a column
     that no row has as an edge stays out of every row (the plain versions,
-    dense products, carry it through 0 * NaN)."""
+    dense products, carry it through 0 * NaN; stats' masks the score, as
+    JAX's kernel does, and agrees)."""
     mask = _edge_rows_mask(9, 301, seed=3)
     mask[:, 100] = False
     q, k, _, x = _inputs(4, 9, 301, 16, 16, False, cuda)
@@ -391,6 +421,10 @@ def test_edge_sweeps_never_read_columns_off_the_edges(cuda):
     m, z = fa.dot_flash_stats(q2, kf, mask8, 128)
     delta = torch.sum(g * fa.dot_flash_apply(q2, kf, mask8, m, z, xf, 128), 1)
     kf[100, 0] = xf[100, 0] = float("nan")
+    m_nan, z_nan = fa.dot_flash_stats(q2, kf, mask8, 128)
+    assert torch.isfinite(m_nan).all() and torch.isfinite(z_nan).all()
+    torch.testing.assert_close(m_nan, m, rtol=0, atol=0)
+    torch.testing.assert_close(z_nan, z, rtol=0, atol=0)
     out = fa.dot_flash_apply(q2, kf, mask8, m, z, xf, 128)
     dq2 = fa.dot_bwd_row(q2, kf, mask8, m, z, xf, g, delta, 128)
     assert torch.isfinite(out).all() and torch.isfinite(dq2).all()

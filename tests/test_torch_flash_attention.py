@@ -63,6 +63,28 @@ def test_stats_match_jax(jax_run):
     assert np.all(z.numpy()[list(EMPTY_ROWS)] == 0.0)
 
 
+def test_stats_keep_a_nan_off_the_edges_out_as_jax_does():
+    """A NaN in k at columns that are no row's edge, one each side of the
+    split: JAX's stats kernel masks the scores before any sum, and so does
+    the port's, so both are finite and agree (m exactly).  The kernel on the
+    card reads no such column, so stats as an edge sweep diverges from JAX
+    nowhere."""
+    q2, k, mask, _, _ = _inputs()
+    for col, c in ((100, 0), (300, 1)):
+        mask[:, col] = 0
+        k[col, c] = np.nan
+    jm, jz = jfa.dot_flash_stats(jnp.asarray(q2), jnp.asarray(k),
+                                 jnp.asarray(mask), SPLIT_J)
+    jm, jz = np.asarray(jm).reshape(-1), np.asarray(jz).reshape(-1)
+    m, z = tfa.dot_flash_stats(*_t(q2, k, mask), SPLIT)
+    for t in (jm, jz, m.numpy(), z.numpy()):
+        assert np.isfinite(t).all()
+    np.testing.assert_array_equal(m.numpy(), jm)
+    np.testing.assert_allclose(z.numpy(), jz, rtol=RTOL, atol=ATOL)
+    assert np.all(m.numpy()[list(EMPTY_ROWS)] == tfa.NEG)
+    assert np.all(z.numpy()[list(EMPTY_ROWS)] == 0.0)
+
+
 def test_apply_matches_jax(jax_run):
     _, want, _ = jax_run
     q2, k, mask, x, _ = _t(*_inputs())
