@@ -50,7 +50,17 @@ Phases:
    4-group breakdown; forward and BPR gradients against the CPU path on a
    small graph with hub columns; then LightGCN at hetrec scale on the dense
    sector tier (no kernel), a few BPR steps;
-5. the ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+5. the training CLI (``tagrec_tpu_torch.cli.main``) in process, as a user
+   runs it: DGCF at the preset's full width on ``--dataset
+   synthetic_large`` for one epoch with ``--resume`` and ``--export``
+   (run A; the artifact then queried through ``serving.main``), resumed
+   from its train state to ``--epochs 2`` (run B: epoch 1 only), and DGCF
+   on the small graph with ``--profile`` (run C: a trace file holding every
+   routing launch of the training); each run's routing launches checked
+   against its steps and forwards, its ``results.json`` checked, and its
+   host-clock seconds a stage printed beside the card;
+6. the ``kernels`` JSON line (launches summed over every path above), then
+   ``{"ok": true, "device": {...}}`` last.
 
 Any failed check or exception exits non-zero before the last line.  With no
 CUDA device, or outside the repository, it exits non-zero at once.
@@ -1356,6 +1366,191 @@ def lightgcn_paths(torch, dg, hetrec_graph):
     return records, launches
 
 
+# ----------------------------------------------------------------- the CLI
+
+CLI_DGCF = ("--model", "dgcf", "--dataset", "synthetic_large",
+            "--test_interval", "1", "--patient_epoch", "1", "--group_k", "4")
+CLI_SEED = 2020  # the CLI's default --seed
+# the routing kernels' launches a DGCF BPR step and a forward
+# (num_layer 3 x iterate_k 2 sweeps of each; 3 backward sweeps a step)
+DGCF_STEP = {"routed_rowsum": 6, "routed_mm": 6, "routed_mm_bwd": 3}
+DGCF_FORWARD = {"routed_rowsum": 6, "routed_mm": 6, "routed_mm_bwd": 0}
+ANSI = ("\033[0;33;40m", "\033[0m")
+
+
+def cli_run(torch, fr, argv, label):
+    """``cli.main(argv)`` in process on the card, its output captured and
+    echoed line by line (cut to 160 characters), the routing launches
+    counted around it.  -> (output, launches, the run's directory)."""
+    import contextlib
+    import glob
+    import io
+
+    from tagrec_tpu_torch import cli
+
+    out = io.StringIO()
+    reset_counts(fr, ROUTING)
+    with contextlib.redirect_stdout(out):
+        cli.main(list(argv))
+    launches = counts(fr, ROUTING)
+    text = out.getvalue()
+    for a in ANSI:
+        text = text.replace(a, "")
+    for line in text.splitlines():
+        print(f"  {label} | {line[:160]}")
+    out_dir = argv[list(argv).index("--out_dir") + 1]
+    (results,) = glob.glob(os.path.join(out_dir, "**", "results.json"),
+                           recursive=True)
+    gc_cuda(torch)
+    return text, launches, os.path.dirname(results)
+
+
+def gc_cuda(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def cli_seconds(text, run_dir, label, card):
+    """The run's host-clock seconds a stage, from its output and its
+    metrics stream, printed beside the card."""
+    stages = json.loads(text.split("stage seconds (host clock): ")[1]
+                        .splitlines()[0])
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    epochs = [r["train/epoch_time_0"] for r in recs
+              if "train/epoch_time_0" in r]
+    evals = [float(line.split("[eval ")[1].split("s]")[0])
+             for line in text.splitlines() if "][eval " in line]
+    print(f"CLI {label} seconds (host clock, synchronised; {card}): "
+          f"pipeline build {stages['build']:.3f}, epoch "
+          f"{', '.join(f'{e:.3f}' for e in epochs)}, evaluation "
+          f"{', '.join(f'{e:.2f}' for e in evals)}, final test "
+          f"{stages['test']:.3f}, group pass {stages['group']:.3f}, export "
+          f"{stages.get('export', 0.0):.3f}; train (epochs and evaluations) "
+          f"{stages['train']:.3f}")
+    return epochs
+
+
+def check_cli_launches(got, steps, forwards, label):
+    want = {k: steps * DGCF_STEP[k] + forwards * DGCF_FORWARD[k]
+            for k in ROUTING}
+    print(f"CLI {label}: routing launches {got} = {steps} steps x "
+          f"{DGCF_STEP} + {forwards} forwards x {DGCF_FORWARD}")
+    check(got == want, f"CLI {label}: launches {got}, expected {want}")
+
+
+def check_cli_results(run_dir, label):
+    import math
+
+    with open(os.path.join(run_dir, "results.json")) as f:
+        res = json.load(f)
+    check(sorted(res) == ["best_epoch", "group", "test"]
+          and len(res["group"]) == 4
+          and all(k.startswith("inter<") for k in res["group"]),
+          f"CLI {label}: results.json {sorted(res)} {list(res['group'])}")
+    blocks = [res["test"], *res["group"].values()]
+    check(all(math.isfinite(v) for b in blocks for vs in b.values()
+              for v in vs) and 0.0 < res["test"]["auc"][0] < 1.0,
+          f"CLI {label}: results {res}")
+    return res
+
+
+def cli_phase(torch, fr, card):
+    """The training CLI on the card, as a user runs it: DGCF at the preset's
+    full width on ``synthetic_large`` (the hetrec graph from the CLI's seed)
+    for one epoch with a train state and an export (run A), the artifact
+    queried through ``serving.main``; resumed from that state to two epochs
+    (run B: epoch 1 only); DGCF on the small graph with ``--profile`` (run
+    C).  Each run's routing launches are checked against its steps and
+    forwards.  Returns the launches summed over the three runs."""
+    import contextlib
+    import glob
+    import io
+
+    from tagrec_tpu_torch import serving
+    from tagrec_tpu_torch.data.synthetic import (synthetic_graph,
+                                                 synthetic_graph_large)
+
+    def steps_of(graph):  # the resampling phase's steps an epoch
+        return len(graph.edge_index["train"]) // 512 + 1
+
+    steps = steps_of(synthetic_graph_large(N_USER, N_ITEM, N_TAG, N_EDGES,
+                                           TAG_PER_INTER, seed=CLI_SEED))
+    total = dict.fromkeys(ROUTING, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        state = os.path.join(tmp, "state.npz")
+        art = os.path.join(tmp, "dgcf")
+        common = CLI_DGCF + ("--resume", state, "--export", art)
+        # run A: epoch 0, its evaluation, the final test, the group pass
+        # and the export: 4 forwards
+        text, got, run_dir = cli_run(
+            torch, fr, common + ("--epochs", "1", "--out_dir",
+                                 os.path.join(tmp, "a")), "A")
+        check_cli_launches(got, steps, 4, "run A")
+        check("resumed" not in text, "CLI run A resumed from nothing")
+        res = check_cli_results(run_dir, "run A")
+        check(res["best_epoch"] == 0, f"CLI run A best epoch {res}")
+        cli_seconds(text, run_dir, "run A", card)
+        total = {k: total[k] + got[k] for k in ROUTING}
+
+        users = [0, 1, 2, N_USER - 1]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            serving.main(["--artifact", art, "--users",
+                          *map(str, users), "--k", str(TOP_K)])
+        rows = [json.loads(line) for line in out.getvalue().splitlines()]
+        check([r["user"] for r in rows] == users
+              and all(len(r["items"]) == TOP_K and all(
+                  0.0 <= v <= 1.0 for v in r["scores"]) for r in rows),
+              f"serving.main on the CLI's artifact: {rows}")
+        print(f"serving.main on run A's artifact: {len(rows)} users, "
+              f"user 0's top 3 {rows[0]['items'][:3]}")
+
+        # run B: resumes at epoch 1 and trains that epoch only
+        text, got, run_dir = cli_run(
+            torch, fr, common + ("--epochs", "2", "--out_dir",
+                                 os.path.join(tmp, "b")), "B")
+        check(f"resumed from {state} at epoch 1" in text,
+              "CLI run B did not resume at epoch 1")
+        check([line.split("]")[0] for line in text.splitlines()
+               if line.startswith("[Epoch")] == ["[Epoch:1", "[Epoch 1"],
+              "CLI run B ran another epoch than epoch 1")
+        check_cli_launches(got, steps, 4, "run B")
+        check(check_cli_results(run_dir, "run B")["best_epoch"] == 1,
+              "CLI run B: best epoch not 1")
+        cli_seconds(text, run_dir, "run B", card)
+        total = {k: total[k] + got[k] for k in ROUTING}
+
+        # run C: the small graph, profiled; epoch 0 is evaluated
+        trace = os.path.join(tmp, "trace")
+        text, got, run_dir = cli_run(
+            torch, fr, ("--model", "dgcf", "--dataset", "synthetic",
+                        "--epochs", "1", "--profile", trace,
+                        "--out_dir", os.path.join(tmp, "c")), "C")
+        small_steps = steps_of(synthetic_graph(seed=CLI_SEED))
+        check_cli_launches(got, small_steps, 3, "run C")
+        check_cli_results(run_dir, "run C")
+        files = glob.glob(os.path.join(trace, "*.pt.trace.json"))
+        check(len(files) == 1, f"CLI run C: trace files {files}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        # the trace spans the training: the steps and epoch 0's evaluation
+        n_kern = sum(e.get("cat") == "kernel" and any(
+            k in e.get("name", "") for k in ROUTING_KERNEL_NAMES)
+            for e in events)
+        want = (small_steps * sum(DGCF_STEP.values())
+                + sum(DGCF_FORWARD.values()))
+        print(f"CLI run C: trace {os.path.basename(files[0])}, "
+              f"{os.path.getsize(files[0])} bytes, {len(events)} events, "
+              f"{n_kern} routing kernels on the card (expected {want})")
+        check(n_kern == want, f"CLI run C: {n_kern} routing kernels in the "
+                              f"trace, expected {want}")
+        total = {k: total[k] + got[k] for k in ROUTING}
+    return total
+
+
 def run(torch):
     from tagrec_tpu_torch.compose import build_pipeline
     from tagrec_tpu_torch.config import TrainConfig, model_preset
@@ -1435,6 +1630,12 @@ def run(torch):
     gather_records, gather_launches = lightgcn_paths(torch, dg, graph)
     records.update(gather_records)
     launches.update(gather_launches)
+    gc_cuda(torch)
+
+    cli = cli_phase(torch, fr, card)
+    launches.update({k: launches[k] + cli[k] for k in ROUTING})
+    print(f"routing launches over the CLI's runs A, B and C: {cli}; over "
+          f"every path: { {k: launches[k] for k in ROUTING} }")
 
     apply = records["dot_flash_apply"]
     print(f"dot_flash_apply per KGAT forward: kernel {apply['ms']:.4f} ms, "

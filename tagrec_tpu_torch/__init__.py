@@ -10,6 +10,10 @@ Slice 3: LightGCN training, evaluation and serving on the ELL formats of
 ``ops.ell`` (dense sectors within the dense budget, hybrid hub block + ELL
 buckets above it), with the row gather and the ELL gather-reduce kernels in
 CUDA C++.
+Slice 4: DGCF and DisenGCN training on the dense routing tier.
+Slice 5: the training CLI (``python -m tagrec_tpu_torch.cli``) over the four
+families, with train-state resume, the JSONL metrics stream and profiling
+(``utils``), and the offline preprocessing (``data.preprocess``).
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``, where every kernel wrapper runs its plain PyTorch version.
 """

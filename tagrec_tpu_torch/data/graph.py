@@ -2,7 +2,8 @@
 
 The port's copy of tagrec_tpu/data/graph.py, cut to what the ported slices
 use: a duplicate-summing COO, the joint {user, item, tag} adjacency, its
-normalizations, the six typed relations of KGAT and the dataset loader.
+normalizations, the six typed relations of KGAT, the dataset loader and
+its load-time ``summary``.
 Both packages give the same arrays for the same inputs
 (tests/test_torch_dgcf.py, tests/test_torch_kgat.py).
 """
@@ -62,6 +63,10 @@ class COO:
 
     def max(self) -> float:
         return float(self.val.max()) if self.nnz else 0.0
+
+    def row_degrees(self) -> np.ndarray:
+        """Number of stored entries per row."""
+        return np.bincount(self.row, minlength=self.shape[0]).astype(np.int64)
 
     def sorted_by_row(self) -> "COO":
         order = np.lexsort((self.col, self.row))
@@ -234,6 +239,22 @@ class HeteroGraph:
         else:
             adj = joint_adjacency(self.ui_adj)
         return normalize_adj(adj, norm_type).sorted_by_row()
+
+    def summary(self) -> Dict[str, object]:
+        """Load-time invariant stats: the schema checks the reference prints
+        on every load (data/utils.py:109-129 column_info/dict_info)."""
+        out = {"num": dict(self.num), "train_pairs": self.ui_adj.nnz,
+               "max_multiplicity": self.ui_adj.max()}
+        for split, d in self.user_items.items():
+            e = self.edge_index[split]
+            if len(e):
+                out[split] = {"users": len(d), "pairs": len(e),
+                              "item_range": (int(e[:, 1].min()),
+                                             int(e[:, 1].max()))}
+        if self.uit_data is not None:
+            out["uit"] = {"triples": len(self.uit_data),
+                          "tags": int(self.uit_data[:, 2].max()) + 1}
+        return out
 
     def relation_edges(self) -> Dict[int, np.ndarray]:
         """Six globally-indexed directed relations [ui, iu, ut, tu, it, ti],

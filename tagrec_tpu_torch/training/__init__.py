@@ -1,1 +1,2 @@
-"""Training utilities of the port; this slice holds checkpoint loading."""
+"""Training: the phases and the Trainer, Adam, evaluation, early stop and
+checkpoints (params and train states, in the JAX package's format)."""

@@ -12,17 +12,32 @@ lists in order, plus a ``<path>.tree`` JSON sidecar holding ``n_leaves`` and
 JAX's treedef string.  ``load`` does not parse the treedef string: it
 checks the leaf count and every shape instead.  ``save`` writes the string
 JAX writes for the same tree, so JAX's ``load`` reads the port's files.
+
+A train state (``save_train_state``/``restore_train_state``) is JAX's
+``{"opt_state": ..., "params": ..., "step": ...}`` in the same format, so
+either package resumes from the other's.  The Adam state maps
+``torch.optim.Adam``'s per-parameter ``step``, ``exp_avg`` and
+``exp_avg_sq`` to JAX's count, mu and nu: under ``adam_impl="torch"``
+JAX's ``TorchAdamState(count, mu, nu)``, one int32 count a leaf, a
+parameter that Adam has not stepped yet written as count 0 with zero
+moments (and restored with no state); under ``"global"`` optax.adam's
+``(ScaleByAdamState(count, mu, nu), EmptyState())``, one count.  Restoring
+checks the sidecar's treedef string against the one expected, as JAX's
+``load`` does.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from dataclasses import dataclass
 from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from tagrec_tpu_torch.training import optim
 
 
 def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
@@ -86,16 +101,44 @@ def _tree_of(named: Dict[str, object]) -> Dict:
     return lists(tree)
 
 
+@dataclass(frozen=True)
+class _Named:
+    """A NamedTuple node of a JAX tree (an optimizer state), by class
+    name and children."""
+
+    name: str
+    children: tuple
+
+
 def _treedef(tree) -> str:
-    """JAX's treedef string of a nest of dicts and lists of leaves."""
+    """JAX's treedef string of a nest of dicts, lists, tuples and NamedTuple
+    nodes; any other node is a leaf."""
     def body(node):
         if isinstance(node, dict):
             return "{" + ", ".join(f"{k!r}: {body(node[k])}"
                                    for k in sorted(node)) + "}"
         if isinstance(node, list):
             return "[" + ", ".join(body(v) for v in node) + "]"
+        if isinstance(node, _Named):
+            return (f"CustomNode(namedtuple[{node.name}], ["
+                    + ", ".join(body(v) for v in node.children) + "])")
+        if isinstance(node, tuple):
+            return "(" + ", ".join(body(v) for v in node) + ")"
         return "*"
     return f"PyTreeDef({body(tree)})"
+
+
+def _write(path: str, leaves: List[np.ndarray], tree) -> None:
+    """``<path>`` (.npz) with ``leaf_i`` in order and the ``<path>.tree``
+    sidecar, as JAX's ``checkpoint.save`` writes them."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **{f"leaf_{i}": x for i, x in enumerate(leaves)})
+    with open(path + ".tree", "w") as f:
+        json.dump({"treedef": _treedef(tree), "n_leaves": len(leaves)}, f)
+
+
+def _params_tree(names: List[str]) -> Dict:
+    return _tree_of(dict.fromkeys(names))
 
 
 def save(path: str, model: nn.Module) -> None:
@@ -105,12 +148,8 @@ def save(path: str, model: nn.Module) -> None:
     it."""
     names = jax_leaf_order(model)
     params = dict(model.named_parameters())
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    np.savez(path, **{f"leaf_{i}": params[n].detach().cpu().numpy()
-                      for i, n in enumerate(names)})
-    with open(path + ".tree", "w") as f:
-        json.dump({"treedef": _treedef(_tree_of(dict.fromkeys(names))),
-                   "n_leaves": len(names)}, f)
+    _write(path, [params[n].detach().cpu().numpy() for n in names],
+           _params_tree(names))
 
 
 def load(path: str, model: nn.Module) -> nn.Module:
@@ -133,3 +172,97 @@ def load(path: str, model: nn.Module) -> nn.Module:
                          f"expected {len(names)}")
     return params_from_jax(model, _tree_of(
         {name: data[f"leaf_{i}"] for i, name in enumerate(names)}))
+
+
+# ------------------------------------------------------------ train state
+
+def _state_tree(names: List[str], adam_impl: str):
+    """JAX's tree of ``{"opt_state", "params", "step"}`` under
+    ``adam_impl``, leaves as None."""
+    ptree = _params_tree(names)
+    if adam_impl == "torch":
+        opt_state = _Named("TorchAdamState", (ptree, ptree, ptree))
+    else:
+        opt_state = (_Named("ScaleByAdamState", (None, ptree, ptree)),
+                     _Named("EmptyState", ()))
+    return {"opt_state": opt_state, "params": ptree, "step": None}
+
+
+def save_train_state(path: str, model: nn.Module,
+                     opt: torch.optim.Adam, step: int,
+                     adam_impl: str = "torch") -> None:
+    """Write ``model``'s parameters, ``opt``'s Adam state and ``step`` as
+    JAX's ``save_train_state`` writes (params, opt_state, step)."""
+    optim.check_impl(adam_impl)
+    names = jax_leaf_order(model)
+    params = dict(model.named_parameters())
+    counts, mus, nus = [], [], []
+    for n in names:
+        p = params[n]
+        st = opt.state.get(p) or {}
+        counts.append(int(st["step"]) if st else 0)
+        for out, key in ((mus, "exp_avg"), (nus, "exp_avg_sq")):
+            out.append(st[key].detach().cpu().numpy() if st else
+                       np.zeros(tuple(p.shape), dtype=np.float32))
+    if adam_impl == "torch":
+        count_leaves = [np.asarray(c, dtype=np.int32) for c in counts]
+    else:
+        if len(set(counts)) > 1:
+            raise ValueError(f"adam_impl='global' needs one step count for "
+                             f"every parameter, found {sorted(set(counts))}")
+        count_leaves = [np.asarray(counts[0] if counts else 0,
+                                   dtype=np.int32)]
+    leaves = (count_leaves + mus + nus
+              + [params[n].detach().cpu().numpy() for n in names]
+              + [np.asarray(int(step))])
+    _write(path, leaves, _state_tree(names, adam_impl))
+
+
+def restore_train_state(path: str, model: nn.Module,
+                        opt: torch.optim.Adam,
+                        adam_impl: str = "torch") -> int:
+    """Load a train state written by either package's ``save_train_state``
+    into ``model`` and ``opt`` -> the saved step (the epoch to resume at).
+    A parameter saved with count 0 gets no Adam state, as before its first
+    step."""
+    optim.check_impl(adam_impl)
+    npz_path = path if path.endswith(".npz") else path + ".npz"
+    data = np.load(npz_path)
+    names = jax_leaf_order(model)
+    want = _treedef(_state_tree(names, adam_impl))
+    sidecar = next((p for p in (path + ".tree", npz_path + ".tree")
+                    if os.path.exists(p)), None)
+    if sidecar is not None:
+        with open(sidecar) as f:
+            saved = json.load(f).get("treedef")
+        if saved != want:
+            raise ValueError(f"train state structure mismatch for {path}:\n"
+                             f"  saved:    {saved}\n  expected: {want}")
+    n = len(names)
+    n_counts = n if adam_impl == "torch" else 1
+    leaves = [data[f"leaf_{i}"] for i in range(len(data.files))]
+    if len(leaves) != n_counts + 3 * n + 1:
+        raise ValueError(f"train state has {len(leaves)} leaves, expected "
+                         f"{n_counts + 3 * n + 1}")
+    counts = [int(c) for c in leaves[:n_counts]]
+    if adam_impl == "global":
+        counts *= n
+    mus = leaves[n_counts:n_counts + n]
+    nus = leaves[n_counts + n:n_counts + 2 * n]
+    params = dict(model.named_parameters())
+    for name, mu, nu in zip(names, mus, nus):
+        if not tuple(mu.shape) == tuple(nu.shape) == tuple(params[name].shape):
+            raise ValueError(f"{name}: Adam moments {mu.shape} {nu.shape} "
+                             f"!= the parameter's {tuple(params[name].shape)}")
+    params_from_jax(model, _tree_of(dict(zip(names,
+                                             leaves[n_counts + 2 * n:-1]))))
+    for name, c, mu, nu in zip(names, counts, mus, nus):
+        p = params[name]
+        opt.state.pop(p, None)
+        if c > 0:  # torch keeps an unfused Adam's step on the host
+            opt.state[p] = {
+                "step": torch.tensor(float(c), dtype=torch.float32),
+                "exp_avg": torch.tensor(mu, dtype=p.dtype, device=p.device),
+                "exp_avg_sq": torch.tensor(nu, dtype=p.dtype,
+                                           device=p.device)}
+    return int(leaves[-1])

@@ -97,22 +97,39 @@ class Evaluator:
         return out
 
 
+MEASURES = ("interaction", "user", "interval", "degree")
+
+
 def user_group_split(test_ui: Dict[int, List[int]],
                      train_ui: Dict[int, List[int]],
-                     k: int) -> Dict[int, List[int]]:
-    """Cold-start user groups (the reference's training/utils.py:58-109,
-    its default "interaction" measure).
+                     k: int, method: str = "interaction") -> Dict[int, List[int]]:
+    """Cold-start user groups (the reference's training/utils.py:58-109).
 
     Test users are ordered by their interaction count n (train + test) and
-    cut into about ``k`` groups holding equal numbers of interactions; a
-    group is keyed by the largest n it holds.  A group closes at the first
-    n whose running interaction total reaches the next of the bounds
-    total/k, 2 total/k, ..., total (integer steps)."""
+    cut into about ``k`` groups of equal measure; a group is keyed by the
+    largest n it holds.  A group closes at the first n whose measure
+    reaches the next of the bounds total/k, 2 total/k, ..., total (integer
+    steps).  The reference's four measures, running over the sorted n:
+
+    * "interaction" (the default, what ``Evaluator.run`` cuts by): the
+      interactions of the users so far;
+    * "user": the users so far;
+    * "interval": n itself;
+    * "degree": the distinct n so far."""
     by_n = defaultdict(list)
     for u, items in test_ui.items():
         by_n[len(items) + len(train_ui.get(u, ()))].append(u)
     ns = sorted(by_n)
-    measure = np.cumsum([n * len(by_n[n]) for n in ns])
+    if method == "interaction":
+        measure = np.cumsum([n * len(by_n[n]) for n in ns])
+    elif method == "user":
+        measure = np.cumsum([len(by_n[n]) for n in ns])
+    elif method == "interval":
+        measure = np.asarray(ns)
+    elif method == "degree":
+        measure = np.arange(1, len(ns) + 1)
+    else:
+        raise ValueError(f"unknown measure {method!r}; known: {MEASURES}")
     total = int(measure[-1])
     step = total // k if k >= 1 else 0
     if step < 1:

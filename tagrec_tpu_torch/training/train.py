@@ -8,11 +8,13 @@ caller).  Sampling (shuffles,
 negatives) runs on the tables' device from one ``torch.Generator``.  The
 step loop is plain Python; a step ends without a host sync, and the losses
 come back to the host once per phase.  ``Trainer.run`` adds the periodic
-evaluation and the early stop.
+evaluation, the early stop, the metrics stream and the train-state file
+that a run resumes from.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
@@ -22,7 +24,7 @@ import torch
 
 from tagrec_tpu_torch.config import TrainConfig
 from tagrec_tpu_torch.ops import sampling
-from tagrec_tpu_torch.training import optim
+from tagrec_tpu_torch.training import checkpoint, optim
 
 
 @dataclass
@@ -168,6 +170,8 @@ class Trainer:
         self.opt.zero_grad(set_to_none=True)
         parts = phase.loss_fn(batch, self.generator)
         sum(parts).backward()
+        if self.cfg.adam_impl == "global":
+            optim.fill_missing_grads(self.opt)
         self.opt.step()
         return torch.stack([p.detach() for p in parts])
 
@@ -195,29 +199,57 @@ class Trainer:
         """Every phase in order -> {phase name: loss terms [steps, n]}."""
         return {ph.name: self.run_phase(ph, max_steps) for ph in self.phases}
 
-    def run(self, evaluator, early_stop, *, log=print,
+    def run(self, evaluator, early_stop, *, log=print, metrics=None,
             state_path: Optional[str] = None) -> Dict:
         """``cfg.epochs`` epochs of every phase, an evaluation after every
         ``cfg.test_interval``-th epoch (epoch 0 first) fed to ``early_stop``,
-        which may end the run; raises FloatingPointError on a non-finite
-        loss.  -> {"best_epoch", "best_result"}; the model keeps the last
-        epoch's parameters, ``early_stop.best_params`` the best ones."""
-        if state_path is not None:
-            raise NotImplementedError(
-                "resuming from a train state needs the train-state "
-                "checkpoints (ROADMAP.md A10)")
+        which may end the run.  -> {"best_epoch", "best_result"}; the model
+        keeps the last epoch's parameters, ``early_stop.best_params`` the
+        best ones.
+
+        ``metrics``: an optional ``utils.MetricsWriter``, given each phase's
+        mean loss and time and each evaluation's results.  ``state_path``: a
+        train-state file, written at every evaluation (the epoch to resume
+        at, the parameters and Adam's state) and restored first when it
+        exists.  A non-finite loss raises FloatingPointError naming the
+        epoch, the phase and the last saved state."""
         cfg = self.cfg
-        for ep in range(cfg.epochs):
-            for phase in self.phases:
+        start_ep = 0
+        if state_path and os.path.exists(state_path):
+            start_ep = checkpoint.restore_train_state(
+                state_path, self.model, self.opt, cfg.adam_impl)
+            log(f"resumed from {state_path} at epoch {start_ep}")
+        for ep in range(start_ep, cfg.epochs):
+            for pi, phase in enumerate(self.phases):
                 t0 = time.time()
-                parts = self.run_phase(phase)
-                log(f"[Epoch:{ep}][{phase.name}][{time.time() - t0:.2f}s] "
+                try:
+                    parts = self.run_phase(phase)
+                except FloatingPointError:
+                    # the epoch has already corrupted the parameters: stop;
+                    # the last eval-time state is the recovery point
+                    msg = (f"non-finite loss in epoch {ep} phase "
+                           f"{phase.name}; last saved state: "
+                           f"{state_path or '(none)'}")
+                    log(f"FATAL: {msg}")
+                    raise FloatingPointError(msg) from None
+                dt = time.time() - t0
+                log(f"[Epoch:{ep}][{phase.name}][{dt:.2f}s] "
                     f"avg_loss: {parts.sum(axis=1).mean():.5f} "
                     f"parts_sum: {[float(v) for v in parts.sum(axis=0)]}")
+                if metrics is not None:
+                    metrics.scalars(ep, {
+                        f"train/loss_{pi}": float(parts.sum(axis=1).mean()),
+                        f"train/epoch_time_{pi}": dt})
             if ep % cfg.test_interval == 0:
                 t0 = time.time()
                 results = evaluator.run(self.model)
                 log(f"[Epoch {ep}][eval {time.time() - t0:.2f}s] {results}")
+                if metrics is not None:
+                    metrics.results(ep, results, cfg.topks)
+                if state_path:
+                    checkpoint.save_train_state(state_path, self.model,
+                                                self.opt, ep + 1,
+                                                cfg.adam_impl)
                 if early_stop(self.model, results, ep):
                     log(f"early stop trigger at epoch {ep}")
                     break

@@ -3,8 +3,9 @@
 Given the same user and item tables, ``Evaluator.run`` and its 4-group
 breakdown must equal JAX's within atol 1e-6 (per-block float32 sums, added
 in the same order; scores computed by two matmul libraries may differ in
-the last bit).  ``user_group_split`` must give JAX's groups exactly, the
-metric functions JAX's values within atol 1e-6, and ``EarlyStop`` must stop
+the last bit).  ``user_group_split`` must give JAX's groups exactly under
+each of the reference's four measures, the metric functions JAX's values
+within atol 1e-6, and ``EarlyStop`` must stop
 at JAX's epoch and save a checkpoint that JAX's ``load`` reads.
 """
 
@@ -117,6 +118,24 @@ def test_user_group_split_equals_jax(graph_name, k):
     got = user_group_split(test, train, k)
     assert got == jax_groups(test, train, k)
     assert sorted(u for users in got.values() for u in users) == sorted(test)
+
+
+@pytest.mark.parametrize("method", ["interaction", "user", "interval",
+                                    "degree"])
+@pytest.mark.parametrize("graph_name", ["tiny", "small"])
+@pytest.mark.parametrize("k", [2, 3, 4, 7])
+def test_user_group_split_measures_equal_jax(graph_name, k, method):
+    """The reference's four measures, each as JAX cuts it."""
+    graph = tsyn.synthetic_graph(**GRAPHS[graph_name])
+    test, train = graph.user_items["test"], graph.user_items["train"]
+    got = user_group_split(test, train, k, method=method)
+    assert got == jax_groups(test, train, k, method=method)
+    assert sorted(u for users in got.values() for u in users) == sorted(test)
+
+
+def test_user_group_split_refuses_an_unknown_measure():
+    with pytest.raises(ValueError, match="unknown measure 'nosuch'"):
+        user_group_split({0: [1]}, {}, 1, method="nosuch")
 
 
 def test_user_group_split_refuses():
