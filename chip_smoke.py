@@ -37,6 +37,20 @@ Phases:
    Trainer's one Adam), the launches counted per forward and per step, one
    BPR step profiled; forward and BPR gradients
    against the CPU path on a small graph;
+   then the kernel tiers of DGCF, DisenGCN and KGAT ``bi_inter`` at the
+   preset's full width on the hetrec graph, held against the chunked dense
+   tier (``adj_mode="dense_xla"``) evaluated in float64 on the card from
+   the same weights: the forward tables (rtol 1e-4, atol 1e-5) and one BPR
+   loss's gradients, each on its own scale (entries within 5e-4 |g| +
+   1e-4 max|g|, norm within 5e-4 |g|), each tier's forward time and peak
+   memory; NGCF at full width on the dense sector tier, float32 and bf16
+   from the same weights (the bf16 block products against float32
+   products of the rounded operands; the forwards' difference under
+   5e-3; 5 BPR steps each, one
+   profiled), export -> artifact -> 3 top-k requests and one evaluation;
+   DisenHAN at full width in dense mode (5 BPR steps, one profiled, the
+   peak memory, export -> artifact -> 3 top-k requests, one evaluation,
+   forward and gradients against the CPU path on a small graph);
 4. LightGCN on the 10x graph (150,000 joint nodes, so the hybrid tier:
    hub block + degree-bucketed ELL): the tier and bucket shapes; each
    gather kernel against its plain version at every bucket's shape (with
@@ -47,18 +61,27 @@ Phases:
    serving (export -> artifact -> 3 top-k requests), 5 BPR steps through
    the Trainer with the launches checked per step, one BPR step profiled,
    the peak device memory, one evaluation over every test user and one
-   4-group breakdown; forward and BPR gradients against the CPU path on a
-   small graph with hub columns; then LightGCN at hetrec scale on the dense
-   sector tier (no kernel), a few BPR steps;
+   4-group breakdown, one BPR step with ``node_drop`` (edge dropout: the
+   forward on the kernels, the backward a scatter-add); forward and BPR
+   gradients against the CPU path on a small graph with hub columns; NGCF
+   on the same graph (D^-1 A is not symmetric: the transpose tables are
+   their own): both tables' tiers and buckets, each gather kernel against
+   its plain version at every bucket of both tables at D = 64 and 32, with
+   its time and bound, 5 BPR steps with the launches checked per step, the
+   peak memory, one step profiled, edge dropout on the pair (the dropped
+   share, and the adjoint identity through the dropped adjacency), one
+   evaluation, the small-graph check; then LightGCN at hetrec scale on the
+   dense sector tier (no kernel), a few BPR steps;
 5. the training CLI (``tagrec_tpu_torch.cli.main``) in process, as a user
    runs it: DGCF at the preset's full width on ``--dataset
    synthetic_large`` for one epoch with ``--resume`` and ``--export``
    (run A; the artifact then queried through ``serving.main``), resumed
    from its train state to ``--epochs 2`` (run B: epoch 1 only), and DGCF
    on the small graph with ``--profile`` (run C: a trace file holding every
-   routing launch of the training); each run's routing launches checked
-   against its steps and forwards, its ``results.json`` checked, and its
-   host-clock seconds a stage printed beside the card;
+   routing launch of the training), then NGCF on ``synthetic_large`` for
+   one epoch with ``--export`` (run D); each DGCF run's routing launches
+   checked against its steps and forwards, each run's ``results.json``
+   checked, and its host-clock seconds a stage printed beside the card;
 6. the ``kernels`` JSON line (launches summed over every path above), then
    ``{"ok": true, "device": {...}}`` last.
 
@@ -82,6 +105,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 RTOL, ATOL = 1e-4, 1e-5  # kernel vs plain float32: sums in another order
 BWD_RTOL = 5e-4          # the flash backward's sums are longer
+BF16_FWD_ATOL = 5e-3     # NGCF's bf16 forward against float32 (1.5e-3 read)
+GRAD_FLOOR = 4.0         # a gradient's error against plain float32's
 
 N_USER, N_ITEM, N_TAG, N_EDGES, TAG_PER_INTER = 2000, 10000, 3000, 400_000, 0.3
 N_REQUESTS, REQUEST_USERS, TOP_K = 3, 256, 20
@@ -480,7 +505,8 @@ def profile_device(torch, fn, label: str, names):
     """Where ``fn()``'s device time goes: torch.profiler's CUDA kernel events,
     summed by kernel (``names`` maps a fragment of the kernel's name to a
     label; the rest is "other"), against the profiled span (the device's
-    idle share is what the kernels leave of it)."""
+    idle share is what the kernels leave of it); returns the busy ms, or
+    None without device events."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -511,6 +537,7 @@ def profile_device(torch, fn, label: str, names):
     print(f"{label} profile: device busy {busy_ms:.3f} ms of a "
           f"{span_us / 1e3:.3f} ms span (idle share "
           f"{1 - busy_ms * 1e3 / span_us:.4f}, profiler on)")
+    return busy_ms
 
 
 def steady_forward(torch, model, label: str):
@@ -1063,29 +1090,14 @@ GATHER_KERNEL_NAMES = {"gather::reduce": "gather_reduce",
 
 
 def lightgcn_tier(torch, model):
-    """Print the adjacency the model built: the hub block and each degree
-    bucket (rows x width, edges, slots); returns the per-SpMM launches
-    {gather_reduce: buckets, gather_rows: 2}."""
+    """Print the adjacency the model built (``describe_hybrid``); returns
+    the per-SpMM launches {gather_reduce: buckets, gather_rows: 2}."""
     adj = model.adj
     check(adj.bwd is adj.fwd, "bi_norm's pair should share one structure")
     h = adj.fwd
     check(type(h).__name__ == "Hybrid" and h.dense_cols is not None,
           f"expected the hybrid tier with hub columns, got {type(h).__name__}")
-    n = h.dense_block.shape[0]
-    hub_edges = int((h.dense_block != 0).sum())
-    print(f"LightGCN tier: hybrid; hub block {n} x {h.dense_block.shape[1]} "
-          f"({h.dense_block.numel() * 4 / 1e9:.3f} GB float32), {hub_edges} "
-          "edges")
-    slots = edges = 0
-    for b, p in enumerate(h.ell.parts):
-        rows, k = p.idx.shape
-        e = int(p.deg.sum())
-        slots, edges = slots + rows * k, edges + e
-        print(f"LightGCN bucket {b + 1}: {rows} x {k}, {e} edges, "
-              f"{rows * k} slots ({100.0 * e / (rows * k):.1f}% filled)")
-    print(f"LightGCN buckets: {len(h.ell.parts)}, {slots} slots, {edges} tail "
-          f"edges; {hub_edges + edges} edges in all")
-    return {"gather_reduce": len(h.ell.parts), "gather_rows": 2}
+    return describe_hybrid("LightGCN", h)
 
 
 def gather_kernel_phase(torch, dg, model):
@@ -1223,8 +1235,9 @@ def lightgcn_serving_phase(torch, dg, graph, model, per_spmm, tmp):
 
 def lightgcn_training_phase(torch, dg, pipe, trainer, per_spmm):
     """5 BPR steps with the launches of each step checked, the peak device
-    memory, then one BPR step profiled.  Returns the launches summed over
-    the steps."""
+    memory, one BPR step profiled, then one step with ``node_drop`` (its
+    launches: the forward's only).  Returns the launches summed over the
+    steps."""
     (bpr,) = pipe.phases
     n_layer = pipe.model.cfg.num_layer
     per_step = {k: 2 * n_layer * v for k, v in per_spmm.items()}
@@ -1242,7 +1255,17 @@ def lightgcn_training_phase(torch, dg, pipe, trainer, per_spmm):
     profile_device(torch, lambda: trainer.step(bpr, batch), "LightGCN BPR step",
                    {**GATHER_KERNEL_NAMES, "multi_tensor_apply": "adam (foreach)",
                     "gemm": "matmul (cuBLAS)"})
-    return total
+    # one step with edge dropout: the forward over the dropped adjacency's
+    # gather kernels, its backward the scatter-add (no kernel)
+    cfg = pipe.model.cfg
+    pipe.model.cfg = cfg.replace(node_drop=NODE_DROP)
+    reset_counts(dg, GATHER)
+    dropped = training_steps(
+        torch, trainer, bpr, 1, f"LightGCN 10x BPR, node_drop {NODE_DROP}",
+        launch_checker(dg, GATHER, {k: n_layer * v for k, v in
+                                    per_spmm.items()}, "node_drop BPR"))
+    pipe.model.cfg = cfg
+    return {k: total[k] + dropped[k] for k in GATHER}
 
 
 def lightgcn_eval_phase(torch, dg, pipe):
@@ -1328,8 +1351,9 @@ def lightgcn_hetrec_dense(torch, dg, graph):
 
 def lightgcn_paths(torch, dg, hetrec_graph):
     """LightGCN at 10x on the hybrid tier (kernels, serving, training,
-    evaluation), the small-graph check, then hetrec's dense tier.  Returns
-    (kernel records, launches over the 10x path)."""
+    evaluation), the small-graph check, NGCF on the same graph, then
+    LightGCN on hetrec's dense tier.  Returns (kernel records, launches over
+    the 10x paths)."""
     from tagrec_tpu_torch.compose import build_pipeline
     from tagrec_tpu_torch.config import TrainConfig, model_preset
     from tagrec_tpu_torch.data.synthetic import synthetic_graph_large
@@ -1360,10 +1384,612 @@ def lightgcn_paths(torch, dg, hetrec_graph):
     print(f"LightGCN 10x launches over the export, {LGCN_BPR_STEPS} BPR steps "
           f"and 2 evaluations: {launches}")
     del pipe, trainer
-    torch.cuda.empty_cache()
+    gc_cuda(torch)
     lightgcn_small_graph_check(torch)
+    ngcf = ngcf_10x_phase(torch, dg, graph, records)
+    launches = {k: launches[k] + ngcf[k] for k in GATHER}
+    print(f"gather launches over LightGCN's and NGCF's 10x paths: {launches}")
+    del graph
+    gc_cuda(torch)
     lightgcn_hetrec_dense(torch, dg, hetrec_graph)
     return records, launches
+
+
+# ------------------------------------------ NGCF, the chunked dense tier
+# and DisenHAN
+
+NGCF_WIDTHS = (64, 32)  # NGCF's SpMM widths: 64, 64 and 32 a forward
+NODE_DROP = 0.1
+DENSE_XLA_MODELS = (("dgcf", {}), ("disengcn", {}),
+                    ("kgat", {"agg_type": "bi_inter"}))
+
+
+def phase_timer(label):
+    """Print the host seconds of the phase ``label`` when called again."""
+    t0 = time.perf_counter()
+
+    def done():
+        print(f"phase {label}: {time.perf_counter() - t0:.1f} s (host clock)")
+    return done
+
+
+def describe_hybrid(label, h):
+    """Print one hybrid side's hub block and degree buckets (rows x width,
+    edges, slots); returns the launches of one SpMM over it."""
+    n = h.dense_block.shape[0]
+    hub_edges = int((h.dense_block != 0).sum())
+    print(f"{label} tier: hybrid; hub block {n} x {h.dense_block.shape[1]} "
+          f"({h.dense_block.numel() * 4 / 1e9:.3f} GB float32), {hub_edges} "
+          "edges")
+    slots = edges = 0
+    for b, p in enumerate(h.ell.parts):
+        rows, k = p.idx.shape
+        e = int(p.deg.sum())
+        slots, edges = slots + rows * k, edges + e
+        print(f"{label} bucket {b + 1}: {rows} x {k}, {e} edges, "
+              f"{rows * k} slots ({100.0 * e / (rows * k):.1f}% filled)")
+    print(f"{label} buckets: {len(h.ell.parts)}, {slots} slots, {edges} tail "
+          f"edges; {hub_edges + edges} edges in all")
+    return {"gather_reduce": len(h.ell.parts), "gather_rows": 2}
+
+
+def ngcf_gather_phase(torch, dg, pair):
+    """gather_reduce against its plain version on every bucket of NGCF's
+    forward and transpose tables with the bucket's degrees, and gather_rows
+    (bit for bit) on each side's inv_perm and dense_cols, at D = 64 and 32.
+    The plain gather_reduce runs in float64 on buckets wider than WIDE_K
+    (long float32 sums drift by themselves).  Per side and width, summed
+    over one SpMM: ms (CUDA events, median of 15), device_ms (profiler,
+    mean of 10), plain_ms (median of 3), bound_ms (x once, the real edges'
+    bytes; or the row gathers' bytes)."""
+    h0 = pair.fwd
+    n = h0.dense_block.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    out = {name: {} for name in GATHER}
+    for d in NGCF_WIDTHS:
+        x = torch.randn((n, d), generator=gen, device="cuda")
+        for side, h in (("forward", pair.fwd), ("transpose", pair.bwd)):
+            recs = {name: {"max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0,
+                           "plain_ms": 0.0, "bytes": 0, "ops": 0}
+                    for name in GATHER}
+            recs["gather_reduce"]["bytes"] = x.numel() * 4
+            cases = []
+            for b, p in enumerate(h.ell.parts):
+                rows, k = p.idx.shape
+                edges = int(p.deg.sum())
+                wide = k > dg.WIDE_K
+                cases.append((
+                    "gather_reduce", f"bucket {b + 1} ({rows} x {k})",
+                    lambda p=p: dg.gather_reduce(x, p.idx, p.val, p.deg),
+                    lambda p=p: dg.gather_reduce_plain(x, p.idx, p.val, p.deg),
+                    (lambda p=p: dg.gather_reduce_plain(
+                        x.double(), p.idx, p.val.double(), p.deg)) if wide
+                    else None,
+                    edges * 8 + rows * 4 + rows * d * 4, 2 * edges * d))
+            for label, idx in (("inv_perm", h.ell.inv_perm),
+                               ("dense_cols", h.dense_cols)):
+                r = idx.shape[0]
+                cases.append(("gather_rows", f"{label} (R={r})",
+                              lambda idx=idx: dg.gather_rows(x, idx),
+                              lambda idx=idx: dg.gather_rows_plain(x, idx),
+                              None, r * 4 + 2 * r * d * 4, 0))
+            for name, label, kern, plain, plain64, nbytes, ops in cases:
+                got = kern()
+                want = (plain64 or plain)()
+                if name == "gather_rows":
+                    ok = bool(torch.equal(got, want))
+                else:
+                    ok = bool(torch.allclose(got.to(want.dtype), want,
+                                             rtol=RTOL, atol=ATOL))
+                err = float((got.double() - want.double()).abs().max())
+                check(ok and bool(torch.isfinite(got).all()),
+                      f"NGCF {name} D={d} {side} {label} disagrees with its "
+                      f"plain version (max abs {err:.3e})")
+                ms = time_ms(torch, kern, runs=15)
+                dev = device_ms(torch, kern)
+                plain_ms = time_ms(torch, plain, runs=3)
+                rec = recs[name]
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                for key, v in (("ms", ms), ("device_ms", dev),
+                               ("plain_ms", plain_ms), ("bytes", nbytes),
+                               ("ops", ops)):
+                    rec[key] += v
+                print(f"NGCF {name} D={d} {side} {label}: max_abs_err "
+                      f"{err:.3e} ({'bit for bit' if name == 'gather_rows' else 'against float64' if plain64 else f'rtol {RTOL}, atol {ATOL}'}) ok; "
+                      f"kernel {ms:.4f} ms, device {dev:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms")
+            for name, rec in recs.items():
+                t_bytes = rec.pop("bytes") / PEAK_BYTES_PER_S * 1e3
+                t_ops = rec.pop("ops") / PEAK_F32_OPS_PER_S * 1e3
+                rec["bound_ms"] = max(t_bytes, t_ops)
+                rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+                out[name].setdefault(f"d{d}", {})[side] = rec
+                print(f"NGCF {name} D={d} {side} table, per SpMM: "
+                      f"{rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms, "
+                      f"plain {rec['plain_ms']:.4f} ms, bound "
+                      f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    return out
+
+
+def edge_dropout_check(torch, dg, adj, per_spmm, label):
+    """``edge_dropout`` at rate NODE_DROP on one adjacency (an AdjPair:
+    its forward form): the dropped share of the stored edges, the
+    survivors scaled by 1 / keep, then one forward and backward through
+    the dropped adjacency (forward on the gather kernels, backward by the
+    scatter-add), held by the adjoint identity <A x2, g> = <x2, A^T g>."""
+    from tagrec_tpu_torch.ops import propagate
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    t0 = time.perf_counter()
+    dropped = propagate.edge_dropout(adj, NODE_DROP, gen, True)
+    torch.cuda.synchronize()
+    drop_ms = (time.perf_counter() - t0) * 1e3
+    keep = 1.0 - NODE_DROP
+    pairs = [(p.val[p.val != 0], q.val[p.val != 0])
+             for p, q in zip(adj.fwd.ell.parts, dropped.ell.parts)]
+    pairs.append((adj.fwd.dense_block[adj.fwd.dense_block != 0],
+                  dropped.dense_block[adj.fwd.dense_block != 0]))
+    edges = sum(a.numel() for a, _ in pairs)
+    kept = sum(int((b != 0).sum()) for _, b in pairs)
+    scaled = all(bool(torch.allclose(b[b != 0], a[b != 0] / keep, rtol=1e-6,
+                                     atol=0)) for a, b in pairs)
+    share = 1.0 - kept / edges
+    sigma = (NODE_DROP * keep / edges) ** 0.5
+    print(f"{label} edge dropout at {NODE_DROP}: {edges - kept} of {edges} "
+          f"stored edges dropped (share {share:.6f}, 5 sigma "
+          f"{5 * sigma:.6f}); survivors scaled by 1/keep: {scaled}; drawn in "
+          f"{drop_ms:.3f} ms (host clock)")
+    check(abs(share - NODE_DROP) < 5 * sigma and scaled,
+          f"{label}: dropped share {share}, scaled {scaled}")
+    n = adj.fwd.dense_block.shape[0]
+    x = torch.randn((n, 64), generator=gen, device="cuda", requires_grad=True)
+    x2 = torch.randn((n, 64), generator=gen, device="cuda")
+    g = torch.randn((n, 64), generator=gen, device="cuda")
+    reset_counts(dg, GATHER)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    propagate.adj_mm(dropped, x).backward(g)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        y2 = propagate.adj_mm(dropped, x2)
+    launches = counts(dg, GATHER)
+    lhs = float((y2.double() * g.double()).sum())
+    rhs = float((x.grad.double() * x2.double()).sum())
+    scale = float((y2.double().abs() * g.double().abs()).sum())
+    print(f"{label} dropped SpMM forward and backward: {step_ms:.3f} ms (host "
+          f"clock); <A x2, g> {lhs:.6f}, <x2, A^T g> {rhs:.6f} (difference "
+          f"{abs(lhs - rhs) / scale:.3e} of sum |A x2| |g|); launches "
+          f"{launches} over two forwards (the backward is a scatter-add)")
+    check(abs(lhs - rhs) <= 1e-5 * scale, f"{label}: the dropped adjacency's "
+          "backward is not its transpose")
+    check(launches == {k: 2 * v for k, v in per_spmm.items()},
+          f"{label}: dropped SpMM launches {launches}")
+    return launches
+
+
+def ngcf_small_graph_check(torch):
+    """NGCF on a small graph's hybrid tier, hub columns forced
+    (``hub_min_degree`` 12) on both tables of D^-1 A, cuda against cpu."""
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.models import model_class
+    from tagrec_tpu_torch.ops import ell
+
+    cfg = model_preset("ngcf", adj_mode="hybrid", reg=1e-4)
+
+    def make(g, dev):
+        model = model_class("ngcf")(
+            g, cfg, device=dev, generator=torch.Generator().manual_seed(3))
+        model.adj = ell.to_device(ell.build_adj_pair(
+            g.joint_norm_adj("si_norm", True), symmetric=False, mode="hybrid",
+            hub_min_degree=12), dev)
+        check(model.adj.bwd is not model.adj.fwd
+              and model.adj.bwd.dense_cols is not None
+              and len(model.adj.bwd.ell.parts) > 1, "no hub columns")
+        return model
+
+    small_graph_grad_check(torch, "NGCF hybrid", make)
+
+
+def ngcf_10x_phase(torch, dg, graph, records):
+    """NGCF at the preset's full width on the 10x graph's hybrid tier: the
+    tiers and buckets of D^-1 A and of its transpose, the gather kernels on
+    both at D = 64 and 32, 5 BPR steps with the launches checked per step,
+    the peak memory, one step profiled, edge dropout on the pair, one
+    evaluation, the small-graph check.  Returns the launches."""
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+    from tagrec_tpu_torch.training.train import Trainer
+
+    done = phase_timer("NGCF 10x")
+    t0 = time.perf_counter()
+    tcfg = TrainConfig()
+    pipe = build_pipeline(graph, model_preset("ngcf"), tcfg,
+                          generator=torch.Generator().manual_seed(0),
+                          device="cuda")
+    print(f"NGCF 10x pipeline (D^-1 A and its transpose, samplers, evaluator)"
+          f" built in {time.perf_counter() - t0:.1f} s (host and transfer)")
+    pair = pipe.model.adj
+    check(pair.bwd is not pair.fwd and type(pair.fwd).__name__ == "Hybrid"
+          and pair.fwd.dense_cols is not None
+          and pair.bwd.dense_cols is not None,
+          "NGCF 10x: expected an asymmetric hybrid pair with hub columns")
+    per_fwd = describe_hybrid("NGCF forward (D^-1 A)", pair.fwd)
+    per_bwd = describe_hybrid("NGCF transpose (A^T D^-1)", pair.bwd)
+    ngcf = ngcf_gather_phase(torch, dg, pair)
+    for name in GATHER:
+        records[name]["ngcf"] = ngcf[name]
+
+    n_layer = pipe.model.cfg.num_layer
+    per_step = {k: n_layer * (per_fwd[k] + per_bwd[k]) for k in GATHER}
+    per_forward = {k: n_layer * per_fwd[k] for k in GATHER}
+    (bpr,) = pipe.phases
+    trainer = Trainer(pipe.model, pipe.phases, tcfg,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    print(f"NGCF 10x launches per BPR step expected: {per_step} ({n_layer} "
+          f"layers; forward buckets {per_fwd['gather_reduce']}, transpose "
+          f"buckets {per_bwd['gather_reduce']})")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(dg, GATHER)
+    trained = training_steps(torch, trainer, bpr, LGCN_BPR_STEPS,
+                             "NGCF 10x BPR",
+                             launch_checker(dg, GATHER, per_step, "NGCF BPR"))
+    print(f"NGCF 10x BPR: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    batch = bpr.make_batch(trainer.generator, 0,
+                           bpr.epoch_reset(trainer.generator, bpr.data),
+                           bpr.data)
+    profile_device(torch, lambda: trainer.step(bpr, batch), "NGCF 10x BPR step",
+                   {**GATHER_KERNEL_NAMES, "multi_tensor_apply": "adam (foreach)",
+                    "gemm": "matmul (cuBLAS)"})
+    dropped = edge_dropout_check(torch, dg, pair, per_fwd, "NGCF 10x")
+
+    reset_counts(dg, GATHER)
+    t0 = time.perf_counter()
+    res = pipe.evaluator.run(pipe.model)
+    evaluated = counts(dg, GATHER)
+    print(f"NGCF 10x evaluation of {len(graph.user_items['test'])} test users: "
+          f"{time.perf_counter() - t0:.3f} s (host clock), launches "
+          f"{evaluated} {json.dumps(res)}")
+    check(evaluated == per_forward and 0.0 < res["auc"][0] < 1.0,
+          f"NGCF 10x evaluation: launches {evaluated}, results {res}")
+    del pipe, trainer
+    gc_cuda(torch)
+    ngcf_small_graph_check(torch)
+    done()
+    return {k: trained[k] + dropped[k] + evaluated[k] for k in GATHER}
+
+
+def bf16_product_check(torch, model):
+    """Each bf16 sector block of ``model``'s forward adjacency times its
+    slice of the ego rows, as the first layer runs it (``block_mm``),
+    against the plain float32 product of the bf16-rounded operands at
+    rtol/ATOL; a product rounded to bf16 fails both that and the check that
+    the float32 result is not bf16 everywhere."""
+    from tagrec_tpu_torch.ops.propagate import block_mm
+
+    ds = model.adj.fwd
+    xs = torch.split(torch.cat(list(model.embed)).detach(), list(ds.sizes))
+    err, wide = 0.0, False
+    with torch.no_grad():
+        for b, (_, ci) in zip(ds.blocks, ds.coords):
+            got = block_mm(b, xs[ci])
+            want = b.float() @ xs[ci].to(torch.bfloat16).float()
+            check(got.dtype == torch.float32
+                  and torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+                  f"bf16 block {tuple(b.shape)} x {tuple(xs[ci].shape)} "
+                  "differs from the float32 product of its rounded operands")
+            err = max(err, float((got - want).abs().max()))
+            wide = wide or not torch.equal(got, got.to(torch.bfloat16).float())
+    print(f"NGCF hetrec bf16 block products ({len(ds.blocks)} blocks, "
+          f"{[tuple(b.shape) for b in ds.blocks]}, x of {xs[0].shape[1]} "
+          f"columns) against float32 products of the bf16-rounded operands: "
+          f"max abs {err:.3e} (rtol {RTOL}, atol {ATOL}); results float32, "
+          f"not rounded to bf16: {wide}")
+    check(wide, "the bf16 block products are rounded to bf16")
+
+
+def ngcf_hetrec_phase(torch, dg, graph, tmp):
+    """NGCF at the preset's full width on the hetrec graph's dense sector
+    tier (no kernel of the port), float32 and bf16 from the same weights:
+    the forwards' difference; per dtype 5 BPR steps and one profiled;
+    float32's export -> artifact -> 3 top-k requests and one evaluation."""
+    import math
+
+    import numpy as np
+
+    from tagrec_tpu_torch import serving
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+    from tagrec_tpu_torch.training.train import Trainer
+
+    done = phase_timer("NGCF hetrec")
+    tcfg = TrainConfig()
+    pipes, fwd = {}, {}
+    for dtype in ("f32", "bf16"):
+        pipe = build_pipeline(graph, model_preset("ngcf", adj_dtype=dtype),
+                              tcfg, generator=torch.Generator().manual_seed(0),
+                              device="cuda")
+        adj = pipe.model.adj
+        want = torch.float32 if dtype == "f32" else torch.bfloat16
+        check(type(adj.fwd).__name__ == "DenseSectors"
+              and adj.bwd is not adj.fwd
+              and all(b.dtype == want for b in adj.fwd.blocks + adj.bwd.blocks),
+              f"NGCF hetrec {dtype}: expected {want} sector pairs")
+        with torch.no_grad():
+            fwd[dtype] = torch.cat(pipe.model.forward())
+        pipes[dtype] = pipe
+    bf16_product_check(torch, pipes["bf16"].model)
+    err = float((fwd["f32"] - fwd["bf16"]).abs().max())
+    print(f"NGCF hetrec: dense sectors {pipes['f32'].model.adj.fwd.coords} and "
+          f"their transposes; bf16 forward against float32 from the same "
+          f"weights: max abs difference {err:.3e} (limit {BF16_FWD_ATOL}; "
+          f"tables of {fwd['f32'].shape[1]} columns, max |value| "
+          f"{float(fwd['f32'].abs().max()):.3f})")
+    check(fwd["f32"].shape[1] == 176 and math.isfinite(err)
+          and err < BF16_FWD_ATOL,
+          f"NGCF hetrec bf16 forward differs from float32 by {err}")
+    busy = {}
+    for dtype, pipe in pipes.items():
+        (bpr,) = pipe.phases
+        trainer = Trainer(pipe.model, pipe.phases, tcfg,
+                          generator=torch.Generator(device="cuda").manual_seed(0))
+        reset_counts(dg, GATHER)
+        training_steps(torch, trainer, bpr, HETREC_BPR_STEPS,
+                       f"NGCF hetrec {dtype} BPR")
+        check(counts(dg, GATHER) == dict.fromkeys(GATHER, 0),
+              "the dense sector tier launched a gather kernel")
+        batch = bpr.make_batch(trainer.generator, 0,
+                               bpr.epoch_reset(trainer.generator, bpr.data),
+                               bpr.data)
+        busy[dtype] = profile_device(
+            torch, lambda: trainer.step(bpr, batch),
+            f"NGCF hetrec {dtype} BPR step",
+            {"multi_tensor_apply": "adam (foreach)", "gemm": "matmul (cuBLAS)",
+             "nvjet": "matmul (cuBLAS)"})
+    print(f"NGCF hetrec BPR step device busy (ms): {busy}")
+    del pipes["bf16"]
+    pipe = pipes["f32"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u_t, i_t = serving.export_tables(pipe.model, n_item=graph.n_item)
+    print(f"NGCF export_tables: forward {(time.perf_counter() - t0) * 1e3:.3f}"
+          " ms (first call after training, host clock)")
+    check(u_t.shape == (graph.n_user, 176) and i_t.shape == (graph.n_item, 176)
+          and np.isfinite(u_t).all() and np.isfinite(i_t).all(),
+          f"NGCF tables {u_t.shape} {i_t.shape}, or not finite")
+    steady_forward(torch, pipe.model, "NGCF hetrec")
+    serve_requests(torch, graph, u_t, i_t, tmp, "ngcf")
+    t0 = time.perf_counter()
+    res = pipe.evaluator.run(pipe.model)
+    print(f"NGCF hetrec evaluation of {len(graph.user_items['test'])} test "
+          f"users: {time.perf_counter() - t0:.3f} s (host clock) "
+          f"{json.dumps(res)}")
+    check(all(math.isfinite(v) for vs in res.values() for v in vs)
+          and 0.0 < res["auc"][0] < 1.0, f"NGCF evaluation results {res}")
+    del pipes, pipe
+    gc_cuda(torch)
+    done()
+
+
+def synced_ms(torch, fn):
+    """(host-clock ms of one synchronised call of ``fn``, its result, the
+    peak device memory in GiB over it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) * 1e3, out,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def dense_xla_batch(torch, graph):
+    """The 512 (user, item+, item-) triples of the holds' BPR loss."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    return torch.as_tensor(np.stack([rng.integers(0, graph.n_user, 512),
+                                     rng.integers(0, graph.n_item, 512),
+                                     rng.integers(0, graph.n_item, 512)],
+                                    axis=1), device="cuda")
+
+
+def tier_run(torch, graph, name, cfg, mode, dtype, batch, fr, fa):
+    """Model ``name`` at the preset's full width on ``mode``'s tier in
+    ``dtype``, drawn from seed 0: two forwards, one BPR loss's backward and
+    the backward of the forward tables against fixed random cotangents (the
+    forward's vector-Jacobian product), their host times and peak memory
+    printed.  -> {"fwd", "bpr", "vjp", "params"} in float64 and the
+    launches."""
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.models import model_class
+
+    mods = ((fr, ROUTING), (fa, FLASH))
+    model = model_class(name)(
+        graph, model_preset(name, adj_mode=mode, **cfg), device="cuda",
+        generator=torch.Generator().manual_seed(0)).to(dtype)
+    check(model.flash == (mode == "auto"), f"{name} {mode}: tier")
+    for mod, names in mods:
+        reset_counts(mod, names)
+    with torch.no_grad():
+        first_ms, fwd, fwd_gib = synced_ms(torch, model.forward)
+        fwd_ms, fwd, _ = synced_ms(torch, model.forward)
+    bwd_ms, _, bwd_gib = synced_ms(
+        torch, lambda: sum(model.bpr_loss(batch)).backward())
+
+    def grads():
+        out = {n: p.grad.double() for n, p in model.named_parameters()
+               if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    bpr = grads()
+    gen = torch.Generator().manual_seed(7)
+    cots = [torch.randn(t.shape, generator=gen, dtype=torch.float64).to(
+        t.device, dtype) for t in fwd]
+    sum((t * c).sum() for t, c in zip(model.forward(), cots)).backward()
+    got = {k: v for mod, names in mods for k, v in counts(mod, names).items()}
+    print(f"{name} {mode} ({'kernels' if mode == 'auto' else 'chunked dense tier'}, {dtype}): "
+          f"forward {first_ms:.3f} ms first, {fwd_ms:.3f} ms second, "
+          f"peak device memory {fwd_gib:.3f} GiB; BPR loss and "
+          f"backward {bwd_ms:.3f} ms, peak {bwd_gib:.3f} GiB (host "
+          f"clock); launches over three forwards and two backwards {got}")
+    out = {"fwd": [t.double() for t in fwd], "bpr": bpr, "vjp": grads(),
+           "params": {n: p.detach().double()
+                      for n, p in model.named_parameters()},
+           "launches": got}
+    del model
+    gc_cuda(torch)
+    return out
+
+
+def grad_errors(got, want):
+    """(max |got - want| / max|want|, ||got - want|| / ||want||): a
+    gradient's error on its own scale (a BPR loss averaged over 512
+    triples leaves most entries far below ATOL)."""
+    err = got - want
+    scale, norm = float(want.abs().max()), float(want.norm())
+    return (float(err.abs().max()) / scale if scale else float(
+        err.abs().max()), float(err.norm()) / norm if norm else float(
+        err.norm()))
+
+
+def grad_hold(torch, got, plain, want):
+    """One float32 gradient against its float64 reference ``want``: every
+    entry within BWD_RTOL |want| + RTOL max|want| and the whole within
+    BWD_RTOL ||want||; or, where plain float32 PyTorch (``plain``) cannot
+    resolve it either, both errors within GRAD_FLOOR times plain's.  ->
+    (ok, the kernel tier's errors, plain's errors)."""
+    mine, base = grad_errors(got, want), grad_errors(plain, want)
+    own = (bool(torch.allclose(got, want, rtol=BWD_RTOL,
+                               atol=RTOL * float(want.abs().max())))
+           and mine[1] <= BWD_RTOL)
+    floor = all(m <= GRAD_FLOOR * b for m, b in zip(mine, base))
+    return own or floor, mine, base
+
+
+def hold_tiers(torch, name, kern, plain, ref) -> bool:
+    """The kernel tier's forward tables (rtol RTOL, atol ATOL), BPR
+    gradients and forward VJP (``grad_hold``, each printed with its norm
+    and plain float32's errors) against the float64 chunked tier's, from
+    the same weights -> whether all hold."""
+    check(all(t["params"].keys() == ref["params"].keys() and all(
+        torch.equal(t["params"][k], v) for k, v in ref["params"].items())
+        for t in (kern, plain)), f"{name}: the tiers drew different weights")
+    f_ok, f_err, f_rel = True, 0.0, 0.0
+    for a, b in zip(kern["fwd"], ref["fwd"]):
+        ok, err, rel = compare(torch, a, b, RTOL)
+        f_ok, f_err, f_rel = f_ok and ok, max(f_err, err), max(f_rel, rel)
+    print(f"{name} kernel tier against dense_xla in float64, hetrec, full "
+          f"width: forward max abs {f_err:.3e}, max rel {f_rel:.3e} (rtol "
+          f"{RTOL}, atol {ATOL}) {'ok' if f_ok else 'FAIL'}; gradients as "
+          f"max err / max|g| and |err| / |g|, kernels then plain float32 "
+          f"(entries within {BWD_RTOL} |g| + {RTOL} max|g| and norm within "
+          f"{BWD_RTOL} |g|, or both within {GRAD_FLOOR}x plain float32's):")
+    g_ok = True
+    for part in ("bpr", "vjp"):
+        check(kern[part].keys() == ref[part].keys() == plain[part].keys(),
+              f"{name} {part}: gradients of {sorted(kern[part])} against "
+              f"{sorted(ref[part])}")
+        for key, want in ref[part].items():
+            ok, mine, base = grad_hold(torch, kern[part][key],
+                                       plain[part][key], want)
+            g_ok = g_ok and ok
+            print(f"  {name} {part} {key} |g| {float(want.norm()):.3e}: "
+                  f"{mine[0]:.3e} {mine[1]:.3e}, plain {base[0]:.3e} "
+                  f"{base[1]:.3e} {'ok' if ok else 'FAIL'}")
+    return f_ok and g_ok
+
+
+def dense_xla_phase(torch, graph, fr, fa):
+    """DGCF, DisenGCN and KGAT ``bi_inter`` at the preset's full width on
+    the hetrec graph: the kernel tier (float32) against the chunked dense
+    tier (``adj_mode="dense_xla"``) evaluated in float64 on the card from
+    one set of weights, beside the chunked tier in float32, held by
+    ``hold_tiers``.  Returns the kernel tier's launches."""
+    done = phase_timer("dense_xla against the kernels")
+    batch = dense_xla_batch(torch, graph)
+    total = {name: 0 for name in ROUTING + FLASH}
+    for name, cfg in DENSE_XLA_MODELS:
+        ref, plain = (tier_run(torch, graph, name, cfg, "dense_xla", dtype,
+                               batch, fr, fa)
+                      for dtype in (torch.float64, torch.float32))
+        check(not any(ref["launches"].values())
+              and not any(plain["launches"].values()),
+              f"{name} dense_xla launched a kernel")
+        kern = tier_run(torch, graph, name, cfg, "auto", torch.float32,
+                        batch, fr, fa)
+        check(any(kern["launches"].values()), f"{name}: no kernel launched")
+        total = {k: total[k] + kern["launches"][k] for k in total}
+        check(hold_tiers(torch, name, kern, plain, ref),
+              f"{name}: the kernel tier disagrees with the chunked dense "
+              "tier")
+        del ref, plain, kern
+        gc_cuda(torch)
+    done()
+    return total
+
+
+def disenhan_phase(torch, graph, tmp):
+    """DisenHAN at the preset's full width on the hetrec graph, dense mode
+    (six relation masks; no kernel of the port): 5 BPR steps through the
+    resampling phase, the peak memory, one step profiled, export ->
+    artifact -> 3 top-k requests, one evaluation; the small-graph check."""
+    import math
+
+    import numpy as np
+
+    from tagrec_tpu_torch import serving
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+    from tagrec_tpu_torch.models import model_class
+    from tagrec_tpu_torch.training.train import Trainer
+
+    done = phase_timer("DisenHAN hetrec")
+    cfg = model_preset("disenhan", reg=1e-3)
+    small_graph_grad_check(torch, "DisenHAN", lambda g, dev: model_class(
+        "disenhan")(g, cfg, device=dev,
+                    generator=torch.Generator().manual_seed(3)))
+    t0 = time.perf_counter()
+    tcfg = TrainConfig()
+    pipe = build_pipeline(graph, model_preset("disenhan"), tcfg,
+                          generator=torch.Generator().manual_seed(0),
+                          device="cuda")
+    masks = pipe.model.masks()
+    mbytes = sum(m.numel() for m in masks)
+    print(f"DisenHAN pipeline built in {time.perf_counter() - t0:.1f} s; six "
+          f"relation masks {[tuple(m.shape) for m in masks]}, {mbytes} bytes")
+    (bpr,) = pipe.phases
+    trainer = Trainer(pipe.model, pipe.phases, tcfg,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    training_steps(torch, trainer, bpr, ROUTED_BPR_STEPS, "DisenHAN BPR")
+    print(f"DisenHAN BPR: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    batch = bpr.make_batch(trainer.generator, 0, None, bpr.data)
+    profile_device(torch, lambda: trainer.step(bpr, batch), "DisenHAN BPR step",
+                   {"multi_tensor_apply": "adam (foreach)",
+                    "gemm": "matmul (cuBLAS)"})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u_t, i_t = serving.export_tables(pipe.model, n_item=graph.n_item)
+    print(f"DisenHAN export_tables: forward "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock)")
+    check(u_t.shape == (graph.n_user, 64) and i_t.shape == (graph.n_item, 64)
+          and np.isfinite(u_t).all() and np.isfinite(i_t).all(),
+          f"DisenHAN tables {u_t.shape} {i_t.shape}, or not finite")
+    steady_forward(torch, pipe.model, "DisenHAN")
+    serve_requests(torch, graph, u_t, i_t, tmp, "disenhan")
+    t0 = time.perf_counter()
+    res = pipe.evaluator.run(pipe.model)
+    print(f"DisenHAN evaluation of {len(graph.user_items['test'])} test users: "
+          f"{time.perf_counter() - t0:.3f} s (host clock) {json.dumps(res)}")
+    check(all(math.isfinite(v) for vs in res.values() for v in vs)
+          and 0.0 < res["auc"][0] < 1.0, f"DisenHAN evaluation results {res}")
+    del pipe, trainer
+    gc_cuda(torch)
+    done()
 
 
 # ----------------------------------------------------------------- the CLI
@@ -1461,10 +2087,12 @@ def cli_phase(torch, fr, card):
     """The training CLI on the card, as a user runs it: DGCF at the preset's
     full width on ``synthetic_large`` (the hetrec graph from the CLI's seed)
     for one epoch with a train state and an export (run A), the artifact
-    queried through ``serving.main``; resumed from that state to two epochs
-    (run B: epoch 1 only); DGCF on the small graph with ``--profile`` (run
-    C).  Each run's routing launches are checked against its steps and
-    forwards.  Returns the launches summed over the three runs."""
+    queried through ``serving.main``; resumed from that state to
+    ``--epochs 2`` (run B: epoch 1 only, on the restored Adam state);
+    DGCF on the small graph with ``--profile`` (run C); NGCF on
+    ``synthetic_large`` for one epoch with an export (run D).
+    Each DGCF run's routing launches are checked against its steps and
+    forwards.  Returns the launches summed over the runs."""
     import contextlib
     import glob
     import io
@@ -1548,6 +2176,18 @@ def cli_phase(torch, fr, card):
         check(n_kern == want, f"CLI run C: {n_kern} routing kernels in the "
                               f"trace, expected {want}")
         total = {k: total[k] + got[k] for k in ROUTING}
+
+        # run D: NGCF on synthetic_large, one epoch on the dense sector
+        # tier (no kernel of the port), its export
+        text, got, run_dir = cli_run(
+            torch, fr, ("--model", "ngcf") + CLI_DGCF[2:] + (
+                "--epochs", "1", "--export", os.path.join(tmp, "ngcf"),
+                "--out_dir", os.path.join(tmp, "d")), "D")
+        check(not any(got.values()), f"CLI run D: routing launches {got}")
+        check_cli_results(run_dir, "run D")
+        cli_seconds(text, run_dir, "run D", card)
+        check("serving artifact:" in text and "'dim': 176" in text,
+              "CLI run D: no NGCF artifact of 176 columns")
     return total
 
 
@@ -1625,14 +2265,23 @@ def run(torch):
           f"{KGAT_TRANSE_STEPS} steps: {launches}")
     kgat_small_graph_check(torch)
     del pipe, trainer
-    torch.cuda.empty_cache()
+    gc_cuda(torch)
+
+    held = dense_xla_phase(torch, graph, fr, fa)
+    launches = {k: launches[k] + held[k] for k in launches}
+    print(f"kernel-tier launches over the dense_xla holds: {held}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ngcf_hetrec_phase(torch, dg, graph, tmp)
+        disenhan_phase(torch, graph, tmp)
 
     gather_records, gather_launches = lightgcn_paths(torch, dg, graph)
     records.update(gather_records)
     launches.update(gather_launches)
     gc_cuda(torch)
 
+    done = phase_timer("CLI")
     cli = cli_phase(torch, fr, card)
+    done()
     launches.update({k: launches[k] + cli[k] for k in ROUTING})
     print(f"routing launches over the CLI's runs A, B and C: {cli}; over "
           f"every path: { {k: launches[k] for k in ROUTING} }")
@@ -1669,7 +2318,7 @@ def run(torch):
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "device_ms",
                             "library_device_ms", "shape", "r80",
-                            "disengcn")
+                            "disengcn", "ngcf")
                            if k in rec}})
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -1691,11 +2340,14 @@ def main() -> int:
         print("chip_smoke: run it from the root of the repository (no "
               "tagrec_tpu_torch package here)", file=sys.stderr)
         return 2
+    t0 = time.perf_counter()
     try:
         run(torch)
     except Exception:  # every phase's failure ends the run non-zero
         traceback.print_exc()
         return 1
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all (host "
+          "clock)", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

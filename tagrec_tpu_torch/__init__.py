@@ -14,6 +14,11 @@ Slice 4: DGCF and DisenGCN training on the dense routing tier.
 Slice 5: the training CLI (``python -m tagrec_tpu_torch.cli``) over the four
 families, with train-state resume, the JSONL metrics stream and profiling
 (``utils``), and the offline preprocessing (``data.preprocess``).
+Slice 6: NGCF on every constant-adjacency tier (its asymmetric pair runs
+the gather kernels over its own transpose tables), bf16 dense adjacencies
+and edge dropout, the chunked dense tier (``adj_mode="dense_xla"``,
+``ops.dense_adj``) for DGCF, DisenGCN and KGAT, and DisenHAN in dense
+mode.
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``, where every kernel wrapper runs its plain PyTorch version.
 """

@@ -11,8 +11,9 @@ It writes JAX's ``out_dir`` layout (``metrics.jsonl``, ``model.npz``,
 are JAX's formats, so either package reads the other's.  Flags whose
 feature the port lacks raise NotImplementedError naming its ROADMAP.md
 label: ``--dp``/``--mp`` > 1 (A18), ``--use_kg`` over a ``kg_final.txt``
-(A14), ``--adj_mode dense_xla`` (A12) and ``ell`` (A17), and the models
-ngcf (A11), disenhan (A15) and tgcn (A16).
+(A14), ``--adj_mode ell`` on the attention models (A17), and the model
+tgcn (A16).  ``--adj_mode dense_xla`` takes the chunked dense tier for
+DGCF, DisenGCN and KGAT (``dense`` for LightGCN and NGCF).
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Composition root (tagrec_tpu/compose.py), cut to the families the port
-trains: LightGCN (one BPR phase), KGAT (BPR over the train interactions
-and TransE over the six tag-graph relations, both stepping the Trainer's
-one Adam), and DGCF and DisenGCN (the resampling BPR phase, with the
-distance-correlation ids), each with the full-catalog evaluator.
+trains: LightGCN and NGCF (one BPR phase), KGAT (BPR over the train
+interactions and TransE over the six tag-graph relations, both stepping
+the Trainer's one Adam), and DGCF, DisenGCN and DisenHAN (the resampling
+BPR phase, with the distance-correlation ids), each with the full-catalog
+evaluator.
 """
 
 from __future__ import annotations
@@ -22,9 +23,11 @@ from tagrec_tpu_torch.training.evaluate import Evaluator
 from tagrec_tpu_torch.training.train import (PhaseSpec, bpr_phase,
                                              resampling_phase, triple_phase)
 
-TRAINED = ("dgcf", "disengcn", "kgat", "lightgcn")
+TRAINED = ("dgcf", "disengcn", "disenhan", "kgat", "lightgcn", "ngcf")
 # the families still to port, with their ROADMAP.md labels
-NOT_PORTED = {"ngcf": "A11", "disenhan": "A15", "tgcn": "A16"}
+NOT_PORTED = {"tgcn": "A16"}
+# the families trained by the resampling phase
+RESAMPLED = ("dgcf", "disengcn", "disenhan")
 
 
 @dataclass
@@ -60,7 +63,7 @@ def build_pipeline(graph: HeteroGraph, mcfg: ModelConfig, tcfg: TrainConfig,
     pt = sampling.build_pos_table(graph.user_items["train"], graph.n_user,
                                   graph.n_item, device=dev)
     edges = graph.edge_index["train"]
-    if mcfg.name in ("dgcf", "disengcn"):
+    if mcfg.name in RESAMPLED:
         def routed_loss_fn(batch, gen):
             return model.bpr_loss(batch["bpr"], cor=batch.get("cor"),
                                   generator=gen)

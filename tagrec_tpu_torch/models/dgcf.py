@@ -7,14 +7,16 @@ D^-1/2 A_f D^-1/2 over the routed adjacency A_f = softmax_F(S) * mask.  The
 score table is the low-rank series S_t = 1 + sum_tau U_tau V_tau^T, kept as
 the lists of update factors, and it persists across layers.  Each iteration
 runs the two routing kernels (``ops.flash_routing``) at its true rank, so
-the [F, N, N] adjacency never exists.  Final embeddings are the mean over
+the [F, N, N] adjacency never exists.  ``adj_mode="dense_xla"`` computes
+the same iterations on the chunked dense tier (``ops.dense_adj``) instead,
+in plain PyTorch, chunk by chunk.  Final embeddings are the mean over
 [ego, layer_1..L].  The loss is BPR on the final tables plus L2 on the ego
 rows and, when ``cor_reg`` > 0, the distance correlation of the factor
 chunks; gradients reach the embeddings through ``routed_mm``'s backward
 (the sweep over the mask's transpose).
 
-Only the dense tier is ported; the EdgeMap tier and the chunked XLA tier of
-the JAX model raise ``NotImplementedError``.
+The EdgeMap tier of the JAX model (``adj_mode="ell"``, or a graph over the
+dense budget) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ class DGCF(nn.Module):
                              f"of factor_k {cfg.factor_k}")
         self.dim_k = cfg.dim_latent // cfg.factor_k
         coo = graph.joint_norm_adj(cfg.norm_type, use_tag)  # 'plain'
+        self.flash = cfg.adj_mode != "dense_xla"
         mask, mask_t = dense_adj.routing_masks(coo, cfg.adj_mode, dev)
         self.register_buffer("mask", mask)
         self.register_buffer("maskT", mask_t)
@@ -64,28 +67,33 @@ class DGCF(nn.Module):
     def _iterate_update_dense(self, state, ego_embed):
         """One layer: ``iterate_k`` routing iterations.  ``state`` is the pair
         of lists (u_list, v_list) of [F, n, dk] update factors; iteration t
-        routes at rank t*dk, and iteration 0 (S = 1 everywhere) at a rank-8
-        series of zeros."""
+        routes at rank t*dk on their concatenation, and iteration 0 (S = 1
+        everywhere) at a rank-8 series of zeros."""
         cfg = self.cfg
         u_list, v_list = state
         ego_f = torch.stack(torch.split(ego_embed, self.dim_k, dim=1))
-        f_, n_ = ego_f.shape[0], ego_f.shape[1]
         femb = None
         for _ in range(cfg.iterate_k):
             if u_list:
                 ueff = torch.cat(u_list, dim=2)
                 veff = torch.cat(v_list, dim=2)
             else:
-                ueff = torch.zeros((f_, n_, 8), dtype=torch.float32,
-                                   device=ego_f.device)
+                ueff = ego_f.new_zeros((ego_f.shape[0], ego_f.shape[1], 8))
                 veff = torch.zeros_like(ueff)
-            d = flash_routing.routed_rowsum(ueff, veff, self.mask, base=1.0)
+            if self.flash:
+                d = flash_routing.routed_rowsum(ueff, veff, self.mask,
+                                                base=1.0)
+            else:
+                d = dense_adj.dgcf_dense_degree(ueff, veff, self.mask)
             # an empty row has degree 0 and gets scale 0, not inf
             dr = torch.where(d > 0, torch.rsqrt(torch.where(d > 0, d, 1.0)),
                              0.0)
             scaled = ego_f * dr[:, :, None]
-            agg = flash_routing.routed_mm(ueff, veff, self.mask, scaled,
-                                          base=1.0, mask_t=self.mask_t)
+            if self.flash:
+                agg = flash_routing.routed_mm(ueff, veff, self.mask, scaled,
+                                              base=1.0, mask_t=self.mask_t)
+            else:
+                agg = dense_adj.dgcf_dense_prop(ueff, veff, self.mask, scaled)
             femb = dr[:, :, None] * agg
             # score update factors, stored detached (the routed adjacency is
             # detached, so score gradients never reach the loss)

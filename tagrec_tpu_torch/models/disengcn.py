@@ -12,8 +12,10 @@ L2 on the **final** tables.  Gradients reach W, b and the embeddings
 through ``routed_mm``'s x (its backward is the sweep over the mask's
 transpose) and the residual; the routing weights get none, as in JAX.
 
-Only the dense tier is ported; the EdgeMap tier and the chunked XLA tier of
-the JAX model raise ``NotImplementedError``.
+``adj_mode="dense_xla"`` routes on the chunked dense tier
+(``ops.dense_adj.routed_agg_dense``) instead of the kernel.  The EdgeMap
+tier of the JAX model (``adj_mode="ell"``, or a graph over the dense
+budget) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ class DisenGCN(nn.Module):
                              f"of factor_k {cfg.factor_k}")
         self.dim_k = cfg.dim_latent // cfg.factor_k
         coo = graph.joint_norm_adj(cfg.norm_type, cfg.use_tag)  # 'plain'
+        self.flash = cfg.adj_mode != "dense_xla"
         mask, mask_t = dense_adj.routing_masks(coo, cfg.adj_mode, dev)
         self.register_buffer("mask", mask)
         self.register_buffer("maskT", mask_t)
@@ -77,8 +80,11 @@ class DisenGCN(nn.Module):
         fac = l2_normalize(fac, dim=2).contiguous()            # [F, N, dk]
         new_fac = fac
         for _ in range(self.cfg.iterate_k):
-            agg = flash_routing.routed_mm(new_fac, fac, self.mask, fac,
-                                          mask_t=self.mask_t)
+            if self.flash:
+                agg = flash_routing.routed_mm(new_fac, fac, self.mask, fac,
+                                              mask_t=self.mask_t)
+            else:
+                agg = dense_adj.routed_agg_dense(new_fac, fac, self.mask)
             new_fac = l2_normalize(fac + agg, dim=2)
         return torch.cat(list(new_fac), dim=1)
 

@@ -1,0 +1,142 @@
+"""DisenHAN, dense mode: disentangled attention over six typed relations
+(tagrec_tpu/models/disenhan.py).
+
+* relations [ui, iu, ut, tu, it, ti] with local per-type ids (source and
+  destination types ``REL_TYPES``), each a rectangular bool edge mask
+* per layer: per node type and factor the projection Wtk [3, F, d, dk]
+  (no bias), LeakyReLU 0.2 and a per-factor L2 normalize
+* two routing rounds (hard-coded, as in the reference): per relation the
+  separable edge score e = ReLU(head(src) + tail(dst)) summed over the
+  factors with the relation-factor distribution r, row-softmaxed over each
+  source's edges, the destination factors aggregated
+  (``ops.dense_adj.disenhan_dense_rela``), LeakyReLU, the shared W, and a
+  new r = softmax_F(tanh(z) . q_rela)
+* per node type the sum over its incident relations (u <- ui, ut;
+  i <- iu, it; t <- tu, ti) with the layer's static projections as the
+  residual, then a normalize; factors concatenated; layers chained
+* quirk #7: r starts uniform (1 / F) at every forward
+* BPR (softplus) plus L2 on the final tables
+
+Only the dense mode is ported: ``adj_mode="ell"``, and any graph over the
+dense budget, need the EdgeMap tier and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tagrec_tpu_torch.config import ModelConfig
+from tagrec_tpu_torch.data.graph import HeteroGraph
+from tagrec_tpu_torch.device import resolve
+from tagrec_tpu_torch.models import base
+from tagrec_tpu_torch.ops import dense_adj
+from tagrec_tpu_torch.ops.propagate import l2_normalize
+
+# (source type, destination type) of each relation
+REL_TYPES = ((0, 1), (1, 0), (0, 2), (2, 0), (1, 2), (2, 1))
+# the relations each node type sums, its row of the new factors
+INCIDENT = ((0, 2), (1, 4), (3, 5))
+ROUNDS = 2
+
+
+class DisenHAN(nn.Module):
+    """Parameters ``embed.{0,1,2}`` (user, item, tag) and per layer
+    ``layers.{i}.{Wtk,at,W,q_rela}``, drawn in that order from
+    ``generator`` (a CPU ``torch.Generator``), the tree of JAX's params;
+    the six relation masks are bool buffers ``mask_0..5`` on ``device``."""
+
+    def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
+                 generator: torch.Generator, device="cuda"):
+        super().__init__()
+        dev = resolve(device)
+        self.cfg = cfg
+        self.num_list = [graph.n_user, graph.n_item, graph.n_tag]
+        if cfg.dim_latent % cfg.factor_k:
+            raise ValueError(f"dim_latent {cfg.dim_latent} is not a multiple "
+                             f"of factor_k {cfg.factor_k}")
+        self.dim_k = cfg.dim_latent // cfg.factor_k
+        n = sum(self.num_list)
+        dense_adj.check_dense(cfg.adj_mode, n, n)
+        ui, ut, it = graph.ui_adj, graph.ut_adj, graph.it_adj
+        for e, c in enumerate((ui, ui.transpose(), ut, ut.transpose(), it,
+                               it.transpose())):
+            self.register_buffer(f"mask_{e}", torch.from_numpy(
+                dense_adj.dense_mask_host(c.row, c.col, *c.shape)).to(dev))
+        self.embed = nn.ParameterList(
+            base.init_embeddings(self.num_list, cfg.dim_latent, generator, dev))
+        f_, d, dk = cfg.factor_k, cfg.dim_latent, self.dim_k
+
+        def xavier(*shape):
+            return base.xavier_uniform(shape, generator, dev)
+
+        self.layers = nn.ModuleList(nn.ParameterDict({
+            "Wtk": xavier(3, f_, d, dk), "at": xavier(6, f_, 2 * dk),
+            "W": xavier(dk, dk), "q_rela": xavier(6, dk)})
+            for _ in range(cfg.num_layer))
+
+    def masks(self):
+        return [getattr(self, f"mask_{e}") for e in range(6)]
+
+    def _rela_update(self, lp, e, mask, new_src, old_dst, r_src):
+        """One relation's attention aggregation: new_src [F, n_src, dk] the
+        routed source factors, old_dst [F, n_dst, dk] the static destination
+        projections, r_src [F, n_src] -> (new r [F, n_src], z [F, n_src,
+        dk])."""
+        a = lp["at"][e]                                         # [F, 2dk]
+        head = torch.einsum("fnd,fd->fn", new_src, a[:, :self.dim_k])
+        tail = torch.einsum("fnd,fd->fn", old_dst, a[:, self.dim_k:])
+        zk = dense_adj.disenhan_dense_rela(head, tail, r_src, old_dst, mask)
+        emb_z = F.leaky_relu(zk, 0.2) @ lp["W"]
+        new_r = torch.softmax(torch.einsum("fnd,d->fn", torch.tanh(emb_z),
+                                           lp["q_rela"][e]), dim=0)
+        return new_r, emb_z
+
+    def _layer(self, lp, embs):
+        """[n_t, d] per type -> [n_t, F * dk] per type."""
+        masks = self.masks()
+        fac = [l2_normalize(F.leaky_relu(
+            torch.einsum("nd,fdk->fnk", embs[t], lp["Wtk"][t]), 0.2), dim=2)
+            for t in range(3)]
+        new = list(fac)
+        f_ = self.cfg.factor_k
+        r_list = [fac[src].new_full((f_, fac[src].shape[1]), 1.0 / f_)
+                  for src, _ in REL_TYPES]
+        for _ in range(ROUNDS):
+            rela, emb = [], []
+            for e, (src, dst) in enumerate(REL_TYPES):
+                nr, ez = self._rela_update(lp, e, masks[e], new[src], fac[dst],
+                                           r_list[e])
+                rela.append(nr)
+                emb.append(ez)
+            new = []
+            for t, rels in enumerate(INCIDENT):
+                out = fac[t]
+                for e in rels:
+                    out = out + emb[e] * rela[e][:, :, None]
+                new.append(l2_normalize(out, dim=2))
+            r_list = rela
+        return [torch.cat(list(x), dim=1) for x in new]
+
+    def forward(self, *, training: bool = False, generator=None):
+        """-> (user, item, tag) final tables; DisenHAN has no dropout."""
+        embs = list(self.embed)
+        for lp in self.layers:
+            embs = self._layer(lp, embs)
+        return tuple(embs)
+
+    def bpr_loss(self, batch, *, cor=None, generator=None,
+                 training: bool = True):
+        """BPR on a [B, 3] (user, item+, item-) batch, the L2 term on the
+        final rows -> (loss, reg * l2); ``cor`` is unused, as in JAX."""
+        embs = self.forward()
+        return base.bpr_with_reg(embs[0], embs[1], embs[0], embs[1], batch,
+                                 self.cfg.mul_loss_func, self.cfg.reg)
+
+    @torch.no_grad()
+    def predict(self, users):
+        """[B, n_item] sigmoid scores for ``users``."""
+        embs = self.forward()
+        users = torch.as_tensor(users, device=embs[0].device)
+        return base.predict_sigmoid(embs[0][users], embs[1])

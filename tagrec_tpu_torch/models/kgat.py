@@ -13,11 +13,15 @@ with NGCF-style bi-interaction, the bias folded into the weight
 attention runs per row type through the flash kernels of
 ``ops.flash_attention``: one stats sweep per row type, then one apply per
 row type per layer, and its backward; the [N, N] attention never exists.
+``adj_mode="dense_xla"`` takes the chunked dense tier instead: the
+sector-stacked scores softmaxed over the [N, N] edge mask chunk by chunk
+(``ops.dense_adj.dense_row_softmax_scores``) into one attention matrix P,
+which the layers reuse (``P @ x``).
 
 Quirk #3: the shipped preset sets ``agg_type="bi_agg"``, which skips
 propagation; the model then builds no masks and ``forward`` returns the ego
-tables.  Only the dense flash tier is ported: the true-KG mode, the
-``dense_xla`` tier and the EdgeMap tier raise ``NotImplementedError``.
+tables.  The true-KG mode and the EdgeMap tier raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,7 +52,9 @@ class KGAT(nn.Module):
     ``mat.{W1,b1,W2,b2}_k``, drawn in that order from ``generator`` (a CPU
     ``torch.Generator``); under ``bi_inter`` the three row types' flash masks
     are int8 buffers ``fmask_0..2`` on ``device``, and their contiguous
-    transposes ``fmaskT_0..2`` (the column backward's masks, built once)."""
+    transposes ``fmaskT_0..2`` (the column backward's masks, built once);
+    under ``dense_xla`` the joint edge mask is the bool buffer ``mask``
+    [N, N] instead."""
 
     def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
                  generator: torch.Generator, device="cuda", kg=None):
@@ -85,14 +91,8 @@ class KGAT(nn.Module):
         if self.skip_adj:  # quirk #3: no adjacency is ever read
             return
 
-        if cfg.adj_mode == "dense_xla":
-            raise NotImplementedError(
-                "adj_mode='dense_xla' needs the chunked dense tier "
-                "(ROADMAP.md A12)")
-        if not dense_adj.use_dense(cfg.adj_mode, self.n, self.n):
-            raise NotImplementedError(
-                f"adj_mode={cfg.adj_mode!r} on a {self.n}-node graph needs "
-                "the EdgeMap tier (ROADMAP.md A17)")
+        dense_adj.check_dense(cfg.adj_mode, self.n, self.n)
+        self.flash = cfg.adj_mode != "dense_xla"
         self.segs = ((0, graph.n_user),
                      (graph.n_user, graph.n_item),
                      (graph.n_user + graph.n_item, graph.n_tag))
@@ -101,6 +101,10 @@ class KGAT(nn.Module):
         cols = np.concatenate([rel_edges[k][1] for k in range(6)])
         rels = np.concatenate([np.full(rel_edges[k].shape[1], k,
                                        dtype=np.int64) for k in range(6)])
+        if not self.flash:
+            self.register_buffer("mask", torch.from_numpy(
+                dense_adj.dense_mask_host(rows, cols, self.n, self.n)).to(dev))
+            return
         for a, m in enumerate(self._build_flash_masks(rows, cols, rels)):
             mask = torch.from_numpy(m).to(dev)
             self.register_buffer(f"fmask_{a}", mask)
@@ -178,7 +182,16 @@ class KGAT(nn.Module):
         # head side tanh(W_r e + e_r), tail side W_r e, per relation
         proj = torch.einsum("nd,rde->rne", all_embed, self.transE)
         q = torch.tanh(proj + self.relation[:, None, :])
-        att_mm = self._flash_att_mm(q, proj)
+        if self.flash:
+            att_mm = self._flash_att_mm(q, proj)
+        else:
+            # sector-stacked scores -> one [N, N] row-softmax attention P,
+            # reused by every layer
+            qhat, khat = dense_adj.sector_stack(q, proj, self.segs, REL_OF)
+            p_att = dense_adj.dense_row_softmax_scores(qhat, khat, self.mask)
+
+            def att_mm(x):
+                return p_att @ x
         x = all_embed
         outs = [x]
         for k in range(cfg.num_layer):

@@ -2,7 +2,8 @@
 (tagrec_tpu/models/lightgcn.py).
 
 * the joint normalized {user, item, tag} adjacency, ``bi_norm`` by default
-* L layers x <- A x, with optional per-layer message dropout
+* L layers x <- A x, with optional per-layer message dropout and edge
+  dropout (``node_drop``: the adjacency's values dropped once a forward)
 * a per-layer L2 normalize of each layer's output (quirk #8, switchable)
 * final embedding = mean over [ego, layer_1..L]
 * BPR (softplus) on the final tables plus L2 on the ego tables
@@ -11,10 +12,12 @@ The adjacency is an ``ops.ell`` pair built as JAX builds it: the sector
 blocks of the dense form within the dense budget (hetrec scale), the hybrid
 hub block + degree-bucketed ELL above it, whose SpMM runs the
 ``gather_reduce`` and ``gather_rows`` kernels forward and backward.
+``adj_dtype="bf16"`` stores the dense forms in bfloat16 (float32 sums).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -23,7 +26,8 @@ from tagrec_tpu_torch.data.graph import HeteroGraph
 from tagrec_tpu_torch.device import resolve
 from tagrec_tpu_torch.models import base
 from tagrec_tpu_torch.ops import ell as ell_lib
-from tagrec_tpu_torch.ops.propagate import adj_mm, l2_normalize, message_dropout
+from tagrec_tpu_torch.ops.propagate import (adj_mm, edge_dropout,
+                                            l2_normalize, message_dropout)
 
 
 class LightGCN(nn.Module):
@@ -36,14 +40,6 @@ class LightGCN(nn.Module):
                  per_layer_normalize: bool = True):
         super().__init__()
         dev = resolve(device)
-        if cfg.node_drop > 0.0:
-            raise NotImplementedError(
-                "node_drop > 0 needs edge_dropout, whose gradient is a "
-                "scatter-add (ROADMAP.md A2)")
-        if cfg.adj_dtype != "f32":
-            raise NotImplementedError(
-                f"adj_dtype={cfg.adj_dtype!r}: the port streams float32 "
-                "adjacencies only (ROADMAP.md A4)")
         self.cfg = cfg
         self.per_layer_normalize = per_layer_normalize
         use_tag = cfg.use_tag and graph.has_tags
@@ -56,6 +52,7 @@ class LightGCN(nn.Module):
         host = ell_lib.build_adj_pair(
             coo, symmetric=cfg.norm_type in ("bi_norm", "plain"),
             mode={"dense_xla": "dense"}.get(cfg.adj_mode, cfg.adj_mode),
+            dense_dtype=np.float32 if cfg.adj_dtype == "f32" else "bf16",
             sectors=(tuple(self.num_list)
                      if cfg.norm_type in ("bi_norm", "plain", "si_norm")
                      else None))
@@ -65,12 +62,14 @@ class LightGCN(nn.Module):
 
     def forward(self, *, training: bool = False, generator=None):
         """-> (user, item[, tag]) final tables; ``generator`` (on the
-        model's device) draws the message dropout when ``training``."""
+        model's device) draws the edge and message dropout when
+        ``training``."""
         cfg = self.cfg
+        adj = edge_dropout(self.adj, cfg.node_drop, generator, training)
         x = torch.cat(list(self.embed), dim=0)
         outs = [x]
         for k in range(cfg.num_layer):
-            x = adj_mm(self.adj, x)
+            x = adj_mm(adj, x)
             x = message_dropout(x, cfg.message_drop_list[k], generator,
                                 training)
             outs.append(l2_normalize(x) if self.per_layer_normalize else x)

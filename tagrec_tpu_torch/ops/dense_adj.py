@@ -1,18 +1,28 @@
-"""Dense-tier selection and the host edge mask (tagrec_tpu/ops/dense_adj.py).
+"""Dense attention tiers (tagrec_tpu/ops/dense_adj.py).
 
-At hetrec scale the [N, N] edge pattern is a 1-byte mask on the device and
-the routing kernels recompute every score tile from per-node factors.
+At hetrec scale the [N, N] edge pattern is a 1-byte mask on the device.
+The routing and flash kernels recompute every score tile from per-node
+factors.  The chunked dense tier (``adj_mode="dense_xla"``) computes the
+same propagation in plain PyTorch instead: each function below runs over
+row chunks of JAX's sizes, materialises one chunk's [chunk, N] scores at a
+time, and recomputes each chunk in the backward (``torch.utils.checkpoint``
+per chunk, JAX's ``jax.checkpoint`` under ``lax.map``) instead of saving
+it.  It is a tier the caller names, never a fallback, and it is the
+kernels' second, independent computation at full size.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 # Auto-dense when the full f32 matrix fits this (tagrec_tpu/ops/ell.py).
 DENSE_ADJ_BUDGET_BYTES = 2 << 30
+NEG = -1e30
 
 
 def use_dense(adj_mode: str, n_rows: int, n_cols: int) -> bool:
@@ -31,26 +41,159 @@ def dense_mask_host(rows, cols, n_rows: int, n_cols: int) -> np.ndarray:
     return m
 
 
-def routing_masks(coo, adj_mode: str, device
-                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The dense routing tier's bool edge mask of ``coo`` on ``device``, and
-    the contiguous transpose that ``routed_mm``'s backward sweeps: None where
-    the host finds the mask symmetric (the mask is then its own transpose,
-    with no second buffer).  Raises for the tiers the port has not got."""
+def check_dense(adj_mode: str, n_rows: int, n_cols: int):
+    """Raise for the tiers the port has not got: ``adj_mode="ell"``, and a
+    graph over the dense budget, need the EdgeMap tier (A17)."""
     if adj_mode == "ell":
         raise NotImplementedError(
             "adj_mode='ell' needs the EdgeMap tier (ROADMAP.md A17)")
-    if adj_mode == "dense_xla":
+    if not use_dense(adj_mode, n_rows, n_cols):
         raise NotImplementedError(
-            "adj_mode='dense_xla' needs the chunked dense tier "
-            "(ROADMAP.md A12)")
-    if not use_dense(adj_mode, *coo.shape):
-        raise NotImplementedError(
-            f"a {coo.shape[0]}-node graph is over the dense budget of "
+            f"a {n_rows} x {n_cols} adjacency is over the dense budget of "
             f"{DENSE_ADJ_BUDGET_BYTES} bytes and needs the EdgeMap tier "
             "(ROADMAP.md A17)")
+
+
+def routing_masks(coo, adj_mode: str, device
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The dense tier's bool edge mask of ``coo`` on ``device``, and the
+    contiguous transpose that ``routed_mm``'s backward sweeps: None where
+    the host finds the mask symmetric (the mask is then its own transpose,
+    with no second buffer), and under ``dense_xla``, whose backward is
+    autograd's.  Raises for the tiers the port has not got."""
+    check_dense(adj_mode, *coo.shape)
     mask = dense_mask_host(coo.row, coo.col, *coo.shape)
     mask_t = None
-    if not np.array_equal(mask, mask.T):
+    if adj_mode != "dense_xla" and not np.array_equal(mask, mask.T):
         mask_t = torch.from_numpy(np.ascontiguousarray(mask.T)).to(device)
     return torch.from_numpy(mask).to(device), mask_t
+
+
+def _row_map(fn, n: int, chunk: int, *, remat: bool = True):
+    """[fn(start, stop) for each row chunk], each chunk recomputed in the
+    backward rather than saved (``remat``)."""
+    outs = []
+    for i in range(0, n, chunk):
+        stop = min(i + chunk, n)
+        outs.append(checkpoint(fn, i, stop, use_reentrant=False) if remat
+                    else fn(i, stop))
+    return outs
+
+
+def masked_row_softmax(s: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Row softmax of ``s`` over masked entries; 0 where the mask is False
+    and on all-masked rows (torch.sparse.softmax on the dense pattern)."""
+    s = torch.where(m, s, NEG)
+    mx = torch.max(s, dim=-1, keepdim=True).values.detach()
+    e = torch.exp(s - torch.clamp(mx, min=NEG)) * m
+    z = torch.sum(e, dim=-1, keepdim=True)
+    return e / torch.where(z == 0, 1.0, z)
+
+
+# --------------------------------------------------------------------- KGAT
+
+def sector_stack(q: torch.Tensor, k: torch.Tensor,
+                 segs: Sequence[Tuple[int, int]],
+                 rel_of: Sequence[Sequence[int]]):
+    """Fold per-relation score tables into one score-feature pair.
+
+    q, k: [R, N, dq] head and tail projections per relation; ``segs``
+    [(start, length)] the node-type segments (rows sorted by type);
+    ``rel_of[a][c]`` the relation of (row type a -> column type c), or -1.
+    Returns qhat, khat [N, P * dq], one plane per valid (a, c), such that
+    ``qhat @ khat.T`` holds q[r_ac, n] . k[r_ac, m] in each sector."""
+    n = q.shape[1]
+    planes = [(a, c) for a in range(len(segs)) for c in range(len(segs))
+              if rel_of[a][c] >= 0]
+
+    def plane(table, r, seg):
+        start, length = seg
+        return F.pad(table[r, start:start + length],
+                     (0, 0, start, n - start - length))
+
+    qhat = torch.cat([plane(q, rel_of[a][c], segs[a]) for a, c in planes], 1)
+    khat = torch.cat([plane(k, rel_of[a][c], segs[c]) for a, c in planes], 1)
+    return qhat, khat
+
+
+def dense_row_softmax_scores(qhat: torch.Tensor, khat: torch.Tensor,
+                             mask: torch.Tensor,
+                             chunk: int = 1024) -> torch.Tensor:
+    """P [N, M] = masked row softmax of qhat @ khat^T, chunked over rows;
+    differentiable in qhat and khat."""
+    def f(i, j):
+        return masked_row_softmax(qhat[i:j] @ khat.T, mask[i:j])
+
+    return torch.cat(_row_map(f, qhat.shape[0], chunk))
+
+
+# ----------------------------------------------------------------- DisenGCN
+
+def routed_agg_dense(head: torch.Tensor, tail: torch.Tensor,
+                     mask: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+    """agg[f] = (detach(softmax_F(head_f @ tail_f^T)) * mask) @ tail_f.
+
+    head, tail: [F, N, dk]; mask [N, N] bool.  The routing weights are
+    detached, so the gradient reaches ``tail`` through the product only."""
+    def f(i, j):
+        s = torch.einsum("fcd,fnd->fcn", head[:, i:j], tail)
+        p = torch.softmax(s, dim=0).detach() * mask[None, i:j]
+        return torch.einsum("fcn,fnd->fcd", p, tail)
+
+    return torch.cat(_row_map(f, head.shape[1], chunk), dim=1)
+
+
+# --------------------------------------------------------------------- DGCF
+# The score table is the low-rank series S = 1 + sum_t U_t V_t^T per factor,
+# so a chunk's scores are recomputed from the update factors concatenated to
+# [F, N, r] (sum_t U_t V_t^T = cat(U) cat(V)^T), the routing kernels' layout.
+# The routed adjacency is detached, so u and v get no gradient.
+
+def _dgcf_scores(uc, v, mc):
+    """A [F, C, N] = softmax_F(1 + uc @ v^T) * mask."""
+    s = 1.0 + torch.einsum("fcr,fnr->fcn", uc, v)
+    return torch.softmax(s, dim=0) * mc[None]
+
+
+def dgcf_dense_degree(u: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                      chunk: int = 1024) -> torch.Tensor:
+    """Row sums d[f, n] of the routed adjacency A_f; no gradient."""
+    u, v = u.detach(), v.detach()
+    with torch.no_grad():
+        outs = _row_map(
+            lambda i, j: _dgcf_scores(u[:, i:j], v, mask[i:j]).sum(-1),
+            u.shape[1], chunk, remat=False)
+    return torch.cat(outs, dim=1)
+
+
+def dgcf_dense_prop(u: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                    x: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+    """A @ x per factor with A = softmax_F(S) * mask (detached): x
+    [F, N, dx], differentiated."""
+    u, v = u.detach(), v.detach()
+
+    def f(i, j):
+        return torch.einsum("fcn,fnd->fcd",
+                            _dgcf_scores(u[:, i:j], v, mask[i:j]), x)
+
+    return torch.cat(_row_map(f, u.shape[1], chunk), dim=1)
+
+
+# ----------------------------------------------------------------- DisenHAN
+
+def disenhan_dense_rela(hs: torch.Tensor, ts: torch.Tensor,
+                        r_src: torch.Tensor, old_dst: torch.Tensor,
+                        mask: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+    """One relation's attention aggregation on its rectangular block.
+
+    hs [F, Ns], ts [F, Nd]: the separable head and tail score terms;
+    r_src [F, Ns] the relation-factor distribution; old_dst [F, Nd, dk];
+    mask [Ns, Nd].  Scores e = sum_f relu(hs + ts) * r, row-softmaxed over
+    the mask, fully differentiable.  Returns zk [F, Ns, dk]."""
+    def f(i, j):
+        e = torch.relu(hs[:, i:j, None] + ts[:, None, :])       # [F, C, Nd]
+        er = torch.sum(e * r_src[:, i:j, None], dim=0)          # [C, Nd]
+        p = masked_row_softmax(er, mask[i:j])
+        return torch.einsum("cn,fnd->fcd", p, old_dst)
+
+    return torch.cat(_row_map(f, hs.shape[1], chunk), dim=1)

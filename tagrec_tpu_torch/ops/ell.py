@@ -164,10 +164,28 @@ def _empty_buckets(n_rows: int, n_cols: int) -> EllBucketsHost:
                           n_rows=n_rows, n_cols=n_cols)
 
 
-def build_dense(coo) -> HybridHost:
-    """The whole adjacency as one dense float32 block."""
+def bf16_bits(a: np.ndarray) -> np.ndarray:
+    """float32 -> bfloat16, rounded to nearest even (as JAX's ``asarray(...,
+    bfloat16)``), held as its uint16 bit patterns: numpy has no bfloat16.
+    ``to_device`` turns such a block into a torch.bfloat16 tensor."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def _cast_block(b: np.ndarray, dtype) -> np.ndarray:
+    if dtype is np.float32:
+        return b
+    if dtype == "bf16":
+        return bf16_bits(b)
+    raise ValueError(f"dense dtype {dtype!r}: np.float32 or 'bf16'")
+
+
+def build_dense(coo, dtype=np.float32) -> HybridHost:
+    """The whole adjacency as one dense block, float32 or ``"bf16"`` (its
+    values rounded to bfloat16; products accumulate in float32,
+    ``ops.propagate.hybrid_mm``)."""
     return HybridHost(ell=_empty_buckets(*coo.shape), dense_cols=None,
-                      dense_block=coo.to_dense())
+                      dense_block=_cast_block(coo.to_dense(), dtype))
 
 
 # Byte budget of the hub block, which sets how many hub columns the hybrid
@@ -211,7 +229,8 @@ class DenseSectorsHost(NamedTuple):
     """The joint {user, item, tag} adjacency's nonzero type sectors as dense
     blocks; its diagonal sectors are structurally zero."""
 
-    blocks: tuple  # ((row sector, col sector, [rows, cols] float32), ...)
+    blocks: tuple  # ((row sector, col sector, [rows, cols] block), ...):
+    #                float32, or bfloat16 as uint16 bits (``bf16_bits``)
     sizes: tuple   # node count of each sector
 
 
@@ -221,9 +240,9 @@ class DenseSectors(NamedTuple):
     sizes: Tuple[int, ...]
 
 
-def build_dense_sectors(coo, sectors) -> DenseSectorsHost:
+def build_dense_sectors(coo, sectors, dtype=np.float32) -> DenseSectorsHost:
     """Split a square COO over per-type sectors into dense blocks, keeping
-    the blocks that hold an edge."""
+    the blocks that hold an edge; ``dtype`` as ``build_dense``'s."""
     sizes = tuple(int(s) for s in sectors)
     offs = np.concatenate([[0], np.cumsum(sizes)])
     if not offs[-1] == coo.shape[0] == coo.shape[1]:
@@ -240,7 +259,7 @@ def build_dense_sectors(coo, sectors) -> DenseSectorsHost:
             b = np.zeros((sizes[ri], sizes[ci]), dtype=np.float32)
             np.add.at(b, (coo.row[sel] - offs[ri], coo.col[sel] - offs[ci]),
                       coo.val[sel])
-            blocks.append((ri, ci, b))
+            blocks.append((ri, ci, _cast_block(b, dtype)))
     return DenseSectorsHost(blocks=tuple(blocks), sizes=sizes)
 
 
@@ -267,14 +286,16 @@ def build_adj_pair(coo, symmetric: bool = False, boundaries=None,
                    pad_multiple: int = 8, hub_min_degree: int = 96,
                    max_hub_cols=None, mode: str = "auto",
                    dense_budget: int = DENSE_ADJ_BUDGET_BYTES,
-                   sectors=None) -> AdjPairHost:
+                   dense_dtype=np.float32, sectors=None) -> AdjPairHost:
     """Forward and transpose adjacency of ``coo``.
 
     mode: "auto" (dense when N*M*4 bytes fit ``dense_budget``, else
     hybrid), "dense", "hybrid", or "ell" (hybrid with no hub block).
     ``sectors``: per-type sizes of a square joint adjacency; the dense form
-    then keeps only its nonzero sector blocks.  ``symmetric=True`` (bi_norm
-    and plain joint adjacencies) shares the forward for the backward."""
+    then keeps only its nonzero sector blocks.  ``dense_dtype`` (float32 or
+    ``"bf16"``) applies to the dense forms only: the hybrid form's hub block
+    stays float32, as in JAX.  ``symmetric=True`` (bi_norm and plain joint
+    adjacencies) shares the forward for the backward."""
     if mode == "auto":
         mode = ("dense" if coo.shape[0] * coo.shape[1] * 4 <= dense_budget
                 else "hybrid")
@@ -285,9 +306,9 @@ def build_adj_pair(coo, symmetric: bool = False, boundaries=None,
 
     def build_one(c):
         if mode == "dense" and sectors is not None:
-            return build_dense_sectors(c, sectors)
+            return build_dense_sectors(c, sectors, dtype=dense_dtype)
         if mode == "dense":
-            return build_dense(c)
+            return build_dense(c, dtype=dense_dtype)
         return build_hybrid(c, hub_min_degree=hub_min_degree,
                             max_hub_cols=max_hub_cols, boundaries=boundaries,
                             pad_multiple=pad_multiple)
@@ -312,6 +333,15 @@ def _f32(a: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
 
 
+def _block(a: np.ndarray, device) -> torch.Tensor:
+    """A dense block on ``device``: float32, or bfloat16 from its uint16
+    bits (``bf16_bits``)."""
+    if a.dtype == np.uint16:
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return _f32(a, device)
+
+
 def to_device(h, device):
     """The device container of a host form (EllHost, EllBucketsHost,
     HybridHost, DenseSectorsHost or AdjPairHost), its tensors on
@@ -321,7 +351,7 @@ def to_device(h, device):
         return AdjPair(fwd=fwd, bwd=fwd if h.bwd is h.fwd
                        else to_device(h.bwd, device))
     if isinstance(h, DenseSectorsHost):
-        return DenseSectors(blocks=tuple(_f32(b, device)
+        return DenseSectors(blocks=tuple(_block(b, device)
                                          for _, _, b in h.blocks),
                             coords=tuple((ri, ci) for ri, ci, _ in h.blocks),
                             sizes=h.sizes)
@@ -332,7 +362,7 @@ def to_device(h, device):
             dense_cols=None if h.dense_cols is None
             else _ids(h.dense_cols, n_cols, device),
             dense_block=None if h.dense_block is None
-            else _f32(h.dense_block, device))
+            else _block(h.dense_block, device))
     if isinstance(h, EllBucketsHost):
         n_out = sum(b.idx.shape[0] for b in h.buckets)
         return EllBuckets(parts=tuple(to_device(b, device)

@@ -11,8 +11,8 @@ test_cli_mesh.py).  The port's final report, run on either CLI's best
 port's run peaks at its first epoch, so its report holds the reload of the
 best checkpoint, and the last epoch's parameters (its train state) report
 otherwise.  Then the port's artifact through JAX's ``load_export``,
-``--resume`` and ``--profile`` through the CLI, and the flags and models
-that raise.
+``--resume`` and ``--profile`` through the CLI, NGCF, DisenHAN and
+``--adj_mode dense_xla`` through it, and the flags and models that raise.
 """
 
 import contextlib
@@ -198,13 +198,31 @@ def test_profile_writes_a_trace(tmp_path):
     assert glob.glob(os.path.join(trace, "*.pt.trace.json"))
 
 
+@pytest.mark.parametrize("argv", [
+    ["--model", "ngcf"], ["--model", "disenhan"],
+    ["--model", "dgcf", "--adj_mode", "dense_xla"]],
+    ids=["ngcf", "disenhan", "dgcf-dense_xla"])
+def test_ported_models_and_tiers_run(tmp_path, argv):
+    """NGCF, DisenHAN and DGCF's chunked dense tier train, test, group and
+    export through the CLI."""
+    out, run_dir = _run(cli.main, [
+        "--device", "cpu", "--dataset", "synthetic", "--epochs", "1",
+        "--train_batch", "256", "--group_k", "2", "--out_dir",
+        str(tmp_path / "run"), "--export", str(tmp_path / "art")] + argv)
+    res = _results(run_dir)
+    assert len(res["group"]) == 2
+    for block in [res["test"], *res["group"].values()]:
+        assert all(math.isfinite(v) for m in METRICS for v in block[m])
+    assert f"serving artifact: {tmp_path / 'art'}" in out
+    data, meta = jserving.load_export(str(tmp_path / "art"))
+    assert meta["model"] == argv[1]
+    assert np.isfinite(data["user_table"]).all()
+
+
 @pytest.mark.parametrize("argv, error, match", [
-    (["--model", "ngcf"], NotImplementedError, "A11"),
     (["--model", "tgcn"], NotImplementedError, "A16"),
     (["--dp", "2"], NotImplementedError, "A18"),
     (["--mp", "2"], NotImplementedError, "A18"),
-    (["--model", "dgcf", "--adj_mode", "dense_xla"], NotImplementedError,
-     "A12"),
     (["--model", "dgcf", "--adj_mode", "ell"], NotImplementedError, "A17"),
     (["--model", "nosuch"], ValueError, "unknown model"),
     (["--dataset", "missing_dir"], FileNotFoundError, "train.txt"),

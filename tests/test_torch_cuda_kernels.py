@@ -708,3 +708,60 @@ def test_routed_models_on_the_card_match_the_cpu(cuda, name, cfg, rowsum):
     torch.testing.assert_close(parts[0], parts[1], rtol=RTOL, atol=ATOL)
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=5e-4, atol=ATOL)
+
+
+# --------------------------------------------- NGCF's asymmetric pair, bf16
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64])
+def test_gather_reduce_on_an_asymmetric_pairs_transpose(cuda, d):
+    """gather_reduce at NGCF's widths on every bucket of the forward and
+    of the transpose tables of D^-1 A (hub columns forced), each with its
+    degrees; and the pair's backward (A^T g, over the transpose tables) on
+    the card against the CPU's."""
+    from tagrec_tpu_torch.data.synthetic import synthetic_graph
+    from tagrec_tpu_torch.ops import ell, propagate
+
+    g = synthetic_graph(n_user=300, n_item=800, n_tag=120, avg_deg=12, seed=5)
+    host = ell.build_adj_pair(g.joint_norm_adj("si_norm", True),
+                              symmetric=False, mode="hybrid",
+                              hub_min_degree=24)
+    pair = ell.to_device(host, cuda)
+    assert pair.bwd is not pair.fwd and pair.bwd.ell.parts
+    n = host.fwd.ell.n_rows
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(
+        cuda)
+    for side in (pair.fwd, pair.bwd):
+        for p in side.ell.parts:
+            got = dg.gather_reduce(x, p.idx, p.val, p.deg)
+            torch.testing.assert_close(
+                got, dg.gather_reduce_plain(x, p.idx, p.val, p.deg),
+                rtol=RTOL, atol=ATOL)
+    xg = x.clone().requires_grad_()
+    gy = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    propagate.adj_mm(pair, xg).backward(gy.to(cuda))
+    cpu = ell.to_device(host, "cpu")
+    xc = x.cpu().requires_grad_()
+    propagate.adj_mm(cpu, xc).backward(gy)
+    torch.testing.assert_close(xg.grad.cpu(), xc.grad, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,d", [(2000, 10000, 64), (3000, 2000, 32)])
+def test_bf16_block_product_accumulates_in_float32(cuda, n, m, d):
+    """A bfloat16 block times x: ``torch.mm(..., out_dtype=float32)`` on the
+    card against the float32 product of the bfloat16-rounded operands; the
+    result is float32, not rounded to bfloat16."""
+    from tagrec_tpu_torch.ops import propagate
+
+    rng = np.random.default_rng(n)
+    b = torch.from_numpy((rng.random((n, m)) < 0.01).astype(np.float32)
+                         * rng.random((n, m)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32))
+    bb = b.to(torch.bfloat16).to(cuda)
+    got = propagate.block_mm(bb, x.to(cuda))
+    assert got.dtype == torch.float32
+    want = bb.double() @ x.to(cuda).to(torch.bfloat16).double()
+    torch.testing.assert_close(got.double(), want, rtol=RTOL, atol=ATOL)
+    assert not torch.equal(got, got.to(torch.bfloat16).float())

@@ -132,14 +132,19 @@ def test_forward_launches_no_kernel_on_cpu():
 
 
 def test_unported_modes_and_models_raise():
+    """The EdgeMap tier (A17) and TGCN raise; ``dense_xla`` builds the
+    chunked dense tier (held against JAX in test_torch_dense_xla.py)."""
     graph = tsyn.synthetic_graph(**TINY)
     gen = torch.Generator().manual_seed(0)
-    for mode, item in (("ell", "A17"), ("dense_xla", "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            model_class("dgcf")(graph, model_preset("dgcf", adj_mode=mode),
+    with pytest.raises(NotImplementedError, match="A17"):
+        model_class("dgcf")(graph, model_preset("dgcf", adj_mode="ell"),
+                            device="cpu", generator=gen)
+    model = model_class("dgcf")(graph, model_preset("dgcf",
+                                                    adj_mode="dense_xla"),
                                 device="cpu", generator=gen)
+    assert not model.flash and model.maskT is None
     with pytest.raises(ValueError, match="dgcf"):
-        model_class("ngcf")
+        model_class("tgcn")
 
 
 def test_entry_points_default_to_the_card():

@@ -180,13 +180,20 @@ def test_bi_agg_returns_ego_tables_without_masks(jax_run):
 
 
 def test_unported_tiers_raise():
+    """The EdgeMap tier (A17) and the true KG (A14) raise; ``dense_xla``
+    builds the joint [N, N] mask instead of the flash masks (held against
+    JAX in test_torch_dense_xla.py)."""
     graph = tsyn.synthetic_graph(**TINY)
     gen = torch.Generator().manual_seed(0)
-    for mode, item in (("ell", "A17"), ("dense_xla", "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            model_class("kgat")(graph, model_preset("kgat", **CFG,
-                                                    adj_mode=mode),
+    with pytest.raises(NotImplementedError, match="A17"):
+        model_class("kgat")(graph, model_preset("kgat", **CFG, adj_mode="ell"),
+                            device="cpu", generator=gen)
+    model = model_class("kgat")(graph, model_preset("kgat", **CFG,
+                                                    adj_mode="dense_xla"),
                                 device="cpu", generator=gen)
+    n = graph.n_user + graph.n_item + graph.n_tag
+    assert [name for name, _ in model.named_buffers()] == ["mask"]
+    assert model.mask.shape == (n, n) and model.mask.dtype == torch.bool
     with pytest.raises(NotImplementedError, match="A14"):
         model_class("kgat")(graph, model_preset("kgat", **CFG), device="cpu",
                             generator=gen, kg=object())

@@ -196,11 +196,30 @@ def test_window_batches_equal_jax(tiny_graph):
         np.testing.assert_array_equal(got[:, :3], want[:, :3])
 
 
-@pytest.mark.parametrize("name,label", [("ngcf", "A11"), ("disenhan", "A15"),
-                                        ("tgcn", "A16")])
+@pytest.mark.parametrize("name", ["ngcf", "disenhan"])
+def test_ngcf_and_disenhan_train(name):
+    """NGCF takes the BPR phase and DisenHAN the resampling phase, as in
+    JAX's build_pipeline."""
+    graph = tsyn.synthetic_graph(**TINY)
+    tcfg = TrainConfig(train_batch=64)
+    pipe = build_pipeline(graph, model_preset(name, dim_layer_list=(64,)),
+                          tcfg, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    (phase,) = pipe.phases
+    assert phase.name == "bpr"
+    trainer = Trainer(pipe.model, pipe.phases, tcfg,
+                      generator=torch.Generator().manual_seed(0))
+    batch = phase.make_batch(trainer.generator, 0,
+                             phase.epoch_reset(trainer.generator, phase.data),
+                             phase.data)
+    assert isinstance(batch, dict) == (name == "disenhan")
+    assert np.isfinite(trainer.run_epoch(max_steps=2)["bpr"]).all()
+
+
+@pytest.mark.parametrize("name,label", [("tgcn", "A16")])
 def test_only_kgat_trains(name, label):
-    """The families still to port raise, each naming its ROADMAP label
-    (LightGCN, KGAT, DGCF and DisenGCN train)."""
+    """The family still to port raises, naming its ROADMAP label
+    (LightGCN, NGCF, KGAT, DGCF, DisenGCN and DisenHAN train)."""
     graph = tsyn.synthetic_graph(**TINY)
     with pytest.raises(NotImplementedError, match=label):
         build_pipeline(graph, model_preset(name), TrainConfig(),

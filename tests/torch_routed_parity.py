@@ -41,7 +41,8 @@ def jax_trajectory(graph, name, cfg):
     pipe = jcompose.build_pipeline(graph, jax_preset(name, **cfg),
                                    JaxTrainConfig(train_batch=BATCH))
     model, gdev, (phase,) = pipe.model, pipe.gdev, pipe.phases
-    batches = [phase.make_batch(jax.random.PRNGKey(i), i, None, phase.data)
+    make_batch = jax.jit(phase.make_batch)
+    batches = [make_batch(jax.random.PRNGKey(i), i, None, phase.data)
                for i in range(STEPS)]
     params = model.init(jax.random.PRNGKey(0))
     opt = joptim.torch_adam(JaxTrainConfig().lr)
@@ -69,8 +70,8 @@ def jax_trajectory(graph, name, cfg):
             "grads": first[1], "losses": losses,
             "counts": {k: int(v) for k, v in
                        checkpoint._leaves(numpy_tree(s.count))},
-            "forward": [np.asarray(e) for e in
-                        model.forward(params, gdev, training=False)]}
+            "forward": [np.asarray(e) for e in jax.jit(
+                lambda q: model.forward(q, gdev, training=False))(params)]}
 
 
 def torch_batch(batch):
