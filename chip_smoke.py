@@ -72,7 +72,26 @@ Phases:
    share, and the adjoint identity through the dropped adjacency), one
    evaluation, the small-graph check; then LightGCN at hetrec scale on the
    dense sector tier (no kernel), a few BPR steps;
-5. the training CLI (``tagrec_tpu_torch.cli.main``) in process, as a user
+5. KGAT ``bi_inter`` over ``KnowledgeGraph.synthetic`` on the hetrec
+   graph (15,000 entities, 500,000 triples under 6 relations: 17,000
+   nodes, 14 relations; the relation-dense tier, no kernel of the port):
+   float32 held against an independent per-edge computation in float64 at
+   full size (forward, BPR gradients and the forward's VJP, as the
+   ``dense_xla`` holds), then per dtype (float32, bf16 score planes) 3 BPR
+   and 3 TransE steps on one Adam, one BPR step profiled, the peak memory;
+   float32's export -> artifact -> 3 top-k requests and one evaluation;
+   bf16's forward against float32's within 5e-3; the small-graph check.
+   TGCN at the preset's full width on the hetrec graph (no kernel of the
+   port): the ``auto`` tier (dedup buckets) in float32 held against
+   ``dense_xla`` (plain takes) in float64, and the two in float64 against
+   each other; 3 BPR and 3 TransTag steps, one BPR step profiled (its
+   device operations counted), the peak memory, export -> artifact -> 3
+   top-k requests, one evaluation; ``gather_rows`` against
+   ``index_select`` on the layer-0 dedup ids at D = 64 and 32 (not on the
+   model's path); the small-graph check; then ``python -m
+   tagrec_tpu_torch.cli --model tgcn --dataset synthetic`` for one epoch
+   in its own process;
+6. the training CLI (``tagrec_tpu_torch.cli.main``) in process, as a user
    runs it: DGCF at the preset's full width on ``--dataset
    synthetic_large`` for one epoch with ``--resume`` and ``--export``
    (run A; the artifact then queried through ``serving.main``), resumed
@@ -82,7 +101,7 @@ Phases:
    one epoch with ``--export`` (run D); each DGCF run's routing launches
    checked against its steps and forwards, each run's ``results.json``
    checked, and its host-clock seconds a stage printed beside the card;
-6. the ``kernels`` JSON line (launches summed over every path above), then
+7. the ``kernels`` JSON line (launches summed over every path above), then
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check or exception exits non-zero before the last line.  With no
@@ -534,7 +553,8 @@ def profile_device(torch, fn, label: str, names):
     for name, ms in sorted(other.items(), key=lambda kv: -sum(kv[1]))[:4]:
         print(f"{label} profile: other, largest: {len(ms)} x {name}: "
               f"{sum(ms):.3f} ms")
-    print(f"{label} profile: device busy {busy_ms:.3f} ms of a "
+    print(f"{label} profile: device busy {busy_ms:.3f} ms in {len(dev)} "
+          f"device ops of a "
           f"{span_us / 1e3:.3f} ms span (idle share "
           f"{1 - busy_ms * 1e3 / span_us:.4f}, profiler on)")
     return busy_ms
@@ -1869,11 +1889,13 @@ def grad_hold(torch, got, plain, want):
     return own or floor, mine, base
 
 
-def hold_tiers(torch, name, kern, plain, ref) -> bool:
+def hold_tiers(torch, name, kern, plain, ref,
+               what="kernel tier against dense_xla") -> bool:
     """The kernel tier's forward tables (rtol RTOL, atol ATOL), BPR
     gradients and forward VJP (``grad_hold``, each printed with its norm
-    and plain float32's errors) against the float64 chunked tier's, from
-    the same weights -> whether all hold."""
+    and plain float32's errors) against the float64 chunked tier's (or
+    another float64 reference, ``what``), from the same weights -> whether
+    all hold."""
     check(all(t["params"].keys() == ref["params"].keys() and all(
         torch.equal(t["params"][k], v) for k, v in ref["params"].items())
         for t in (kern, plain)), f"{name}: the tiers drew different weights")
@@ -1881,7 +1903,7 @@ def hold_tiers(torch, name, kern, plain, ref) -> bool:
     for a, b in zip(kern["fwd"], ref["fwd"]):
         ok, err, rel = compare(torch, a, b, RTOL)
         f_ok, f_err, f_rel = f_ok and ok, max(f_err, err), max(f_rel, rel)
-    print(f"{name} kernel tier against dense_xla in float64, hetrec, full "
+    print(f"{name} {what} in float64, hetrec, full "
           f"width: forward max abs {f_err:.3e}, max rel {f_rel:.3e} (rtol "
           f"{RTOL}, atol {ATOL}) {'ok' if f_ok else 'FAIL'}; gradients as "
           f"max err / max|g| and |err| / |g|, kernels then plain float32 "
@@ -1989,6 +2011,439 @@ def disenhan_phase(torch, graph, tmp):
           and 0.0 < res["auc"][0] < 1.0, f"DisenHAN evaluation results {res}")
     del pipe, trainer
     gc_cuda(torch)
+    done()
+
+
+# -------------------------------------- KGAT over a knowledge graph, TGCN
+
+# KnowledgeGraph.synthetic at hetrec: 15,000 entities (the 10,000 items
+# first), 500,000 KG triples under 6 relations -> 14 relations with the
+# interaction relation and the reverses, 17,000 nodes
+KG_SIZE = dict(n_entity=15_000, n_triples=500_000, n_rela=6)
+KG_BPR_STEPS, KG_TRANSE_STEPS = 3, 3
+TGCN_BPR_STEPS, TGCN_TRANSTAG_STEPS = 3, 3
+MATMUL_NAMES = {"multi_tensor_apply": "adam (foreach)",
+                "gemm": "matmul (cuBLAS)", "nvjet": "matmul (cuBLAS)"}
+
+
+def kg_edge_forward(torch, p, n_user, rows, cols, rels, n_layer):
+    """KGAT's forward over the KG from the parameters ``p`` (a dict of the
+    model's names), computed per edge and independently of the model:
+    score pi = proj[r, t] . tanh(proj[r, h] + e_r) gathered per edge, the
+    softmax over each head's out-edges by ``scatter_reduce`` (amax) and
+    ``index_add``, P @ x by ``index_add``; the bi-interaction layers.
+    -> (user table, entity table)."""
+    F = torch.nn.functional
+    x = torch.cat([p["user"], p["entity"]])
+    n = x.shape[0]
+    proj = torch.einsum("nd,rde->rne", x, p["transE"])
+    q = torch.tanh(proj + p["relation"][:, None, :])
+    s = (q[rels, rows] * proj[rels, cols]).sum(1)
+    mx = torch.full((n,), -torch.inf, dtype=s.dtype, device=s.device
+                    ).scatter_reduce(0, rows, s.detach(), "amax")
+    e = torch.exp(s - mx[rows])
+    a = e / torch.zeros(n, dtype=s.dtype, device=s.device).index_add(
+        0, rows, e)[rows]
+    outs = [x]
+    for k in range(n_layer):
+        nei = torch.zeros_like(x).index_add(0, rows, a[:, None] * x[cols])
+        x = (F.leaky_relu((nei + x) @ (p[f"mat.W1_{k}"] + p[f"mat.b1_{k}"]),
+                          0.2)
+             + F.leaky_relu((nei * x) @ (p[f"mat.W2_{k}"] + p[f"mat.b2_{k}"]),
+                            0.2))
+        outs.append(x / torch.clamp(x.norm(dim=1, keepdim=True), min=1e-12))
+    out = torch.cat(outs, dim=1)
+    return out[:n_user], out[n_user:]
+
+
+def vjp_cotangents(torch, tables):
+    gen = torch.Generator().manual_seed(7)
+    return [torch.randn(t.shape, generator=gen, dtype=torch.float64).to(
+        t.device, t.dtype) for t in tables]
+
+
+def kg_runs(torch, graph, kg, model, batch):
+    """The hold's three runs from ``model``'s weights: the model (float32,
+    the relation-dense tier) and the per-edge computation in float64 and
+    float32, each the forward tables, one BPR loss's gradients and the
+    forward's VJP against fixed random cotangents."""
+    from tagrec_tpu_torch.models import base
+
+    trips = torch.as_tensor(kg.all_triplet, device="cuda")
+    rows, rels, cols = trips[:, 0], trips[:, 1], trips[:, 2]
+    cfg = model.cfg
+
+    def run(forward, params):
+        def loss():
+            u, e = forward()
+            return sum(base.bpr_with_reg(u, e, u, e, batch,
+                                         cfg.mul_loss_func, cfg.reg))
+
+        def grads():
+            out = {n: p.grad.double() for n, p in params.items()
+                   if p.grad is not None}
+            for p in params.values():
+                p.grad = None
+            return out
+
+        with torch.no_grad():
+            ms, fwd, gib = synced_ms(torch, forward)
+        bwd_ms, _, bwd_gib = synced_ms(torch, lambda: loss().backward())
+        bpr = grads()
+        sum((t * c).sum() for t, c in zip(forward(), vjp_cotangents(
+            torch, fwd))).backward()
+        return {"fwd": [t.double() for t in fwd], "bpr": bpr, "vjp": grads(),
+                "ms": (ms, bwd_ms), "gib": max(gib, bwd_gib)}
+
+    named = dict(model.named_parameters())
+    out = {"kern": run(model.forward, named)}
+    for label, dtype in (("ref", torch.float64), ("plain", torch.float32)):
+        params = {n: p.detach().to(dtype).requires_grad_()
+                  for n, p in named.items()}
+        out[label] = run(lambda: kg_edge_forward(
+            torch, params, graph.n_user, rows, cols, rels, cfg.num_layer),
+            params)
+    params64 = {n: p.detach().double() for n, p in named.items()}
+    for r in out.values():
+        r["params"] = params64
+    for label, r in out.items():
+        print(f"KGAT KG {label}: forward {r['ms'][0]:.3f} ms, BPR loss and "
+              f"backward {r['ms'][1]:.3f} ms (host clock), peak device "
+              f"memory {r['gib']:.3f} GiB")
+    return out
+
+
+def kg_phase(torch, graph, tmp):
+    """KGAT ``bi_inter`` over ``KnowledgeGraph.synthetic`` at hetrec
+    (relation-dense tier, no kernel of the port): float32 held against the
+    per-edge computation in float64 (``hold_tiers``); per dtype (float32,
+    bf16 score planes) a few BPR and TransE steps on one Adam, one BPR step
+    profiled, the peak memory; float32's evaluation, export -> artifact ->
+    3 top-k requests; bf16's forward against float32's."""
+    import math
+
+    import numpy as np
+
+    from tagrec_tpu_torch import serving
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+    from tagrec_tpu_torch.data.kg import KnowledgeGraph
+    from tagrec_tpu_torch.models import model_class
+    from tagrec_tpu_torch.training.train import Trainer
+
+    done = phase_timer("KGAT KG")
+    small_graph_grad_check(torch, "KGAT KG", lambda g, dev: model_class(
+        "kgat")(g, model_preset("kgat", agg_type="bi_inter", reg=1e-4),
+                kg=KnowledgeGraph.synthetic(g, n_entity=120, n_triples=400,
+                                            n_rela=3),
+                device=dev, generator=torch.Generator().manual_seed(3)))
+    t0 = time.perf_counter()
+    kg = KnowledgeGraph.synthetic(graph, **KG_SIZE)
+    print(f"KG: {kg.num_entity} entities, {kg.num_relation} relations, "
+          f"{len(kg.all_triplet)} triples, built in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    tcfg = TrainConfig()
+    fwd = {}
+    for dtype in ("f32", "bf16"):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        pipe = build_pipeline(graph, model_preset(
+            "kgat", agg_type="bi_inter", adj_dtype=dtype), tcfg, kg=kg,
+            generator=torch.Generator().manual_seed(0), device="cuda")
+        model = pipe.model
+        n = model.n
+        check(model.kg_rel_dense and model.rel_id.shape == (n, n)
+              and n == graph.n_user + kg.num_entity,
+              f"KGAT KG {dtype}: not the relation-dense tier")
+        print(f"KGAT KG {dtype} pipeline built in "
+              f"{time.perf_counter() - t0:.1f} s: N = {n}, rel_id "
+              f"{model.rel_id.numel()} bytes, row segments "
+              f"{[(s, l, len(r)) for s, l, r in model._kg_row_segments]}")
+        if dtype == "f32":
+            runs = kg_runs(torch, graph, kg, model,
+                           dense_xla_batch(torch, graph))
+            check(hold_tiers(torch, "KGAT KG", runs["kern"], runs["plain"],
+                             runs["ref"], "relation-dense tier against the "
+                             "per-edge computation"),
+                  "KGAT KG: the relation-dense tier disagrees with the "
+                  "per-edge computation")
+            del runs
+            gc_cuda(torch)
+        with torch.no_grad():
+            fwd[dtype] = torch.cat(model.forward())
+        bpr, transe = pipe.phases
+        trainer = Trainer(model, pipe.phases, tcfg,
+                          generator=torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.reset_peak_memory_stats()
+        training_steps(torch, trainer, bpr, KG_BPR_STEPS, f"KGAT KG {dtype} BPR")
+        training_steps(torch, trainer, transe, KG_TRANSE_STEPS,
+                       f"KGAT KG {dtype} TransE")
+        print(f"KGAT KG {dtype} training: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        batch = bpr.make_batch(trainer.generator, 0,
+                               bpr.epoch_reset(trainer.generator, bpr.data),
+                               bpr.data)
+        profile_device(torch, lambda: trainer.step(bpr, batch),
+                       f"KGAT KG {dtype} BPR step", MATMUL_NAMES)
+        if dtype == "f32":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            u_t, i_t = serving.export_tables(model, n_item=graph.n_item)
+            print(f"KGAT KG export_tables: forward "
+                  f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock)")
+            check(u_t.shape == (graph.n_user, 176)
+                  and i_t.shape == (graph.n_item, 176)
+                  and np.isfinite(u_t).all() and np.isfinite(i_t).all(),
+                  f"KGAT KG tables {u_t.shape} {i_t.shape}, or not finite")
+            steady_forward(torch, model, "KGAT KG")
+            serve_requests(torch, graph, u_t, i_t, tmp, "kgat_kg")
+            t0 = time.perf_counter()
+            res = pipe.evaluator.run(model)
+            print(f"KGAT KG evaluation of {len(graph.user_items['test'])} test"
+                  f" users: {time.perf_counter() - t0:.3f} s (host clock) "
+                  f"{json.dumps(res)}")
+            check(all(math.isfinite(v) for vs in res.values() for v in vs)
+                  and 0.0 < res["auc"][0] < 1.0,
+                  f"KGAT KG evaluation results {res}")
+        del pipe, model, trainer
+        gc_cuda(torch)
+    err = float((fwd["f32"] - fwd["bf16"]).abs().max())
+    print(f"KGAT KG bf16 score planes against float32, same weights: max abs "
+          f"difference {err:.3e} (limit {BF16_FWD_ATOL})")
+    check(math.isfinite(err) and err < BF16_FWD_ATOL,
+          f"KGAT KG bf16 forward differs from float32 by {err}")
+    del fwd
+    gc_cuda(torch)
+    done()
+
+
+def tgcn_run(torch, graph, mode, dtype, batch):
+    """TGCN at the preset's full width on ``mode``'s tier in ``dtype``, from
+    seed 0: the forward tables, one BPR loss's gradients and the forward's
+    VJP against fixed random cotangents."""
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.models import model_class
+
+    model = model_class("tgcn")(
+        graph, model_preset("tgcn", adj_mode=mode), device="cuda",
+        generator=torch.Generator().manual_seed(0)).to(dtype)
+    check(model.dedup == (mode == "auto"), f"TGCN {mode}: tier")
+    with torch.no_grad():
+        first_ms, fwd, _ = synced_ms(torch, model.forward)
+        fwd_ms, fwd, gib = synced_ms(torch, model.forward)
+    bwd_ms, _, bwd_gib = synced_ms(
+        torch, lambda: sum(model.bpr_loss(batch)).backward())
+
+    def grads():
+        out = {n: p.grad.double() for n, p in model.named_parameters()
+               if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    bpr = grads()
+    sum((t * c).sum() for t, c in zip(model.forward(), vjp_cotangents(
+        torch, fwd))).backward()
+    print(f"TGCN {mode} ({dtype}): forward {first_ms:.3f} ms first, "
+          f"{fwd_ms:.3f} ms second, peak {gib:.3f} GiB; BPR loss and backward"
+          f" {bwd_ms:.3f} ms, peak {bwd_gib:.3f} GiB (host clock)")
+    out = {"fwd": [t.double() for t in fwd], "bpr": bpr, "vjp": grads(),
+           "params": {n: p.detach().double()
+                      for n, p in model.named_parameters()}}
+    if mode == "auto":
+        out["buckets"] = {name: [tuple(b[1].shape) for b in
+                                 model.buckets(name)[0]]
+                          for name in model.REL_ORDER}
+    del model
+    gc_cuda(torch)
+    return out
+
+
+def tgcn_gather_timing(torch, dg, model, records):
+    """``gather_rows`` against ``index_select`` (forward only) on the
+    layer-0 dedup bucket ids of the six tables, over tables of D = 64 and
+    D = 32 (the weight table, D = 10, is no multiple of 4 floats): each
+    launch held bit for bit against the plain version; times summed over
+    the 6 x buckets launches of one layer's gathers.  The bound reads each
+    table once (a table of D = 64 is 2.6 MB at most, and the rows repeat)
+    and writes every gathered row."""
+    nodes = {"u": model.num_list[0], "i": model.num_list[1],
+             "t": model.num_list[2]}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    for d in (64, 32):
+        xs = {k: torch.randn((n + 1, d), generator=gen, device="cuda")
+              for k, n in nodes.items()}
+        rec = dict.fromkeys(("ms", "library_ms", "device_ms",
+                             "library_device_ms"), 0.0)
+        rows = launches = io_bytes = 0
+        for name in model.REL_ORDER:
+            x = xs[name[2]]  # the neighbour type's table
+            for _, ids, _, _ in model.buckets(name)[0]:
+                idx = ids.reshape(-1).to(torch.int32).contiguous()
+                check(torch.equal(dg.gather_rows(x, idx),
+                                  dg.gather_rows_plain(x, idx)),
+                      f"gather_rows at TGCN's {name} bucket {tuple(ids.shape)}"
+                      f" D={d} differs from its plain version")
+                rec["ms"] += time_ms(torch, lambda: dg.gather_rows(x, idx), 15)
+                rec["library_ms"] += time_ms(
+                    torch, lambda: torch.index_select(x, 0, idx), 15)
+                rec["device_ms"] += device_ms(torch,
+                                              lambda: dg.gather_rows(x, idx))
+                rec["library_device_ms"] += device_ms(
+                    torch, lambda: torch.index_select(x, 0, idx))
+                rows += idx.numel()
+                launches += 1
+                # x read once, the ids, the rows written
+                io_bytes += x.numel() * 4 + idx.numel() * (4 + d * 4)
+        rec.update(rows=rows, launches=launches,
+                   bound_ms=io_bytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
+        print(f"gather_rows at TGCN's layer-0 dedup ids, D={d}: {launches} "
+              f"launches, {rows} rows; kernel {rec['ms']:.4f} ms, "
+              f"index_select {rec['library_ms']:.4f} ms (CUDA events, medians"
+              f" of 15, summed); device time {rec['device_ms']:.4f} ms, "
+              f"index_select's {rec['library_device_ms']:.4f} ms; bound "
+              f"{rec['bound_ms']:.4f} ms (bytes)")
+        out[f"D{d}"] = rec
+    records["gather_rows"]["tgcn"] = out
+
+
+def tgcn_phase(torch, dg, graph, tmp, records):
+    """TGCN at the preset's full width on the hetrec graph (no kernel of
+    the port): the ``auto`` (dedup) tier in float32 held against
+    ``dense_xla`` (plain takes) in float64 (``hold_tiers``), and the two in
+    float64 against each other; a few BPR and TransTag steps on one Adam,
+    one BPR step profiled, the peak memory, export -> artifact -> 3 top-k
+    requests, one evaluation; ``gather_rows`` timed at TGCN's shapes; the
+    small-graph check."""
+    import math
+
+    import numpy as np
+
+    from tagrec_tpu_torch import serving
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+    from tagrec_tpu_torch.models import model_class
+    from tagrec_tpu_torch.training.train import Trainer
+
+    done = phase_timer("TGCN hetrec")
+    small_graph_grad_check(torch, "TGCN", lambda g, dev: model_class("tgcn")(
+        g, model_preset("tgcn", reg=1e-4), device=dev,
+        generator=torch.Generator().manual_seed(3)))
+    batch = dense_xla_batch(torch, graph)
+    runs = {(mode, dt): tgcn_run(torch, graph, mode, dtype, batch)
+            for mode, dt, dtype in (("dense_xla", 64, torch.float64),
+                                    ("dense_xla", 32, torch.float32),
+                                    ("auto", 32, torch.float32),
+                                    ("auto", 64, torch.float64))}
+    print(f"TGCN dedup buckets (rows x width) per table: "
+          f"{runs['auto', 32]['buckets']}")
+    ref, a64 = runs["dense_xla", 64], runs["auto", 64]
+    check(hold_tiers(torch, "TGCN", a64, runs["dense_xla", 32], ref,
+                     "auto (dedup) tier in float64 against dense_xla (plain "
+                     "takes)"),
+          "TGCN: the dedup tier disagrees with the plain takes")
+    # the same sums grouped two ways: in float64 they agree to rounding, on
+    # the scale of each table and of each loss's largest gradient (some
+    # gradients are zero in exact arithmetic, atten2's q among them)
+    worst = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(a64["fwd"], ref["fwd"]))
+    for part in ("bpr", "vjp"):
+        scale = max(float(g.abs().max()) for g in ref[part].values())
+        worst = max(worst, max(float((a64[part][k] - g).abs().max()) / scale
+                               for k, g in ref[part].items()))
+    print(f"TGCN auto against dense_xla, both float64: largest error on the "
+          f"scale of its table or its loss's gradients {worst:.3e} (limit "
+          "1e-9)")
+    check(worst < 1e-9, f"TGCN float64 tiers differ by {worst}")
+    # float32, as users run it: the forward held; the attention gradients
+    # of layers 1 and 2 (norms down to 1e-23 at these weights) lie below
+    # float32's resolution in either grouping, so their errors are printed
+    for mode in ("auto", "dense_xla"):
+        run32 = runs[mode, 32]
+        f_ok = all(compare(torch, a, b, RTOL)[0]
+                   for a, b in zip(run32["fwd"], ref["fwd"]))
+        errs = {part: max(grad_errors(run32[part][k], g)[1]
+                          for k, g in ref[part].items())
+                for part in ("bpr", "vjp")}
+        print(f"TGCN {mode} float32 against dense_xla float64: forward "
+              f"(rtol {RTOL}, atol {ATOL}) {'ok' if f_ok else 'FAIL'}; "
+              f"largest |err| / |g| of a gradient: BPR {errs['bpr']:.3e}, "
+              f"VJP {errs['vjp']:.3e} (float32's resolution, printed)")
+        check(f_ok, f"TGCN {mode} float32 forward disagrees with float64")
+    del runs, ref, a64
+    gc_cuda(torch)
+
+    t0 = time.perf_counter()
+    tcfg = TrainConfig()
+    pipe = build_pipeline(graph, model_preset("tgcn"), tcfg,
+                          generator=torch.Generator().manual_seed(0),
+                          device="cuda")
+    print(f"TGCN pipeline (tables, buckets, samplers) built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    bpr, transtag = pipe.phases
+    check(pipe.model.dedup and transtag.name == "transtag",
+          f"TGCN pipeline: {[ph.name for ph in pipe.phases]}")
+    trainer = Trainer(pipe.model, pipe.phases, tcfg,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    training_steps(torch, trainer, bpr, TGCN_BPR_STEPS, "TGCN BPR")
+    training_steps(torch, trainer, transtag, TGCN_TRANSTAG_STEPS,
+                   "TGCN TransTag")
+    print(f"TGCN training: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    batch = bpr.make_batch(trainer.generator, 0,
+                           bpr.epoch_reset(trainer.generator, bpr.data),
+                           bpr.data)
+    profile_device(torch, lambda: trainer.step(bpr, batch), "TGCN BPR step",
+                   MATMUL_NAMES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u_t, i_t = serving.export_tables(pipe.model, n_item=graph.n_item)
+    print(f"TGCN export_tables: forward {(time.perf_counter() - t0) * 1e3:.3f}"
+          " ms (host clock)")
+    check(u_t.shape == (graph.n_user, 176) and i_t.shape == (graph.n_item, 176)
+          and np.isfinite(u_t).all() and np.isfinite(i_t).all(),
+          f"TGCN tables {u_t.shape} {i_t.shape}, or not finite")
+    steady_forward(torch, pipe.model, "TGCN")
+    serve_requests(torch, graph, u_t, i_t, tmp, "tgcn")
+    t0 = time.perf_counter()
+    res = pipe.evaluator.run(pipe.model)
+    print(f"TGCN evaluation of {len(graph.user_items['test'])} test users: "
+          f"{time.perf_counter() - t0:.3f} s (host clock) {json.dumps(res)}")
+    check(all(math.isfinite(v) for vs in res.values() for v in vs)
+          and 0.0 < res["auc"][0] < 1.0, f"TGCN evaluation results {res}")
+    tgcn_gather_timing(torch, dg, pipe.model, records)
+    del pipe, trainer
+    gc_cuda(torch)
+    done()
+
+
+def tgcn_cli_run(torch, card):
+    """``python -m tagrec_tpu_torch.cli --model tgcn --dataset synthetic``
+    for one epoch on the card, in its own process, with an export."""
+    import glob
+
+    done = phase_timer("CLI TGCN")
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [sys.executable, "-m", "tagrec_tpu_torch.cli", "--model",
+                "tgcn", "--dataset", "synthetic", "--epochs", "1",
+                "--out_dir", os.path.join(tmp, "run"), "--export",
+                os.path.join(tmp, "art")]
+        proc = subprocess.run(argv, capture_output=True, text=True,
+                              timeout=600, cwd=os.path.dirname(
+                                  os.path.abspath(__file__)))
+        for line in proc.stdout.splitlines():
+            print(f"  TGCN CLI | {line[:160]}")
+        check(proc.returncode == 0,
+              f"the TGCN CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        (results,) = glob.glob(os.path.join(tmp, "run", "**",
+                                            "results.json"), recursive=True)
+        res = check_cli_results(os.path.dirname(results), "TGCN")
+        check("[Epoch:0][transtag]" in proc.stdout
+              and "serving artifact:" in proc.stdout and "'dim': 176"
+              in proc.stdout, "the TGCN CLI run: no TransTag phase or export")
+        cli_seconds(proc.stdout, os.path.dirname(results), "TGCN", card)
+        print(f"TGCN CLI test result: {res['test']}")
     done()
 
 
@@ -2278,6 +2733,10 @@ def run(torch):
     records.update(gather_records)
     launches.update(gather_launches)
     gc_cuda(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        kg_phase(torch, graph, tmp)
+        tgcn_phase(torch, dg, graph, tmp, records)
+    tgcn_cli_run(torch, card)
 
     done = phase_timer("CLI")
     cli = cli_phase(torch, fr, card)
@@ -2318,7 +2777,7 @@ def run(torch):
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "device_ms",
                             "library_device_ms", "shape", "r80",
-                            "disengcn", "ngcf")
+                            "disengcn", "ngcf", "tgcn")
                            if k in rec}})
     print(card)
     print(json.dumps({"kernels": kernels}))

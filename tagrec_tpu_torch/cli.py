@@ -8,12 +8,13 @@ needed); ``--device cpu`` runs the plain PyTorch path without a card.
 
 It writes JAX's ``out_dir`` layout (``metrics.jsonl``, ``model.npz``,
 ``results.json``), and its checkpoints, train states and serving artifacts
-are JAX's formats, so either package reads the other's.  Flags whose
-feature the port lacks raise NotImplementedError naming its ROADMAP.md
-label: ``--dp``/``--mp`` > 1 (A18), ``--use_kg`` over a ``kg_final.txt``
-(A14), ``--adj_mode ell`` on the attention models (A17), and the model
-tgcn (A16).  ``--adj_mode dense_xla`` takes the chunked dense tier for
-DGCF, DisenGCN and KGAT (``dense`` for LightGCN and NGCF).
+are JAX's formats, so either package reads the other's.  ``--model kgat
+--use_kg`` over a dataset with a ``kg_final.txt`` trains KGAT over the
+knowledge graph.  Flags whose feature the port lacks raise
+NotImplementedError naming its ROADMAP.md label: ``--dp``/``--mp`` > 1
+(A18), and ``--adj_mode ell`` on the attention models and TGCN (A17).
+``--adj_mode dense_xla`` takes the chunked dense tier for DGCF, DisenGCN
+and KGAT, and TGCN's plain table takes (``dense`` for LightGCN and NGCF).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 from tagrec_tpu_torch.compose import build_pipeline
 from tagrec_tpu_torch.config import TrainConfig, model_preset
 from tagrec_tpu_torch.data.graph import HeteroGraph
+from tagrec_tpu_torch.data.kg import KnowledgeGraph
 from tagrec_tpu_torch.data.synthetic import synthetic_graph, synthetic_graph_large
 from tagrec_tpu_torch.device import resolve
 from tagrec_tpu_torch.training import checkpoint
@@ -62,7 +64,7 @@ def parse_args(argv=None):
     p.add_argument("--group_k", type=int, default=4)
     p.add_argument("--use_kg", action="store_true",
                    help="KGAT: use kg_final.txt (true KG) instead of the tag "
-                        "graph (not ported: ROADMAP.md A14)")
+                        "graph")
     p.add_argument("--transe_sampler", type=str, default=None,
                    choices=["full_pass", "reference_windows"],
                    help="KGAT TransE phase: the reference's overlapping "
@@ -123,6 +125,7 @@ def main(argv=None):
 
     seconds = {}
     t0 = profiling.clock(dev)
+    kg = None
     if args.dataset == "synthetic":
         graph = synthetic_graph(seed=args.seed)
     elif args.dataset == "synthetic_large":
@@ -135,12 +138,12 @@ def main(argv=None):
                                  has_val=args.has_val, use_tag=not args.no_tag)
         kg_path = os.path.join(args.data_root, args.dataset, "kg_final.txt")
         if args.model == "kgat" and args.use_kg and os.path.exists(kg_path):
-            raise NotImplementedError(
-                "KGAT over a true knowledge graph (kg_final.txt) is not "
-                "ported (ROADMAP.md A14)")
+            kg = KnowledgeGraph(graph, args.data_root, args.dataset)
+            print(f"knowledge graph: {kg.num_entity} entities, "
+                  f"{kg.num_relation} relations, {len(kg.all_triplet)} triples")
     print(f"graph ready: {graph.num}")
 
-    pipe = build_pipeline(graph, mcfg, tcfg, device=dev,
+    pipe = build_pipeline(graph, mcfg, tcfg, device=dev, kg=kg,
                           generator=torch.Generator().manual_seed(tcfg.seed))
     seconds["build"] = profiling.clock(dev) - t0
 

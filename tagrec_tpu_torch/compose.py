@@ -1,9 +1,10 @@
-"""Composition root (tagrec_tpu/compose.py), cut to the families the port
-trains: LightGCN and NGCF (one BPR phase), KGAT (BPR over the train
-interactions and TransE over the six tag-graph relations, both stepping
-the Trainer's one Adam), and DGCF, DisenGCN and DisenHAN (the resampling
-BPR phase, with the distance-correlation ids), each with the full-catalog
-evaluator.
+"""Composition root (tagrec_tpu/compose.py): each family's model, its
+phases and the full-catalog evaluator.  LightGCN and NGCF train one BPR
+phase; KGAT BPR over the train interactions, then TransE over the six
+tag-graph relations (or, with ``kg=``, over the knowledge graph's
+triplets); TGCN BPR, then TransTag over the (user, tag, item)
+assignments; DGCF, DisenGCN and DisenHAN the resampling BPR phase, with
+the distance-correlation ids.  Every phase steps the Trainer's one Adam.
 """
 
 from __future__ import annotations
@@ -23,9 +24,6 @@ from tagrec_tpu_torch.training.evaluate import Evaluator
 from tagrec_tpu_torch.training.train import (PhaseSpec, bpr_phase,
                                              resampling_phase, triple_phase)
 
-TRAINED = ("dgcf", "disengcn", "disenhan", "kgat", "lightgcn", "ngcf")
-# the families still to port, with their ROADMAP.md labels
-NOT_PORTED = {"tgcn": "A16"}
 # the families trained by the resampling phase
 RESAMPLED = ("dgcf", "disengcn", "disenhan")
 
@@ -48,18 +46,17 @@ def relation_triples(graph: HeteroGraph) -> np.ndarray:
 
 
 def build_pipeline(graph: HeteroGraph, mcfg: ModelConfig, tcfg: TrainConfig,
-                   *, generator: torch.Generator, device="cuda") -> Pipeline:
+                   *, generator: torch.Generator, device="cuda",
+                   kg=None) -> Pipeline:
     """The model, its phases and the evaluator on ``device``;
-    ``generator`` (CPU) draws the weights."""
-    if mcfg.name not in TRAINED:
-        label = NOT_PORTED.get(mcfg.name)
-        raise NotImplementedError(
-            f"training {mcfg.name!r} is not ported: the port trains "
-            f"{', '.join(TRAINED)}"
-            + (f" ({mcfg.name} is ROADMAP.md {label})" if label else ""))
+    ``generator`` (CPU) draws the weights.  ``kg``: an optional
+    ``data.kg.KnowledgeGraph``, which puts KGAT over the knowledge graph
+    (other families ignore it)."""
+    cls = model_class(mcfg.name)
     dev = resolve(device)
-    model = model_class(mcfg.name)(graph, mcfg, generator=generator,
-                                   device=dev)
+    over_kg = mcfg.name == "kgat" and kg is not None
+    model = cls(graph, mcfg, generator=generator, device=dev,
+                **({"kg": kg} if over_kg else {}))
     pt = sampling.build_pos_table(graph.user_items["train"], graph.n_user,
                                   graph.n_item, device=dev)
     edges = graph.edge_index["train"]
@@ -89,10 +86,24 @@ def build_pipeline(graph: HeteroGraph, mcfg: ModelConfig, tcfg: TrainConfig,
         def transe_loss_fn(batch, gen):
             return model.transe_loss(batch)
 
+        if over_kg:
+            trips, n_rel = kg.all_triplet, kg.num_relation
+            n_ids = graph.n_user + kg.num_entity
+        else:
+            trips, n_rel, n_ids = relation_triples(graph), 6, graph.n_nodes
         phases.append(triple_phase(
-            "transe", relation_triples(graph), 6, graph.n_nodes,
-            mcfg.transe_batch, transe_loss_fn,
+            "transe", trips, n_rel, n_ids, mcfg.transe_batch, transe_loss_fn,
             neg_rounds=tcfg.neg_resample_rounds,
             window=mcfg.transe_sampler == "reference_windows", device=dev))
+    if mcfg.name == "tgcn":
+        # TransTag over (user, tag, item): heads are users, relations tags
+        # and tails items
+        def transtag_loss_fn(batch, gen):
+            return model.transtag_loss(batch)
+
+        phases.append(triple_phase(
+            "transtag", graph.uit_data[:, [0, 2, 1]].astype(np.int64),
+            graph.n_tag, graph.n_item, mcfg.transtag_batch, transtag_loss_fn,
+            neg_rounds=tcfg.neg_resample_rounds, device=dev))
     return Pipeline(model=model, phases=phases, graph=graph,
                     evaluator=Evaluator(graph, tcfg, device=dev))

@@ -1,7 +1,9 @@
 """Model zoo of the port (tagrec_tpu/models): DGCF and DisenGCN (dense
 routing tier, or the chunked dense tier), DisenHAN (dense mode), KGAT
-(dense flash tier, or the chunked dense tier), and LightGCN and NGCF
-(dense sectors, hybrid and ELL tiers)."""
+(dense flash tier or the chunked dense tier on the tag graph, the
+relation-dense tier over a knowledge graph), LightGCN and NGCF (dense
+sectors, hybrid and ELL tiers), and TGCN (deduplicated or plain neighbour
+tables)."""
 
 from tagrec_tpu_torch.models.dgcf import DGCF
 from tagrec_tpu_torch.models.disengcn import DisenGCN
@@ -9,9 +11,11 @@ from tagrec_tpu_torch.models.disenhan import DisenHAN
 from tagrec_tpu_torch.models.kgat import KGAT
 from tagrec_tpu_torch.models.lightgcn import LightGCN
 from tagrec_tpu_torch.models.ngcf import NGCF
+from tagrec_tpu_torch.models.tgcn import TGCN
 
 MODEL_REGISTRY = {"dgcf": DGCF, "disengcn": DisenGCN, "disenhan": DisenHAN,
-                  "kgat": KGAT, "lightgcn": LightGCN, "ngcf": NGCF}
+                  "kgat": KGAT, "lightgcn": LightGCN, "ngcf": NGCF,
+                  "tgcn": TGCN}
 
 
 def model_class(name: str):
@@ -22,5 +26,5 @@ def model_class(name: str):
     return MODEL_REGISTRY[name]
 
 
-__all__ = ["DGCF", "DisenGCN", "DisenHAN", "KGAT", "LightGCN", "NGCF",
+__all__ = ["DGCF", "DisenGCN", "DisenHAN", "KGAT", "LightGCN", "NGCF", "TGCN",
            "MODEL_REGISTRY", "model_class"]

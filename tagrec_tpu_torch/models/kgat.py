@@ -18,10 +18,18 @@ sector-stacked scores softmaxed over the [N, N] edge mask chunk by chunk
 (``ops.dense_adj.dense_row_softmax_scores``) into one attention matrix P,
 which the layers reuse (``P @ x``).
 
+Over a true knowledge graph (``kg=``, a ``data.kg.KnowledgeGraph``) the
+entities and relations are the KG's, and the relation is per edge: the
+relation-dense tier keeps an int8 relation id per cell (``rel_id``, -1 for
+no edge) and builds P chunk by chunk from the per-relation score planes
+(``ops.dense_adj.rel_dense_row_softmax_scores``; bf16 planes under
+``adj_dtype="bf16"``); the layers reuse P.
+
 Quirk #3: the shipped preset sets ``agg_type="bi_agg"``, which skips
 propagation; the model then builds no masks and ``forward`` returns the ego
-tables.  The true-KG mode and the EdgeMap tier raise
-``NotImplementedError``.
+tables.  The EdgeMap tier raises ``NotImplementedError`` (A17): on the tag
+graph under ``adj_mode="ell"`` or past the dense budget, and on a KG with
+parallel (h, t) edges, more than 127 relations, or past the budget.
 """
 
 from __future__ import annotations
@@ -54,21 +62,26 @@ class KGAT(nn.Module):
     are int8 buffers ``fmask_0..2`` on ``device``, and their contiguous
     transposes ``fmaskT_0..2`` (the column backward's masks, built once);
     under ``dense_xla`` the joint edge mask is the bool buffer ``mask``
-    [N, N] instead."""
+    [N, N] instead; over a KG (``kg=``) the int8 buffer ``rel_id`` [N, N]."""
 
     def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
                  generator: torch.Generator, device="cuda", kg=None):
         super().__init__()
         dev = resolve(device)
-        if kg is not None:
-            raise NotImplementedError(
-                "KGAT over a true knowledge graph needs the relation-dense "
-                "tier (ROADMAP.md A14)")
         self.cfg = cfg
         self.num_user = graph.n_user
-        self.num_entity = graph.n_item + graph.n_tag
-        self.num_relation = 6
+        if kg is not None:
+            # knowledge-graph mode: (h, r, t) over users + entities
+            assert kg.num_entity >= graph.n_item, (
+                "items must be a prefix of the entity space: "
+                f"n_item={graph.n_item} > num_entity={kg.num_entity}")
+            self.num_entity = kg.num_entity
+            self.num_relation = kg.num_relation
+        else:
+            self.num_entity = graph.n_item + graph.n_tag
+            self.num_relation = 6
         self.n = self.num_user + self.num_entity
+        self.kg_rel_dense = False
         self.dims = [cfg.dim_latent] + list(cfg.dim_layer_list)
         self.skip_adj = cfg.agg_type != "bi_inter"
 
@@ -92,6 +105,10 @@ class KGAT(nn.Module):
             return
 
         dense_adj.check_dense(cfg.adj_mode, self.n, self.n)
+        if kg is not None:
+            self.flash = False
+            self._build_rel_dense(kg, dev)
+            return
         self.flash = cfg.adj_mode != "dense_xla"
         self.segs = ((0, graph.n_user),
                      (graph.n_user, graph.n_item),
@@ -109,6 +126,25 @@ class KGAT(nn.Module):
             mask = torch.from_numpy(m).to(dev)
             self.register_buffer(f"fmask_{a}", mask)
             self.register_buffer(f"fmaskT_{a}", mask.t().contiguous())
+
+    def _build_rel_dense(self, kg, dev):
+        """The int8 relation-id buffer ``rel_id`` [N, N] of the KG's triples
+        and the static row segments: user rows with the relations seen on a
+        user head (relation 0), entity rows with the rest."""
+        trips = kg.all_triplet
+        rows, rels, cols = (trips[:, c].astype(np.int64) for c in range(3))
+        rel_id = dense_adj.rel_id_host(rows, cols, rels, self.n, self.n)
+        if rel_id is None:
+            raise NotImplementedError(
+                "a knowledge graph with parallel (h, t) edges or more than "
+                "127 relations needs the EdgeMap tier (ROADMAP.md A17)")
+        self.kg_rel_dense = True
+        self.register_buffer("rel_id", torch.from_numpy(rel_id).to(dev))
+        user = rows < self.num_user
+        self._kg_row_segments = (
+            (0, self.num_user, tuple(int(r) for r in np.unique(rels[user]))),
+            (self.num_user, self.num_entity,
+             tuple(int(r) for r in np.unique(rels[~user]))))
 
     def _build_flash_masks(self, rows, cols, rels):
         """Per-row-type int8 masks [pad(la), pad(l1) + pad(l2)] in the
@@ -182,7 +218,18 @@ class KGAT(nn.Module):
         # head side tanh(W_r e + e_r), tail side W_r e, per relation
         proj = torch.einsum("nd,rde->rne", all_embed, self.transE)
         q = torch.tanh(proj + self.relation[:, None, :])
-        if self.flash:
+        if self.kg_rel_dense:
+            # one [N, N] attention matrix from the relation score planes,
+            # reused by every layer
+            p_att = dense_adj.rel_dense_row_softmax_scores(
+                q, proj, self.rel_id,
+                score_dtype=(torch.bfloat16 if cfg.adj_dtype == "bf16"
+                             else q.dtype),
+                row_segments=self._kg_row_segments)
+
+            def att_mm(x):
+                return p_att @ x
+        elif self.flash:
             att_mm = self._flash_att_mm(q, proj)
         else:
             # sector-stacked scores -> one [N, N] row-softmax attention P,
@@ -240,7 +287,7 @@ class KGAT(nn.Module):
     @torch.no_grad()
     def predict(self, users):
         """[B, num_entity] sigmoid scores of ``users`` against every entity
-        (items and tags), as JAX's ``predict``."""
+        (items and tags, or the KG's entities), as JAX's ``predict``."""
         u_all, e_all = self.forward()
         users = torch.as_tensor(users, device=u_all.device)
         return base.predict_sigmoid(u_all[users], e_all)

@@ -1,0 +1,401 @@
+"""TGCN: tag-aware GCN with dual attention and convolutional fusion
+(tagrec_tpu/models/tgcn.py; reference model/tgcn.py:11-268).
+
+* Fixed-width (k = 25) neighbour tables for the six relations
+  [ui, ut, iu, it, tu, ti], ids shifted +1 with row 0 the zero pad, each
+  slot with its interaction-multiplicity ("weight") id, whose embedding
+  enters the attention score.
+* Per layer: Attention1 per neighbour type, a softmax over the k slots of
+  ReLU([e_v | e_w] W1 + e_j W2 + b) . v; Attention2 fusing the three
+  per-type aggregates with a softmax gate; the bit-level (3, 1) x 32 and
+  vector-level (j, d) x 8 convolutions over the stacked [3, d] matrix, as
+  einsums; a linear fusion.  The output is the concat of [ego, normalized
+  layer outputs] (64 + 64 + 32 + 16 = 176 at the preset).
+* Quirk #6: the reference samples the tables once and never again, so by
+  default they are static, drawn on the host at build time.
+  ``resample_each_layer=True`` keeps the full CSR lists on the device and
+  draws k fresh slots per node for every layer of a training forward.
+* Phase 1 BPR (logsigmoid) with L2 on the final rows; phase 2 the TransTag
+  margin loss on the ego tables (model/tgcn.py:251-261).
+
+Tiers, as JAX selects them: ``adj_mode="auto"`` gathers each row's
+distinct (neighbour, weight) pairs once, in degree buckets, and folds the
+duplicate count into the softmax (the same sum, grouped);
+``"dense_xla"`` (and ``"dense"``, and per-layer resampling) the plain
+25-wide takes; ``adj_dtype="bf16"`` gathers bf16 tables.  ``"ell"`` (the
+EdgeMap tier) raises NotImplementedError (A17).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from tagrec_tpu_torch.config import ModelConfig
+from tagrec_tpu_torch.data.graph import COO, HeteroGraph
+from tagrec_tpu_torch.device import resolve
+from tagrec_tpu_torch.models import base
+from tagrec_tpu_torch.ops import losses
+from tagrec_tpu_torch.ops.propagate import l2_normalize, message_dropout
+
+DEDUP_WIDTHS = (4, 8, 12, 16, 20, 25)
+# neighbour-table order (data/tgcn_load.py:29): ui, ut, iu, it, tu, ti
+REL_ORDER = ("u_iw", "u_tw", "i_uw", "i_tw", "t_uw", "t_iw")
+
+
+def neighbor_sample_csr(indptr: np.ndarray, cols: np.ndarray,
+                        vals: np.ndarray, k: int,
+                        seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """k slots per row drawn with replacement from its CSR list -> ([n, k]
+    neighbour ids + 1, [n, k] weight ids), 0 for a row without neighbours
+    (the numpy path of tagrec_tpu/runtime ``neighbor_sample_csr``)."""
+    n_rows = len(indptr) - 1
+    idx = np.zeros((n_rows, k), dtype=np.int32)
+    w = np.zeros((n_rows, k), dtype=np.int32)
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int64)
+    vals = np.ascontiguousarray(vals, dtype=np.float32)
+    rng = np.random.default_rng(seed)
+    for r in range(n_rows):
+        lo, hi = indptr[r], indptr[r + 1]
+        if hi == lo:
+            continue
+        sel = rng.integers(lo, hi, size=k)
+        idx[r] = cols[sel] + 1
+        w[r] = vals[sel].astype(np.int32)
+    return idx, w
+
+
+def _csr(coo: COO):
+    """(starts [n + 1], cols, vals) of ``coo``'s rows, stably sorted."""
+    n = coo.shape[0]
+    order = np.argsort(coo.row, kind="stable")
+    starts = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(coo.row, minlength=n), out=starts[1:])
+    return starts, coo.col[order], coo.val[order]
+
+
+def _sample_neighbor_table(coo: COO, k: int, rng: np.random.Generator):
+    """k neighbours (with replacement) and their weight ids per row, ids +1
+    and 0 the pad; the seed is drawn from ``rng`` as JAX draws it."""
+    starts, cols, vals = _csr(coo)
+    return neighbor_sample_csr(starts, cols, vals, k,
+                               int(rng.integers(0, 2**63 - 1)))
+
+
+def _build_dedup_buckets(idx: np.ndarray, w: np.ndarray,
+                         widths: Sequence[int] = DEDUP_WIDTHS):
+    """A sampled [N, k] table as degree-bucketed DISTINCT (neighbour,
+    weight) pairs with their multiplicities.
+
+    A softmax over k slots with duplicates equals the multiplicity-weighted
+    softmax over the distinct pairs.  Returns (buckets, inv): buckets a
+    list of (rows [Nb], ids [Nb, W], wids [Nb, W], mult [Nb, W] float32),
+    pad slots with mult 0; inv[n] the position of node n in the
+    concatenated bucket rows."""
+    n, k = idx.shape
+    if widths[-1] < k:
+        # past the default ladder: rungs every 8, capped by k
+        widths = tuple(widths) + tuple(range(widths[-1] + 7, k, 8)) + (k,)
+    # a per-row unique: encode the pairs, sort each row, run-length encode
+    # (new[:, 0] is True, so each row's last run ends at the next row)
+    m = int(w.max()) + 1
+    enc = idx.astype(np.int64) * m + w.astype(np.int64)
+    s = np.sort(enc, axis=1)
+    new = np.ones_like(s, dtype=bool)
+    new[:, 1:] = s[:, 1:] != s[:, :-1]
+    dcount = new.sum(1)
+    flat = np.flatnonzero(new.ravel())
+    counts = np.diff(np.append(flat, n * k))
+    vals = s.ravel()[flat]
+    row_of = np.repeat(np.arange(n), dcount)
+    starts = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(dcount, out=starts[1:])
+    col_of = np.arange(len(flat)) - starts[row_of]
+    ids_m = np.zeros((n, k), dtype=np.int32)
+    wid_m = np.zeros((n, k), dtype=np.int32)
+    mul_m = np.zeros((n, k), dtype=np.float32)
+    ids_m[row_of, col_of] = vals // m
+    wid_m[row_of, col_of] = vals % m
+    mul_m[row_of, col_of] = counts
+
+    order, buckets = [], []
+    for wi, width in enumerate(widths):
+        lo = 0 if wi == 0 else widths[wi - 1]
+        rows = np.nonzero((dcount > lo) & (dcount <= width))[0]
+        if len(rows) == 0:
+            continue
+        buckets.append((rows.astype(np.int32), ids_m[rows, :width],
+                        wid_m[rows, :width], mul_m[rows, :width]))
+        order.append(rows)
+    inv = np.empty(n, dtype=np.int32)
+    inv[np.concatenate(order)] = np.arange(n, dtype=np.int32)
+    return buckets, inv
+
+
+def _atten1(ap, ev, ej, ew, v_j, v_w):
+    """Neighbour attention over the plain k-wide takes (model/tgcn.py:11-37).
+    ``ej``, ``ew``: the neighbour-type and weight tables with the zero row
+    first, in the tables' dtype (bf16 under ``adj_dtype="bf16"``); the
+    softmax runs over all k slots, pads included, in float32 (or wider)."""
+    dt = ej.dtype
+    e_nj = ej[v_j]                                       # [N, k, d]
+    e_nw = ew[v_w]                                       # [N, k, dw]
+    ev = ev.to(dt)
+    e_nv = ev[:, None, :].expand(-1, v_j.shape[1], -1)
+    cat = torch.cat([e_nv, e_nw], dim=-1)
+    av = cat @ ap["W1"].to(dt) + e_nj @ ap["W2"].to(dt) + ap["b"].to(dt)
+    x = torch.relu(av) @ ap["v"].T.to(dt)                # [N, k, 1]
+    a = torch.softmax(x.to(_wide(dt)), dim=1)
+    return torch.sum(a.to(dt) * e_nj, dim=1).to(_wide(dt))
+
+
+def _atten1_dedup(ap, ev, ej, ew, buckets, inv):
+    """Attention1 over the degree buckets of distinct pairs: each pair's
+    exp weighted by its multiplicity, -inf on the pad slots, the rows taken
+    back to node order by ``inv``."""
+    dt = ej.dtype
+    d = ev.shape[1]
+    ev = ev.to(dt)
+    w1v, w1w = ap["W1"][:d].to(dt), ap["W1"][d:].to(dt)
+    w2, b = ap["W2"].to(dt), ap["b"].to(dt)
+    v_t = ap["v"].T.to(dt)
+    outs = []
+    for rows, ids, wids, mult in buckets:
+        e_nj = ej[ids]                                   # [Nb, W, d]
+        av = (ev[rows] @ w1v)[:, None, :] + ew[wids] @ w1w + e_nj @ w2 + b
+        x = (torch.relu(av) @ v_t)[..., 0].to(mult.dtype)   # [Nb, W]
+        xm = torch.where(mult > 0, x, -torch.inf)
+        e = mult * torch.exp(xm - torch.amax(xm, dim=-1, keepdim=True))
+        a = e / torch.sum(e, dim=-1, keepdim=True)
+        outs.append(torch.einsum("nw,nwd->nd", a.to(dt), e_nj))
+    return torch.cat(outs)[inv].to(_wide(dt))
+
+
+def _wide(dt):
+    """float32, or the wider float the model runs in."""
+    return torch.promote_types(dt, torch.float32)
+
+
+def _atten2(lp, u, i, t):
+    uit = torch.stack([u, i, t], dim=1)                  # [N, 3, d]
+    x = torch.relu(uit @ lp.U + lp.q) @ lp.p.T  # [N, 3, 1]
+    return torch.softmax(x, dim=1) * uit
+
+
+def _conv(lp, e_n):
+    """Bit-level and vector-level convolutions as einsums
+    (model/tgcn.py:66-101): [N, 32 d] channel-major, then per j the 8
+    channels' 3 - j + 1 positions."""
+    n = e_n.shape[0]
+    bit = torch.relu(torch.einsum("ncd,oc->nod", e_n, lp.bit)).reshape(n, -1)
+    vecs = []
+    for j, w in zip((1, 2, 3), lp.vec):               # w: [8, j, d]
+        outs = [torch.einsum("ncd,ocd->no", e_n[:, p:p + j, :], w)
+                for p in range(3 - j + 1)]
+        vecs.append(torch.relu(torch.stack(outs, dim=2)).reshape(n, -1))
+    return torch.cat([bit] + vecs, dim=1)
+
+
+def _fusion(lp, x):
+    return torch.relu(x @ lp.Wf + lp.bf)
+
+
+class TGCN(nn.Module):
+    """Parameters ``embed.0..2`` (user, item, tag), ``weight`` and per layer
+    ``layers.L.atten1.{user,item,tag}.{W1,W2,b,v}``, ``layers.L.{U,q,p,bit,
+    Wf,bf}`` and ``layers.L.vec.0..2``: JAX's tree as dotted names, drawn
+    from ``generator`` (a CPU ``torch.Generator``).  The six neighbour
+    tables are sampled on the host from ``sample_seed`` (or taken from
+    ``tables``, six (idx, w) arrays in ``REL_ORDER``) and live on
+    ``device`` as int64 buffers: the tables, or under ``auto`` their dedup
+    buckets, or under ``resample_each_layer`` the CSR lists too."""
+
+    REL_ORDER = REL_ORDER
+
+    def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
+                 generator: torch.Generator, device="cuda",
+                 resample_each_layer: bool = False, sample_seed: int = 0,
+                 tables: Optional[List[Tuple[np.ndarray, np.ndarray]]] = None):
+        super().__init__()
+        if cfg.adj_mode == "ell":
+            raise NotImplementedError(
+                "TGCN's adj_mode='ell' needs the EdgeMap tier (ROADMAP.md "
+                "A17)")
+        dev = resolve(device)
+        self.cfg = cfg
+        self.num_list = [graph.n_user, graph.n_item, graph.n_tag]
+        self.num_weight = graph.num["weight"]
+        self.dims = [cfg.dim_latent] + list(cfg.dim_layer_list)
+        self.resample_each_layer = resample_each_layer
+
+        def xavier(*shape):
+            return base.xavier_uniform(shape, generator, dev)
+
+        self.embed = nn.ParameterList(
+            [nn.Parameter(xavier(n, cfg.dim_latent)) for n in self.num_list])
+        self.weight = nn.Parameter(xavier(self.num_weight, cfg.dim_weight))
+        layers = []
+        for li in range(cfg.num_layer):
+            d_in, d_out = self.dims[li], self.dims[li + 1]
+            lp = nn.Module()
+            lp.atten1 = nn.ModuleDict({t: nn.ParameterDict({
+                "W1": xavier(d_in + cfg.dim_weight, cfg.dim_atten),
+                "W2": xavier(d_in, cfg.dim_atten),
+                "b": xavier(1, cfg.dim_atten),
+                "v": xavier(1, cfg.dim_atten)})
+                for t in ("user", "item", "tag")})
+            lp.U = nn.Parameter(xavier(d_in, cfg.dim_atten))
+            lp.q = nn.Parameter(xavier(1, cfg.dim_atten))
+            lp.p = nn.Parameter(xavier(1, cfg.dim_atten))
+            # torch Conv2d shapes for the xavier fans, then squeezed
+            lp.bit = nn.Parameter(xavier(cfg.num_bit_conv, 1, 3, 1)[:, 0, :, 0].contiguous())
+            lp.vec = nn.ParameterList(
+                [nn.Parameter(xavier(cfg.num_vec_conv, 1, j, d_in)[:, 0].contiguous())
+                 for j in (1, 2, 3)])
+            in_k = cfg.num_bit_conv * d_in + cfg.num_vec_conv * (3 + 2 + 1)
+            lp.Wf = nn.Parameter(xavier(in_k, d_out))
+            lp.bf = nn.Parameter(xavier(1, d_out))
+            layers.append(lp)
+        self.layers = nn.ModuleList(layers)
+
+        adjs = [graph.ui_adj, graph.ut_adj, graph.ui_adj.transpose(),
+                graph.it_adj, graph.ut_adj.transpose(),
+                graph.it_adj.transpose()]
+        if tables is None:
+            rng = np.random.default_rng(sample_seed)
+            tables = [_sample_neighbor_table(a, cfg.neighbor_k, rng)
+                      for a in adjs]
+        self.tables_host = tables
+
+        def buf(name, arr):
+            self.register_buffer(name, torch.as_tensor(arr).to(dev))
+
+        for name, (idx, w) in zip(REL_ORDER, tables):
+            buf(f"{name}_idx", idx.astype(np.int64))
+            buf(f"{name}_w", w.astype(np.int64))
+        self.dedup = cfg.adj_mode == "auto" and not resample_each_layer
+        self._n_buckets = {}
+        if self.dedup:
+            for name, (idx, w) in zip(REL_ORDER, tables):
+                buckets, inv = _build_dedup_buckets(idx, w)
+                self._n_buckets[name] = len(buckets)
+                for b, (rows, ids, wids, mult) in enumerate(buckets):
+                    buf(f"{name}_b{b}_rows", rows.astype(np.int64))
+                    buf(f"{name}_b{b}_ids", ids.astype(np.int64))
+                    buf(f"{name}_b{b}_wids", wids.astype(np.int64))
+                    buf(f"{name}_b{b}_mult", mult)
+                buf(f"{name}_inv", inv.astype(np.int64))
+        if resample_each_layer:
+            # the full CSR lists (cols +1, weight ids), one zero slot past
+            # the end so a degree-0 last row indexes in range
+            for name, a in zip(REL_ORDER, adjs):
+                starts, cols, vals = _csr(a)
+                buf(f"{name}_starts", starts)
+                buf(f"{name}_cols", np.append(cols + 1, 0).astype(np.int64))
+                buf(f"{name}_cw", np.append(vals.astype(np.int64), 0))
+
+    # ------------------------------------------------------------- tables
+    def table(self, name: str):
+        """The (idx, w) [N, k] buffers of relation ``name``."""
+        return getattr(self, f"{name}_idx"), getattr(self, f"{name}_w")
+
+    def buckets(self, name: str):
+        """The dedup buckets [(rows, ids, wids, mult)] of relation ``name``
+        and its ``inv``."""
+        return ([tuple(getattr(self, f"{name}_b{b}_{part}")
+                       for part in ("rows", "ids", "wids", "mult"))
+                 for b in range(self._n_buckets[name])],
+                getattr(self, f"{name}_inv"))
+
+    def _resample(self, generator: torch.Generator):
+        """k fresh with-replacement slots per node from the full CSR lists,
+        drawn from ``generator`` (on the model's device); degree-0 rows keep
+        the 0 pad."""
+        out = {}
+        k = self.cfg.neighbor_k
+        for name in REL_ORDER:
+            starts = getattr(self, f"{name}_starts")
+            deg = starts[1:] - starts[:-1]
+            deg1 = torch.clamp(deg, min=1)[:, None]
+            u = torch.rand((deg.shape[0], k), generator=generator,
+                           device=deg.device, dtype=torch.float64)
+            j = torch.minimum((u * deg1).long(), deg1 - 1)
+            flat = starts[:-1, None] + j
+            live = deg[:, None] > 0
+            out[name] = (torch.where(live, getattr(self, f"{name}_cols")[flat], 0),
+                         torch.where(live, getattr(self, f"{name}_cw")[flat], 0))
+        return out
+
+    # ------------------------------------------------------------ forward
+    def forward(self, *, training: bool = False, generator=None):
+        """-> (user, item, tag) tables [n, 176 at the preset]; ``generator``
+        (on the model's device) draws the per-layer resampling and the
+        message dropout when training."""
+        cfg = self.cfg
+        eu, ei, et = self.embed
+        wide = eu.dtype
+        tdt = torch.bfloat16 if cfg.adj_dtype == "bf16" else wide
+        ew0 = torch.cat([self.weight.new_zeros((1, cfg.dim_weight)),
+                         self.weight]).to(tdt)
+        outs_u, outs_i, outs_t = [eu], [ei], [et]
+        for li, lp in enumerate(self.layers):
+            z = eu.new_zeros((1, eu.shape[1]))
+            eu0, ei0, et0 = (torch.cat([z, e]).to(tdt) for e in (eu, ei, et))
+            a1 = lp.atten1
+            # (attention params, node rows, neighbour table) per relation
+            plan = {"u_iw": (a1["item"], eu, ei0), "u_tw": (a1["tag"], eu, et0),
+                    "i_uw": (a1["user"], ei, eu0), "i_tw": (a1["tag"], ei, et0),
+                    "t_uw": (a1["user"], et, eu0), "t_iw": (a1["item"], et, ei0)}
+            if self.resample_each_layer and generator is not None:
+                tabs = self._resample(generator)
+            else:
+                tabs = {name: self.table(name) for name in REL_ORDER}
+            agg = {}
+            for name, (ap, ev, ej) in plan.items():
+                if self.dedup:
+                    agg[name] = _atten1_dedup(ap, ev, ej, ew0,
+                                              *self.buckets(name))
+                else:
+                    agg[name] = _atten1(ap, ev, ej, ew0, *tabs[name])
+            eu_n = _atten2(lp, eu, agg["u_iw"], agg["u_tw"])
+            ei_n = _atten2(lp, agg["i_uw"], ei, agg["i_tw"])
+            et_n = _atten2(lp, agg["t_uw"], agg["t_iw"], et)
+            eu, ei, et = (_fusion(lp, _conv(lp, e)) for e in (eu_n, ei_n, et_n))
+            rate = cfg.message_drop_list[li]
+            if generator is not None:
+                eu, ei, et = (message_dropout(e, rate, generator, training)
+                              for e in (eu, ei, et))
+            outs_u.append(l2_normalize(eu))
+            outs_i.append(l2_normalize(ei))
+            outs_t.append(l2_normalize(et))
+        return (torch.cat(outs_u, dim=1), torch.cat(outs_i, dim=1),
+                torch.cat(outs_t, dim=1))
+
+    # --------------------------------------------------------------- loss
+    def bpr_loss(self, batch, *, generator=None, training: bool = True):
+        """BPR on a [B, 3] (user, item+, item-) batch with the L2 term on
+        the final rows (model/tgcn.py:243-246) -> (loss, reg * l2)."""
+        u_all, i_all, _ = self.forward(training=training, generator=generator)
+        return base.bpr_with_reg(u_all, i_all, u_all, i_all, batch,
+                                 self.cfg.mul_loss_func, self.cfg.reg)
+
+    def transtag_loss(self, batch):
+        """The margin loss on a [B, 4] (user, tag, item+, item-) batch over
+        the EGO tables (model/tgcn.py:251-261) -> (loss, transtag_reg *
+        l2)."""
+        eu, ei, et = self.embed
+        ue, te = eu[batch[:, 0]], et[batch[:, 1]]
+        pe, ne = ei[batch[:, 2]], ei[batch[:, 3]]
+        loss = losses.transtag_loss(ue, te, pe, ne, margin=self.cfg.margin)
+        return loss, self.cfg.transtag_reg * losses.l2reg_loss(ue, te, pe, ne)
+
+    @torch.no_grad()
+    def predict(self, users):
+        """[B, n_item] sigmoid scores of ``users``."""
+        u_all, i_all, _ = self.forward()
+        users = torch.as_tensor(users, device=u_all.device)
+        return base.predict_sigmoid(u_all[users], i_all)

@@ -8,7 +8,10 @@ row chunks of JAX's sizes, materialises one chunk's [chunk, N] scores at a
 time, and recomputes each chunk in the backward (``torch.utils.checkpoint``
 per chunk, JAX's ``jax.checkpoint`` under ``lax.map``) instead of saving
 it.  It is a tier the caller names, never a fallback, and it is the
-kernels' second, independent computation at full size.
+kernels' second, independent computation at full size.  KGAT over a
+knowledge graph has no kernel tier: its relation-dense tier
+(``rel_dense_row_softmax_scores``) is the same chunked form, with the
+relation of each cell read from an int8 matrix.
 """
 
 from __future__ import annotations
@@ -125,6 +128,66 @@ def dense_row_softmax_scores(qhat: torch.Tensor, khat: torch.Tensor,
         return masked_row_softmax(qhat[i:j] @ khat.T, mask[i:j])
 
     return torch.cat(_row_map(f, qhat.shape[0], chunk))
+
+
+# ------------------------------------------------------------ KGAT, true KG
+# The relation is per edge, not fixed by the sector as on the tag graph: an
+# int8 matrix holds each cell's relation id, and each row chunk selects its
+# scores from R per-relation score planes (R matmuls and R selects, on
+# cuBLAS).
+
+def rel_id_host(rows, cols, rels, n_rows: int, n_cols: int):
+    """[n_rows, n_cols] int8 relation-id matrix (-1 = no edge), or ``None``
+    when the edge set cannot be dense: parallel edges (one (h, t) pair under
+    several relations) cannot share a cell, and int8 caps the relations at
+    127."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    rels = np.asarray(rels, dtype=np.int64)
+    if rels.size and int(rels.max()) > 127:
+        return None
+    key = rows * n_cols + cols
+    if len(np.unique(key)) != len(key):
+        return None
+    m = np.full((n_rows, n_cols), -1, dtype=np.int8)
+    m[rows, cols] = rels.astype(np.int8)
+    return m
+
+
+def rel_dense_row_softmax_scores(q: torch.Tensor, k: torch.Tensor,
+                                 rel_id: torch.Tensor, chunk: int = 512,
+                                 score_dtype=torch.float32,
+                                 row_segments=None) -> torch.Tensor:
+    """P [N, M] = masked row softmax of S, S[h, t] = q[r, h] . k[r, t] with
+    r = rel_id[h, t] (int8, -1 = no edge); q, k: [R, N, dq] and [R, M, dq].
+
+    Each row chunk accumulates ``where(rel_id == r, q_r @ k_r^T, s)`` over
+    its segment's relations, then the softmax runs in float32 (or wider).
+    Differentiable in q and k (the attention is not detached); each chunk
+    is recomputed in the backward.  ``row_segments``: optional
+    ((start, length, rels), ...) tiling [0, N) in order, each row range
+    with the relations that occur on its rows (KGAT's user rows carry
+    relation 0 only).  ``score_dtype=torch.bfloat16`` runs the score
+    planes and the select chain in bf16."""
+    r_, n, _ = q.shape
+    m = k.shape[1]
+    if row_segments is None:
+        row_segments = ((0, n, tuple(range(r_))),)
+    q = q.to(score_dtype)
+    kt = [k[r].T.to(score_dtype) for r in range(r_)]
+    soft_dtype = torch.promote_types(score_dtype, torch.float32)
+
+    parts = []
+    for start, length, rels in row_segments:
+        def f(i, j, start=start, rels=rels):
+            rc = rel_id[start + i:start + j]
+            s = torch.zeros((j - i, m), dtype=score_dtype, device=q.device)
+            for r in rels:  # only this segment's planes
+                s = torch.where(rc == r, q[r, start + i:start + j] @ kt[r], s)
+            return masked_row_softmax(s.to(soft_dtype), rc >= 0)
+
+        parts += _row_map(f, length, chunk)
+    return torch.cat(parts)
 
 
 # ----------------------------------------------------------------- DisenGCN

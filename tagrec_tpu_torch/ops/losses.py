@@ -1,6 +1,8 @@
 """Loss functions (tagrec_tpu/ops/losses.py), cut to what the ported slices
-use: the pairwise BPR loss, the batch-mean L2 term, KGAT's squared-norm
-TransE loss and DGCF's distance-correlation loss."""
+use: the pairwise BPR loss, the batch-mean L2 term, TGCN's TransTag
+margin loss, KGAT's squared-norm TransE loss and DGCF's
+distance-correlation loss.  JAX's ``transe_loss`` (L2-distance softplus)
+has no caller in either package and is left out."""
 
 from __future__ import annotations
 
@@ -24,6 +26,15 @@ def l2reg_loss(*embs: torch.Tensor) -> torch.Tensor:
     """0.5 * sum_i ||E_i||_F^2 / batch."""
     total = sum(torch.sum(e * e) for e in embs)
     return 0.5 * total / embs[0].shape[0]
+
+
+def transtag_loss(head_e, rela_e, pos_tail_e, neg_tail_e,
+                  margin: float = 0.0) -> torch.Tensor:
+    """TGCN's TransTag hinge on translation distances:
+    mean(relu(margin + |h + r - t+| - |h + r - t-|))."""
+    pos = torch.linalg.vector_norm(head_e + rela_e - pos_tail_e, dim=1)
+    neg = torch.linalg.vector_norm(head_e + rela_e - neg_tail_e, dim=1)
+    return torch.mean(torch.relu(margin + pos - neg))
 
 
 def transe_loss_sq(head_e, rela_e, pos_tail_e, neg_tail_e) -> torch.Tensor:

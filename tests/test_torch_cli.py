@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 from test_preprocess import make_dat  # the .dat fixture of the JAX tests
+from torch_threads import one_torch_thread  # noqa: F401
 
 from tagrec_tpu import cli as jcli
 from tagrec_tpu import serving as jserving
@@ -220,7 +221,7 @@ def test_ported_models_and_tiers_run(tmp_path, argv):
 
 
 @pytest.mark.parametrize("argv, error, match", [
-    (["--model", "tgcn"], NotImplementedError, "A16"),
+    (["--model", "tgcn", "--adj_mode", "ell"], NotImplementedError, "A17"),
     (["--dp", "2"], NotImplementedError, "A18"),
     (["--mp", "2"], NotImplementedError, "A18"),
     (["--model", "dgcf", "--adj_mode", "ell"], NotImplementedError, "A17"),
@@ -234,7 +235,10 @@ def test_unported_and_wrong_flags_raise(tmp_path, argv, error, match):
                   "--out_dir", str(tmp_path / "run")] + argv)
 
 
-def test_kgat_over_a_knowledge_graph_raises(tmp_path):
+def test_kgat_over_a_knowledge_graph_raises(tmp_path, capsys):
+    """``--use_kg`` loads the KG; one whose entities do not cover the items
+    (items are the low entity ids) raises, as JAX's does.  KGAT over a KG
+    that covers them trains in test_torch_cli_kg_tgcn.py."""
     root = make_dat(tmp_path)
     jpp.preprocess_hetrec(root, "hetrec2011-lastfm-2k",
                           out_dir=str(tmp_path / "ds"))
@@ -242,8 +246,10 @@ def test_kgat_over_a_knowledge_graph_raises(tmp_path):
     argv = ["--device", "cpu", "--model", "kgat", "--data_root",
             str(tmp_path), "--dataset", "ds", "--out_dir",
             str(tmp_path / "run"), "--epochs", "1"]
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(AssertionError, match="prefix of the entity space"):
         cli.main(argv + ["--use_kg"])
+    assert ("knowledge graph: 2 entities, 4 relations"
+            in capsys.readouterr().out)
 
 
 def test_cuda_without_a_card_raises(tmp_path):

@@ -765,3 +765,58 @@ def test_bf16_block_product_accumulates_in_float32(cuda, n, m, d):
     want = bb.double() @ x.to(cuda).to(torch.bfloat16).double()
     torch.testing.assert_close(got.double(), want, rtol=RTOL, atol=ATOL)
     assert not torch.equal(got, got.to(torch.bfloat16).float())
+
+
+# ------------------------------------------ KGAT over a KG, and TGCN (no kernel)
+
+def _small_graph():
+    from tagrec_tpu_torch.data.synthetic import synthetic_graph
+
+    return synthetic_graph(n_user=40, n_item=90, n_tag=25, avg_deg=8, seed=7)
+
+
+def _card_against_cpu(make_model, batch):
+    """``make_model(device)``'s forward and BPR gradients on the card
+    against the CPU's, from the same seeded weights."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    outs, grads = [], []
+    for dev in ("cuda", "cpu"):
+        model = make_model(dev)
+        with torch.no_grad():
+            outs.append([t.cpu() for t in model.forward()])
+        sum(model.bpr_loss(torch.as_tensor(batch, device=dev))).backward()
+        grads.append([p.grad.cpu() for p in model.parameters()])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_kgat_over_a_kg_on_the_card_matches_the_cpu(cuda):
+    """The relation-dense tier (cuBLAS score planes, selects, softmax)."""
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.data.kg import KnowledgeGraph
+    from tagrec_tpu_torch.models import model_class
+
+    g = _small_graph()
+    kg = KnowledgeGraph.synthetic(g, n_entity=120, n_triples=400, n_rela=3)
+    batch = np.stack([np.arange(32) % g.n_user, np.arange(32) % g.n_item,
+                      (np.arange(32) * 7) % g.n_item], axis=1)
+    _card_against_cpu(lambda dev: model_class("kgat")(
+        g, model_preset("kgat", agg_type="bi_inter", reg=1e-4), kg=kg,
+        device=dev, generator=torch.Generator().manual_seed(3)), batch)
+
+
+@pytest.mark.cuda
+def test_tgcn_auto_on_the_card_matches_the_cpu(cuda):
+    """TGCN's dedup tier, the same host tables on both devices."""
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.models import model_class
+
+    g = _small_graph()
+    batch = np.stack([np.arange(32) % g.n_user, np.arange(32) % g.n_item,
+                      (np.arange(32) * 7) % g.n_item], axis=1)
+    _card_against_cpu(lambda dev: model_class("tgcn")(
+        g, model_preset("tgcn", reg=1e-4), device=dev,
+        generator=torch.Generator().manual_seed(3)), batch)

@@ -22,6 +22,7 @@ from tagrec_tpu.training import checkpoint as jckpt
 from tagrec_tpu_torch import serving
 from tagrec_tpu_torch.config import model_preset
 from tagrec_tpu_torch.data import synthetic as tsyn
+from tagrec_tpu_torch.data.kg import KnowledgeGraph
 from tagrec_tpu_torch.models import model_class
 from tagrec_tpu_torch.ops import flash_attention
 from tagrec_tpu_torch.training import checkpoint
@@ -180,9 +181,10 @@ def test_bi_agg_returns_ego_tables_without_masks(jax_run):
 
 
 def test_unported_tiers_raise():
-    """The EdgeMap tier (A17) and the true KG (A14) raise; ``dense_xla``
-    builds the joint [N, N] mask instead of the flash masks (held against
-    JAX in test_torch_dense_xla.py)."""
+    """The EdgeMap tier (A17) raises, and so does a knowledge graph with
+    parallel (h, t) edges, which needs it; ``dense_xla`` builds the joint
+    [N, N] mask instead of the flash masks (held against JAX in
+    test_torch_dense_xla.py)."""
     graph = tsyn.synthetic_graph(**TINY)
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="A17"):
@@ -194,9 +196,14 @@ def test_unported_tiers_raise():
     n = graph.n_user + graph.n_item + graph.n_tag
     assert [name for name, _ in model.named_buffers()] == ["mask"]
     assert model.mask.shape == (n, n) and model.mask.dtype == torch.bool
-    with pytest.raises(NotImplementedError, match="A14"):
+    kg = KnowledgeGraph.synthetic(graph, n_entity=120, n_triples=400,
+                                  n_rela=3)
+    h, r, t = kg.kg_data[0]
+    kg.kg_data = np.concatenate([kg.kg_data, [[h, (r + 1) % 3, t]]])
+    kg._finish_init()
+    with pytest.raises(NotImplementedError, match="A17"):
         model_class("kgat")(graph, model_preset("kgat", **CFG), device="cpu",
-                            generator=gen, kg=object())
+                            generator=gen, kg=kg)
 
 
 def test_entry_points_default_to_the_card():

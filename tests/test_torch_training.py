@@ -216,12 +216,18 @@ def test_ngcf_and_disenhan_train(name):
     assert np.isfinite(trainer.run_epoch(max_steps=2)["bpr"]).all()
 
 
-@pytest.mark.parametrize("name,label", [("tgcn", "A16")])
+@pytest.mark.parametrize("name,label", [("tgcn", "A17")])
 def test_only_kgat_trains(name, label):
-    """The family still to port raises, naming its ROADMAP label
-    (LightGCN, NGCF, KGAT, DGCF, DisenGCN and DisenHAN train)."""
+    """Every family trains now (TGCN with its TransTag phase); what still
+    raises is a tier the port has not got, named by its ROADMAP label:
+    TGCN's EdgeMap tier (``adj_mode="ell"``)."""
     graph = tsyn.synthetic_graph(**TINY)
+    pipe = build_pipeline(graph, model_preset(name), TrainConfig(),
+                          generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    assert [ph.name for ph in pipe.phases] == ["bpr", "transtag"]
     with pytest.raises(NotImplementedError, match=label):
-        build_pipeline(graph, model_preset(name), TrainConfig(),
+        build_pipeline(graph, model_preset(name, adj_mode="ell"),
+                       TrainConfig(),
                        generator=torch.Generator().manual_seed(0),
                        device="cpu")
