@@ -101,7 +101,30 @@ Phases:
    one epoch with ``--export`` (run D); each DGCF run's routing launches
    checked against its steps and forwards, each run's ``results.json``
    checked, and its host-clock seconds a stage printed beside the card;
-7. the ``kernels`` JSON line (launches summed over every path above), then
+7. phase E, the EdgeMap tier (``ops.edgemap``; ``adj_mode="ell"``, and
+   ``auto`` past the dense budget): inside phase 3 the ``ell`` tiers of
+   DGCF, DisenGCN and KGAT ``bi_inter`` in float32 held against
+   ``dense_xla`` in float64 beside the kernel tiers, and DisenHAN's
+   against its dense tier in float64; after phase 4 the primitives at
+   DGCF's hetrec shapes (the joint graph's EdgeMap, F = 4, dk = 16):
+   ``edge_reduce`` (the ``gather_reduce`` kernel, one launch a factor
+   and non-empty bucket) against ``gather_reduce_plain`` in float64, the
+   gathers against the CPU, each Function's backward against autograd of
+   its raw form in float64, ``edge_reduce`` timed beside its plain
+   version and ``torch.sparse.mm`` with its bound; DGCF on the 10x graph
+   (``auto`` takes the EdgeMap tier): the host build, 5 BPR steps with
+   the launches checked per step, the peak memory, one step profiled,
+   one evaluation of every test user, export and 3 top-k requests, then
+   ``edge_reduce`` at its buckets (the hub's split over many blocks a
+   row) against ``gather_reduce_plain`` in float64, its backward and one
+   row-chunked ``edge_dot`` against float64 references, and timed;
+   in phase 5 KGAT over the phase-K KG with 3,000 parallel triples
+   (which the relation-dense tier refuses) held against the per-edge
+   float64 computation, 3 BPR and 3 TransE steps, one profiled; TGCN's
+   ``ell`` tier in float64 against ``auto`` within 1e-9 of scale, its
+   float32 forward held, and its BPR step profiled beside ``auto``'s;
+8. the ``kernels`` JSON line (launches summed over every path above;
+   ``gather_reduce`` with its ``edgemap`` record), then
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check or exception exits non-zero before the last line.  With no
@@ -1373,7 +1396,7 @@ def lightgcn_paths(torch, dg, hetrec_graph):
     """LightGCN at 10x on the hybrid tier (kernels, serving, training,
     evaluation), the small-graph check, NGCF on the same graph, then
     LightGCN on hetrec's dense tier.  Returns (kernel records, launches over
-    the 10x paths)."""
+    the 10x paths, the 10x graph)."""
     from tagrec_tpu_torch.compose import build_pipeline
     from tagrec_tpu_torch.config import TrainConfig, model_preset
     from tagrec_tpu_torch.data.synthetic import synthetic_graph_large
@@ -1409,10 +1432,9 @@ def lightgcn_paths(torch, dg, hetrec_graph):
     ngcf = ngcf_10x_phase(torch, dg, graph, records)
     launches = {k: launches[k] + ngcf[k] for k in GATHER}
     print(f"gather launches over LightGCN's and NGCF's 10x paths: {launches}")
-    del graph
     gc_cuda(torch)
     lightgcn_hetrec_dense(torch, dg, hetrec_graph)
-    return records, launches
+    return records, launches, graph
 
 
 # ------------------------------------------ NGCF, the chunked dense tier
@@ -1815,21 +1837,26 @@ def dense_xla_batch(torch, graph):
                                     axis=1), device="cuda")
 
 
-def tier_run(torch, graph, name, cfg, mode, dtype, batch, fr, fa):
-    """Model ``name`` at the preset's full width on ``mode``'s tier in
-    ``dtype``, drawn from seed 0: two forwards, one BPR loss's backward and
+# the adj_mode that builds each tier (``model.tier``) at hetrec
+ADJ_MODE = {"kernels": "auto", "dense": "auto", "dense_xla": "dense_xla",
+            "ell": "ell"}
+
+
+def tier_run(torch, graph, name, cfg, tier, dtype, batch, fr, fa, dg):
+    """Model ``name`` at the preset's full width on ``tier`` in ``dtype``,
+    drawn from seed 0: two forwards, one BPR loss's backward and
     the backward of the forward tables against fixed random cotangents (the
     forward's vector-Jacobian product), their host times and peak memory
     printed.  -> {"fwd", "bpr", "vjp", "params"} in float64 and the
-    launches."""
+    launches (the routing, flash and ``gather_reduce`` kernels)."""
     from tagrec_tpu_torch.config import model_preset
     from tagrec_tpu_torch.models import model_class
 
-    mods = ((fr, ROUTING), (fa, FLASH))
+    mods = ((fr, ROUTING), (fa, FLASH), (dg, ("gather_reduce",)))
     model = model_class(name)(
-        graph, model_preset(name, adj_mode=mode, **cfg), device="cuda",
-        generator=torch.Generator().manual_seed(0)).to(dtype)
-    check(model.flash == (mode == "auto"), f"{name} {mode}: tier")
+        graph, model_preset(name, adj_mode=ADJ_MODE[tier], **cfg),
+        device="cuda", generator=torch.Generator().manual_seed(0)).to(dtype)
+    check(model.tier == tier, f"{name}: tier {model.tier}, not {tier}")
     for mod, names in mods:
         reset_counts(mod, names)
     with torch.no_grad():
@@ -1850,7 +1877,7 @@ def tier_run(torch, graph, name, cfg, mode, dtype, batch, fr, fa):
         t.device, dtype) for t in fwd]
     sum((t * c).sum() for t, c in zip(model.forward(), cots)).backward()
     got = {k: v for mod, names in mods for k, v in counts(mod, names).items()}
-    print(f"{name} {mode} ({'kernels' if mode == 'auto' else 'chunked dense tier'}, {dtype}): "
+    print(f"{name} {tier} tier ({dtype}): "
           f"forward {first_ms:.3f} ms first, {fwd_ms:.3f} ms second, "
           f"peak device memory {fwd_gib:.3f} GiB; BPR loss and "
           f"backward {bwd_ms:.3f} ms, peak {bwd_gib:.3f} GiB (host "
@@ -1924,40 +1951,51 @@ def hold_tiers(torch, name, kern, plain, ref,
     return f_ok and g_ok
 
 
-def dense_xla_phase(torch, graph, fr, fa):
+def dense_xla_phase(torch, graph, fr, fa, dg):
     """DGCF, DisenGCN and KGAT ``bi_inter`` at the preset's full width on
-    the hetrec graph: the kernel tier (float32) against the chunked dense
-    tier (``adj_mode="dense_xla"``) evaluated in float64 on the card from
-    one set of weights, beside the chunked tier in float32, held by
-    ``hold_tiers``.  Returns the kernel tier's launches."""
-    done = phase_timer("dense_xla against the kernels")
+    the hetrec graph: the kernel tier and the EdgeMap tier (``adj_mode=
+    "ell"``: ``gather_reduce`` under ``edge_reduce``), each in float32,
+    against the chunked dense tier (``adj_mode="dense_xla"``) evaluated in
+    float64 on the card from one set of weights, beside the chunked tier
+    in float32, held by ``hold_tiers``.  Returns the two tiers'
+    launches."""
+    done = phase_timer("dense_xla against the kernels and the EdgeMap tier")
     batch = dense_xla_batch(torch, graph)
-    total = {name: 0 for name in ROUTING + FLASH}
+    total = {name: 0 for name in ROUTING + FLASH + ("gather_reduce",)}
     for name, cfg in DENSE_XLA_MODELS:
         ref, plain = (tier_run(torch, graph, name, cfg, "dense_xla", dtype,
-                               batch, fr, fa)
+                               batch, fr, fa, dg)
                       for dtype in (torch.float64, torch.float32))
         check(not any(ref["launches"].values())
               and not any(plain["launches"].values()),
               f"{name} dense_xla launched a kernel")
-        kern = tier_run(torch, graph, name, cfg, "auto", torch.float32,
-                        batch, fr, fa)
-        check(any(kern["launches"].values()), f"{name}: no kernel launched")
-        total = {k: total[k] + kern["launches"][k] for k in total}
-        check(hold_tiers(torch, name, kern, plain, ref),
-              f"{name}: the kernel tier disagrees with the chunked dense "
-              "tier")
-        del ref, plain, kern
+        for tier in ("kernels", "ell"):
+            kern = tier_run(torch, graph, name, cfg, tier, torch.float32,
+                            batch, fr, fa, dg)
+            got = kern["launches"]
+            check((got["gather_reduce"] > 0) == (tier == "ell")
+                  and any(got.values()), f"{name} {tier}: launches {got}")
+            total = {k: total[k] + got[k] for k in total}
+            check(hold_tiers(torch, name, kern, plain, ref,
+                             f"{tier} tier against dense_xla"),
+                  f"{name}: the {tier} tier disagrees with the "
+                  "chunked dense tier")
+            del kern
+            gc_cuda(torch)
+        del ref, plain
         gc_cuda(torch)
     done()
     return total
 
 
 def disenhan_phase(torch, graph, tmp):
-    """DisenHAN at the preset's full width on the hetrec graph, dense mode
-    (six relation masks; no kernel of the port): 5 BPR steps through the
-    resampling phase, the peak memory, one step profiled, export ->
-    artifact -> 3 top-k requests, one evaluation; the small-graph check."""
+    """DisenHAN at the preset's full width on the hetrec graph: the
+    EdgeMap tier (``adj_mode="ell"``, float32) held against the dense tier
+    in float64 (``hold_tiers``); then dense mode (six relation masks; no
+    kernel of the port): 5 BPR steps through the resampling phase, the
+    peak memory, one step profiled, export -> artifact -> 3 top-k
+    requests, one evaluation; the small-graph check.  Returns the EdgeMap
+    tier's ``gather_reduce`` launches."""
     import math
 
     import numpy as np
@@ -1966,6 +2004,9 @@ def disenhan_phase(torch, graph, tmp):
     from tagrec_tpu_torch.compose import build_pipeline
     from tagrec_tpu_torch.config import TrainConfig, model_preset
     from tagrec_tpu_torch.models import model_class
+    from tagrec_tpu_torch.ops import dma_gather as dg
+    from tagrec_tpu_torch.ops import flash_attention as fa
+    from tagrec_tpu_torch.ops import flash_routing as fr
     from tagrec_tpu_torch.training.train import Trainer
 
     done = phase_timer("DisenHAN hetrec")
@@ -1973,6 +2014,21 @@ def disenhan_phase(torch, graph, tmp):
     small_graph_grad_check(torch, "DisenHAN", lambda g, dev: model_class(
         "disenhan")(g, cfg, device=dev,
                     generator=torch.Generator().manual_seed(3)))
+    batch = dense_xla_batch(torch, graph)
+    ref, plain = (tier_run(torch, graph, "disenhan", {}, "dense", dtype,
+                           batch, fr, fa, dg)
+                  for dtype in (torch.float64, torch.float32))
+    ell = tier_run(torch, graph, "disenhan", {}, "ell", torch.float32, batch,
+                   fr, fa, dg)
+    em_launches = ell["launches"]["gather_reduce"]
+    check(em_launches > 0 and not any(plain["launches"].values()),
+          f"DisenHAN launches: dense {plain['launches']}, EdgeMap "
+          f"{ell['launches']}")
+    check(hold_tiers(torch, "DisenHAN", ell, plain, ref,
+                     "EdgeMap tier against the dense tier"),
+          "DisenHAN: the EdgeMap tier disagrees with the dense tier")
+    del ref, plain, ell
+    gc_cuda(torch)
     t0 = time.perf_counter()
     tcfg = TrainConfig()
     pipe = build_pipeline(graph, model_preset("disenhan"), tcfg,
@@ -2012,6 +2068,7 @@ def disenhan_phase(torch, graph, tmp):
     del pipe, trainer
     gc_cuda(torch)
     done()
+    return em_launches
 
 
 # -------------------------------------- KGAT over a knowledge graph, TGCN
@@ -2024,6 +2081,15 @@ KG_BPR_STEPS, KG_TRANSE_STEPS = 3, 3
 TGCN_BPR_STEPS, TGCN_TRANSTAG_STEPS = 3, 3
 MATMUL_NAMES = {"multi_tensor_apply": "adam (foreach)",
                 "gemm": "matmul (cuBLAS)", "nvjet": "matmul (cuBLAS)"}
+# the EdgeMap tier's device operations by kernel-name fragment: the
+# gather_reduce kernel, the indexing gathers (edge_dot's [F, rows, K, D]
+# takes, the slot and row gathers), softmaxes, sums, products
+EDGEMAP_NAMES = {"gather::reduce": "gather_reduce",
+                 "index_elementwise": "indexing gathers",
+                 "vectorized_gather": "indexing gathers",
+                 "indexSelect": "indexing gathers",
+                 "softmax": "softmax", "reduce_kernel": "sums (reduce)",
+                 **MATMUL_NAMES}
 
 
 def kg_edge_forward(torch, p, n_user, rows, cols, rels, n_layer):
@@ -2064,9 +2130,9 @@ def vjp_cotangents(torch, tables):
 
 def kg_runs(torch, graph, kg, model, batch):
     """The hold's three runs from ``model``'s weights: the model (float32,
-    the relation-dense tier) and the per-edge computation in float64 and
-    float32, each the forward tables, one BPR loss's gradients and the
-    forward's VJP against fixed random cotangents."""
+    its tier: relation-dense, or EdgeMap) and the per-edge computation in
+    float64 and float32, each the forward tables, one BPR loss's gradients
+    and the forward's VJP against fixed random cotangents."""
     from tagrec_tpu_torch.models import base
 
     trips = torch.as_tensor(kg.all_triplet, device="cuda")
@@ -2107,7 +2173,7 @@ def kg_runs(torch, graph, kg, model, batch):
     for r in out.values():
         r["params"] = params64
     for label, r in out.items():
-        print(f"KGAT KG {label}: forward {r['ms'][0]:.3f} ms, BPR loss and "
+        print(f"KGAT KG {model.tier} {label}: forward {r['ms'][0]:.3f} ms, BPR loss and "
               f"backward {r['ms'][1]:.3f} ms (host clock), peak device "
               f"memory {r['gib']:.3f} GiB")
     return out
@@ -2152,7 +2218,7 @@ def kg_phase(torch, graph, tmp):
             generator=torch.Generator().manual_seed(0), device="cuda")
         model = pipe.model
         n = model.n
-        check(model.kg_rel_dense and model.rel_id.shape == (n, n)
+        check(model.tier == "kg_rel_dense" and model.rel_id.shape == (n, n)
               and n == graph.n_user + kg.num_entity,
               f"KGAT KG {dtype}: not the relation-dense tier")
         print(f"KGAT KG {dtype} pipeline built in "
@@ -2227,7 +2293,8 @@ def tgcn_run(torch, graph, mode, dtype, batch):
     model = model_class("tgcn")(
         graph, model_preset("tgcn", adj_mode=mode), device="cuda",
         generator=torch.Generator().manual_seed(0)).to(dtype)
-    check(model.dedup == (mode == "auto"), f"TGCN {mode}: tier")
+    want = {"auto": "dedup", "ell": "ell"}.get(mode, "takes")
+    check(model.tier == want, f"TGCN {mode}: tier {model.tier}, not {want}")
     with torch.no_grad():
         first_ms, fwd, _ = synced_ms(torch, model.forward)
         fwd_ms, fwd, gib = synced_ms(torch, model.forward)
@@ -2310,11 +2377,13 @@ def tgcn_gather_timing(torch, dg, model, records):
 def tgcn_phase(torch, dg, graph, tmp, records):
     """TGCN at the preset's full width on the hetrec graph (no kernel of
     the port): the ``auto`` (dedup) tier in float32 held against
-    ``dense_xla`` (plain takes) in float64 (``hold_tiers``), and the two in
-    float64 against each other; a few BPR and TransTag steps on one Adam,
-    one BPR step profiled, the peak memory, export -> artifact -> 3 top-k
-    requests, one evaluation; ``gather_rows`` timed at TGCN's shapes; the
-    small-graph check."""
+    ``dense_xla`` (plain takes) in float64 (``hold_tiers``), and ``auto``
+    and the EdgeMap tier (``ell``) in float64 against ``dense_xla``
+    within 1e-9 of scale, their float32 forwards at rtol 1e-4; a few BPR
+    and TransTag steps on one Adam, one BPR step profiled, the peak
+    memory, export -> artifact -> 3 top-k requests, one evaluation; the
+    ``ell`` tier's BPR steps and one profiled beside ``auto``'s;
+    ``gather_rows`` timed at TGCN's shapes; the small-graph check."""
     import math
 
     import numpy as np
@@ -2334,7 +2403,9 @@ def tgcn_phase(torch, dg, graph, tmp, records):
             for mode, dt, dtype in (("dense_xla", 64, torch.float64),
                                     ("dense_xla", 32, torch.float32),
                                     ("auto", 32, torch.float32),
-                                    ("auto", 64, torch.float64))}
+                                    ("auto", 64, torch.float64),
+                                    ("ell", 32, torch.float32),
+                                    ("ell", 64, torch.float64))}
     print(f"TGCN dedup buckets (rows x width) per table: "
           f"{runs['auto', 32]['buckets']}")
     ref, a64 = runs["dense_xla", 64], runs["auto", 64]
@@ -2345,20 +2416,24 @@ def tgcn_phase(torch, dg, graph, tmp, records):
     # the same sums grouped two ways: in float64 they agree to rounding, on
     # the scale of each table and of each loss's largest gradient (some
     # gradients are zero in exact arithmetic, atten2's q among them)
-    worst = max(float((a - b).abs().max() / b.abs().max())
-                for a, b in zip(a64["fwd"], ref["fwd"]))
-    for part in ("bpr", "vjp"):
-        scale = max(float(g.abs().max()) for g in ref[part].values())
-        worst = max(worst, max(float((a64[part][k] - g).abs().max()) / scale
-                               for k, g in ref[part].items()))
-    print(f"TGCN auto against dense_xla, both float64: largest error on the "
-          f"scale of its table or its loss's gradients {worst:.3e} (limit "
-          "1e-9)")
-    check(worst < 1e-9, f"TGCN float64 tiers differ by {worst}")
+    for label, got, want in (("auto against dense_xla", a64, ref),
+                             ("ell against auto", runs["ell", 64], a64)):
+        worst = max(float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(got["fwd"], want["fwd"]))
+        for part in ("bpr", "vjp"):
+            check(got[part].keys() == want[part].keys(),
+                  f"TGCN {label}: {part} gradients of other parameters")
+            scale = max(float(g.abs().max()) for g in want[part].values())
+            worst = max(worst, max(float((got[part][k] - g).abs().max())
+                                   / scale for k, g in want[part].items()))
+        print(f"TGCN {label}, both float64: largest error on the scale of "
+              f"its table or its loss's gradients {worst:.3e} (limit 1e-9)")
+        check(worst < 1e-9, f"TGCN float64 tiers ({label}) differ by "
+                            f"{worst}")
     # float32, as users run it: the forward held; the attention gradients
     # of layers 1 and 2 (norms down to 1e-23 at these weights) lie below
     # float32's resolution in either grouping, so their errors are printed
-    for mode in ("auto", "dense_xla"):
+    for mode in ("auto", "dense_xla", "ell"):
         run32 = runs[mode, 32]
         f_ok = all(compare(torch, a, b, RTOL)[0]
                    for a, b in zip(run32["fwd"], ref["fwd"]))
@@ -2394,8 +2469,8 @@ def tgcn_phase(torch, dg, graph, tmp, records):
     batch = bpr.make_batch(trainer.generator, 0,
                            bpr.epoch_reset(trainer.generator, bpr.data),
                            bpr.data)
-    profile_device(torch, lambda: trainer.step(bpr, batch), "TGCN BPR step",
-                   MATMUL_NAMES)
+    auto_busy = profile_device(torch, lambda: trainer.step(bpr, batch),
+                               "TGCN BPR step", MATMUL_NAMES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     u_t, i_t = serving.export_tables(pipe.model, n_item=graph.n_item)
@@ -2415,7 +2490,46 @@ def tgcn_phase(torch, dg, graph, tmp, records):
     tgcn_gather_timing(torch, dg, pipe.model, records)
     del pipe, trainer
     gc_cuda(torch)
+    tgcn_ell_steps(torch, graph, auto_busy)
     done()
+
+
+def tgcn_ell_steps(torch, graph, auto_busy):
+    """TGCN's EdgeMap tier (``adj_mode="ell"``) through the pipeline at
+    hetrec: 3 BPR steps, the peak memory and one step profiled, beside the
+    ``auto`` step's device time (``auto_busy``).  Its table reads are
+    ``edge_vgather``/``rows_gather``, whose backwards are gathers over the
+    transpose tables, where ``auto``'s is torch's scatter-add of ``x[ids]``."""
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+    from tagrec_tpu_torch.training.train import Trainer
+
+    t0 = time.perf_counter()
+    tcfg = TrainConfig()
+    pipe = build_pipeline(graph, model_preset("tgcn", adj_mode="ell"), tcfg,
+                          generator=torch.Generator().manual_seed(0),
+                          device="cuda")
+    check(pipe.model.ell, "TGCN ell pipeline: not the EdgeMap tier")
+    print(f"TGCN ell pipeline (tables and 12 EdgeMaps) built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    bpr = pipe.phases[0]
+    trainer = Trainer(pipe.model, pipe.phases, tcfg,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    training_steps(torch, trainer, bpr, TGCN_BPR_STEPS, "TGCN ell BPR")
+    print(f"TGCN ell training: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    batch = bpr.make_batch(trainer.generator, 0,
+                           bpr.epoch_reset(trainer.generator, bpr.data),
+                           bpr.data)
+    busy = profile_device(torch, lambda: trainer.step(bpr, batch),
+                          "TGCN ell BPR step", EDGEMAP_NAMES)
+    if busy and auto_busy:
+        print(f"TGCN BPR step device busy: ell {busy:.3f} ms, auto "
+              f"{auto_busy:.3f} ms ({auto_busy / busy:.2f}x); the default "
+              "stays auto, as in JAX")
+    del pipe, trainer
+    gc_cuda(torch)
 
 
 def tgcn_cli_run(torch, card):
@@ -2646,6 +2760,468 @@ def cli_phase(torch, fr, card):
     return total
 
 
+# ------------------------------------------ phase E: the EdgeMap tier
+
+EM_F, EM_DK = 4, 16  # DGCF's factors and factor width
+DGCF_10X_BPR_STEPS = 5
+KG_PARALLEL = 3000   # triples repeated under another relation
+
+
+def edgemap_bound(em, f, d):
+    """(bound ms, "bytes" or "operations", gathered-rows ms) of one
+    ``edge_reduce`` over ``em`` with a leading axis of ``f`` and rows of
+    ``d`` floats: each input read once (vals and ids of the real edges,
+    deg, x) and the output written once, against 2·f·E·d operations; and
+    the time of the rows it gathers (f·E·(4d + 8) bytes) at the memory
+    rate, beside it."""
+    n_rows = int(em.f_inv.shape[0])
+    n_cols = int(em.b_inv.shape[0])
+    edges = sum(int(dg_.sum()) for dg_ in em.f_deg)
+    io = f * edges * 4 + edges * 4 + n_rows * 4 + 2 * f * max(
+        n_rows, n_cols) * d * 4
+    t_bytes = io / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * f * edges * d / PEAK_F32_OPS_PER_S * 1e3
+    gathered = f * edges * (4 * d + 8) / PEAK_BYTES_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", gathered)
+
+
+def plain_edge_reduce(torch, dg, em, vals, x):
+    """``edge_reduce``'s value from ``gather_reduce_plain``, bucket by
+    bucket and factor by factor (in the dtype of ``vals`` and ``x``)."""
+    outs = []
+    for v, idx, deg in zip(vals, em.f_idx, em.f_deg):
+        if idx.shape[1] == 0:
+            outs.append(x.new_zeros((x.shape[0], idx.shape[0], x.shape[-1])))
+            continue
+        outs.append(torch.stack([dg.gather_reduce_plain(x[f], idx, v[f], deg)
+                                 for f in range(x.shape[0])]))
+    return torch.cat(outs, dim=1)[:, em.f_inv]
+
+
+def block_diagonal_csr(torch, em, vals):
+    """The f block-diagonal [f·n, f·m] CSR matrix of ``edge_reduce``'s
+    per-factor adjacency (the values of ``vals``): one ``torch.sparse.mm``
+    computes the same function."""
+    f = vals[0].shape[0]
+    n, m = int(em.f_inv.shape[0]), int(em.b_inv.shape[0])
+    rows, cols, v = [], [], []
+    for val, idx, r, deg in zip(vals, em.f_idx, em.f_rows, em.f_deg):
+        keep = (torch.arange(idx.shape[1], device=deg.device)[None, :]
+                < deg[:, None])
+        rr = r.long()[:, None].expand_as(idx)[keep]
+        cc = idx.long()[keep]
+        for k in range(f):
+            rows.append(rr + k * n)
+            cols.append(cc + k * m)
+            v.append(val[k][keep])
+    a = torch.sparse_coo_tensor(torch.stack([torch.cat(rows),
+                                             torch.cat(cols)]),
+                                torch.cat(v), (f * n, f * m))
+    return a.coalesce().to_sparse_csr()
+
+
+def raw_hold(torch, label, got, want, rtol=BWD_RTOL):
+    """A float32 result against its float64 reference, on the reference's
+    scale: every entry within rtol |want| + RTOL max|want|."""
+    got, want = got.double(), want.double()
+    if not want.numel():  # a zero-width bucket's slots
+        return True, 0.0
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=rtol, atol=RTOL * scale))
+    print(f"  {label}: max abs err {err:.3e}, scale {scale:.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok, err
+
+
+def edgemap_primitives_phase(torch, dg, graph, records):
+    """The ``ops.edgemap`` primitives at DGCF's hetrec shapes (the joint
+    graph's EdgeMap, F = 4, dk = 16): ``edge_reduce`` on the card (the
+    ``gather_reduce`` kernel, one launch a factor and non-empty bucket)
+    against ``gather_reduce_plain`` evaluated in float64; ``edge_dot``,
+    ``edge_gather``, ``edge_vgather`` and ``rows_gather`` against the same
+    function on the CPU; each Function's backward (float32) against the
+    plain autograd of its raw form in float64; ``edge_reduce`` timed (CUDA
+    events and device time) beside its plain version and one
+    ``torch.sparse.mm`` over the block-diagonal matrix, with its bound.
+    Adds the ``edgemap`` record to ``gather_reduce``'s."""
+    from tagrec_tpu_torch.ops import edgemap
+
+    done = phase_timer("EdgeMap primitives")
+    coo = graph.joint_norm_adj("plain", True)
+    t0 = time.perf_counter()
+    host = edgemap.build_edge_map(coo.row, coo.col, coo.val, *coo.shape)
+    build_s = time.perf_counter() - t0
+    em, em_cpu = edgemap.to_device(host, "cuda"), edgemap.to_device(host,
+                                                                     "cpu")
+    n, edges = coo.shape[0], len(coo.row)
+    live = sum(1 for i in em.f_idx if i.shape[1])
+    shapes = [f"{i.shape[0]}x{i.shape[1]}" for i in em.f_idx]
+    print(f"DGCF hetrec EdgeMap: {edges} edges, {n} rows, buckets "
+          f"{', '.join(shapes)}; host build {build_s:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    masks = em.masks()
+    vals = tuple(torch.softmax(randn(EM_F, *i.shape), dim=0) * m
+                 for i, m in zip(em.f_idx, masks))
+    x = randn(EM_F, n, EM_DK)
+    reset_counts(dg, ("gather_reduce",))
+    got = edgemap.edge_reduce(em, vals, x)
+    torch.cuda.synchronize()
+    check(dg.gather_reduce.launches == EM_F * live,
+          f"edge_reduce launched gather_reduce {dg.gather_reduce.launches} "
+          f"times, expected {EM_F} x {live}")
+    want = plain_edge_reduce(torch, dg, em, [v.double() for v in vals],
+                             x.double())
+    err = float((got.double() - want).abs().max())
+    ok = bool(torch.allclose(got.double(), want, rtol=RTOL, atol=ATOL))
+    print(f"edge_reduce (kernel) against gather_reduce_plain in float64: "
+          f"max_abs_err {err:.3e} (rtol {RTOL}, atol {ATOL}) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "edge_reduce disagrees with its plain version")
+
+    # the gathers against the same function on the CPU
+    a, b, v1 = randn(EM_F, n, EM_DK), randn(EM_F, n, EM_DK), randn(EM_F, n)
+    cases = {"edge_dot": (edgemap.edge_dot, (a, b)),
+             "edge_gather": (edgemap.edge_gather, (v1,)),
+             "edge_vgather": (edgemap.edge_vgather, (b,)),
+             "rows_gather": (edgemap.rows_gather, (a,))}
+    for name, (fn, args) in cases.items():
+        card = fn(em, *args)
+        cpu = fn(em_cpu, *(t.cpu() for t in args))
+        errs = [float((c.cpu() - w).abs().max()) if w.numel() else 0.0
+                for c, w in zip(card, cpu)]
+        same = all(torch.allclose(c.cpu(), w, rtol=RTOL, atol=ATOL)
+                   for c, w in zip(card, cpu))
+        print(f"{name} on the card against the CPU: max_abs_err "
+              f"{max(errs):.3e} {'ok' if same else 'FAIL'}")
+        check(same, f"{name} on the card disagrees with the CPU")
+
+    # each Function's backward against the plain autograd of its raw form
+    raw = {"edge_reduce": lambda e, vs, xx: edgemap._reduce_raw(e, vs, xx),
+           "edge_dot": lambda e, p, q: edgemap._dot_raw(e, p, q),
+           "edge_gather": lambda e, p: edgemap._gather_raw(e, p),
+           "edge_vgather": lambda e, p: edgemap._vgather_raw(e, p),
+           "rows_gather": lambda e, p: edgemap._rows_gather_raw(e, p)}
+    cases["edge_reduce"] = (edgemap.edge_reduce, (vals, x))
+    print("EdgeMap Functions' backwards (float32, the kernel under "
+          "edge_reduce and edge_dot) against autograd of the raw forms in "
+          f"float64 (entries within {BWD_RTOL} |g| + {RTOL} max|g|):")
+    bwd_ok = True
+    for name, (fn, args) in cases.items():
+        def leaves(dtype):
+            return [tuple(t.detach().to(dtype).requires_grad_() for t in arg)
+                    if isinstance(arg, tuple)
+                    else arg.detach().to(dtype).requires_grad_()
+                    for arg in args]
+
+        outs = {}
+        for label, f_, dtype in (("fn", fn, torch.float32),
+                                 ("raw", raw[name], torch.float64)):
+            ins = leaves(dtype)
+            out = f_(em, *ins)
+            out = out if isinstance(out, tuple) else (out,)
+            cg = torch.Generator(device="cuda").manual_seed(3)
+            sum((o * torch.randn(o.shape, generator=cg, device="cuda"
+                                 ).to(dtype)).sum() for o in out).backward()
+            outs[label] = [g for t in ins for g in (
+                [u.grad for u in t] if isinstance(t, tuple) else [t.grad])]
+        if name == "edge_reduce":  # d vals lives on the real slots only
+            outs["raw"] = [g * m if i < len(masks) else g for i, (g, m) in
+                           enumerate(zip(outs["raw"], masks + (None,)))]
+        for i, (g, w) in enumerate(zip(outs["fn"], outs["raw"])):
+            bwd_ok &= raw_hold(torch, f"{name} d input {i}", g, w)[0]
+    check(bwd_ok, "an EdgeMap Function's backward disagrees with autograd")
+
+    # time edge_reduce
+    kern = lambda: edgemap.edge_reduce(em, vals, x)  # noqa: E731
+    lib_a = block_diagonal_csr(torch, em, vals)
+    lib = lambda: torch.sparse.mm(lib_a, x.reshape(-1, EM_DK))  # noqa: E731
+    lib_err = float((lib().reshape(EM_F, n, EM_DK) - got).abs().max())
+    ms = time_ms(torch, kern, runs=15)
+    dev = device_ms(torch, kern)
+    plain_ms = time_ms(torch, lambda: plain_edge_reduce(torch, dg, em, vals,
+                                                        x), runs=5)
+    lib_ms = time_ms(torch, lib, runs=15)
+    lib_dev = device_ms(torch, lib)
+    bound, by, gathered = edgemap_bound(em, EM_F, EM_DK)
+    print(f"edge_reduce at DGCF hetrec (F={EM_F}, D={EM_DK}, {EM_F * live} "
+          f"launches): kernel {ms:.4f} ms (median of 15), device "
+          f"{dev:.4f} ms; plain {plain_ms:.4f} ms; torch.sparse.mm "
+          f"(block-diagonal CSR, differs by {lib_err:.3e}) {lib_ms:.4f} ms, "
+          f"device {lib_dev:.4f} ms; bound {bound:.4f} ms ({by}); its "
+          f"gathered rows at the memory rate {gathered:.4f} ms")
+    records["gather_reduce"]["edgemap"] = {
+        "shape": (f"edge_reduce over DGCF's hetrec EdgeMap: F={EM_F}, "
+                  f"D={EM_DK}, {edges} edges, buckets {', '.join(shapes)}"),
+        "launches_per_call": EM_F * live, "max_abs_err": err, "ms": ms,
+        "device_ms": dev, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "library_device_ms": lib_dev, "bound_ms": bound, "bound_by": by}
+    del em, em_cpu, vals, x, lib_a
+    gc_cuda(torch)
+    done()
+
+
+def kg_fallback_phase(torch, dg, graph):
+    """KGAT ``bi_inter`` over the phase-K KG with ``KG_PARALLEL`` triples
+    repeated under another relation, which ``rel_id_host`` refuses, so the
+    model takes the EdgeMap tier: held against the per-edge float64
+    computation (``kg_runs``, ``hold_tiers``), then 3 BPR and 3 TransE
+    steps, one BPR step profiled.  Returns its ``gather_reduce``
+    launches."""
+    import numpy as np
+
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+    from tagrec_tpu_torch.data.kg import KnowledgeGraph
+    from tagrec_tpu_torch.training.train import Trainer
+
+    done = phase_timer("KGAT KG EdgeMap fallback")
+    kg = KnowledgeGraph.synthetic(graph, **KG_SIZE)
+    rng = np.random.default_rng(1)
+    extra = kg.kg_data[rng.choice(len(kg.kg_data), KG_PARALLEL,
+                                  replace=False)].copy()
+    extra[:, 1] = (extra[:, 1] + 1) % kg.num_rela
+    kg.kg_data = np.concatenate([kg.kg_data, extra])
+    kg._finish_init()
+    t0 = time.perf_counter()
+    tcfg = TrainConfig()
+    pipe = build_pipeline(graph, model_preset("kgat", agg_type="bi_inter"),
+                          tcfg, kg=kg,
+                          generator=torch.Generator().manual_seed(0),
+                          device="cuda")
+    model = pipe.model
+    check(model.tier == "ell",
+          f"KGAT KG with parallel edges: tier {model.tier}, not ell")
+    emk = model.edges["emk"]
+    print(f"KGAT KG + {KG_PARALLEL} parallel triples: "
+          f"{len(kg.all_triplet)} triples, N = {model.n}; the EdgeMap tier "
+          f"built in {time.perf_counter() - t0:.1f} s; keyed map "
+          f"{int(emk.f_inv.shape[0])} rows in buckets "
+          f"{[tuple(i.shape) for i in emk.f_idx]}")
+    reset_counts(dg, ("gather_reduce",))
+    runs = kg_runs(torch, graph, kg, model, dense_xla_batch(torch, graph))
+    launches = dg.gather_reduce.launches
+    check(launches > 0, "KGAT KG EdgeMap: no gather_reduce launch")
+    check(hold_tiers(torch, "KGAT KG EdgeMap", runs["kern"], runs["plain"],
+                     runs["ref"], "EdgeMap tier against the per-edge "
+                     "computation"),
+          "KGAT KG: the EdgeMap tier disagrees with the per-edge "
+          "computation")
+    del runs
+    gc_cuda(torch)
+    bpr, transe = pipe.phases
+    trainer = Trainer(model, pipe.phases, tcfg,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(dg, ("gather_reduce",))
+    training_steps(torch, trainer, bpr, KG_BPR_STEPS, "KGAT KG EdgeMap BPR")
+    training_steps(torch, trainer, transe, KG_TRANSE_STEPS,
+                   "KGAT KG EdgeMap TransE")
+    launches += dg.gather_reduce.launches
+    print(f"KGAT KG EdgeMap training: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"gather_reduce launches over the hold and the steps {launches}")
+    batch = bpr.make_batch(trainer.generator, 0,
+                           bpr.epoch_reset(trainer.generator, bpr.data),
+                           bpr.data)
+    profile_device(torch, lambda: trainer.step(bpr, batch),
+                   "KGAT KG EdgeMap BPR step", EDGEMAP_NAMES)
+    del pipe, model, trainer
+    gc_cuda(torch)
+    done()
+    return launches
+
+
+def edge_dot_reference(torch, em, a, b, chunk=1 << 20):
+    """``edge_dot``'s value edge by edge over the real slots (0 on the
+    pads), in chunks of ``chunk`` edges: a computation of its own, apart
+    from ``_dot_bucket``'s row chunks."""
+    out = []
+    for idx, rows, deg in zip(em.f_idx, em.f_rows, em.f_deg):
+        keep = (torch.arange(idx.shape[1], device=idx.device)[None, :]
+                < deg[:, None])
+        r = rows.long()[:, None].expand_as(idx)[keep]
+        c = idx.long()[keep]
+        full = a.new_zeros(a.shape[:-2] + tuple(idx.shape))
+        if len(r):
+            full[..., keep] = torch.cat(
+                [(a[..., r[i:i + chunk], :] * b[..., c[i:i + chunk], :]
+                  ).sum(-1) for i in range(0, len(r), chunk)], dim=-1)
+        out.append(full)
+    return out
+
+
+def edgemap_10x_holds(torch, dg, em, f, d, live):
+    """``edge_reduce`` at DGCF's 10x buckets on inputs as the forward gives
+    them (routing weights: a softmax over the factors times the masks; x
+    scaled by each row's rsqrt degree), held against
+    ``gather_reduce_plain`` in float64 at RTOL/ATOL; its backward (dx, the
+    kernel over the transpose, and d vals, the row-chunked ``_dot_raw``)
+    and one ``edge_dot`` (row-chunked where a bucket's gather is over
+    ``EDGEMAP_GATHER_BUDGET_BYTES``) against float64 references; then
+    timed.  -> the record's measured fields."""
+    from tagrec_tpu_torch.ops import edgemap
+
+    chunks = [edgemap._row_chunk_for(i.shape[0], i.shape[1], d, 4, (f,))
+              for i in em.f_idx]
+    print(f"DGCF 10x EdgeMap row-chunk size a bucket (0: one piece): "
+          f"{chunks}")
+    check(any(chunks), "DGCF 10x: no bucket takes the row-chunked path")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    vals = tuple(torch.softmax(randn(f, *i.shape), dim=0) * m
+                 for i, m in zip(em.f_idx, em.masks()))
+    deg = torch.cat([v.sum(dim=2) for v in vals], dim=1)[:, em.f_inv]
+    x = randn(f, em.f_inv.shape[0], d) * torch.where(
+        deg > 0, torch.rsqrt(deg.clamp_min(1e-30)), 0.0)[:, :, None]
+    leaves = [t.detach().requires_grad_() for t in (x,) + vals]
+    got = edgemap.edge_reduce(em, leaves[1:], leaves[0])
+    g = randn(*got.shape)
+    got.backward(g)
+    want = plain_edge_reduce(torch, dg, em, [v.double() for v in vals],
+                             x.double())
+    err = float((got.detach().double() - want).abs().max())
+    ok = bool(torch.allclose(got.detach().double(), want, rtol=RTOL,
+                             atol=ATOL))
+    print(f"edge_reduce (kernel) at DGCF 10x against gather_reduce_plain in "
+          f"float64: max_abs_err {err:.3e}, scale "
+          f"{float(want.abs().max()):.3e} (rtol {RTOL}, atol {ATOL}) "
+          f"{'ok' if ok else 'FAIL'}")
+    del want
+    emt = em.transpose()
+    dx = plain_edge_reduce(torch, dg, emt, [t.double() for t in
+                                            edgemap.transpose_vals(em, vals)],
+                           g.double())
+    ok &= raw_hold(torch, "edge_reduce d x (the kernel over the transpose)",
+                   leaves[0].grad, dx)[0]
+    del dx
+    x64, g64 = x.double(), g.double()
+    dvals = edge_dot_reference(torch, em, g64, x64)
+    for i, (v, w) in enumerate(zip(leaves[1:], dvals)):
+        ok &= raw_hold(torch, f"edge_reduce d vals, bucket {i}", v.grad, w)[0]
+    with torch.no_grad():
+        dots = edgemap.edge_dot(em, g, x)
+    dot_err = 0.0
+    for i, (s, w) in enumerate(zip(dots, dvals)):
+        if w.numel():
+            dot_err = max(dot_err, float((s.double() - w).abs().max()))
+            ok &= bool(torch.allclose(s.double(), w, rtol=RTOL, atol=ATOL))
+    print(f"edge_dot at DGCF 10x against the per-edge float64 computation: "
+          f"max_abs_err {dot_err:.3e} (rtol {RTOL}, atol {ATOL})")
+    check(ok, "DGCF 10x: edge_reduce or edge_dot disagrees with its "
+              "float64 reference")
+    del leaves, got, g, dvals, dots, x64, g64, emt
+    gc_cuda(torch)
+    kern = lambda: edgemap.edge_reduce(em, vals, x)  # noqa: E731
+    ms, dev = time_ms(torch, kern, runs=15), device_ms(torch, kern)
+    bound, by, gathered = edgemap_bound(em, f, d)
+    print(f"edge_reduce at DGCF 10x ({f * live} launches): kernel {ms:.4f} "
+          f"ms (median of 15), device {dev:.4f} ms; bound {bound:.4f} ms "
+          f"({by}); its gathered rows at the memory rate {gathered:.4f} ms")
+    return {"max_abs_err": err, "edge_dot_max_abs_err": dot_err, "ms": ms,
+            "device_ms": dev, "bound_ms": bound, "bound_by": by}
+
+
+def dgcf_10x_phase(torch, dg, graph, records, tmp):
+    """DGCF at the preset's full width on the 10x graph (150,000 nodes,
+    past the dense budget: ``auto`` takes the EdgeMap tier): the host
+    build timed, ``DGCF_10X_BPR_STEPS`` BPR steps through the Trainer with
+    each step's ``gather_reduce`` launches checked, the peak memory, one
+    step profiled, one evaluation of every test user, ``export_tables``
+    and 3 top-k requests against the host reference; then
+    ``edgemap_10x_holds`` at these buckets.  Returns the launches."""
+    import math
+
+    import numpy as np
+
+    from tagrec_tpu_torch import serving
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+    from tagrec_tpu_torch.training.train import Trainer
+
+    done = phase_timer("DGCF 10x (EdgeMap)")
+    gc_cuda(torch)
+    t0 = time.perf_counter()
+    tcfg = TrainConfig()
+    pipe = build_pipeline(graph, model_preset("dgcf"), tcfg,
+                          generator=torch.Generator().manual_seed(0),
+                          device="cuda")
+    model = pipe.model
+    build_s = time.perf_counter() - t0
+    check(model.tier == "ell" and model.mask is None,
+          f"DGCF 10x: auto took the {model.tier} tier, not ell")
+    em = model.edges["em"]
+    live_f = sum(1 for i in em.f_idx if i.shape[1])
+    live_b = sum(1 for i in em.b_idx if i.shape[1])
+    slots = sum(i.numel() for i in em.f_idx)
+    edges = sum(int(d.sum()) for d in em.f_deg)
+    cfg = model.cfg
+    # a forward reduces every routing iteration; the backward only the
+    # last of each layer (the others feed the detached score update)
+    layers = len(cfg.dim_layer_list)
+    per_fwd = layers * cfg.iterate_k * cfg.factor_k * live_f
+    per_step = per_fwd + layers * cfg.factor_k * live_b
+    print(f"DGCF 10x: {model.num_list} nodes, {edges} edges in {slots} "
+          f"slots, forward buckets {[tuple(i.shape) for i in em.f_idx]}; "
+          f"pipeline (EdgeMap, samplers, evaluator) built in {build_s:.1f} s "
+          f"(host and transfer); gather_reduce {per_fwd} launches a forward, "
+          f"{per_step} a BPR step")
+    (bpr,) = pipe.phases
+    trainer = Trainer(model, pipe.phases, tcfg,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(dg, ("gather_reduce",))
+    total = training_steps(
+        torch, trainer, bpr, DGCF_10X_BPR_STEPS, "DGCF 10x BPR",
+        launch_checker(dg, ("gather_reduce",), {"gather_reduce": per_step},
+                       "DGCF 10x"))["gather_reduce"]
+    print(f"DGCF 10x BPR: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    batch = bpr.make_batch(trainer.generator, 0, None, bpr.data)
+    profile_device(torch, lambda: trainer.step(bpr, batch),
+                   "DGCF 10x BPR step", EDGEMAP_NAMES)
+    reset_counts(dg, ("gather_reduce",))
+    t0 = time.perf_counter()
+    res = pipe.evaluator.run(model)
+    eval_s = time.perf_counter() - t0
+    print(f"DGCF 10x evaluation of {len(graph.user_items['test'])} test users:"
+          f" {eval_s:.3f} s (host clock) {json.dumps(res)}")
+    check(all(math.isfinite(v) for vs in res.values() for v in vs)
+          and 0.0 < res["auc"][0] < 1.0, f"DGCF 10x evaluation results {res}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u_t, i_t = serving.export_tables(model, n_item=graph.n_item)
+    print(f"DGCF 10x export_tables: forward "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock)")
+    got = dg.gather_reduce.launches
+    check(got == 2 * per_fwd, f"DGCF 10x evaluation and export: "
+                              f"{got} launches, expected 2 x {per_fwd}")
+    total += got
+    check(u_t.shape == (graph.n_user, 64) and i_t.shape == (graph.n_item, 64)
+          and np.isfinite(u_t).all() and np.isfinite(i_t).all(),
+          f"DGCF 10x tables {u_t.shape} {i_t.shape}, or not finite")
+    serve_requests(torch, graph, u_t, i_t, tmp, "dgcf_10x")
+    f_, d_ = cfg.factor_k, model.dim_k
+    del pipe, model, trainer
+    gc_cuda(torch)
+    records["gather_reduce"]["edgemap"]["dgcf_10x"] = dict(
+        edges=edges, slots=slots, launches_per_forward=per_fwd,
+        launches_per_bpr_step=per_step,
+        **edgemap_10x_holds(torch, dg, em, f_, d_, live_f))
+    del em
+    gc_cuda(torch)
+    done()
+    return total
+
+
 def run(torch):
     from tagrec_tpu_torch.compose import build_pipeline
     from tagrec_tpu_torch.config import TrainConfig, model_preset
@@ -2722,21 +3298,33 @@ def run(torch):
     del pipe, trainer
     gc_cuda(torch)
 
-    held = dense_xla_phase(torch, graph, fr, fa)
+    held = dense_xla_phase(torch, graph, fr, fa, dg)
     launches = {k: launches[k] + held[k] for k in launches}
-    print(f"kernel-tier launches over the dense_xla holds: {held}")
+    # gather_reduce's launches on the EdgeMap tier (phase E)
+    em_launches = held["gather_reduce"]
+    print(f"kernel-tier and EdgeMap-tier launches over the dense_xla holds: "
+          f"{held}")
     with tempfile.TemporaryDirectory() as tmp:
         ngcf_hetrec_phase(torch, dg, graph, tmp)
-        disenhan_phase(torch, graph, tmp)
+        em_launches += disenhan_phase(torch, graph, tmp)
 
-    gather_records, gather_launches = lightgcn_paths(torch, dg, graph)
+    gather_records, gather_launches, graph_10x = lightgcn_paths(torch, dg,
+                                                                graph)
     records.update(gather_records)
     launches.update(gather_launches)
+    edgemap_primitives_phase(torch, dg, graph, records)
+    with tempfile.TemporaryDirectory() as tmp:
+        em_launches += dgcf_10x_phase(torch, dg, graph_10x, records, tmp)
+    del graph_10x
     gc_cuda(torch)
     with tempfile.TemporaryDirectory() as tmp:
         kg_phase(torch, graph, tmp)
+        em_launches += kg_fallback_phase(torch, dg, graph)
         tgcn_phase(torch, dg, graph, tmp, records)
     tgcn_cli_run(torch, card)
+    launches["gather_reduce"] += em_launches
+    print(f"gather_reduce launches on the EdgeMap tier (the ell holds, "
+          f"DisenHAN, DGCF 10x, the KG fallback): {em_launches}")
 
     done = phase_timer("CLI")
     cli = cli_phase(torch, fr, card)
@@ -2777,7 +3365,7 @@ def run(torch):
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "device_ms",
                             "library_device_ms", "shape", "r80",
-                            "disengcn", "ngcf", "tgcn")
+                            "disengcn", "ngcf", "tgcn", "edgemap")
                            if k in rec}})
     print(card)
     print(json.dumps({"kernels": kernels}))

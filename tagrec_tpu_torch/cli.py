@@ -10,11 +10,12 @@ It writes JAX's ``out_dir`` layout (``metrics.jsonl``, ``model.npz``,
 ``results.json``), and its checkpoints, train states and serving artifacts
 are JAX's formats, so either package reads the other's.  ``--model kgat
 --use_kg`` over a dataset with a ``kg_final.txt`` trains KGAT over the
-knowledge graph.  Flags whose feature the port lacks raise
-NotImplementedError naming its ROADMAP.md label: ``--dp``/``--mp`` > 1
-(A18), and ``--adj_mode ell`` on the attention models and TGCN (A17).
-``--adj_mode dense_xla`` takes the chunked dense tier for DGCF, DisenGCN
-and KGAT, and TGCN's plain table takes (``dense`` for LightGCN and NGCF).
+knowledge graph.  ``--dp``/``--mp`` > 1 raise NotImplementedError
+naming its ROADMAP.md label (A18).  ``--adj_mode dense_xla`` takes the
+chunked dense tier for DGCF, DisenGCN and KGAT, and TGCN's plain table
+takes (``dense`` for LightGCN and NGCF); ``--adj_mode ell`` the EdgeMap
+tier for DGCF, DisenGCN, DisenHAN, KGAT and TGCN, which ``auto`` also
+takes for a graph over the dense budget.
 """
 
 from __future__ import annotations

@@ -3,7 +3,9 @@ routing tier, or the chunked dense tier), DisenHAN (dense mode), KGAT
 (dense flash tier or the chunked dense tier on the tag graph, the
 relation-dense tier over a knowledge graph), LightGCN and NGCF (dense
 sectors, hybrid and ELL tiers), and TGCN (deduplicated or plain neighbour
-tables)."""
+tables); DGCF, DisenGCN, DisenHAN, KGAT and TGCN also on the EdgeMap
+tier (``ops.edgemap``), which the first four take past the dense
+budget."""
 
 from tagrec_tpu_torch.models.dgcf import DGCF
 from tagrec_tpu_torch.models.disengcn import DisenGCN

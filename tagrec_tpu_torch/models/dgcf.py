@@ -1,22 +1,28 @@
-"""DGCF (+tags), dense mode (tagrec_tpu/models/dgcf.py).
+"""DGCF (+tags) (tagrec_tpu/models/dgcf.py).
 
 Intent-disentangled propagation with per-edge factor routing: the dim-64
 embeddings split into ``factor_k`` chunks; each layer runs ``iterate_k``
 routing iterations of a symmetric, degree-renormalized propagation
-D^-1/2 A_f D^-1/2 over the routed adjacency A_f = softmax_F(S) * mask.  The
-score table is the low-rank series S_t = 1 + sum_tau U_tau V_tau^T, kept as
-the lists of update factors, and it persists across layers.  Each iteration
-runs the two routing kernels (``ops.flash_routing``) at its true rank, so
-the [F, N, N] adjacency never exists.  ``adj_mode="dense_xla"`` computes
-the same iterations on the chunked dense tier (``ops.dense_adj``) instead,
-in plain PyTorch, chunk by chunk.  Final embeddings are the mean over
-[ego, layer_1..L].  The loss is BPR on the final tables plus L2 on the ego
-rows and, when ``cor_reg`` > 0, the distance correlation of the factor
-chunks; gradients reach the embeddings through ``routed_mm``'s backward
-(the sweep over the mask's transpose).
+D^-1/2 A_f D^-1/2 over the routed adjacency A_f = softmax_F(S) * mask,
+detached; the score table S persists across layers.  Final embeddings are
+the mean over [ego, layer_1..L].  The loss is BPR on the final tables
+plus L2 on the ego rows and, when ``cor_reg`` > 0, the distance
+correlation of the factor chunks.
 
-The EdgeMap tier of the JAX model (``adj_mode="ell"``, or a graph over the
-dense budget) raises ``NotImplementedError``.
+Two tiers, as JAX picks them (``ops.dense_adj.use_dense``):
+
+* dense (a graph within the dense budget): S is the low-rank series
+  S_t = 1 + sum_tau U_tau V_tau^T, kept as the lists of update factors.
+  Each iteration runs the two routing kernels (``ops.flash_routing``) at
+  its true rank, so the [F, N, N] adjacency never exists; gradients reach
+  the embeddings through ``routed_mm``'s backward (the sweep over the
+  mask's transpose).  ``adj_mode="dense_xla"`` computes the same
+  iterations on the chunked dense tier (``ops.dense_adj``) instead.
+* EdgeMap (``adj_mode="ell"``, or a graph over the dense budget): S is
+  held per degree bucket ([F, Nb, Kb] each); the degree is the per-bucket
+  row sums of the routed values, the aggregation ``edge_reduce`` (the
+  ``gather_reduce`` kernel per factor) and the score update ``edge_dot``
+  (``ops.edgemap``).
 """
 
 from __future__ import annotations
@@ -28,16 +34,17 @@ from tagrec_tpu_torch.config import ModelConfig
 from tagrec_tpu_torch.data.graph import HeteroGraph
 from tagrec_tpu_torch.device import resolve
 from tagrec_tpu_torch.models import base
-from tagrec_tpu_torch.ops import dense_adj, flash_routing, losses
+from tagrec_tpu_torch.ops import dense_adj, edgemap, flash_routing, losses
 from tagrec_tpu_torch.ops.propagate import l2_normalize
 
 
 class DGCF(nn.Module):
     """``embed`` holds the user, item[, tag] tables, drawn from
-    ``generator`` (a CPU ``torch.Generator``); the edge mask of the joint
-    graph is a bool buffer [N, N] on ``device``, and ``maskT`` its
-    transpose, None where the mask is symmetric (``mask_t`` is the mask
-    then)."""
+    ``generator`` (a CPU ``torch.Generator``).  On the dense tier the edge
+    mask of the joint graph is a bool buffer [N, N] on ``device``, and
+    ``maskT`` its transpose, None where the mask is symmetric (``mask_t``
+    is the mask then); on the EdgeMap tier both are None and ``edges``
+    holds the joint graph's EdgeMap."""
 
     def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
                  generator: torch.Generator, device="cuda"):
@@ -52,12 +59,27 @@ class DGCF(nn.Module):
                              f"of factor_k {cfg.factor_k}")
         self.dim_k = cfg.dim_latent // cfg.factor_k
         coo = graph.joint_norm_adj(cfg.norm_type, use_tag)  # 'plain'
+        self.dense = dense_adj.use_dense(cfg.adj_mode, *coo.shape)
         self.flash = cfg.adj_mode != "dense_xla"
-        mask, mask_t = dense_adj.routing_masks(coo, cfg.adj_mode, dev)
+        mask = mask_t = None
+        if self.dense:
+            mask, mask_t = dense_adj.routing_masks(coo, cfg.adj_mode, dev)
+        else:
+            self.edges = edgemap.EdgeMapBuffers({"em": edgemap.to_device(
+                edgemap.build_edge_map(coo.row, coo.col, coo.val,
+                                       *coo.shape), dev)})
         self.register_buffer("mask", mask)
         self.register_buffer("maskT", mask_t)
         self.embed = nn.ParameterList(
             base.init_embeddings(self.num_list, cfg.dim_latent, generator, dev))
+
+    @property
+    def tier(self) -> str:
+        """The execution tier built: "kernels" (the dense kernel tier),
+        "dense_xla" (the chunked dense tier) or "ell" (the EdgeMap tier)."""
+        if not self.dense:
+            return "ell"
+        return "kernels" if self.flash else "dense_xla"
 
     @property
     def mask_t(self):
@@ -105,15 +127,49 @@ class DGCF(nn.Module):
         ego_embed = layer.permute(1, 0, 2).reshape(layer.shape[1], -1)
         return (u_list, v_list), ego_embed
 
+    def _iterate_update(self, a_values, ego_embed, em, masks):
+        """One layer on the EdgeMap tier: ``iterate_k`` routing iterations
+        over the per-bucket score tables ``a_values`` ([F, Nb, Kb] each),
+        all factors on the leading axis."""
+        ego_f = torch.stack(torch.split(ego_embed, self.dim_k, dim=1))
+        femb = None
+        for _ in range(self.cfg.iterate_k):
+            # softmax over the factors, detached (the routed adjacency)
+            a_used = tuple(torch.softmax(av, dim=0).detach() * m[None]
+                           for av, m in zip(a_values, masks))
+            # each row's degree per factor: per-bucket row sums, row order
+            d = torch.cat([a.sum(dim=2) for a in a_used], dim=1)
+            d = torch.where(d > 0, torch.rsqrt(torch.where(d > 0, d, 1.0)),
+                            0.0)[:, em.f_inv]                  # [F, n]
+            agg = edgemap.edge_reduce(em, a_used, ego_f * d[:, :, None])
+            femb = d[:, :, None] * agg
+            # the score update (head = row, tail = ego): it reaches the
+            # loss only through the detached routing, so it is not traced
+            with torch.no_grad():
+                t_norm = torch.tanh(l2_normalize(ego_f, dim=2))
+                sc = edgemap.edge_dot(em, l2_normalize(femb, dim=2), t_norm)
+                a_values = tuple(av + s for av, s in zip(a_values, sc))
+        layer = l2_normalize(femb, dim=2)
+        return a_values, layer.permute(1, 0, 2).reshape(layer.shape[1], -1)
+
     def forward(self):
         """-> (user, item[, tag]) propagated embeddings."""
         ego = torch.cat(list(self.embed), dim=0)
-        state = ([], [])
         outs = [ego]
         cur = ego
-        for _ in range(self.cfg.num_layer):
-            state, cur = self._iterate_update_dense(state, cur)
-            outs.append(cur)
+        if self.dense:
+            state = ([], [])
+            for _ in range(self.cfg.num_layer):
+                state, cur = self._iterate_update_dense(state, cur)
+                outs.append(cur)
+        else:
+            em = self.edges["em"]
+            masks = em.masks(ego.dtype)
+            state = tuple(ego.new_ones((self.cfg.factor_k,) + i.shape)
+                          for i in em.f_idx)
+            for _ in range(self.cfg.num_layer):
+                state, cur = self._iterate_update(state, cur, em, masks)
+                outs.append(cur)
         final = torch.mean(torch.stack(outs, dim=0), dim=0)
         return base.split_nodes(final, self.num_list)
 

@@ -1,4 +1,4 @@
-"""DisenGCN (+tags), dense mode (tagrec_tpu/models/disengcn.py).
+"""DisenGCN (+tags) (tagrec_tpu/models/disengcn.py).
 
 Neighbourhood routing over factor projections.  Each layer projects the
 node table into ``factor_k`` factors through per-factor W and b, the bias
@@ -13,9 +13,11 @@ through ``routed_mm``'s x (its backward is the sweep over the mask's
 transpose) and the residual; the routing weights get none, as in JAX.
 
 ``adj_mode="dense_xla"`` routes on the chunked dense tier
-(``ops.dense_adj.routed_agg_dense``) instead of the kernel.  The EdgeMap
-tier of the JAX model (``adj_mode="ell"``, or a graph over the dense
-budget) raises ``NotImplementedError``.
+(``ops.dense_adj.routed_agg_dense``) instead of the kernel.  Past the
+dense budget, or under ``adj_mode="ell"``, the routing runs on the
+EdgeMap tier (``ops.edgemap``), as JAX picks it: the per-edge affinities
+by ``edge_dot``, their factor softmax detached, the aggregation by
+``edge_reduce`` (the ``gather_reduce`` kernel per factor).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from tagrec_tpu_torch.config import ModelConfig
 from tagrec_tpu_torch.data.graph import HeteroGraph
 from tagrec_tpu_torch.device import resolve
 from tagrec_tpu_torch.models import base
-from tagrec_tpu_torch.ops import dense_adj, flash_routing
+from tagrec_tpu_torch.ops import dense_adj, edgemap, flash_routing
 from tagrec_tpu_torch.ops.propagate import l2_normalize, message_dropout
 
 
@@ -38,7 +40,8 @@ class DisenGCN(nn.Module):
     ``layers.{i}.b``, drawn in that order from ``generator`` (a CPU
     ``torch.Generator``), the tree of JAX's params; the edge mask of the
     joint graph is a bool buffer [N, N] on ``device``, and ``maskT`` its
-    transpose, None where the mask is symmetric."""
+    transpose, None where the mask is symmetric; on the EdgeMap tier both
+    are None and ``edges`` holds the joint graph's EdgeMap."""
 
     def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
                  generator: torch.Generator, device="cuda"):
@@ -52,8 +55,15 @@ class DisenGCN(nn.Module):
                              f"of factor_k {cfg.factor_k}")
         self.dim_k = cfg.dim_latent // cfg.factor_k
         coo = graph.joint_norm_adj(cfg.norm_type, cfg.use_tag)  # 'plain'
+        self.dense = dense_adj.use_dense(cfg.adj_mode, *coo.shape)
         self.flash = cfg.adj_mode != "dense_xla"
-        mask, mask_t = dense_adj.routing_masks(coo, cfg.adj_mode, dev)
+        mask = mask_t = None
+        if self.dense:
+            mask, mask_t = dense_adj.routing_masks(coo, cfg.adj_mode, dev)
+        else:
+            self.edges = edgemap.EdgeMapBuffers({"em": edgemap.to_device(
+                edgemap.build_edge_map(coo.row, coo.col, coo.val,
+                                       *coo.shape), dev)})
         self.register_buffer("mask", mask)
         self.register_buffer("maskT", mask_t)
         self.embed = nn.ParameterList(
@@ -65,6 +75,14 @@ class DisenGCN(nn.Module):
             "b": base.xavier_uniform((cfg.factor_k, 1, self.dim_k),
                                      generator, dev)})
             for _ in range(cfg.num_layer))
+
+    @property
+    def tier(self) -> str:
+        """The execution tier built: "kernels" (the dense kernel tier),
+        "dense_xla" (the chunked dense tier) or "ell" (the EdgeMap tier)."""
+        if not self.dense:
+            return "ell"
+        return "kernels" if self.flash else "dense_xla"
 
     @property
     def mask_t(self):
@@ -79,8 +97,18 @@ class DisenGCN(nn.Module):
         # the routing kernel takes contiguous q, k and x
         fac = l2_normalize(fac, dim=2).contiguous()            # [F, N, dk]
         new_fac = fac
+        if not self.dense:
+            em = self.edges["em"]
+            masks = em.masks(fac.dtype)
         for _ in range(self.cfg.iterate_k):
-            if self.flash:
+            if not self.dense:
+                # the affinities reach the loss only through the detached
+                # routing weights, so they are not traced
+                with torch.no_grad():
+                    p = tuple(torch.softmax(s, dim=0) * m for s, m in zip(
+                        edgemap.edge_dot(em, new_fac, fac), masks))
+                agg = edgemap.edge_reduce(em, p, fac)
+            elif self.flash:
                 agg = flash_routing.routed_mm(new_fac, fac, self.mask, fac,
                                               mask_t=self.mask_t)
             else:

@@ -1,8 +1,8 @@
-"""DisenHAN, dense mode: disentangled attention over six typed relations
+"""DisenHAN: disentangled attention over six typed relations
 (tagrec_tpu/models/disenhan.py).
 
 * relations [ui, iu, ut, tu, it, ti] with local per-type ids (source and
-  destination types ``REL_TYPES``), each a rectangular bool edge mask
+  destination types ``REL_TYPES``)
 * per layer: per node type and factor the projection Wtk [3, F, d, dk]
   (no bias), LeakyReLU 0.2 and a per-factor L2 normalize
 * two routing rounds (hard-coded, as in the reference): per relation the
@@ -17,8 +17,13 @@
 * quirk #7: r starts uniform (1 / F) at every forward
 * BPR (softplus) plus L2 on the final tables
 
-Only the dense mode is ported: ``adj_mode="ell"``, and any graph over the
-dense budget, need the EdgeMap tier and raise ``NotImplementedError``.
+Two tiers, as JAX picks them (``ops.dense_adj.use_dense``): within the
+dense budget each relation is a rectangular bool edge mask
+(``ops.dense_adj.disenhan_dense_rela``); under ``adj_mode="ell"``, or past
+the budget, each relation is an EdgeMap (``ops.edgemap``): the separable
+scores from ``rows_gather`` and ``edge_gather``, ``edge_softmax`` over each
+source's edges, and ``edge_reduce`` (the ``gather_reduce`` kernel per
+factor) over the probabilities broadcast to the factors.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from tagrec_tpu_torch.config import ModelConfig
 from tagrec_tpu_torch.data.graph import HeteroGraph
 from tagrec_tpu_torch.device import resolve
 from tagrec_tpu_torch.models import base
-from tagrec_tpu_torch.ops import dense_adj
+from tagrec_tpu_torch.ops import dense_adj, edgemap
 from tagrec_tpu_torch.ops.propagate import l2_normalize
 
 # (source type, destination type) of each relation
@@ -45,7 +50,9 @@ class DisenHAN(nn.Module):
     """Parameters ``embed.{0,1,2}`` (user, item, tag) and per layer
     ``layers.{i}.{Wtk,at,W,q_rela}``, drawn in that order from
     ``generator`` (a CPU ``torch.Generator``), the tree of JAX's params;
-    the six relation masks are bool buffers ``mask_0..5`` on ``device``."""
+    on the dense tier the six relation masks are bool buffers
+    ``mask_0..5`` on ``device``, on the EdgeMap tier ``edges`` holds the
+    six relations' EdgeMaps ``0..5``."""
 
     def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
                  generator: torch.Generator, device="cuda"):
@@ -58,12 +65,19 @@ class DisenHAN(nn.Module):
                              f"of factor_k {cfg.factor_k}")
         self.dim_k = cfg.dim_latent // cfg.factor_k
         n = sum(self.num_list)
-        dense_adj.check_dense(cfg.adj_mode, n, n)
+        self.dense = dense_adj.use_dense(cfg.adj_mode, n, n)
         ui, ut, it = graph.ui_adj, graph.ut_adj, graph.it_adj
-        for e, c in enumerate((ui, ui.transpose(), ut, ut.transpose(), it,
-                               it.transpose())):
-            self.register_buffer(f"mask_{e}", torch.from_numpy(
-                dense_adj.dense_mask_host(c.row, c.col, *c.shape)).to(dev))
+        rel_coos = (ui, ui.transpose(), ut, ut.transpose(), it,
+                    it.transpose())
+        if self.dense:
+            for e, c in enumerate(rel_coos):
+                self.register_buffer(f"mask_{e}", torch.from_numpy(
+                    dense_adj.dense_mask_host(c.row, c.col, *c.shape)).to(dev))
+        else:
+            self.edges = edgemap.EdgeMapBuffers({
+                str(e): edgemap.to_device(edgemap.build_edge_map(
+                    c.row, c.col, c.val, *c.shape), dev)
+                for e, c in enumerate(rel_coos)})
         self.embed = nn.ParameterList(
             base.init_embeddings(self.num_list, cfg.dim_latent, generator, dev))
         f_, d, dk = cfg.factor_k, cfg.dim_latent, self.dim_k
@@ -76,18 +90,43 @@ class DisenHAN(nn.Module):
             "W": xavier(dk, dk), "q_rela": xavier(6, dk)})
             for _ in range(cfg.num_layer))
 
+    @property
+    def tier(self) -> str:
+        """The execution tier built: "dense" (six relation masks) or "ell"
+        (six EdgeMaps)."""
+        return "dense" if self.dense else "ell"
+
     def masks(self):
-        return [getattr(self, f"mask_{e}") for e in range(6)]
+        """The six relations' masks (dense tier) or EdgeMaps."""
+        if self.dense:
+            return [getattr(self, f"mask_{e}") for e in range(6)]
+        return [self.edges[str(e)] for e in range(6)]
 
     def _rela_update(self, lp, e, mask, new_src, old_dst, r_src):
-        """One relation's attention aggregation: new_src [F, n_src, dk] the
-        routed source factors, old_dst [F, n_dst, dk] the static destination
-        projections, r_src [F, n_src] -> (new r [F, n_src], z [F, n_src,
-        dk])."""
+        """One relation's attention aggregation over ``mask`` (its mask or
+        EdgeMap): new_src [F, n_src, dk] the routed source factors, old_dst
+        [F, n_dst, dk] the static destination projections, r_src [F, n_src]
+        -> (new r [F, n_src], z [F, n_src, dk])."""
         a = lp["at"][e]                                         # [F, 2dk]
         head = torch.einsum("fnd,fd->fn", new_src, a[:, :self.dim_k])
         tail = torch.einsum("fnd,fd->fn", old_dst, a[:, self.dim_k:])
-        zk = dense_adj.disenhan_dense_rela(head, tail, r_src, old_dst, mask)
+        if self.dense:
+            zk = dense_adj.disenhan_dense_rela(head, tail, r_src, old_dst,
+                                               mask)
+        else:
+            # the score relu(head + tail) is separable: per-node values
+            # gathered per slot, never a [F, Nb, Kb, dk] tail tensor
+            em = mask
+            hs = edgemap.rows_gather(em, head[..., None])    # [F, Nb, 1]
+            ts = edgemap.edge_gather(em, tail)               # [F, Nb, Kb]
+            rr = edgemap.rows_gather(em, r_src[..., None])   # [F, Nb, 1]
+            e_rela = tuple(torch.sum(torch.relu(h + t) * r, dim=0)
+                           for h, t, r in zip(hs, ts, rr))   # [Nb, Kb]
+            soft = edgemap.edge_softmax(em, e_rela)
+            f_ = self.cfg.factor_k
+            zk = edgemap.edge_reduce(
+                em, tuple(p[None].expand((f_,) + tuple(p.shape))
+                          for p in soft), old_dst)
         emb_z = F.leaky_relu(zk, 0.2) @ lp["W"]
         new_r = torch.softmax(torch.einsum("fnd,d->fn", torch.tanh(emb_z),
                                            lp["q_rela"][e]), dim=0)

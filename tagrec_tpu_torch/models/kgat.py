@@ -25,11 +25,19 @@ no edge) and builds P chunk by chunk from the per-relation score planes
 (``ops.dense_adj.rel_dense_row_softmax_scores``; bf16 planes under
 ``adj_dtype="bf16"``); the layers reuse P.
 
+Past the dense budget, under ``adj_mode="ell"``, and over a KG that the
+relation-dense tier cannot hold (parallel (h, t) edges, more than 127
+relations), the attention runs on the EdgeMap tier (``ops.edgemap``), as
+JAX picks it: two EdgeMaps over the same edges, one keyed by node and one
+by (relation, node).  The scores are ``edge_dot`` over the keyed map of
+the per-relation projection tables, moved to the node-keyed layout by
+``slot_transfer``, softmaxed over each head's out-edges
+(``edge_softmax``), and each layer's propagation is ``edge_reduce`` (the
+``gather_reduce`` kernel).
+
 Quirk #3: the shipped preset sets ``agg_type="bi_agg"``, which skips
 propagation; the model then builds no masks and ``forward`` returns the ego
-tables.  The EdgeMap tier raises ``NotImplementedError`` (A17): on the tag
-graph under ``adj_mode="ell"`` or past the dense budget, and on a KG with
-parallel (h, t) edges, more than 127 relations, or past the budget.
+tables.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ from tagrec_tpu_torch.config import ModelConfig
 from tagrec_tpu_torch.data.graph import HeteroGraph
 from tagrec_tpu_torch.device import resolve
 from tagrec_tpu_torch.models import base
-from tagrec_tpu_torch.ops import dense_adj, flash_attention, losses
+from tagrec_tpu_torch.ops import dense_adj, edgemap, flash_attention, losses
 from tagrec_tpu_torch.ops.propagate import l2_normalize, message_dropout
 
 # relation id for (row type -> col type) sectors, in relation_edges order
@@ -62,7 +70,9 @@ class KGAT(nn.Module):
     are int8 buffers ``fmask_0..2`` on ``device``, and their contiguous
     transposes ``fmaskT_0..2`` (the column backward's masks, built once);
     under ``dense_xla`` the joint edge mask is the bool buffer ``mask``
-    [N, N] instead; over a KG (``kg=``) the int8 buffer ``rel_id`` [N, N]."""
+    [N, N] instead; over a KG (``kg=``) the int8 buffer ``rel_id`` [N, N];
+    on the EdgeMap tier ``edges`` holds the maps ``em`` and ``emk`` and
+    their slot tables ``k2n`` and ``n2k``."""
 
     def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
                  generator: torch.Generator, device="cuda", kg=None):
@@ -101,23 +111,33 @@ class KGAT(nn.Module):
             mat[f"W2_{k}"] = xavier(d_in, d_out)
             mat[f"b2_{k}"] = xavier(1, d_out)
         self.mat = nn.ParameterDict(mat)
+        self.dense = self.flash = False
         if self.skip_adj:  # quirk #3: no adjacency is ever read
             return
 
-        dense_adj.check_dense(cfg.adj_mode, self.n, self.n)
         if kg is not None:
-            self.flash = False
-            self._build_rel_dense(kg, dev)
+            trips = kg.all_triplet
+            rows, rels, cols = (trips[:, c].astype(np.int64)
+                                for c in range(3))
+        else:
+            rel_edges = graph.relation_edges()
+            rows = np.concatenate([rel_edges[k][0] for k in range(6)])
+            cols = np.concatenate([rel_edges[k][1] for k in range(6)])
+            rels = np.concatenate([np.full(rel_edges[k].shape[1], k,
+                                           dtype=np.int64)
+                                   for k in range(6)])
+        fits = dense_adj.use_dense(cfg.adj_mode, self.n, self.n)
+        if kg is not None and fits and self._build_rel_dense(rows, cols,
+                                                             rels, dev):
+            return
+        self.dense = kg is None and fits
+        if not self.dense:
+            self._build_edge_maps(rows, cols, rels, dev)
             return
         self.flash = cfg.adj_mode != "dense_xla"
         self.segs = ((0, graph.n_user),
                      (graph.n_user, graph.n_item),
                      (graph.n_user + graph.n_item, graph.n_tag))
-        rel_edges = graph.relation_edges()
-        rows = np.concatenate([rel_edges[k][0] for k in range(6)])
-        cols = np.concatenate([rel_edges[k][1] for k in range(6)])
-        rels = np.concatenate([np.full(rel_edges[k].shape[1], k,
-                                       dtype=np.int64) for k in range(6)])
         if not self.flash:
             self.register_buffer("mask", torch.from_numpy(
                 dense_adj.dense_mask_host(rows, cols, self.n, self.n)).to(dev))
@@ -127,17 +147,14 @@ class KGAT(nn.Module):
             self.register_buffer(f"fmask_{a}", mask)
             self.register_buffer(f"fmaskT_{a}", mask.t().contiguous())
 
-    def _build_rel_dense(self, kg, dev):
+    def _build_rel_dense(self, rows, cols, rels, dev) -> bool:
         """The int8 relation-id buffer ``rel_id`` [N, N] of the KG's triples
         and the static row segments: user rows with the relations seen on a
-        user head (relation 0), entity rows with the rest."""
-        trips = kg.all_triplet
-        rows, rels, cols = (trips[:, c].astype(np.int64) for c in range(3))
+        user head (relation 0), entity rows with the rest.  False, with
+        nothing built, where one cell cannot hold the KG's edges."""
         rel_id = dense_adj.rel_id_host(rows, cols, rels, self.n, self.n)
         if rel_id is None:
-            raise NotImplementedError(
-                "a knowledge graph with parallel (h, t) edges or more than "
-                "127 relations needs the EdgeMap tier (ROADMAP.md A17)")
+            return False
         self.kg_rel_dense = True
         self.register_buffer("rel_id", torch.from_numpy(rel_id).to(dev))
         user = rows < self.num_user
@@ -145,6 +162,27 @@ class KGAT(nn.Module):
             (0, self.num_user, tuple(int(r) for r in np.unique(rels[user]))),
             (self.num_user, self.num_entity,
              tuple(int(r) for r in np.unique(rels[~user]))))
+        return True
+
+    def _build_edge_maps(self, rows, cols, rels, dev):
+        """The EdgeMap tier: a node-keyed map for the row softmax and the
+        propagation, a (relation, node)-keyed map on which the scores are
+        plain per-edge dot products of the projection tables, and the slot
+        tables between the two."""
+        n, rk = self.n, rels * self.n
+        em = edgemap.build_edge_map(rows, cols, None, n, n)
+        emk = edgemap.build_edge_map(rk + rows, rk + cols, None,
+                                     self.num_relation * n,
+                                     self.num_relation * n)
+        k2n, n2k = edgemap.cross_slot_maps(emk, em)
+
+        def tables(ts):
+            return tuple(torch.as_tensor(t, device=dev) for t in ts)
+
+        self.edges = edgemap.EdgeMapBuffers({
+            "em": edgemap.to_device(em, dev),
+            "emk": edgemap.to_device(emk, dev),
+            "k2n": tables(k2n), "n2k": tables(n2k)})
 
     def _build_flash_masks(self, rows, cols, rels):
         """Per-row-type int8 masks [pad(la), pad(l1) + pad(l2)] in the
@@ -161,6 +199,19 @@ class KGAT(nn.Module):
                 m[rows[sel] - sa, cols[sel] - sc + off] = 1
             masks.append(m)
         return masks
+
+    @property
+    def tier(self) -> str:
+        """The execution tier built: "none" (quirk #3 reads no adjacency),
+        "kg_rel_dense" (the relation-id buffer over a KG), "ell" (the
+        EdgeMap tier), "kernels" (the flash kernels) or "dense_xla"."""
+        if self.skip_adj:
+            return "none"
+        if self.kg_rel_dense:
+            return "kg_rel_dense"
+        if not self.dense:
+            return "ell"
+        return "kernels" if self.flash else "dense_xla"
 
     def flash_masks(self):
         return [getattr(self, f"fmask_{a}") for a in range(3)]
@@ -229,6 +280,18 @@ class KGAT(nn.Module):
 
             def att_mm(x):
                 return p_att @ x
+        elif not self.dense:
+            # scores over the (relation, node)-keyed map, then the node-keyed
+            # layout: gathers both ways, no scatter in the step
+            em, emk = self.edges["em"], self.edges["emk"]
+            pai = edgemap.slot_transfer(
+                edgemap.edge_dot(emk, q.reshape(-1, q.shape[-1]),
+                                 proj.reshape(-1, proj.shape[-1])),
+                self.edges["k2n"], self.edges["n2k"])
+            att = edgemap.edge_softmax(em, pai)
+
+            def att_mm(x):
+                return edgemap.edge_reduce(em, att, x)
         elif self.flash:
             att_mm = self._flash_att_mm(q, proj)
         else:

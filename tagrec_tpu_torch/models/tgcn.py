@@ -22,8 +22,14 @@ Tiers, as JAX selects them: ``adj_mode="auto"`` gathers each row's
 distinct (neighbour, weight) pairs once, in degree buckets, and folds the
 duplicate count into the softmax (the same sum, grouped);
 ``"dense_xla"`` (and ``"dense"``, and per-layer resampling) the plain
-25-wide takes; ``adj_dtype="bf16"`` gathers bf16 tables.  ``"ell"`` (the
-EdgeMap tier) raises NotImplementedError (A17).
+25-wide takes; ``adj_dtype="bf16"`` gathers bf16 tables.  ``"ell"`` holds
+each [N, k] table as two EdgeMaps (``ops.edgemap``) over the shifted
+neighbour and weight-id spaces, its pads real edges to row 0: the
+neighbour and weight rows come from ``edge_vgather``, the centre rows from
+``rows_gather``, whose backwards are gathers over the transpose tables,
+not scatter-adds into the node tables; the softmax runs over all k slots,
+and the tables stay float32, as in JAX.  Per-layer resampling draws new
+tables every step and keeps the plain takes.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ from tagrec_tpu_torch.config import ModelConfig
 from tagrec_tpu_torch.data.graph import COO, HeteroGraph
 from tagrec_tpu_torch.device import resolve
 from tagrec_tpu_torch.models import base
-from tagrec_tpu_torch.ops import losses
+from tagrec_tpu_torch.ops import edgemap, losses
 from tagrec_tpu_torch.ops.propagate import l2_normalize, message_dropout
 
 DEDUP_WIDTHS = (4, 8, 12, 16, 20, 25)
@@ -175,6 +181,27 @@ def _atten1_dedup(ap, ev, ej, ew, buckets, inv):
     return torch.cat(outs)[inv].to(_wide(dt))
 
 
+def _atten1_em(ap, ev, ej0, ew0, em_j, em_w):
+    """Attention1 over a relation's EdgeMaps (``em_j`` over the neighbour
+    rows, ``em_w`` over the weight ids, one slot layout): every table read
+    is an ``ops.edgemap`` primitive, so the backward takes gathers over the
+    transpose tables.  The softmax spans the table's k slots, node-0 pad
+    edges included (deg == k); only ELL width padding is masked."""
+    e_nj = edgemap.edge_vgather(em_j, ej0)               # ([Nb, K, d], ...)
+    e_nw = edgemap.edge_vgather(em_w, ew0)               # ([Nb, K, dw], ...)
+    evb = edgemap.rows_gather(em_j, ev)                  # ([Nb, d], ...)
+    d = ev.shape[1]
+    w1v, w1w = ap["W1"][:d], ap["W1"][d:]
+    outs = []
+    for eb, ew_, ej_, m in zip(evb, e_nw, e_nj, em_j.masks(torch.bool)):
+        av = (eb @ w1v)[:, None, :] + ew_ @ w1w + ej_ @ ap["W2"] + ap["b"]
+        x = (torch.relu(av) @ ap["v"].T)[..., 0]         # [Nb, K]
+        a = torch.softmax(torch.where(m, x, torch.finfo(x.dtype).min),
+                          dim=-1) * m
+        outs.append(torch.einsum("nk,nkd->nd", a, ej_))
+    return torch.cat(outs, dim=-2)[..., em_j.f_inv, :]
+
+
 def _wide(dt):
     """float32, or the wider float the model runs in."""
     return torch.promote_types(dt, torch.float32)
@@ -212,7 +239,9 @@ class TGCN(nn.Module):
     tables are sampled on the host from ``sample_seed`` (or taken from
     ``tables``, six (idx, w) arrays in ``REL_ORDER``) and live on
     ``device`` as int64 buffers: the tables, or under ``auto`` their dedup
-    buckets, or under ``resample_each_layer`` the CSR lists too."""
+    buckets, or under ``resample_each_layer`` the CSR lists too; under
+    ``ell`` ``edges`` holds each relation's EdgeMaps ``<name>_j`` and
+    ``<name>_w``."""
 
     REL_ORDER = REL_ORDER
 
@@ -221,10 +250,6 @@ class TGCN(nn.Module):
                  resample_each_layer: bool = False, sample_seed: int = 0,
                  tables: Optional[List[Tuple[np.ndarray, np.ndarray]]] = None):
         super().__init__()
-        if cfg.adj_mode == "ell":
-            raise NotImplementedError(
-                "TGCN's adj_mode='ell' needs the EdgeMap tier (ROADMAP.md "
-                "A17)")
         dev = resolve(device)
         self.cfg = cfg
         self.num_list = [graph.n_user, graph.n_item, graph.n_tag]
@@ -289,6 +314,22 @@ class TGCN(nn.Module):
                     buf(f"{name}_b{b}_wids", wids.astype(np.int64))
                     buf(f"{name}_b{b}_mult", mult)
                 buf(f"{name}_inv", inv.astype(np.int64))
+        self.ell = cfg.adj_mode == "ell" and not resample_each_layer
+        if self.ell:
+            # each table is a fixed edge set over the shifted column space,
+            # every row with k edges (pad_multiple 1: no width rounding)
+            maps = {}
+            for name, (idx, w), a in zip(REL_ORDER, tables, adjs):
+                n, k = idx.shape
+                rows = np.repeat(np.arange(n, dtype=np.int64), k)
+                for part, cols, n_cols in (
+                        ("j", idx, a.shape[1] + 1),
+                        ("w", w, self.num_weight + 1)):
+                    maps[f"{name}_{part}"] = edgemap.to_device(
+                        edgemap.build_edge_map(
+                            rows, cols.ravel().astype(np.int64), None, n,
+                            n_cols, pad_multiple=1), dev)
+            self.edges = edgemap.EdgeMapBuffers(maps)
         if resample_each_layer:
             # the full CSR lists (cols +1, weight ids), one zero slot past
             # the end so a degree-0 last row indexes in range
@@ -297,6 +338,13 @@ class TGCN(nn.Module):
                 buf(f"{name}_starts", starts)
                 buf(f"{name}_cols", np.append(cols + 1, 0).astype(np.int64))
                 buf(f"{name}_cw", np.append(vals.astype(np.int64), 0))
+
+    @property
+    def tier(self) -> str:
+        """The execution tier built: "dedup" (``auto``: the deduplicated
+        neighbour buckets), "ell" (two EdgeMaps a relation) or "takes"
+        (the plain takes of ``dense_xla`` and ``resample_each_layer``)."""
+        return "ell" if self.ell else "dedup" if self.dedup else "takes"
 
     # ------------------------------------------------------------- tables
     def table(self, name: str):
@@ -338,7 +386,9 @@ class TGCN(nn.Module):
         cfg = self.cfg
         eu, ei, et = self.embed
         wide = eu.dtype
-        tdt = torch.bfloat16 if cfg.adj_dtype == "bf16" else wide
+        # the EdgeMap tier keeps its tables in the model's float type
+        tdt = (torch.bfloat16 if cfg.adj_dtype == "bf16" and not self.ell
+               else wide)
         ew0 = torch.cat([self.weight.new_zeros((1, cfg.dim_weight)),
                          self.weight]).to(tdt)
         outs_u, outs_i, outs_t = [eu], [ei], [et]
@@ -356,7 +406,11 @@ class TGCN(nn.Module):
                 tabs = {name: self.table(name) for name in REL_ORDER}
             agg = {}
             for name, (ap, ev, ej) in plan.items():
-                if self.dedup:
+                if self.ell:
+                    agg[name] = _atten1_em(ap, ev, ej, ew0,
+                                           self.edges[f"{name}_j"],
+                                           self.edges[f"{name}_w"])
+                elif self.dedup:
                     agg[name] = _atten1_dedup(ap, ev, ej, ew0,
                                               *self.buckets(name))
                 else:

@@ -44,27 +44,13 @@ def dense_mask_host(rows, cols, n_rows: int, n_cols: int) -> np.ndarray:
     return m
 
 
-def check_dense(adj_mode: str, n_rows: int, n_cols: int):
-    """Raise for the tiers the port has not got: ``adj_mode="ell"``, and a
-    graph over the dense budget, need the EdgeMap tier (A17)."""
-    if adj_mode == "ell":
-        raise NotImplementedError(
-            "adj_mode='ell' needs the EdgeMap tier (ROADMAP.md A17)")
-    if not use_dense(adj_mode, n_rows, n_cols):
-        raise NotImplementedError(
-            f"a {n_rows} x {n_cols} adjacency is over the dense budget of "
-            f"{DENSE_ADJ_BUDGET_BYTES} bytes and needs the EdgeMap tier "
-            "(ROADMAP.md A17)")
-
-
 def routing_masks(coo, adj_mode: str, device
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The dense tier's bool edge mask of ``coo`` on ``device``, and the
     contiguous transpose that ``routed_mm``'s backward sweeps: None where
     the host finds the mask symmetric (the mask is then its own transpose,
     with no second buffer), and under ``dense_xla``, whose backward is
-    autograd's.  Raises for the tiers the port has not got."""
-    check_dense(adj_mode, *coo.shape)
+    autograd's."""
     mask = dense_mask_host(coo.row, coo.col, *coo.shape)
     mask_t = None
     if adj_mode != "dense_xla" and not np.array_equal(mask, mask.T):

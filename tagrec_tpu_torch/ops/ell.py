@@ -140,6 +140,71 @@ def build_ell_buckets(row, col, val, n_rows: int, n_cols: int,
                           n_rows=n_rows, n_cols=n_cols)
 
 
+def build_ell_buckets_slots(row, col, val, n_rows: int, n_cols: int,
+                            boundaries: Optional[Tuple[int, ...]] = None,
+                            pad_multiple: int = 8):
+    """``build_ell_buckets`` that also tracks where each edge lands ->
+    (EllBucketsHost, slot_of_edge): ``slot_of_edge[e]`` is the flat
+    position of input edge e in the concatenation of the bucket tables,
+    each bucket row-major [Nb * Kb].  ``ops.edgemap`` builds its
+    forward/transpose slot maps on it.
+
+    Rows of degree 0 get a bucket of their own of width 0, not the first
+    bucket's width: in a keyed row space ((relation, node) keys) most rows
+    are empty, and padding each to 8 slots would dominate the tables."""
+    row = np.asarray(row, dtype=np.int64)
+    col = np.asarray(col, dtype=np.int64)
+    val = np.asarray(val, dtype=np.float32)
+    n_edges = len(row)
+    deg = np.bincount(row, minlength=n_rows)
+    order = np.argsort(row, kind="stable")
+    row_s, col_s, val_s = row[order], col[order], val[order]
+    if boundaries is None:
+        boundaries = auto_boundaries(deg)
+    bounds = list(boundaries) + [max(int(deg.max()) if n_edges else 1, 1)]
+    # each (row-sorted) edge's slot within its row
+    starts = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(deg, out=starts[1:])
+    slot_in_row = np.arange(n_edges, dtype=np.int64) - starts[row_s]
+
+    buckets, rows_list = [], []
+    zero_rows = np.flatnonzero(deg == 0)
+    if len(zero_rows):
+        buckets.append(EllHost(idx=np.zeros((len(zero_rows), 0), np.int32),
+                               val=np.zeros((len(zero_rows), 0), np.float32),
+                               deg=np.zeros(len(zero_rows), np.int32),
+                               n_cols=n_cols))
+        rows_list.append(zero_rows)
+    slot_of_sorted = np.zeros(n_edges, dtype=np.int64)
+    offset, lo = 0, 0
+    for b in bounds:
+        sel = np.flatnonzero((deg > lo) & (deg <= b))
+        lo = b
+        if len(sel) == 0:
+            continue
+        local_of = np.full(n_rows, -1, dtype=np.int64)
+        local_of[sel] = np.arange(len(sel))
+        e_sel = local_of[row_s] >= 0
+        local_rows = local_of[row_s[e_sel]]
+        h = build_ell(local_rows, col_s[e_sel], val_s[e_sel], len(sel),
+                      n_cols, pad_multiple=pad_multiple)
+        k = h.idx.shape[1]
+        slot_of_sorted[e_sel] = offset + local_rows * k + slot_in_row[e_sel]
+        offset += len(sel) * k
+        buckets.append(h)
+        rows_list.append(sel)
+        if len(deg) and b >= deg.max():
+            break
+    perm = (np.concatenate(rows_list) if rows_list
+            else np.zeros(0, dtype=np.int64))
+    inv_perm = np.empty(n_rows, dtype=np.int64)
+    inv_perm[perm] = np.arange(n_rows)
+    slot_of_edge = np.empty(n_edges, dtype=np.int64)
+    slot_of_edge[order] = slot_of_sorted
+    return (EllBucketsHost(buckets=buckets, rows=rows_list, inv_perm=inv_perm,
+                           n_rows=n_rows, n_cols=n_cols), slot_of_edge)
+
+
 # ------------------------------------------------- hybrid and dense forms
 
 class HybridHost(NamedTuple):

@@ -221,10 +221,8 @@ def test_ported_models_and_tiers_run(tmp_path, argv):
 
 
 @pytest.mark.parametrize("argv, error, match", [
-    (["--model", "tgcn", "--adj_mode", "ell"], NotImplementedError, "A17"),
     (["--dp", "2"], NotImplementedError, "A18"),
     (["--mp", "2"], NotImplementedError, "A18"),
-    (["--model", "dgcf", "--adj_mode", "ell"], NotImplementedError, "A17"),
     (["--model", "nosuch"], ValueError, "unknown model"),
     (["--dataset", "missing_dir"], FileNotFoundError, "train.txt"),
 ])

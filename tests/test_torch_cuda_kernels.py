@@ -820,3 +820,88 @@ def test_tgcn_auto_on_the_card_matches_the_cpu(cuda):
     _card_against_cpu(lambda dev: model_class("tgcn")(
         g, model_preset("tgcn", reg=1e-4), device=dev,
         generator=torch.Generator().manual_seed(3)), batch)
+
+
+# ------------------------------------------ the EdgeMap tier (gather_reduce)
+
+def _wide_edgemap(device):
+    """An EdgeMap of 400 rows over 3,000 columns: row 0 with 2,500 edges
+    (past WIDE_K and SPAN: blocks of 8 warps, split across blocks), rows
+    1..299 with a few each, rows 300..399 with none (a zero-width bucket)."""
+    from tagrec_tpu_torch.ops import edgemap
+
+    rng = np.random.default_rng(31)
+    rows = np.concatenate([np.zeros(2500, np.int64),
+                           rng.integers(1, 300, 3000)])
+    cols = np.concatenate([rng.permutation(3000)[:2500],
+                           rng.integers(0, 3000, 3000)])
+    host = edgemap.build_edge_map(rows, cols, None, 400, 3000)
+    assert host.f.buckets[0].idx.shape[1] == 0
+    return edgemap.to_device(host, device)
+
+
+@pytest.mark.cuda
+def test_edge_reduce_on_the_card_matches_plain_float64(cuda):
+    """``edge_reduce`` at D = 16 with a leading F = 4 axis launches
+    ``gather_reduce`` once per factor and non-empty bucket (the zero-width
+    bucket launches nothing) and matches its plain version evaluated in
+    float64 on the CPU; its backward (d x over the transpose tables, two
+    launch sets; d vals by gathers) matches the plain backward in float64.
+    On a float64 CUDA tensor it raises rather than fall back."""
+    from tagrec_tpu_torch.ops import edgemap
+
+    em, em_cpu = _wide_edgemap(cuda), _wide_edgemap("cpu")
+    rng = np.random.default_rng(5)
+    vals = [rng.standard_normal((4,) + tuple(i.shape)) * m.numpy()
+            for i, m in zip(em_cpu.f_idx, em_cpu.masks())]
+    x = rng.standard_normal((4, 3000, 16))
+    g = rng.standard_normal((4, 400, 16))
+
+    def run(emap, dev, dtype):
+        v = [torch.tensor(a, dtype=dtype, device=dev, requires_grad=True)
+             for a in vals]
+        xt = torch.tensor(x, dtype=dtype, device=dev, requires_grad=True)
+        out = edgemap.edge_reduce(emap, tuple(v), xt)
+        out.backward(torch.tensor(g, dtype=dtype, device=dev))
+        return out.detach().cpu(), xt.grad.cpu(), [t.grad.cpu() for t in v]
+
+    before = dg.gather_reduce.launches
+    got = run(em, cuda, torch.float32)
+    torch.cuda.synchronize()
+    live_f = sum(1 for i in em.f_idx if i.shape[1])
+    live_b = sum(1 for i in em.b_idx if i.shape[1])
+    assert dg.gather_reduce.launches - before == 4 * (live_f + live_b)
+    want = run(em_cpu, "cpu", torch.float64)
+    torch.testing.assert_close(got[0].double(), want[0], rtol=RTOL,
+                               atol=ATOL)
+    torch.testing.assert_close(got[1].double(), want[1], rtol=5e-4,
+                               atol=ATOL)
+    for a, b in zip(got[2], want[2]):
+        torch.testing.assert_close(a.double(), b, rtol=5e-4, atol=ATOL)
+    with pytest.raises(TypeError, match="float32"):
+        edgemap.edge_reduce(em, tuple(torch.tensor(a, device=cuda)
+                                      for a in vals),
+                            torch.tensor(x, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dgcf", "disengcn", "disenhan", "kgat",
+                                  "tgcn"])
+def test_edgemap_tier_on_the_card_matches_the_cpu(cuda, name):
+    """Each model's ``adj_mode="ell"`` tier: forward and BPR gradients on
+    the card (``gather_reduce`` under ``edge_reduce``) against the CPU's,
+    from the same seeded weights."""
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.models import model_class
+
+    g = _small_graph()
+    batch = np.stack([np.arange(32) % g.n_user, np.arange(32) % g.n_item,
+                      (np.arange(32) * 7) % g.n_item], axis=1)
+    cfg = dict(adj_mode="ell", reg=1e-4)
+    if name == "kgat":
+        cfg["agg_type"] = "bi_inter"
+    before = dg.gather_reduce.launches
+    _card_against_cpu(lambda dev: model_class(name)(
+        g, model_preset(name, **cfg), device=dev,
+        generator=torch.Generator().manual_seed(3)), batch)
+    assert (dg.gather_reduce.launches > before) == (name != "tgcn")

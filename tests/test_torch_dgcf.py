@@ -132,15 +132,18 @@ def test_forward_launches_no_kernel_on_cpu():
 
 
 def test_unported_modes_and_models_raise():
-    """The EdgeMap tier (A17) and an unknown model raise (every model of
-    the JAX package is registered, TGCN since it was ported);
+    """An unknown model raises (every model of the JAX package is
+    registered, TGCN since it was ported); ``adj_mode="ell"``, which
+    raised until the EdgeMap tier was ported (A17), builds it (held
+    against JAX in test_torch_edgemap_models.py), with no mask;
     ``dense_xla`` builds the chunked dense tier (held against JAX in
     test_torch_dense_xla.py)."""
     graph = tsyn.synthetic_graph(**TINY)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="A17"):
-        model_class("dgcf")(graph, model_preset("dgcf", adj_mode="ell"),
-                            device="cpu", generator=gen)
+    model = model_class("dgcf")(graph, model_preset("dgcf", adj_mode="ell"),
+                                device="cpu", generator=gen)
+    assert not model.dense and model.mask is None
+    assert model.edges["em"].n_buckets > 1
     model = model_class("dgcf")(graph, model_preset("dgcf",
                                                     adj_mode="dense_xla"),
                                 device="cpu", generator=gen)

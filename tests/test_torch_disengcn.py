@@ -152,11 +152,16 @@ def test_evaluation_matches_jax_at_one_layer(tiny_graph):
 
 @pytest.mark.parametrize("mode,item", [("ell", "A17")])
 def test_unported_tiers_raise(mode, item):
+    """The tier that raised until its ROADMAP item (A17, the EdgeMap tier)
+    was ported now builds, with no mask (held against JAX in
+    test_torch_edgemap_models.py)."""
     graph = tsyn.synthetic_graph(**TINY)
-    with pytest.raises(NotImplementedError, match=item):
-        model_class("disengcn")(graph, model_preset("disengcn", adj_mode=mode),
-                                device="cpu",
-                                generator=torch.Generator().manual_seed(0))
+    model = model_class("disengcn")(graph, model_preset("disengcn",
+                                                        adj_mode=mode),
+                                    device="cpu",
+                                    generator=torch.Generator().manual_seed(0))
+    assert not model.dense and model.mask is None and model.maskT is None
+    assert model.edges["em"].n_buckets > 1
 
 
 def test_dense_xla_trains():

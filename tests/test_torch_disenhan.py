@@ -4,7 +4,7 @@ Two layers (``dim_layer_list=(64, 64)``) and reg 1e-3, JAX's params
 carried across: the forward at rtol 1e-4, atol 1e-5; the loss parts on
 JAX's first resampled batch at rtol 1e-4 and every parameter's gradient at
 rtol 5e-4, atol 1e-5; a 3-step Adam trajectory at rtol 5e-3.  Then the
-tiers the port has not got (A17) and a CPU pipeline that trains and
+EdgeMap tier's build (A17) and a CPU pipeline that trains and
 evaluates.
 """
 
@@ -75,17 +75,25 @@ def test_adam_trajectory_equals_jax(jax_run):
 @pytest.mark.parametrize("cfg", [dict(adj_mode="ell"), None])
 def test_the_edgemap_tier_raises(cfg, monkeypatch):
     """``adj_mode="ell"``, and a graph over the dense budget under
-    ``auto``, need the EdgeMap tier (A17)."""
+    ``auto``, which raised until the EdgeMap tier was ported (A17), build
+    it: six relation EdgeMaps and no mask (held against JAX in
+    test_torch_edgemap_models.py)."""
     from tagrec_tpu_torch.ops import dense_adj
 
     if cfg is None:
         monkeypatch.setattr(dense_adj, "DENSE_ADJ_BUDGET_BYTES", 1024)
         cfg = {}
-    with pytest.raises(NotImplementedError, match="A17"):
-        model_class("disenhan")(tsyn.synthetic_graph(**TINY),
-                                model_preset("disenhan", **cfg),
-                                device="cpu",
-                                generator=torch.Generator().manual_seed(0))
+    model = model_class("disenhan")(tsyn.synthetic_graph(**TINY),
+                                    model_preset("disenhan", **cfg),
+                                    device="cpu",
+                                    generator=torch.Generator().manual_seed(0))
+    assert not model.dense and not list(model.named_buffers(
+        recurse=False))
+    graph = tsyn.synthetic_graph(**TINY)
+    for (src, dst), em in zip(REL_TYPES, model.masks()):
+        sizes = (graph.n_user, graph.n_item, graph.n_tag)
+        assert em.f_inv.shape == (sizes[src],)
+        assert em.b_inv.shape == (sizes[dst],)
 
 
 def test_pipeline_trains_and_evaluates():

@@ -8,7 +8,7 @@ KG model on the relation-dense tier (2 layers at narrow widths, JAX's
 params carried across) match JAX's forward at rtol 1e-4, atol 1e-5, its
 gradients at rtol 5e-4 and a 3-step Adam trajectory (BPR, BPR, TransE) at
 rtol 5e-3; the bf16 score planes at rtol 2e-3, atol 1e-4.  A KG with
-parallel (h, t) edges needs the EdgeMap tier and raises (A17).  JAX's
+parallel (h, t) edges takes the EdgeMap tier.  JAX's
 steps are jitted in one module fixture.
 """
 
@@ -297,8 +297,10 @@ def test_bf16_score_planes_equal_jax(jax_run):
 
 def test_parallel_edges_raise_a17():
     """One (h, t) pair under two relations cannot share a cell: JAX falls
-    back to the EdgeMap tier, which the port has not got; so does
-    ``adj_mode="ell"``."""
+    back to the EdgeMap tier, and so does the port since the tier was
+    ported (A17; this raised before), as under ``adj_mode="ell"``: the two
+    maps and their slot tables, no ``rel_id`` (held against JAX in
+    test_torch_edgemap_models.py)."""
     graph = tsyn.synthetic_graph(**TINY)
     kg = KnowledgeGraph.synthetic(graph, **KG)
     h, r, t = kg.kg_data[0]
@@ -308,8 +310,11 @@ def test_parallel_edges_raise_a17():
     for cfg, g in ((model_preset("kgat", **CFG), kg),
                    (model_preset("kgat", **CFG, adj_mode="ell"),
                     KnowledgeGraph.synthetic(graph, **KG))):
-        with pytest.raises(NotImplementedError, match="A17"):
-            model_class("kgat")(graph, cfg, device="cpu", generator=gen, kg=g)
+        m = model_class("kgat")(graph, cfg, device="cpu", generator=gen,
+                                kg=g)
+        assert not m.kg_rel_dense and not m.dense
+        assert {n.split("_")[0] for n, _ in m.named_buffers()} == {
+            "edges.em", "edges.emk", "edges.k2n", "edges.n2k"}
     # quirk #3 builds nothing, so nothing raises
     m = model_class("kgat")(graph, model_preset("kgat", dim_latent=16,
                                                 dim_relation=16),

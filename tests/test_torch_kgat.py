@@ -181,15 +181,19 @@ def test_bi_agg_returns_ego_tables_without_masks(jax_run):
 
 
 def test_unported_tiers_raise():
-    """The EdgeMap tier (A17) raises, and so does a knowledge graph with
-    parallel (h, t) edges, which needs it; ``dense_xla`` builds the joint
-    [N, N] mask instead of the flash masks (held against JAX in
+    """The EdgeMap tier, which raised until it was ported (A17), builds
+    under ``adj_mode="ell"``, and over a knowledge graph with parallel
+    (h, t) edges, which needs it (held against JAX in
+    test_torch_edgemap_models.py); ``dense_xla`` builds the joint [N, N]
+    mask instead of the flash masks (held against JAX in
     test_torch_dense_xla.py)."""
     graph = tsyn.synthetic_graph(**TINY)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="A17"):
-        model_class("kgat")(graph, model_preset("kgat", **CFG, adj_mode="ell"),
-                            device="cpu", generator=gen)
+    model = model_class("kgat")(graph, model_preset("kgat", **CFG,
+                                                    adj_mode="ell"),
+                                device="cpu", generator=gen)
+    assert not model.dense and not model.flash
+    assert model.edges["emk"].f_idx[0].shape[1] == 0  # the empty keys
     model = model_class("kgat")(graph, model_preset("kgat", **CFG,
                                                     adj_mode="dense_xla"),
                                 device="cpu", generator=gen)
@@ -201,9 +205,10 @@ def test_unported_tiers_raise():
     h, r, t = kg.kg_data[0]
     kg.kg_data = np.concatenate([kg.kg_data, [[h, (r + 1) % 3, t]]])
     kg._finish_init()
-    with pytest.raises(NotImplementedError, match="A17"):
-        model_class("kgat")(graph, model_preset("kgat", **CFG), device="cpu",
-                            generator=gen, kg=kg)
+    model = model_class("kgat")(graph, model_preset("kgat", **CFG),
+                                device="cpu", generator=gen, kg=kg)
+    assert not model.kg_rel_dense and not model.dense
+    assert model.edges["em"].f_inv.shape == (graph.n_user + 120,)
 
 
 def test_entry_points_default_to_the_card():

@@ -334,8 +334,16 @@ def test_resample_each_layer_invariants():
 
 
 def test_ell_raises_a17():
-    with pytest.raises(NotImplementedError, match="A17"):
-        _model("ell")
+    """``adj_mode="ell"``, which raised until the EdgeMap tier was ported
+    (A17), builds two EdgeMaps a relation with every row k slots wide
+    (held against JAX in test_torch_edgemap_models.py)."""
+    model = _model("ell")
+    assert model.ell and not model.dedup
+    for name in tgcn.REL_ORDER:
+        for part in ("j", "w"):
+            em = model.edges[f"{name}_{part}"]
+            assert [tuple(i.shape) for i in em.f_idx] == [
+                (model.table(name)[0].shape[0], model.cfg.neighbor_k)]
 
 
 def test_transtag_loss_equals_jax():

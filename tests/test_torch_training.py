@@ -218,16 +218,17 @@ def test_ngcf_and_disenhan_train(name):
 
 @pytest.mark.parametrize("name,label", [("tgcn", "A17")])
 def test_only_kgat_trains(name, label):
-    """Every family trains now (TGCN with its TransTag phase); what still
-    raises is a tier the port has not got, named by its ROADMAP label:
-    TGCN's EdgeMap tier (``adj_mode="ell"``)."""
+    """Every family trains now (TGCN with its TransTag phase), on every
+    tier: TGCN's EdgeMap tier (``adj_mode="ell"``, ROADMAP ``label``),
+    which raised until it was ported, builds both phases and steps."""
     graph = tsyn.synthetic_graph(**TINY)
-    pipe = build_pipeline(graph, model_preset(name), TrainConfig(),
-                          generator=torch.Generator().manual_seed(0),
-                          device="cpu")
-    assert [ph.name for ph in pipe.phases] == ["bpr", "transtag"]
-    with pytest.raises(NotImplementedError, match=label):
-        build_pipeline(graph, model_preset(name, adj_mode="ell"),
-                       TrainConfig(),
-                       generator=torch.Generator().manual_seed(0),
-                       device="cpu")
+    for cfg in ({}, {"adj_mode": "ell"}):
+        pipe = build_pipeline(graph, model_preset(name, **cfg),
+                              TrainConfig(),
+                              generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+        assert [ph.name for ph in pipe.phases] == ["bpr", "transtag"]
+    assert pipe.model.ell
+    trainer = Trainer(pipe.model, pipe.phases, TrainConfig(),
+                      generator=torch.Generator().manual_seed(0))
+    assert np.isfinite(trainer.run_epoch(max_steps=1)["bpr"]).all()
