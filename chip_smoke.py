@@ -123,8 +123,25 @@ Phases:
    float64 computation, 3 BPR and 3 TransE steps, one profiled; TGCN's
    ``ell`` tier in float64 against ``auto`` within 1e-9 of scale, its
    float32 forward held, and its BPR step profiled beside ``auto``'s;
-8. the ``kernels`` JSON line (launches summed over every path above;
-   ``gather_reduce`` with its ``edgemap`` record), then
+8. the capture phase (``capture_hold``), at the end of every training
+   path above, on its pipeline: DGCF and DisenGCN at hetrec, KGAT
+   ``bi_inter`` (BPR and TransE), LightGCN at hetrec (dense sectors) and
+   at 10x (hybrid, and with ``node_drop``), NGCF at hetrec, DisenHAN,
+   TGCN ``auto`` and ``ell`` (BPR and TransTag), DGCF 10x (EdgeMap) and
+   KGAT over the KG: from one snapshot of the parameters and the
+   generator, two eager runs and one captured run (the Trainer's CUDA
+   graph after its warm-up) of a few steps a phase; the captured
+   batches equal the eager ones bit for bit, its losses and parameters
+   too wherever the two eager runs agree, else within 4x
+   (``GRAD_FLOOR``) their difference, and the launch counts are equal;
+   then per phase ms a step eager against replayed (host clock,
+   synchronised), a phase's wall time with one sync at the end,
+   a replay's device busy, idle share and operations (profiler), the
+   capture's time and the peak memory; ``edge_reduce`` is also timed
+   replayed in a graph in phase E; every training run above goes
+   through the captured Trainer too (the CLI's as well);
+9. the ``kernels`` JSON line (launches summed over every path above,
+   replays counted; ``gather_reduce`` with its ``edgemap`` record), then
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check or exception exits non-zero before the last line.  With no
@@ -279,6 +296,234 @@ def training_steps(torch, trainer, phase, steps, label, on_launches=None):
           f"{sorted(times)[steps // 2]:.3f}; losses "
           f"{[round(float(v), 6) for v in losses.sum(axis=1)]}")
     return total
+
+
+# ------------------------------------------------------ the capture phase
+
+# steps of each run from one snapshot: WARMUP_STEPS eager, then the
+# capture and replays
+CAPTURE_STEPS = 5
+PHASE_BUDGET_S = 1.5   # a timed phase: the steps that fit, at least 4
+PROFILED_REPLAYS = 3
+CAPTURED = []          # one summary per path and phase, printed at the end
+
+
+def batch_leaves(b):
+    """A batch's tensors (a tensor, or dicts of them), in a fixed order."""
+    if isinstance(b, dict):
+        return [t for key in sorted(b) for t in batch_leaves(b[key])]
+    return [b]
+
+
+def recording(phase):
+    """-> (``phase`` whose make_batch also copies each batch into row i of
+    static [steps_per_epoch, ...] buffers, those buffers): a captured
+    run's batches, read back.  The buffers are made at the first call,
+    an eager one."""
+    import dataclasses
+
+    bufs = []
+
+    def make_batch(gen, i, state, data):
+        b = phase.make_batch(gen, i, state, data)
+        leaves = batch_leaves(b)
+        if not bufs:
+            bufs.extend(t.new_zeros((phase.steps_per_epoch,) + tuple(t.shape))
+                        for t in leaves)
+        for buf, t in zip(bufs, leaves):
+            buf.index_copy_(0, i, t[None])
+        return b
+
+    return dataclasses.replace(phase, make_batch=make_batch), bufs
+
+
+def capture_run(torch, model, phases, tcfg, snap, gen, gstate, capture):
+    """CAPTURE_STEPS steps of each of ``phases`` through a new Trainer
+    (its own Adam, fresh as in the snapshot), from the snapshot's
+    parameters and generator state, each step synchronised and timed."""
+    from tagrec_tpu_torch.training.train import COUNTED, Trainer
+
+    with torch.no_grad():
+        for p, s in zip(model.parameters(), snap):
+            p.copy_(s)
+    gen.set_state(gstate)
+    recs = [recording(ph) for ph in phases]
+    trainer = Trainer(model, [ph for ph, _ in recs], tcfg, generator=gen,
+                      capture=capture)
+    before = [f.launches for f in COUNTED]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = {}, {}
+    for ph, _ in recs:
+        times, last = [], [0.0]
+
+        def on_step(i, parts):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            times.append((now - last[0]) * 1e3)
+            last[0] = now
+
+        torch.cuda.synchronize()
+        last[0] = time.perf_counter()
+        losses[ph.name] = torch.from_numpy(trainer.run_phase(
+            ph, max_steps=CAPTURE_STEPS, on_step=on_step))
+        ms[ph.name] = times
+    return {"trainer": trainer, "phases": [ph for ph, _ in recs],
+            "losses": losses, "ms": ms,
+            "launches": {f.__name__: f.launches - b
+                         for f, b in zip(COUNTED, before)},
+            "params": [p.detach().clone() for p in model.parameters()],
+            "batches": {ph.name: [t.clone() for t in bufs]
+                        for ph, bufs in recs},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def capture_rule(torch, got, a, b):
+    """The hold of a captured tensor ``got`` against the eager run ``a``:
+    bit for bit where ``a`` equals the second eager run ``b``, else within
+    GRAD_FLOOR times their difference -> (ok, |got - a|, |b - a|)."""
+    got_err = float((got - a).abs().max()) if got.numel() else 0.0
+    if torch.equal(a, b):
+        return torch.equal(got, a), got_err, 0.0
+    spread = float((b - a).abs().max())
+    return got_err <= GRAD_FLOOR * spread, got_err, spread
+
+
+def replay_profile(torch, graph, reps):
+    """(device busy ms, idle share, device operations) per replay of
+    ``graph``, from torch.profiler over ``reps`` replays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    dev = [e for e in events if on_device(e)]
+    if not dev:
+        return None, None, 0
+    span_us = (max(e.time_range.end for e in events)
+               - min(e.time_range.start for e in events))
+    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+    return busy_us / reps / 1e3, 1 - busy_us / span_us, len(dev) / reps
+
+
+def phase_wall_ms(torch, trainer, phase, steps):
+    """Host ms of ``steps`` steps of ``phase`` with one synchronisation,
+    at the end (``run_phase`` reads the losses back once)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.run_phase(phase, max_steps=steps)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def capture_hold(torch, label, model, phases, tcfg):
+    """The capture phase on one path: from one snapshot of the parameters
+    (Adam fresh) and of the generator, two eager runs and one captured run
+    of CAPTURE_STEPS steps of each phase.  The captured batches must equal
+    the first eager run's bit for bit; its losses and parameters must equal
+    them bit for bit wherever the two eager runs agree, else lie within
+    GRAD_FLOOR times their difference; the launch counts must be equal.
+    Then per phase: ms a step (host clock, synchronised), eager against
+    the replays; a phase's wall time with one sync at the end (as many
+    steps as fit PHASE_BUDGET_S, or all of them); device busy, idle share
+    and operations a replay (profiler); capture time; peak memory."""
+    import statistics
+
+    from tagrec_tpu_torch.training.train import WARMUP_STEPS
+
+    done = phase_timer(f"capture {label}")
+    snap = [p.detach().clone() for p in model.parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    gstate = gen.get_state()
+    a, b, c = (capture_run(torch, model, phases, tcfg, snap, gen, gstate,
+                           capture) for capture in (False, False, True))
+    ok = a["launches"] == c["launches"] == b["launches"]
+    print(f"capture {label}: launches eager {a['launches']}, captured "
+          f"{c['launches']} {'equal' if ok else 'DIFFER'}")
+    for name in a["batches"]:
+        same = all(torch.equal(x, y) for x, y in zip(a["batches"][name],
+                                                     c["batches"][name]))
+        ok &= same
+        print(f"capture {label} {name}: {CAPTURE_STEPS} batches bit for bit "
+              f"{'equal' if same else 'DIFFER'}")
+    worst = {"bitwise": 0, "spread": 0, "fail": []}
+    pairs = [(f"loss {k}", c["losses"][k], a["losses"][k], b["losses"][k])
+             for k in a["losses"]]
+    pairs += [(f"param {n}", pc, pa, pb) for n, pc, pa, pb in zip(
+        [n for n, _ in model.named_parameters()], c["params"], a["params"],
+        b["params"])]
+    for what, got, ea, eb in pairs:
+        held, err, spread = capture_rule(torch, got, ea, eb)
+        worst["bitwise" if spread == 0 else "spread"] += 1
+        if not held:
+            worst["fail"].append(f"{what}: |captured - eager| {err:.3e}, "
+                                 f"eager spread {spread:.3e}")
+    ok &= not worst["fail"]
+    print(f"capture {label}: {worst['bitwise']} of {len(pairs)} losses and "
+          f"parameters bit for bit (the eager runs agree), "
+          f"{worst['spread']} within {GRAD_FLOOR}x the eager spread; "
+          f"failures {worst['fail'][:6]}")
+    check(ok, f"capture {label}: the captured run disagrees with the eager")
+    del b
+    for ea, ca in zip(a["phases"], c["phases"]):
+        name = ea.name
+        run = c["trainer"].runs[name]
+        eager_ms = statistics.median(a["ms"][name][1:])
+        graph_ms = statistics.median(c["ms"][name][WARMUP_STEPS + 1:])
+        total = ea.steps_per_epoch
+        k_graph = min(total, max(4, int(PHASE_BUDGET_S * 1e3 / graph_ms)))
+        k_eager = min(k_graph, max(4, int(PHASE_BUDGET_S * 1e3 / eager_ms)))
+        wall_graph = phase_wall_ms(torch, c["trainer"], ca, k_graph)
+        wall_eager = phase_wall_ms(torch, a["trainer"], ea, k_eager)
+        run.counter.zero_()  # rows 0.. of the loss buffer: in range
+        busy, idle, ops = replay_profile(torch, run.graph,
+                                         min(PROFILED_REPLAYS, total))
+        row = {"path": label, "phase": name, "steps_per_epoch": total,
+               "eager_ms": eager_ms, "captured_ms": graph_ms,
+               "eager_phase_ms": wall_eager, "eager_phase_steps": k_eager,
+               "captured_phase_ms": wall_graph,
+               "captured_phase_steps": k_graph,
+               "busy_ms": busy, "idle": idle, "graph_ops": ops,
+               "capture_s": run.capture_s, "peak_gib": c["peak_gib"]}
+        CAPTURED.append(row)
+        print(f"capture {label} {name}: ms a step (host clock, synchronised) "
+              f"eager {eager_ms:.3f}, captured {graph_ms:.3f} "
+              f"({eager_ms / graph_ms:.2f}x); {k_graph} of {total} steps with "
+              f"one sync: captured {wall_graph:.1f} ms "
+              f"({wall_graph / k_graph:.3f} a step), eager {k_eager} steps "
+              f"{wall_eager:.1f} ms ({wall_eager / k_eager:.3f} a step); a "
+              f"replay: device busy {busy:.3f} ms, idle share {idle:.4f}, "
+              f"{ops:.0f} device operations (profiler on); capture "
+              f"{run.capture_s:.3f} s; peak device memory "
+              f"{c['peak_gib']:.3f} GiB")
+    del a, c
+    gc_cuda(torch)
+    done()
+
+
+def graph_ms(torch, fn, runs: int = 15):
+    """Median device time of one replay of ``fn`` captured in a CUDA graph
+    (CUDA events, as ``time_ms``): its launches without the host's cost.
+    The capture's launch counts are taken back."""
+    from tagrec_tpu_torch.training.train import COUNTED
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = [f.launches for f in COUNTED]
+    with torch.cuda.graph(graph):
+        fn()
+    for f, n in zip(COUNTED, before):
+        f.launches = n
+    ms = time_ms(torch, graph.replay, runs)
+    del graph
+    return ms
 
 
 def small_graph_grad_check(torch, label, make_model, cor=False):
@@ -743,7 +988,7 @@ def routed_training_phase(torch, fr, graph, name, want):
 def dgcf_training_phase(torch, fr, graph):
     """DGCF training on the hetrec graph, after the small-graph gradient
     check (with the distance-correlation term); returns its launches."""
-    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
     from tagrec_tpu_torch.models import model_class
 
     cfg = model_preset("dgcf", reg=1e-3, cor_reg=0.1)
@@ -753,6 +998,7 @@ def dgcf_training_phase(torch, fr, graph):
     pipe, total = routed_training_phase(
         torch, fr, graph, "dgcf",
         {"routed_rowsum": 6, "routed_mm": 6, "routed_mm_bwd": 3})
+    capture_hold(torch, "DGCF hetrec", pipe.model, pipe.phases, TrainConfig())
     del pipe
     torch.cuda.empty_cache()
     return total
@@ -768,7 +1014,7 @@ def disengcn_phase(torch, fr, graph, tmp):
     import numpy as np
 
     from tagrec_tpu_torch import serving
-    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
     from tagrec_tpu_torch.models import model_class
 
     cfg = model_preset("disengcn", reg=1e-3)
@@ -807,6 +1053,7 @@ def disengcn_phase(torch, fr, graph, tmp):
     check(all(len(res[k]) == 2 for k in ("recall", "precision", "hr", "ndcg"))
           and all(math.isfinite(v) for vs in res.values() for v in vs)
           and 0.0 < res["auc"][0] < 1.0, f"evaluation results {res}")
+    capture_hold(torch, "DisenGCN hetrec", model, pipe.phases, TrainConfig())
     del pipe, model
     torch.cuda.empty_cache()
     return {k: total[k] + exported[k] + evaluated[k] for k in ROUTING}
@@ -1299,12 +1546,18 @@ def lightgcn_training_phase(torch, dg, pipe, trainer, per_spmm):
                    {**GATHER_KERNEL_NAMES, "multi_tensor_apply": "adam (foreach)",
                     "gemm": "matmul (cuBLAS)"})
     # one step with edge dropout: the forward over the dropped adjacency's
-    # gather kernels, its backward the scatter-add (no kernel)
+    # gather kernels, its backward the scatter-add (no kernel); a Trainer
+    # of its own, since a captured step keeps the config it was captured
+    # with
+    from tagrec_tpu_torch.training.train import Trainer
+
     cfg = pipe.model.cfg
     pipe.model.cfg = cfg.replace(node_drop=NODE_DROP)
     reset_counts(dg, GATHER)
     dropped = training_steps(
-        torch, trainer, bpr, 1, f"LightGCN 10x BPR, node_drop {NODE_DROP}",
+        torch, Trainer(pipe.model, pipe.phases, trainer.cfg,
+                       generator=trainer.generator),
+        bpr, 1, f"LightGCN 10x BPR, node_drop {NODE_DROP}",
         launch_checker(dg, GATHER, {k: n_layer * v for k, v in
                                     per_spmm.items()}, "node_drop BPR"))
     pipe.model.cfg = cfg
@@ -1390,6 +1643,9 @@ def lightgcn_hetrec_dense(torch, dg, graph):
                    "LightGCN hetrec BPR step",
                    {"multi_tensor_apply": "adam (foreach)",
                     "gemm": "matmul (cuBLAS)"})
+    del trainer
+    capture_hold(torch, "LightGCN hetrec dense", pipe.model, pipe.phases,
+                 tcfg)
 
 
 def lightgcn_paths(torch, dg, hetrec_graph):
@@ -1426,7 +1682,14 @@ def lightgcn_paths(torch, dg, hetrec_graph):
     launches = {k: served[k] + trained[k] + evaluated[k] for k in GATHER}
     print(f"LightGCN 10x launches over the export, {LGCN_BPR_STEPS} BPR steps "
           f"and 2 evaluations: {launches}")
-    del pipe, trainer
+    del trainer
+    capture_hold(torch, "LightGCN 10x hybrid", pipe.model, pipe.phases, tcfg)
+    cfg = pipe.model.cfg
+    pipe.model.cfg = cfg.replace(node_drop=NODE_DROP)
+    capture_hold(torch, f"LightGCN 10x hybrid node_drop {NODE_DROP}",
+                 pipe.model, pipe.phases, tcfg)
+    pipe.model.cfg = cfg
+    del pipe
     gc_cuda(torch)
     lightgcn_small_graph_check(torch)
     ngcf = ngcf_10x_phase(torch, dg, graph, records)
@@ -1809,6 +2072,8 @@ def ngcf_hetrec_phase(torch, dg, graph, tmp):
           f"{json.dumps(res)}")
     check(all(math.isfinite(v) for vs in res.values() for v in vs)
           and 0.0 < res["auc"][0] < 1.0, f"NGCF evaluation results {res}")
+    del trainer
+    capture_hold(torch, "NGCF hetrec", pipe.model, pipe.phases, tcfg)
     del pipes, pipe
     gc_cuda(torch)
     done()
@@ -2065,7 +2330,9 @@ def disenhan_phase(torch, graph, tmp):
           f"{time.perf_counter() - t0:.3f} s (host clock) {json.dumps(res)}")
     check(all(math.isfinite(v) for vs in res.values() for v in vs)
           and 0.0 < res["auc"][0] < 1.0, f"DisenHAN evaluation results {res}")
-    del pipe, trainer
+    del trainer
+    capture_hold(torch, "DisenHAN", pipe.model, pipe.phases, tcfg)
+    del pipe
     gc_cuda(torch)
     done()
     return em_launches
@@ -2271,7 +2538,10 @@ def kg_phase(torch, graph, tmp):
             check(all(math.isfinite(v) for vs in res.values() for v in vs)
                   and 0.0 < res["auc"][0] < 1.0,
                   f"KGAT KG evaluation results {res}")
-        del pipe, model, trainer
+        del trainer
+        if dtype == "f32":
+            capture_hold(torch, "KGAT KG", model, pipe.phases, tcfg)
+        del pipe, model
         gc_cuda(torch)
     err = float((fwd["f32"] - fwd["bf16"]).abs().max())
     print(f"KGAT KG bf16 score planes against float32, same weights: max abs "
@@ -2488,7 +2758,9 @@ def tgcn_phase(torch, dg, graph, tmp, records):
     check(all(math.isfinite(v) for vs in res.values() for v in vs)
           and 0.0 < res["auc"][0] < 1.0, f"TGCN evaluation results {res}")
     tgcn_gather_timing(torch, dg, pipe.model, records)
-    del pipe, trainer
+    del trainer
+    capture_hold(torch, "TGCN auto", pipe.model, pipe.phases, tcfg)
+    del pipe
     gc_cuda(torch)
     tgcn_ell_steps(torch, graph, auto_busy)
     done()
@@ -2528,7 +2800,9 @@ def tgcn_ell_steps(torch, graph, auto_busy):
         print(f"TGCN BPR step device busy: ell {busy:.3f} ms, auto "
               f"{auto_busy:.3f} ms ({auto_busy / busy:.2f}x); the default "
               "stays auto, as in JAX")
-    del pipe, trainer
+    del trainer
+    capture_hold(torch, "TGCN ell", pipe.model, pipe.phases, tcfg)
+    del pipe
     gc_cuda(torch)
 
 
@@ -2944,6 +3218,7 @@ def edgemap_primitives_phase(torch, dg, graph, records):
     lib_err = float((lib().reshape(EM_F, n, EM_DK) - got).abs().max())
     ms = time_ms(torch, kern, runs=15)
     dev = device_ms(torch, kern)
+    in_graph = graph_ms(torch, kern)
     plain_ms = time_ms(torch, lambda: plain_edge_reduce(torch, dg, em, vals,
                                                         x), runs=5)
     lib_ms = time_ms(torch, lib, runs=15)
@@ -2951,7 +3226,8 @@ def edgemap_primitives_phase(torch, dg, graph, records):
     bound, by, gathered = edgemap_bound(em, EM_F, EM_DK)
     print(f"edge_reduce at DGCF hetrec (F={EM_F}, D={EM_DK}, {EM_F * live} "
           f"launches): kernel {ms:.4f} ms (median of 15), device "
-          f"{dev:.4f} ms; plain {plain_ms:.4f} ms; torch.sparse.mm "
+          f"{dev:.4f} ms, replayed in a CUDA graph {in_graph:.4f} ms (CUDA "
+          f"events); plain {plain_ms:.4f} ms; torch.sparse.mm "
           f"(block-diagonal CSR, differs by {lib_err:.3e}) {lib_ms:.4f} ms, "
           f"device {lib_dev:.4f} ms; bound {bound:.4f} ms ({by}); its "
           f"gathered rows at the memory rate {gathered:.4f} ms")
@@ -2959,7 +3235,8 @@ def edgemap_primitives_phase(torch, dg, graph, records):
         "shape": (f"edge_reduce over DGCF's hetrec EdgeMap: F={EM_F}, "
                   f"D={EM_DK}, {edges} edges, buckets {', '.join(shapes)}"),
         "launches_per_call": EM_F * live, "max_abs_err": err, "ms": ms,
-        "device_ms": dev, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "device_ms": dev, "graph_ms": in_graph, "plain_ms": plain_ms,
+        "library_ms": lib_ms,
         "library_device_ms": lib_dev, "bound_ms": bound, "bound_by": by}
     del em, em_cpu, vals, x, lib_a
     gc_cuda(torch)
@@ -3122,12 +3399,15 @@ def edgemap_10x_holds(torch, dg, em, f, d, live):
     gc_cuda(torch)
     kern = lambda: edgemap.edge_reduce(em, vals, x)  # noqa: E731
     ms, dev = time_ms(torch, kern, runs=15), device_ms(torch, kern)
+    in_graph = graph_ms(torch, kern)
     bound, by, gathered = edgemap_bound(em, f, d)
     print(f"edge_reduce at DGCF 10x ({f * live} launches): kernel {ms:.4f} "
-          f"ms (median of 15), device {dev:.4f} ms; bound {bound:.4f} ms "
+          f"ms (median of 15), device {dev:.4f} ms, replayed in a CUDA graph "
+          f"{in_graph:.4f} ms (CUDA events); bound {bound:.4f} ms "
           f"({by}); its gathered rows at the memory rate {gathered:.4f} ms")
     return {"max_abs_err": err, "edge_dot_max_abs_err": dot_err, "ms": ms,
-            "device_ms": dev, "bound_ms": bound, "bound_by": by}
+            "device_ms": dev, "graph_ms": in_graph, "bound_ms": bound,
+            "bound_by": by}
 
 
 def dgcf_10x_phase(torch, dg, graph, records, tmp):
@@ -3210,7 +3490,9 @@ def dgcf_10x_phase(torch, dg, graph, records, tmp):
           f"DGCF 10x tables {u_t.shape} {i_t.shape}, or not finite")
     serve_requests(torch, graph, u_t, i_t, tmp, "dgcf_10x")
     f_, d_ = cfg.factor_k, model.dim_k
-    del pipe, model, trainer
+    del trainer
+    capture_hold(torch, "DGCF 10x EdgeMap", model, pipe.phases, tcfg)
+    del pipe, model
     gc_cuda(torch)
     records["gather_reduce"]["edgemap"]["dgcf_10x"] = dict(
         edges=edges, slots=slots, launches_per_forward=per_fwd,
@@ -3235,6 +3517,7 @@ def run(torch):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    CAPTURED.clear()
     card = gpu_name_and_limit()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3295,6 +3578,7 @@ def run(torch):
     print(f"KGAT launches over the export and the {KGAT_BPR_STEPS} + "
           f"{KGAT_TRANSE_STEPS} steps: {launches}")
     kgat_small_graph_check(torch)
+    capture_hold(torch, "KGAT bi_inter", pipe.model, pipe.phases, tcfg)
     del pipe, trainer
     gc_cuda(torch)
 
@@ -3333,6 +3617,10 @@ def run(torch):
     print(f"routing launches over the CLI's runs A, B and C: {cli}; over "
           f"every path: { {k: launches[k] for k in ROUTING} }")
 
+    print(f"capture phase, every path ({card}): {json.dumps(CAPTURED)}")
+    slower = [f"{r['path']} {r['phase']}" for r in CAPTURED
+              if r["captured_ms"] > r["eager_ms"]]
+    print(f"captured steps slower than eager: {slower or 'none'}")
     apply = records["dot_flash_apply"]
     print(f"dot_flash_apply per KGAT forward: kernel {apply['ms']:.4f} ms, "
           f"scaled_dot_product_attention {apply['library_ms']:.4f} ms "

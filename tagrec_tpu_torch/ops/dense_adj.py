@@ -60,11 +60,14 @@ def routing_masks(coo, adj_mode: str, device
 
 def _row_map(fn, n: int, chunk: int, *, remat: bool = True):
     """[fn(start, stop) for each row chunk], each chunk recomputed in the
-    backward rather than saved (``remat``)."""
+    backward rather than saved (``remat``).  No chunk draws a random
+    number, so the recompute needs no RNG state stashed (reading it would
+    break a CUDA graph's capture)."""
     outs = []
     for i in range(0, n, chunk):
         stop = min(i + chunk, n)
-        outs.append(checkpoint(fn, i, stop, use_reentrant=False) if remat
+        outs.append(checkpoint(fn, i, stop, use_reentrant=False,
+                               preserve_rng_state=False) if remat
                     else fn(i, stop))
     return outs
 

@@ -263,9 +263,11 @@ def _lead(what: str, a: torch.Tensor, b: torch.Tensor) -> tuple:
 
 def _row_chunks(body, n: int, chunk: int) -> torch.Tensor:
     """body(start, stop) over row chunks, concatenated on axis -2; each
-    chunk recomputed in the backward rather than saved."""
+    chunk recomputed in the backward rather than saved; no chunk draws a
+    random number, so no RNG state is stashed (graph-safe)."""
     remat = torch.is_grad_enabled()
-    outs = [checkpoint(body, i, min(i + chunk, n), use_reentrant=False)
+    outs = [checkpoint(body, i, min(i + chunk, n), use_reentrant=False,
+                       preserve_rng_state=False)
             if remat else body(i, min(i + chunk, n))
             for i in range(0, n, chunk)]
     return torch.cat(outs, dim=-2)

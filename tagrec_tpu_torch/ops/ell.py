@@ -34,6 +34,11 @@ class Ell(NamedTuple):
     idx: torch.Tensor  # [N, K] int32
     val: torch.Tensor  # [N, K] float32
     deg: torch.Tensor  # [N] int32
+    # [E] the real slots' flat positions n * K + k, row-major (int32 while
+    # N * K < 2**31): found once on the host, so that a scatter over the
+    # real slots (``propagate.ell_mm_t``) has fixed shapes and reads
+    # nothing back
+    live: torch.Tensor
 
 
 def _round_up(x: int, m: int) -> int:
@@ -63,6 +68,17 @@ def build_ell(row, col, val, n_rows: int, n_cols: int, pad_multiple: int = 8,
     idx[row, slot] = col.astype(np.int32)
     v[row, slot] = val.astype(np.float32)
     return EllHost(idx=idx, val=v, deg=deg, n_cols=n_cols)
+
+
+def live_slots(h: EllHost) -> np.ndarray:
+    """[E] the flat positions n * K + k of ``h``'s real slots (k < deg[n]),
+    row-major; int32 while N * K < 2**31, else int64."""
+    n, k = h.idx.shape
+    deg = h.deg.astype(np.int64)
+    rows = np.repeat(np.arange(n, dtype=np.int64), deg)
+    first = np.cumsum(deg) - deg
+    live = rows * k + (np.arange(len(rows), dtype=np.int64) - first[rows])
+    return live.astype(np.int32 if n * k < 2**31 else np.int64)
 
 
 def ell_from_coo(coo, pad_multiple: int = 8,
@@ -435,5 +451,6 @@ def to_device(h, device):
                           inv_perm=_ids(h.inv_perm, max(n_out, 1), device))
     if isinstance(h, EllHost):
         return Ell(idx=_ids(h.idx, h.n_cols, device), val=_f32(h.val, device),
-                   deg=torch.as_tensor(h.deg.astype(np.int32), device=device))
+                   deg=torch.as_tensor(h.deg.astype(np.int32), device=device),
+                   live=torch.as_tensor(live_slots(h), device=device))
     raise TypeError(f"no device form for {type(h).__name__}")

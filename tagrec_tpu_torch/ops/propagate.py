@@ -95,18 +95,21 @@ def ell_mm_t(ell: ell_lib.Ell, g: torch.Tensor, n_cols: int,
              budget: int = GATHER_BUDGET_BYTES) -> torch.Tensor:
     """A^T @ g for one ELL table: each real slot (k < deg[n]) adds
     val[n, k] * g[n] into row idx[n, k] of the [n_cols, D] result, by
-    ``index_add_`` over row chunks whose [edges, D] terms fit ``budget``."""
-    n, k = ell.idx.shape
+    ``index_add_`` over chunks of the real slots (``ell.live``, found once
+    on the host) whose [slots, D] terms fit ``budget``, in row-major order.
+    Its shapes are fixed when the table is built and it reads nothing
+    back to the host, so a CUDA graph can hold it."""
+    k = ell.idx.shape[1]
     d = g.shape[1]
     out = g.new_zeros((n_cols, d))
-    chunk = max(budget // max(k * d * g.element_size(), 1), 1)
-    slots = torch.arange(k, device=g.device)
-    for i in range(0, n, chunk):
-        r, s = torch.nonzero(slots[None, :] < ell.deg[i:i + chunk, None],
-                             as_tuple=True)
-        cols = ell.idx[i:i + chunk][r, s].long()
-        out.index_add_(0, cols, ell.val[i:i + chunk][r, s][:, None]
-                       * g[i + r])
+    chunk = max(budget // max(d * g.element_size(), 1), 1)
+    idx, val = ell.idx.reshape(-1), ell.val.reshape(-1)
+    for i in range(0, ell.live.shape[0], chunk):
+        live = ell.live[i:i + chunk]
+        rows = torch.div(live, k, rounding_mode="floor")
+        out.index_add_(0, idx.index_select(0, live).long(),
+                       val.index_select(0, live)[:, None]
+                       * g.index_select(0, rows))
     return out
 
 
@@ -262,5 +265,4 @@ def edge_dropout(adj, rate: float, generator: torch.Generator,
             parts=tuple(edge_dropout(p, rate, generator, training)
                         for p in adj.parts),
             inv_perm=adj.inv_perm)
-    return ell_lib.Ell(idx=adj.idx, val=_drop(adj.val, keep, generator),
-                       deg=adj.deg)
+    return adj._replace(val=_drop(adj.val, keep, generator))

@@ -23,7 +23,9 @@ parameter that Adam has not stepped yet written as count 0 with zero
 moments (and restored with no state); under ``"global"`` optax.adam's
 ``(ScaleByAdamState(count, mu, nu), EmptyState())``, one count.  Restoring
 checks the sidecar's treedef string against the one expected, as JAX's
-``load`` does.
+``load`` does.  A capturable Adam's count is restored onto the
+parameter's device, and into the state tensors already there, in place,
+so that a captured step keeps reading them.
 """
 
 from __future__ import annotations
@@ -200,6 +202,8 @@ def save_train_state(path: str, model: nn.Module,
     for n in names:
         p = params[n]
         st = opt.state.get(p) or {}
+        # a capturable Adam's count lies on the device: read back here,
+        # between steps, never inside a captured one
         counts.append(int(st["step"]) if st else 0)
         for out, key in ((mus, "exp_avg"), (nus, "exp_avg_sq")):
             out.append(st[key].detach().cpu().numpy() if st else
@@ -256,13 +260,24 @@ def restore_train_state(path: str, model: nn.Module,
                              f"!= the parameter's {tuple(params[name].shape)}")
     params_from_jax(model, _tree_of(dict(zip(names,
                                              leaves[n_counts + 2 * n:-1]))))
+    capturable = opt.param_groups[0]["capturable"]
     for name, c, mu, nu in zip(names, counts, mus, nus):
         p = params[name]
-        opt.state.pop(p, None)
-        if c > 0:  # torch keeps an unfused Adam's step on the host
-            opt.state[p] = {
-                "step": torch.tensor(float(c), dtype=torch.float32),
-                "exp_avg": torch.tensor(mu, dtype=p.dtype, device=p.device),
-                "exp_avg_sq": torch.tensor(nu, dtype=p.dtype,
-                                           device=p.device)}
+        if c == 0:
+            opt.state.pop(p, None)
+            continue
+        # torch keeps an unfused Adam's step on the host, a capturable
+        # one's on the parameter's device
+        new = {"step": torch.tensor(float(c), dtype=torch.float32,
+                                    device=p.device if capturable else None),
+               "exp_avg": torch.tensor(mu, dtype=p.dtype, device=p.device),
+               "exp_avg_sq": torch.tensor(nu, dtype=p.dtype, device=p.device)}
+        old = opt.state.get(p)
+        if old is not None and old.keys() == new.keys():
+            # in place: a captured step holds these tensors' addresses
+            with torch.no_grad():
+                for key, t in new.items():
+                    old[key].copy_(t)
+        else:
+            opt.state[p] = new
     return int(leaves[-1])

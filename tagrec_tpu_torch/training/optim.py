@@ -11,6 +11,11 @@ parameter updated every step.  The same ``torch.optim.Adam`` gives it when
 every parameter holds a gradient at every step, a zero one where the phase
 does not reach it (``fill_missing_grads``), so that every per-parameter
 count advances together.
+
+On the card the Adam is ``capturable``: its step counts live on the device
+and its update reads no value back to the host, so a CUDA graph can hold
+it.  The Trainer's eager steps on the card use the same Adam, so an eager
+and a captured run differ only by the replay.
 """
 
 from __future__ import annotations
@@ -32,13 +37,16 @@ def check_impl(impl: str) -> str:
 
 def make_optimizer(params: Iterable[torch.nn.Parameter],
                    cfg: TrainConfig) -> torch.optim.Adam:
-    """One Adam at ``cfg.lr`` (betas 0.9, 0.999, eps 1e-8) over ``params``.
+    """One Adam at ``cfg.lr`` (betas 0.9, 0.999, eps 1e-8) over ``params``,
+    ``capturable`` when they lie on the card.
 
     Callers clear grads with ``zero_grad(set_to_none=True)``; under
     ``cfg.adam_impl == "global"`` they call ``fill_missing_grads`` after
     the backward."""
     check_impl(cfg.adam_impl)
-    return torch.optim.Adam(params, lr=cfg.lr)
+    params = list(params)
+    on_card = any(p.device.type == "cuda" for p in params)
+    return torch.optim.Adam(params, lr=cfg.lr, capturable=on_card)
 
 
 def fill_missing_grads(opt: torch.optim.Optimizer) -> None:

@@ -4,35 +4,59 @@ An epoch runs the model's phases in order (BPR for LightGCN; BPR, then
 TransE for KGAT; DGCF and DisenGCN's resampling BPR), all stepping ONE
 shared Adam.  Batches have fixed shapes: steps = E // batch and the
 remainder is dropped (the resampling phase takes its step count from the
-caller).  Sampling (shuffles,
-negatives) runs on the tables' device from one ``torch.Generator``.  The
-step loop is plain Python; a step ends without a host sync, and the losses
-come back to the host once per phase.  ``Trainer.run`` adds the periodic
-evaluation, the early stop, the metrics stream and the train-state file
-that a run resumes from.
+caller).  Sampling (shuffles, negatives) runs on the tables' device from
+one ``torch.Generator``.
+
+A step is graph-safe: its batch comes from a step counter that lives on
+the device (index arithmetic, not a slice by a Python int), its loss
+terms go into row ``counter`` of a static [steps, n_terms] buffer, and
+nothing in it reads a value back to the host.  On the card the Trainer
+runs each phase as JAX runs an epoch under one jit'd ``lax.scan``: a few
+eager warm-up steps, then ONE ``torch.cuda.CUDAGraph`` of the step
+(batch, loss, backward, Adam, loss row, counter), captured once per
+phase and replayed for every later step of every epoch.  On the CPU the
+same step body runs eagerly.  The losses come back to the host once per
+phase.  ``Trainer.run`` adds the periodic evaluation, the early stop,
+the metrics stream and the train-state file that a run resumes from.
 """
 
 from __future__ import annotations
 
 import os
 import time
+import traceback
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tagrec_tpu_torch.config import TrainConfig
+from tagrec_tpu_torch.ops import dma_gather, flash_attention, flash_routing
 from tagrec_tpu_torch.ops import sampling
 from tagrec_tpu_torch.training import checkpoint, optim
+
+# every kernel wrapper's launch counter; a replay runs no Python, so the
+# Trainer adds each graph's launches to them itself
+COUNTED = (flash_routing.routed_rowsum, flash_routing.routed_mm,
+           flash_routing.routed_mm_bwd, flash_attention.dot_flash_stats,
+           flash_attention.dot_flash_apply, flash_attention.dot_bwd_row,
+           flash_attention.dot_bwd_col, dma_gather.gather_reduce,
+           dma_gather.gather_rows)
+# eager steps a phase runs on the card before its capture: they initialise
+# cuBLAS, autograd and Adam's state, and are the epoch's first real steps
+WARMUP_STEPS = 2
 
 
 @dataclass
 class PhaseSpec:
     """One training phase.
 
-    epoch_reset(gen, data)           -> epoch state (e.g. shuffled edges)
-    make_batch(gen, i, state, data)  -> the batch of step i
+    epoch_reset(gen, data)           -> epoch state (None, a tensor or a
+                                        tuple of tensors, e.g. shuffled edges)
+    make_batch(gen, i, state, data)  -> the batch of step i; ``i`` is an int
+                                        or the [1] int64 step counter on the
+                                        device, read by index arithmetic only
     loss_fn(batch, gen)              -> tuple of scalar loss terms, summed for
                                         the gradient and logged apart
     """
@@ -52,16 +76,17 @@ def bpr_phase(name: str, edges: np.ndarray, pos_table: sampling.PosTable,
     positives."""
     batch = min(batch, len(edges))  # tiny datasets: one full batch
     steps = max(len(edges) // batch, 1)
+    device = pos_table.table.device
     data = {"edges": torch.as_tensor(np.asarray(edges, dtype=np.int64),
-                                     device=pos_table.table.device),
-            "pt": pos_table}
+                                     device=device),
+            "pt": pos_table, "offsets": torch.arange(batch, device=device)}
 
     def epoch_reset(gen, data):
         e = data["edges"]
         return e[torch.randperm(e.shape[0], generator=gen, device=e.device)]
 
     def make_batch(gen, i, shuffled, data):
-        sl = shuffled[i * batch:(i + 1) * batch]
+        sl = shuffled.index_select(0, i * batch + data["offsets"])
         users, pos = sl[:, 0], sl[:, 1]
         neg = sampling.sample_negatives(gen, data["pt"], users,
                                         rounds=neg_rounds)
@@ -131,7 +156,8 @@ def triple_phase(name: str, triples: np.ndarray, n_rel: int, n_ids: int,
     steps = max(len(triples) // batch, 1)
     data = {"trips": torch.as_tensor(np.asarray(triples, dtype=np.int64),
                                      device=device),
-            "keys": keys, "ts": ts}
+            "keys": keys, "ts": ts,
+            "offsets": torch.arange(batch, device=device)}
 
     def epoch_reset(gen, data):
         if window:  # quirk #5: no shuffle, ever
@@ -142,20 +168,80 @@ def triple_phase(name: str, triples: np.ndarray, n_rel: int, n_ids: int,
 
     def make_batch(gen, i, state, data):
         trips, tkeys = state
-        start = i if window else i * batch
+        rows = (i if window else i * batch) + data["offsets"]
         neg = sampling.sample_negatives_from_set(
-            gen, data["ts"], tkeys[start:start + batch], rounds=neg_rounds)
-        return torch.cat([trips[start:start + batch], neg[:, None]], dim=1)
+            gen, data["ts"], tkeys.index_select(0, rows), rounds=neg_rounds)
+        return torch.cat([trips.index_select(0, rows), neg[:, None]], dim=1)
 
     return PhaseSpec(name, steps, epoch_reset, make_batch, loss_fn, data)
 
 
+@dataclass
+class PhaseRun:
+    """One phase's static buffers, at the fixed addresses its CUDA graph
+    reads and writes, and the graph once captured.
+
+    counter:  [1] int64, the step index on the device
+    state:    the epoch state's static copy (``epoch_reset`` copied in)
+    losses:   [steps_per_epoch, n_terms], row i the loss terms of step i
+    warm:     eager steps run so far
+    graph:    the captured step, or None
+    launches: each ``COUNTED`` wrapper's launches in one replay
+    capture_s: the capture's host seconds
+    """
+
+    counter: torch.Tensor
+    state: object = None
+    losses: Optional[torch.Tensor] = None
+    warm: int = 0
+    graph: Optional[torch.cuda.CUDAGraph] = None
+    launches: Tuple[int, ...] = ()
+    capture_s: float = 0.0
+
+
+def _into(static, new):
+    """``new`` (None, a tensor or a tuple of tensors) copied into
+    ``static`` of the same structure, which is made on the first call;
+    the addresses never change after that."""
+    if new is None:
+        return None
+    if isinstance(new, torch.Tensor):
+        if static is None:
+            return new.clone()
+        return static.copy_(new)
+    if static is None:
+        static = (None,) * len(new)
+    return tuple(_into(a, b) for a, b in zip(static, new))
+
+
+def _where(exc: BaseException) -> str:
+    """The innermost frame of this package in ``exc``'s traceback or its
+    context: the operation the capture stopped at."""
+    frames = []
+    while exc is not None:
+        frames += [f for f in traceback.extract_tb(exc.__traceback__)
+                   if f"{os.sep}tagrec_tpu_torch{os.sep}" in f.filename]
+        exc = exc.__cause__ or exc.__context__
+    if not frames:
+        return "(no frame of tagrec_tpu_torch)"
+    f = frames[-1]
+    return f"{os.path.basename(f.filename)}:{f.lineno} {f.name}: {f.line}"
+
+
 class Trainer:
     """Steps ``phases`` in order over one Adam on ``model``'s parameters,
-    drawing every sample from ``generator``."""
+    drawing every sample from ``generator``.
+
+    On the card each phase's step is captured in a CUDA graph after
+    ``WARMUP_STEPS`` eager steps and replayed from then on (``capture``);
+    ``capture=False`` runs every step eagerly, the same body, for a hold
+    of the captured run against the eager one.  A capture that fails
+    raises, naming the phase and the operation; no phase falls back to
+    eager.  The generator is registered with every graph."""
 
     def __init__(self, model: torch.nn.Module, phases: List[PhaseSpec],
-                 cfg: TrainConfig, *, generator: torch.Generator, mesh=None):
+                 cfg: TrainConfig, *, generator: torch.Generator, mesh=None,
+                 capture: bool = True):
         if mesh is not None:
             raise NotImplementedError(
                 "SPMD training needs the parallel port (ROADMAP.md A18)")
@@ -164,9 +250,15 @@ class Trainer:
         self.cfg = cfg
         self.generator = generator
         self.opt = optim.make_optimizer(model.parameters(), cfg)
+        self.device = next(model.parameters()).device
+        self.capture = capture and self.device.type == "cuda"
+        self.runs: Dict[str, PhaseRun] = {}
+        self._side = None
 
     def step(self, phase: PhaseSpec, batch) -> torch.Tensor:
-        """One optimizer step on ``batch`` -> the loss terms [n_terms]."""
+        """One optimizer step on ``batch`` -> the loss terms [n_terms].
+        Clearing the grads to None makes a captured backward allocate its
+        own: a second phase's graph never adds into the first one's."""
         self.opt.zero_grad(set_to_none=True)
         parts = phase.loss_fn(batch, self.generator)
         sum(parts).backward()
@@ -175,22 +267,86 @@ class Trainer:
         self.opt.step()
         return torch.stack([p.detach() for p in parts])
 
+    def _body(self, phase: PhaseSpec, run: PhaseRun) -> None:
+        """The graph-safe step: the batch at the device counter, one
+        optimizer step, its loss terms into the counter's row, the counter
+        advanced."""
+        batch = phase.make_batch(self.generator, run.counter, run.state,
+                                 phase.data)
+        parts = self.step(phase, batch)
+        if run.losses is None:  # the first (eager) step sizes it
+            run.losses = parts.new_zeros((phase.steps_per_epoch,
+                                          parts.shape[0]))
+        run.losses.index_copy_(0, run.counter, parts[None])
+        run.counter.add_(1)
+
+    def _eager(self, phase: PhaseSpec, run: PhaseRun) -> None:
+        """One eager step; before a capture, on a side stream, as CUDA
+        graphs want their warm-up."""
+        run.warm += 1
+        if not self.capture:
+            return self._body(phase, run)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        main = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(main)
+        with torch.cuda.stream(self._side):
+            self._body(phase, run)
+        main.wait_stream(self._side)
+
+    def _capture(self, phase: PhaseSpec, run: PhaseRun) -> None:
+        """Capture ``phase``'s step into ``run.graph``; nothing runs.  The
+        launch counters move only at replay."""
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        before = [f.launches for f in COUNTED]
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph):
+                self._body(phase, run)
+        except Exception as e:  # any op that cannot be captured
+            raise RuntimeError(
+                f"CUDA graph capture of phase {phase.name!r} failed at "
+                f"{_where(e)}: {type(e).__name__}: {e}") from e
+        finally:
+            after = [f.launches for f in COUNTED]
+            for f, n in zip(COUNTED, before):
+                f.launches = n
+        run.capture_s = time.perf_counter() - t0
+        run.launches = tuple(a - b for a, b in zip(after, before))
+        run.graph = graph
+
+    def _replay(self, run: PhaseRun) -> None:
+        run.graph.replay()
+        for f, n in zip(COUNTED, run.launches):
+            f.launches += n
+
     def run_phase(self, phase: PhaseSpec, max_steps: Optional[int] = None,
                   on_step: Optional[Callable] = None) -> np.ndarray:
         """One epoch of ``phase``, cut to ``max_steps`` steps when given ->
         the loss terms [steps, n_terms]; raises on a non-finite loss.
         ``on_step(i, parts)``, when given, runs after each step."""
-        state = phase.epoch_reset(self.generator, phase.data)
+        run = self.runs.get(phase.name)
+        if run is None:
+            run = self.runs[phase.name] = PhaseRun(
+                counter=torch.zeros(1, dtype=torch.int64, device=self.device))
+        run.state = _into(run.state, phase.epoch_reset(self.generator,
+                                                       phase.data))
+        run.counter.zero_()
         steps = phase.steps_per_epoch
         if max_steps is not None:
             steps = min(steps, max_steps)
-        parts = []
         for i in range(steps):
-            parts.append(self.step(phase, phase.make_batch(
-                self.generator, i, state, phase.data)))
+            if (self.capture and run.graph is None
+                    and run.warm >= WARMUP_STEPS):
+                self._capture(phase, run)
+            if run.graph is not None:
+                self._replay(run)
+            else:
+                self._eager(phase, run)
             if on_step is not None:
-                on_step(i, parts[-1])
-        parts = torch.stack(parts).cpu().numpy()
+                on_step(i, run.losses[i])
+        parts = run.losses[:steps].cpu().numpy()
         if not np.isfinite(parts).all():
             raise FloatingPointError(f"non-finite loss in phase {phase.name}")
         return parts

@@ -905,3 +905,197 @@ def test_edgemap_tier_on_the_card_matches_the_cpu(cuda, name):
         g, model_preset(name, **cfg), device=dev,
         generator=torch.Generator().manual_seed(3)), batch)
     assert (dg.gather_reduce.launches > before) == (name != "tgcn")
+
+
+# ------------------------------------------ the Trainer's captured step
+
+# a TransE batch of 128 gives the small graph's TransE phase 13 steps an
+# epoch (1 at the preset's 1024), so that it is captured in the first
+KGAT_CAPTURED = dict(agg_type="bi_inter", reg=1e-4, transe_batch=128)
+
+def _capture_pipeline(name, cfg):
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+
+    tcfg = TrainConfig(train_batch=64)
+    pipe = build_pipeline(_small_graph(), model_preset(name, **cfg), tcfg,
+                          device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+    return pipe, tcfg
+
+
+def _train(pipe, tcfg, snap, gstate, capture, steps, epochs=1, patch=None):
+    """``epochs`` epochs of ``steps`` steps a phase through a new Trainer
+    (a fresh Adam) from the snapshot's parameters and generator state ->
+    (losses, parameters, launches per counter, trainer)."""
+    from tagrec_tpu_torch.training.train import COUNTED, Trainer
+
+    with torch.no_grad():
+        for p, s in zip(pipe.model.parameters(), snap):
+            p.copy_(s)
+    gen = torch.Generator(device="cuda")
+    gen.set_state(gstate)
+    trainer = Trainer(pipe.model, pipe.phases, tcfg, generator=gen,
+                      capture=capture)
+    if patch is not None:
+        patch(trainer)
+    before = [f.launches for f in COUNTED]
+    losses = [torch.from_numpy(v) for _ in range(epochs)
+              for v in trainer.run_epoch(max_steps=steps).values()]
+    torch.cuda.synchronize()
+    return (losses, [p.detach().clone() for p in pipe.model.parameters()],
+            [f.launches - b for f, b in zip(COUNTED, before)], trainer)
+
+
+def _capture_holds(got, a, b):
+    """chip_smoke.py's rule: each captured tensor equals the first eager
+    run's bit for bit where the two eager runs agree, else lies within 4x
+    their difference -> the names that fail."""
+    bad = []
+    for i, (x, y, z) in enumerate(zip(got, a, b)):
+        if torch.equal(y, z):
+            ok = torch.equal(x, y)
+        else:
+            ok = float((x - y).abs().max()) <= 4.0 * float((z - y).abs().max())
+        if not ok:
+            bad.append(i)
+    return bad
+
+
+def _snapshot(pipe):
+    return ([p.detach().clone() for p in pipe.model.parameters()],
+            torch.Generator(device="cuda").manual_seed(11).get_state())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cfg", [
+    ("dgcf", dict(reg=1e-3, cor_reg=0.1)),
+    ("kgat", KGAT_CAPTURED),
+    ("lightgcn", dict(adj_mode="hybrid", reg=1e-4))])
+def test_captured_training_matches_eager(cuda, name, cfg):
+    """Two epochs of 5 steps a phase (2 eager warm-up steps, then the
+    capture and replays; the second epoch all replays) from one snapshot:
+    the captured run's losses and parameters against two eager runs',
+    under chip_smoke.py's rule, and the same launches."""
+    pipe, tcfg = _capture_pipeline(name, cfg)
+    snap, gstate = _snapshot(pipe)
+    a, b, c = (_train(pipe, tcfg, snap, gstate, capture, 5, epochs=2)
+               for capture in (False, False, True))
+    assert all(run.graph is not None for run in c[3].runs.values())
+    assert not any(run.graph for run in a[3].runs.values())
+    assert len(c[3].runs) == len(pipe.phases) == (2 if name == "kgat" else 1)
+    assert c[2] == a[2] == b[2]
+    assert sum(c[2]) > 0  # the path ran its kernels
+    assert _capture_holds(c[0], a[0], b[0]) == []
+    assert _capture_holds(c[1], a[1], b[1]) == []
+
+
+@pytest.mark.cuda
+def test_replays_move_the_launch_counters(cuda):
+    """DGCF: every step of an epoch, eager or replayed, counts its 6
+    routed_rowsum, 6 routed_mm and 3 backward launches."""
+    from tagrec_tpu_torch.training.train import Trainer
+
+    pipe, tcfg = _capture_pipeline("dgcf", dict(reg=1e-3))
+    trainer = Trainer(pipe.model, pipe.phases, tcfg,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    counters = (fr.routed_rowsum, fr.routed_mm, fr.routed_mm_bwd)
+    seen, last = [], [[c.launches for c in counters]]
+
+    def on_step(i, parts):
+        now = [c.launches for c in counters]
+        seen.append([x - y for x, y in zip(now, last[0])])
+        last[0] = now
+
+    for _ in range(2):
+        trainer.run_phase(pipe.phases[0], max_steps=5, on_step=on_step)
+    assert trainer.runs["bpr"].graph is not None
+    assert seen == [[6, 6, 3]] * 10
+    assert trainer.runs["bpr"].launches[:3] == (6, 6, 3)
+
+
+@pytest.mark.cuda
+def test_capture_without_clearing_grads_is_caught(cuda):
+    """A planted fault: KGAT's TransE graph captured without clearing the
+    grads to None adds each replay's gradients into the warm-up's; the
+    hold of the captured run against the eager ones catches it."""
+    pipe, tcfg = _capture_pipeline("kgat", KGAT_CAPTURED)
+    snap, gstate = _snapshot(pipe)
+
+    def keep_grads(trainer):
+        capture = trainer._capture
+
+        def faulty(phase, run):
+            if phase.name == "transe":
+                trainer.opt.zero_grad = lambda set_to_none=True: None
+            try:
+                capture(phase, run)
+            finally:
+                trainer.opt.__dict__.pop("zero_grad", None)
+        trainer._capture = faulty
+
+    a, b = (_train(pipe, tcfg, snap, gstate, False, 5) for _ in range(2))
+    good = _train(pipe, tcfg, snap, gstate, True, 5)
+    bad = _train(pipe, tcfg, snap, gstate, True, 5, patch=keep_grads)
+    assert _capture_holds(good[1], a[1], b[1]) == []
+    assert _capture_holds(bad[1], a[1], b[1]) != []
+
+
+@pytest.mark.cuda
+def test_resume_under_capturable_adam_continues_exactly(cuda, tmp_path):
+    """A train state saved after a captured epoch (Adam's counts on the
+    card) restored into a new model and Trainer continues as the
+    uninterrupted run does, under chip_smoke.py's rule against a second
+    uninterrupted run."""
+    from tagrec_tpu_torch.training import checkpoint
+    from tagrec_tpu_torch.training.train import Trainer
+
+    cfg = KGAT_CAPTURED
+    pipe, tcfg = _capture_pipeline("kgat", cfg)
+    snap, gstate = _snapshot(pipe)
+    path = str(tmp_path / "state.npz")
+
+    def uninterrupted(save):
+        _, _, _, trainer = _train(pipe, tcfg, snap, gstate, True, 4)
+        if save:
+            checkpoint.save_train_state(path, pipe.model, trainer.opt, 1)
+        mid = trainer.generator.get_state()
+        trainer.run_epoch(max_steps=4)
+        return [p.detach().clone() for p in pipe.model.parameters()], mid
+
+    want, mid = uninterrupted(True)
+    want2, _ = uninterrupted(False)
+    resumed, _ = _capture_pipeline("kgat", cfg)
+    gen = torch.Generator(device="cuda")
+    gen.set_state(mid)
+    trainer = Trainer(resumed.model, resumed.phases, tcfg, generator=gen)
+    assert checkpoint.restore_train_state(path, resumed.model,
+                                          trainer.opt) == 1
+    assert all(st["step"].device.type == "cuda"
+               for st in trainer.opt.state.values())
+    trainer.run_epoch(max_steps=4)
+    got = [p.detach().clone() for p in resumed.model.parameters()]
+    assert _capture_holds(got, want, want2) == []
+
+
+@pytest.mark.cuda
+def test_a_capture_that_fails_names_its_phase(cuda):
+    """An operation that reads back to the host inside the step stops the
+    capture: the Trainer raises, naming the phase; it does not fall back."""
+    import dataclasses
+
+    from tagrec_tpu_torch.training.train import Trainer
+
+    pipe, tcfg = _capture_pipeline("lightgcn", {})
+    (bpr,) = pipe.phases
+
+    def loss_fn(batch, gen):
+        parts = bpr.loss_fn(batch, gen)
+        torch.nonzero(batch[:, 0] > 0)  # a host read
+        return parts
+
+    bad = dataclasses.replace(bpr, name="bad", loss_fn=loss_fn)
+    trainer = Trainer(pipe.model, [bad], tcfg,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    with pytest.raises(RuntimeError, match="capture of phase 'bad' failed"):
+        trainer.run_phase(bad, max_steps=4)
