@@ -140,7 +140,25 @@ Phases:
    capture's time and the peak memory; ``edge_reduce`` is also timed
    replayed in a graph in phase E; every training run above goes
    through the captured Trainer too (the CLI's as well);
-9. the ``kernels`` JSON line (launches summed over every path above,
+9. phase P, the parallel layer (``tagrec_tpu_torch.parallel``): P1, a
+   one-rank NCCL mesh in this process (a ``HashStore`` group): DGCF
+   (``cor_reg`` 0.1) at the preset's width on the hetrec graph through
+   ``build_pipeline(mesh=)`` and ``Trainer(mesh=)``, captured, with its
+   all-gathers and gradient all-reduce inside the graph, held bit for bit
+   (losses and parameters) against the same captured run without a mesh,
+   its routing launches checked each step; ``Evaluator(mesh=)``'s ranking
+   metrics equal the unmeshed ones (AUC by counting, within rtol 5e-3),
+   ``Retriever(mesh=)`` answers 3 requests with the same ids, and
+   ``save_sharded`` -> ``load_sharded`` restores every table and its Adam
+   state; the captured step's ms with and without the mesh (plain, mesh,
+   mesh, plain) and the NCCL kernels' share of a replay (profiler).  P2,
+   two ranks on this one card, data = 2 and model = 2 (four processes of
+   ``chip_smoke.py mesh-rank``, gloo over CUDA tensors, eager: NCCL
+   refuses two ranks on one device): the same DGCF steps, an evaluation
+   and the requests, held against the one-device eager run, model alone
+   bit for bit, data within 1e-6 (losses) and a hundredth of lr a step
+   (parameters: 5e-4 after 5 steps); each sub-phase's seconds;
+10. the ``kernels`` JSON line (launches summed over every path above,
    replays counted; ``gather_reduce`` with its ``edgemap`` record), then
    ``{"ok": true, "device": {...}}`` last.
 
@@ -3034,6 +3052,396 @@ def cli_phase(torch, fr, card):
     return total
 
 
+# ------------------------------------------------------ the mesh phase (P)
+
+MESH_WALL_STEPS = 40   # captured steps a timed run, with and without the mesh
+MESH_RANK_TIMEOUT_S = 240
+# the two-rank data-parallel run against the one-device eager run: each
+# rank steps on half the batch, so the means and the gradients' sums run
+# in another order (tests/test_torch_parallel_dist.py holds the same)
+# parameters: a hundredth of the most Adam moves one in those steps (lr a
+# step), since it divides each gradient by its running scale
+MESH_LOSS_ATOL = 1e-6
+MESH_PARAM_ATOL = 0.01 * 0.01 * HETREC_BPR_STEPS  # TrainConfig's lr 0.01
+# the two-rank meshes on one card: NCCL refuses two ranks on one device
+# (ncclInvalidUsage), so they run on gloo over CUDA tensors, eagerly
+TWO_RANK = {"data2": (2, 1), "model2": (1, 2)}
+
+
+def mesh_graph():
+    from tagrec_tpu_torch.data.synthetic import synthetic_graph_large
+
+    return synthetic_graph_large(N_USER, N_ITEM, N_TAG, N_EDGES,
+                                 TAG_PER_INTER, seed=0)
+
+
+def mesh_run(torch, graph, mesh, capture, on_launches=None):
+    """DGCF (cor_reg 0.1) at the preset's width on ``graph`` through
+    ``build_pipeline(mesh=)`` and ``Trainer(mesh=)``: HETREC_BPR_STEPS
+    steps, each synchronised and timed, ``on_launches(i)`` after each ->
+    {"pipe", "trainer", "losses", "params" (gathered, by JAX name, on the
+    host), "ms"}."""
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training import checkpoint
+    from tagrec_tpu_torch.training.train import Trainer
+
+    tcfg = TrainConfig()
+    pipe = build_pipeline(graph, model_preset("dgcf", cor_reg=0.1), tcfg,
+                          generator=torch.Generator().manual_seed(0),
+                          device="cuda", mesh=mesh)
+    trainer = Trainer(pipe.model, pipe.phases, tcfg, mesh=mesh,
+                      capture=capture,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    times, last = [], [0.0]
+
+    def on_step(i, parts):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append((now - last[0]) * 1e3)
+        if on_launches is not None:
+            on_launches(i)
+        last[0] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    last[0] = time.perf_counter()
+    losses = trainer.run_phase(pipe.phases[0], max_steps=HETREC_BPR_STEPS,
+                               on_step=on_step)
+    with torch.no_grad(), sharding.gathered():
+        params = {n: sharding.value(pipe.model, n).detach().cpu()
+                  for n in checkpoint.jax_leaf_order(pipe.model)}
+    return {"pipe": pipe, "trainer": trainer, "losses": losses,
+            "params": params, "ms": times}
+
+
+def mesh_answers(torch, run, mesh):
+    """One evaluation of every test user and N_REQUESTS top-k requests of
+    REQUEST_USERS users (export -> Retriever), on ``mesh`` or none."""
+    import numpy as np
+
+    from tagrec_tpu_torch import serving
+
+    pipe, graph = run["pipe"], run["pipe"].graph
+    results = pipe.evaluator.run(pipe.model)
+    u_t, i_t = serving.export_tables(pipe.model, n_item=graph.n_item)
+    pad, _ = serving.metrics.pad_lists(graph.user_items["train"],
+                                       graph.n_user, serving.PAD_ID)
+    r = serving.Retriever(u_t, i_t, train_pad=pad, mesh=mesh, device="cuda")
+    rng = np.random.default_rng(0)
+    ids, scores = zip(*(r.topk(rng.choice(graph.n_user, REQUEST_USERS,
+                                          replace=False), TOP_K)
+                        for _ in range(N_REQUESTS)))
+    return results, np.stack(ids), np.stack(scores)
+
+
+def held_equal(torch, a, b):
+    """Names of the tensors of {name: tensor} ``a`` that differ from
+    ``b``'s."""
+    return [n for n in a if not torch.equal(a[n], b[n])]
+
+
+def check_metrics(got, want, exact, label):
+    """The evaluation's ranking metrics equal (``exact``) or within JAX's
+    mesh tolerances (rtol 2e-3, atol 1e-5), AUC within rtol 5e-3."""
+    import numpy as np
+
+    for m in ("recall", "precision", "hr", "ndcg"):
+        ok = (got[m] == want[m] if exact else
+              np.allclose(got[m], want[m], rtol=2e-3, atol=1e-5))
+        check(ok, f"{label}: {m} {got[m]} against {want[m]}")
+    check(np.allclose(got["auc"], want["auc"], rtol=5e-3),
+          f"{label}: auc {got['auc']} against {want['auc']}")
+
+
+def replay_ops(torch, graph_, reps=PROFILED_REPLAYS):
+    """{device operation's name: (count, ms)} a replay of ``graph_``, from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graph_.replay()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if on_device(e):
+            n, us = out.get(e.name, (0, 0.0))
+            out[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return {k: (n / reps, us / reps / 1e3) for k, (n, us) in out.items()}
+
+
+def mesh_ops(mesh_ops_, plain_ops):
+    """The operations a replay with the mesh runs beyond one without it:
+    ({name: (count, ms)}, their ms, the mesh replay's busy ms)."""
+    extra = {}
+    for k, (n, ms) in mesh_ops_.items():
+        n0, ms0 = plain_ops.get(k, (0, 0.0))
+        if n > n0:
+            extra[k] = (n - n0, ms - ms0)
+    busy = sum(ms for _, ms in mesh_ops_.values())
+    return extra, sum(ms for _, ms in extra.values()), busy
+
+
+def one_rank_mesh(torch, fr, graph, card):
+    """P1: a one-rank NCCL mesh in this process.  DGCF captured with and
+    without it, bit for bit (every collective a copy, every scale 1), the
+    routing launches checked each step; its evaluation, retrieval and a
+    sharded checkpoint round trip; step time with and without the mesh and
+    the collectives' share of a replay.  -> the mesh run's launches."""
+    import torch.distributed as dist
+
+    from tagrec_tpu_torch.parallel.mesh import make_mesh
+    from tagrec_tpu_torch.training import checkpoint
+    from tagrec_tpu_torch.training.train import COUNTED
+
+    want = {"routed_rowsum": 6, "routed_mm": 6, "routed_mm_bwd": 3}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda:0"))
+    try:
+        mesh = make_mesh(1)
+        plain = mesh_run(torch, graph, None, capture=True)
+        reset_counts(fr, ROUTING)
+        total = {k: 0 for k in ROUTING}
+        checker = launch_checker(fr, ROUTING, want, "P1 mesh step")
+
+        def on_launches(i):
+            for k, v in checker(i).items():
+                total[k] += v
+
+        meshed = mesh_run(torch, graph, mesh, capture=True,
+                          on_launches=on_launches)
+        run = meshed["trainer"].runs["bpr"]
+        check(run.graph is not None, "P1: the mesh step was not captured")
+        print(f"P1 one-rank NCCL mesh {mesh}: placement "
+              f"{meshed['trainer'].placement['params']}; the step captured "
+              f"with its collectives; launches a replay "
+              f"{dict(zip([f.__name__ for f in COUNTED], run.launches))}")
+        diff = held_equal(torch, meshed["params"], plain["params"])
+        same_loss = (meshed["losses"] == plain["losses"]).all()
+        print(f"P1 DGCF hetrec captured, {HETREC_BPR_STEPS} steps: losses "
+              f"{'bit for bit' if same_loss else 'DIFFER'} "
+              f"({plain['losses'].sum(axis=1).tolist()}), parameters "
+              f"{'bit for bit' if not diff else 'DIFFER: ' + str(diff)}")
+        check(same_loss and not diff,
+              "P1: the one-rank mesh's captured run is not bit for bit the "
+              "plain captured run")
+
+        results, ids, scores = mesh_answers(torch, meshed, mesh)
+        want_res, want_ids, want_scores = mesh_answers(torch, plain, None)
+        check_metrics(results, want_res, True, "P1 evaluation")
+        check((ids == want_ids).all() and (scores == want_scores).all(),
+              "P1: the mesh retriever's answers differ")
+        print(f"P1 Evaluator(mesh=): {results} (unmeshed {want_res}); "
+              f"Retriever(mesh=): {N_REQUESTS} requests of {REQUEST_USERS} "
+              f"users, ids and scores equal")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            step_dir = checkpoint.save_sharded(tmp, meshed["pipe"].model,
+                                               meshed["trainer"].opt, 1)
+            back = mesh_run(torch, graph, mesh, capture=True)
+            step = checkpoint.load_sharded(step_dir, back["pipe"].model,
+                                           back["trainer"].opt)
+        pa = checkpoint.named_params(meshed["pipe"].model)
+        pb = checkpoint.named_params(back["pipe"].model)
+        bad = held_equal(torch, pb, pa)
+        for n in pa:
+            sa = meshed["trainer"].opt.state[pa[n]]
+            sb = back["trainer"].opt.state[pb[n]]
+            bad += [f"{n}.{k}" for k in sa if not torch.equal(sa[k], sb[k])]
+        print(f"P1 save_sharded -> load_sharded: step {step}, "
+              f"{len(pa)} tables and their Adam state "
+              f"{'equal' if not bad else 'DIFFER: ' + str(bad)}")
+        check(step == 1 and not bad, "P1: the sharded checkpoint round trip "
+                                     "did not restore every tensor")
+        del back
+
+        walls = {"plain": [], "mesh": []}
+        for key in ("plain", "mesh", "mesh", "plain"):
+            r = plain if key == "plain" else meshed
+            walls[key].append(phase_wall_ms(torch, r["trainer"],
+                                            r["pipe"].phases[0],
+                                            MESH_WALL_STEPS)
+                              / MESH_WALL_STEPS)
+        plain_run = plain["trainer"].runs["bpr"]
+        run.counter.zero_()
+        plain_run.counter.zero_()
+        m_ops = replay_ops(torch, run.graph)
+        p_ops = replay_ops(torch, plain_run.graph)
+        extra, extra_ms, busy = mesh_ops(m_ops, p_ops)
+        top = sorted(extra.items(), key=lambda kv: -kv[1][1])[:8]
+        print(f"P1 captured DGCF hetrec step ({card}): ms a step over "
+              f"{MESH_WALL_STEPS} steps with one sync (plain, mesh, mesh, "
+              f"plain): without the mesh {walls['plain']}, with "
+              f"{walls['mesh']}; per step (host clock, synchronised) "
+              f"without {plain['ms']}, with {meshed['ms']}; a replay "
+              f"(profiler): device busy {busy:.4f} ms with the mesh "
+              f"({sum(n for n, _ in m_ops.values()):.0f} device operations), "
+              f"{sum(ms for _, ms in p_ops.values()):.4f} ms without "
+              f"({sum(n for n, _ in p_ops.values()):.0f}); the mesh's own "
+              f"operations (its all-gathers, gradient and loss all-reduce "
+              f"and their copies) {sum(n for n, _ in extra.values()):.0f} a "
+              f"replay, {extra_ms:.4f} ms ({extra_ms / busy:.4f} of the busy "
+              f"time), NCCL kernels among them "
+              f"{sum(n for k, (n, _) in extra.items() if 'nccl' in k.lower()):.0f}; "
+              f"largest {[(k[:60], n, round(ms, 4)) for k, (n, ms) in top]}")
+        return total
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_rank_main(argv):
+    """One rank of a two-rank mesh on this card (``chip_smoke.py
+    mesh-rank DP MP OUT`` under RANK, WORLD_SIZE, MASTER_ADDR and
+    MASTER_PORT): gloo over CUDA tensors, eager; its DGCF run, evaluation
+    and requests pickled to OUT/rank{r}.pkl."""
+    import pickle
+    from datetime import timedelta
+
+    import torch
+
+    from tagrec_tpu_torch.parallel import launch
+
+    dp, mp, out = int(argv[0]), int(argv[1]), argv[2]
+    launch.initialize("gloo", device="cuda",
+                      timeout=timedelta(seconds=MESH_RANK_TIMEOUT_S // 2))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = launch.global_mesh(dp, mp)
+        t0 = time.perf_counter()
+        run = mesh_run(torch, mesh_graph(), mesh, capture=False)
+        results, ids, scores = mesh_answers(torch, run, mesh)
+        with open(os.path.join(out, f"rank{launch.rank()}.pkl"), "wb") as f:
+            pickle.dump({"losses": run["losses"],
+                         "params": {k: v.numpy() for k, v in
+                                    run["params"].items()},
+                         "ms": run["ms"], "results": results, "ids": ids,
+                         "scores": scores, "placement":
+                         run["trainer"].placement["params"],
+                         "seconds": time.perf_counter() - t0}, f)
+    finally:
+        launch.shutdown()
+    return 0
+
+
+def start_mesh_ranks(dp, mp, out):
+    """The ranks of a dp x mp mesh on this card, each ``chip_smoke.py
+    mesh-rank`` in its own process."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.makedirs(out, exist_ok=True)
+    procs = []
+    for rank in range(dp * mp):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(dp * mp),
+                   LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        log = open(os.path.join(out, f"rank{rank}.log"), "w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "mesh-rank", str(dp),
+             str(mp), out], env=env, stdout=log, stderr=subprocess.STDOUT),
+            log))
+    return procs
+
+
+def wait_mesh_ranks(procs):
+    """Wait for every rank up to MESH_RANK_TIMEOUT_S; on a failure or the
+    deadline kill them all and fail with their output."""
+    end = time.monotonic() + MESH_RANK_TIMEOUT_S
+    while any(p.poll() is None for p, _ in procs):
+        if (any(p.poll() not in (None, 0) for p, _ in procs)
+                or time.monotonic() > end):
+            break
+        time.sleep(0.1)
+    failed = any(p.poll() != 0 for p, _ in procs)
+    for p, log in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if failed:
+            print(text[-3000:])
+    check(not failed, "P2: a rank of a two-rank mesh failed or timed out")
+
+
+def two_rank_meshes(torch, graph, card):
+    """P2: data = 2 and model = 2 on this one card (4 processes, gloo over
+    CUDA tensors, eager), against the one-device eager run: model alone
+    bit for bit, data within MESH_LOSS_ATOL / MESH_PARAM_ATOL; the
+    evaluations and the requests too."""
+    import pickle
+
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = {k: os.path.join(tmp, k) for k in TWO_RANK}
+        procs = {k: start_mesh_ranks(*TWO_RANK[k], outs[k])
+                 for k in TWO_RANK}
+        eager = mesh_run(torch, graph, None, capture=False)
+        want_res, want_ids, want_scores = mesh_answers(torch, eager, None)
+        eager_params = {k: v.numpy() for k, v in eager["params"].items()}
+        for k in TWO_RANK:
+            wait_mesh_ranks(procs[k])
+        got = {}
+        for k in TWO_RANK:
+            ranks = []
+            for r in range(TWO_RANK[k][0] * TWO_RANK[k][1]):
+                with open(os.path.join(outs[k], f"rank{r}.pkl"), "rb") as f:
+                    ranks.append(pickle.load(f))
+            got[k] = ranks
+    print(f"P2 the one-device eager run: ms a step {eager['ms']}")
+    for k, ranks in got.items():
+        g = ranks[0]
+        agree = all((r["losses"] == g["losses"]).all() and all(
+            (r["params"][n] == g["params"][n]).all() for n in g["params"])
+            for r in ranks[1:])
+        check(agree, f"P2 {k}: the ranks disagree")
+        loss_err = float(np.abs(g["losses"] - eager["losses"]).max())
+        param_err = max(float(np.abs(g["params"][n] - eager_params[n]).max())
+                        for n in eager_params)
+        if k == "model2":
+            ok = loss_err == 0 and param_err == 0
+            check_metrics(g["results"], want_res, True, f"P2 {k} evaluation")
+            ok &= bool((g["ids"] == want_ids).all())
+        else:
+            ok = loss_err <= MESH_LOSS_ATOL and param_err <= MESH_PARAM_ATOL
+            check_metrics(g["results"], want_res, False,
+                          f"P2 {k} evaluation")
+            ok &= bool(np.allclose(g["scores"], want_scores, rtol=0,
+                                   atol=1e-4))
+        print(f"P2 {k} (data x model = {TWO_RANK[k]}, two ranks on one card, "
+              f"gloo over CUDA tensors, eager; no collective staged through "
+              f"host memory by the port) ({card}): placement "
+              f"{g['placement']}; ms a step (rank 0, host clock, "
+              f"synchronised) {g['ms']}; |losses - one device| {loss_err:.3e}, "
+              f"|parameters - one device| {param_err:.3e} "
+              f"({'bit for bit required' if k == 'model2' else f'bound {MESH_LOSS_ATOL}, {MESH_PARAM_ATOL}'}); "
+              f"evaluation {g['results']}; rank's seconds "
+              f"{[round(r['seconds'], 1) for r in ranks]}")
+        check(ok, f"P2 {k}: the mesh run is outside its hold against the "
+                  "one-device eager run")
+
+
+def mesh_phase(torch, fr, graph, card):
+    """Phase P: the parallel layer on this card.  -> the routing launches
+    of its captured mesh steps."""
+    done = phase_timer("P1 one-rank NCCL mesh")
+    launches = one_rank_mesh(torch, fr, graph, card)
+    done()
+    gc_cuda(torch)
+    done = phase_timer("P2 two ranks on one card")
+    two_rank_meshes(torch, graph, card)
+    done()
+    gc_cuda(torch)
+    return launches
+
+
 # ------------------------------------------ phase E: the EdgeMap tier
 
 EM_F, EM_DK = 4, 16  # DGCF's factors and factor width
@@ -3614,8 +4022,11 @@ def run(torch):
     cli = cli_phase(torch, fr, card)
     done()
     launches.update({k: launches[k] + cli[k] for k in ROUTING})
-    print(f"routing launches over the CLI's runs A, B and C: {cli}; over "
-          f"every path: { {k: launches[k] for k in ROUTING} }")
+    print(f"routing launches over the CLI's runs A, B and C: {cli}")
+    meshed = mesh_phase(torch, fr, graph, card)
+    launches.update({k: launches[k] + meshed[k] for k in ROUTING})
+    print(f"routing launches over phase P's captured one-rank mesh steps: "
+          f"{meshed}; over every path: { {k: launches[k] for k in ROUTING} }")
 
     print(f"capture phase, every path ({card}): {json.dumps(CAPTURED)}")
     slower = [f"{r['path']} {r['phase']}" for r in CAPTURED
@@ -3660,6 +4071,8 @@ def run(torch):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["mesh-rank"]:  # a rank of phase P2, started by it
+        return mesh_rank_main(sys.argv[2:])
     try:
         import torch
     except ImportError:

@@ -19,6 +19,10 @@ the gather kernels over its own transpose tables), bf16 dense adjacencies
 and edge dropout, the chunked dense tier (``adj_mode="dense_xla"``,
 ``ops.dense_adj``) for DGCF, DisenGCN and KGAT, and DisenHAN in dense
 mode.
+The parallel layer (``parallel``): a (data, model) mesh of torch.distributed
+ranks, row-sharded embedding tables, data-parallel steps (inside the
+captured graph on NCCL), the distributed top-k and sharded evaluation,
+sharded train states in JAX's layout, and the CLI's ``--dp``/``--mp``.
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``, where every kernel wrapper runs its plain PyTorch version.
 """

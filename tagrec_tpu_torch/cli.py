@@ -10,8 +10,13 @@ It writes JAX's ``out_dir`` layout (``metrics.jsonl``, ``model.npz``,
 ``results.json``), and its checkpoints, train states and serving artifacts
 are JAX's formats, so either package reads the other's.  ``--model kgat
 --use_kg`` over a dataset with a ``kg_final.txt`` trains KGAT over the
-knowledge graph.  ``--dp``/``--mp`` > 1 raise NotImplementedError
-naming its ROADMAP.md label (A18).  ``--adj_mode dense_xla`` takes the
+knowledge graph.  ``--dp``/``--mp`` train on a (data, model) mesh of
+that many processes, one card each, as torchrun starts them:
+``torchrun --standalone --nproc_per_node 4 -m tagrec_tpu_torch.cli --dp 2
+--mp 2`` (add ``--device cpu`` for gloo ranks on the CPU); a world of
+another size raises SystemExit naming the size needed.  Rank 0 prints and
+writes the run directory, the params checkpoint and the export; every
+rank writes its own shards of the ``--resume`` directory.  ``--adj_mode dense_xla`` takes the
 chunked dense tier for DGCF, DisenGCN and KGAT, and TGCN's plain table
 takes (``dense`` for LightGCN and NGCF); ``--adj_mode ell`` the EdgeMap
 tier for DGCF, DisenGCN, DisenHAN, KGAT and TGCN, which ``auto`` also
@@ -33,6 +38,7 @@ from tagrec_tpu_torch.data.graph import HeteroGraph
 from tagrec_tpu_torch.data.kg import KnowledgeGraph
 from tagrec_tpu_torch.data.synthetic import synthetic_graph, synthetic_graph_large
 from tagrec_tpu_torch.device import resolve
+from tagrec_tpu_torch.parallel import launch
 from tagrec_tpu_torch.training import checkpoint
 from tagrec_tpu_torch.training.early_stop import EarlyStop
 from tagrec_tpu_torch.training.train import Trainer
@@ -72,11 +78,10 @@ def parse_args(argv=None):
                         "prefix windows (quirk #5, kgat preset default) or "
                         "a full shuffled pass")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel mesh size (not ported past 1: "
-                        "ROADMAP.md A18)")
+                   help="data-parallel mesh size (batch axis); dp x mp > 1 "
+                        "runs under torchrun with dp x mp processes")
     p.add_argument("--mp", type=int, default=1,
-                   help="model-parallel mesh size (not ported past 1: "
-                        "ROADMAP.md A18)")
+                   help="model-parallel mesh size (embedding-table rows)")
     p.add_argument("--adj_mode", type=str, default="auto",
                    choices=["auto", "dense", "dense_xla", "ell"],
                    help="adjacency/attention execution mode (semantics-neutral)")
@@ -114,15 +119,37 @@ def main(argv=None):
         has_val=args.has_val, patient_epoch=args.patient_epoch,
         test_interval=args.test_interval, early_stop_key=args.early_stop_key,
         topks=tuple(args.topks), lr=args.lr, epochs=args.epochs, seed=args.seed)
-    if args.dp * args.mp > 1:
-        raise NotImplementedError(
-            f"--dp {args.dp} x --mp {args.mp}: SPMD training needs the "
-            "parallel port (ROADMAP.md A18)")
+    mesh, say, show = None, print, printc
     dev = resolve(args.device)
+    if args.dp * args.mp > 1:
+        n = args.dp * args.mp
+        launch.initialize(device=dev)
+        if launch.world_size() != n:
+            raise SystemExit(
+                f"--dp {args.dp} x --mp {args.mp} needs {n} processes "
+                f"(torchrun --nproc_per_node {n}), have "
+                f"{launch.world_size()}")
+        if dev.type == "cuda":
+            dev = resolve(f"cuda:{launch.local_rank()}")
+        mesh = launch.global_mesh(args.dp, args.mp)
+        if not launch.is_writer():
+            say = show = lambda *a, **k: None  # noqa: E731
+        say(f"mesh: data={args.dp} model={args.mp} on {dev.type}")
+    try:
+        return _train(args, mcfg, tcfg, dev, mesh, say, show)
+    finally:
+        if mesh is not None:
+            launch.shutdown()
 
+
+def _train(args, mcfg, tcfg, dev, mesh, say, show):
+    """The run on ``dev``, on ``mesh`` when given; ``say`` and ``show``
+    print (rank 0's) lines."""
+    writer = launch.is_writer()
     out_dir = os.path.join(args.out_dir, args.model, args.dataset,
                            time.strftime("%m-%d-%H-%M"))
-    os.makedirs(out_dir, exist_ok=True)
+    if writer:
+        os.makedirs(out_dir, exist_ok=True)
 
     seconds = {}
     t0 = profiling.clock(dev)
@@ -140,37 +167,41 @@ def main(argv=None):
         kg_path = os.path.join(args.data_root, args.dataset, "kg_final.txt")
         if args.model == "kgat" and args.use_kg and os.path.exists(kg_path):
             kg = KnowledgeGraph(graph, args.data_root, args.dataset)
-            print(f"knowledge graph: {kg.num_entity} entities, "
-                  f"{kg.num_relation} relations, {len(kg.all_triplet)} triples")
-    print(f"graph ready: {graph.num}")
+            say(f"knowledge graph: {kg.num_entity} entities, "
+                f"{kg.num_relation} relations, {len(kg.all_triplet)} triples")
+    say(f"graph ready: {graph.num}")
 
-    pipe = build_pipeline(graph, mcfg, tcfg, device=dev, kg=kg,
+    pipe = build_pipeline(graph, mcfg, tcfg, device=dev, kg=kg, mesh=mesh,
                           generator=torch.Generator().manual_seed(tcfg.seed))
     seconds["build"] = profiling.clock(dev) - t0
 
     ckpt_path = os.path.join(out_dir, "model.npz")
-    metrics = MetricsWriter(out_dir)
-    metrics.text("config", json.dumps({"model": mcfg.__dict__,
-                                       "train": tcfg.__dict__}, default=str))
+    metrics = MetricsWriter(out_dir) if writer else None
+    if metrics is not None:
+        metrics.text("config", json.dumps({"model": mcfg.__dict__,
+                                           "train": tcfg.__dict__},
+                                          default=str))
     stop = EarlyStop(tcfg.patient_epoch, tcfg.early_stop_key, save_path=ckpt_path)
-    trainer = Trainer(pipe.model, pipe.phases, tcfg,
+    trainer = Trainer(pipe.model, pipe.phases, tcfg, mesh=mesh,
                       generator=torch.Generator(device=dev).manual_seed(
                           tcfg.seed))
-    if args.profile:
+    profile = args.profile and writer
+    if profile:
         profiling.start_trace(args.profile)
     t0 = profiling.clock(dev)
     try:
-        trainer.run(pipe.evaluator, stop, metrics=metrics,
+        trainer.run(pipe.evaluator, stop, metrics=metrics, log=say,
                     state_path=args.resume or None)
     finally:
-        if args.profile:
+        if profile:
             profiling.stop_trace()
-            print(f"device trace written to {args.profile}")
+            say(f"device trace written to {args.profile}")
     seconds["train"] = profiling.clock(dev) - t0
 
     # reload the best checkpoint for the final report (main.py:24); the
-    # model holds the last epoch's parameters
-    if os.path.exists(ckpt_path):
+    # model holds the last epoch's parameters.  On a mesh every rank takes
+    # its rows of the best parameters from memory (rank 0 wrote the file)
+    if mesh is None and os.path.exists(ckpt_path):
         checkpoint.load(ckpt_path, pipe.model)
     elif stop.best_params is not None:
         with torch.no_grad():
@@ -179,31 +210,34 @@ def main(argv=None):
     t0 = profiling.clock(dev)
     results = pipe.evaluator.run(pipe.model, istest=True)
     seconds["test"] = profiling.clock(dev) - t0
-    printc(f"test result: {results}")
+    show(f"test result: {results}")
     t0 = profiling.clock(dev)
     groups = pipe.evaluator.run(pipe.model, istest=True, group_k=args.group_k)
     seconds["group"] = profiling.clock(dev) - t0
-    printc(f"group result: {groups}")
-    metrics.text("final", json.dumps(results, default=float))
-    metrics.close()
-
-    with open(os.path.join(out_dir, "results.json"), "w") as f:
-        json.dump({"test": results,
-                   "group": {k: v for k, v in groups.items()},
-                   "best_epoch": stop.best_epoch}, f, indent=2, default=float)
+    show(f"group result: {groups}")
+    if writer:
+        metrics.text("final", json.dumps(results, default=float))
+        metrics.close()
+        with open(os.path.join(out_dir, "results.json"), "w") as f:
+            json.dump({"test": results,
+                       "group": {k: v for k, v in groups.items()},
+                       "best_epoch": stop.best_epoch}, f, indent=2,
+                      default=float)
 
     if args.export:
         from tagrec_tpu_torch import serving
 
         t0 = profiling.clock(dev)
         u_t, i_t = serving.export_tables(pipe.model, n_item=graph.n_item)
-        meta = serving.save_export(
-            args.export, u_t, i_t, model_name=args.model,
-            train_pos=graph.user_items["train"],
-            extra={"dataset": args.dataset, "best_epoch": stop.best_epoch})
-        seconds["export"] = profiling.clock(dev) - t0
-        printc(f"serving artifact: {args.export} {meta}")
-    print(f"stage seconds (host clock): {json.dumps(seconds)}")
+        if writer:
+            meta = serving.save_export(
+                args.export, u_t, i_t, model_name=args.model,
+                train_pos=graph.user_items["train"],
+                extra={"dataset": args.dataset,
+                       "best_epoch": stop.best_epoch})
+            seconds["export"] = profiling.clock(dev) - t0
+            show(f"serving artifact: {args.export} {meta}")
+    say(f"stage seconds (host clock): {json.dumps(seconds)}")
     return results
 
 

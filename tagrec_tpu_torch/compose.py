@@ -47,11 +47,13 @@ def relation_triples(graph: HeteroGraph) -> np.ndarray:
 
 def build_pipeline(graph: HeteroGraph, mcfg: ModelConfig, tcfg: TrainConfig,
                    *, generator: torch.Generator, device="cuda",
-                   kg=None) -> Pipeline:
+                   kg=None, mesh=None) -> Pipeline:
     """The model, its phases and the evaluator on ``device``;
     ``generator`` (CPU) draws the weights.  ``kg``: an optional
     ``data.kg.KnowledgeGraph``, which puts KGAT over the knowledge graph
-    (other families ignore it)."""
+    (other families ignore it).  ``mesh``: an optional
+    ``parallel.Mesh``, which makes the evaluation sharded (the Trainer
+    takes the same mesh for training, as JAX's)."""
     cls = model_class(mcfg.name)
     dev = resolve(device)
     over_kg = mcfg.name == "kgat" and kg is not None
@@ -106,4 +108,4 @@ def build_pipeline(graph: HeteroGraph, mcfg: ModelConfig, tcfg: TrainConfig,
             graph.n_tag, graph.n_item, mcfg.transtag_batch, transtag_loss_fn,
             neg_rounds=tcfg.neg_resample_rounds, device=dev))
     return Pipeline(model=model, phases=phases, graph=graph,
-                    evaluator=Evaluator(graph, tcfg, device=dev))
+                    evaluator=Evaluator(graph, tcfg, mesh=mesh, device=dev))

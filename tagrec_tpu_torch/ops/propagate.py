@@ -10,8 +10,8 @@ rounded to bfloat16 and returns the float32 sums, as JAX's
 without a scatter: the gradient of A @ x is A^T @ g, the same SpMM over the
 transpose tables.  An adjacency with no transpose, such as the one
 ``edge_dropout`` returns, is differentiated by ``transpose_mm``: the
-scatter-add of JAX's autodiff (``index_add_`` over the ELL slots, the
-hub block's transpose product into the hub columns).  ``coo_spmm`` is the
+scatter-add of JAX's autodiff (a deterministic accumulate over the ELL
+slots, the hub block's transpose product into the hub columns).  ``coo_spmm`` is the
 oracle.
 """
 
@@ -94,11 +94,17 @@ def hybrid_mm(h, x: torch.Tensor) -> torch.Tensor:
 def ell_mm_t(ell: ell_lib.Ell, g: torch.Tensor, n_cols: int,
              budget: int = GATHER_BUDGET_BYTES) -> torch.Tensor:
     """A^T @ g for one ELL table: each real slot (k < deg[n]) adds
-    val[n, k] * g[n] into row idx[n, k] of the [n_cols, D] result, by
-    ``index_add_`` over chunks of the real slots (``ell.live``, found once
-    on the host) whose [slots, D] terms fit ``budget``, in row-major order.
-    Its shapes are fixed when the table is built and it reads nothing
-    back to the host, so a CUDA graph can hold it."""
+    val[n, k] * g[n] into row idx[n, k] of the [n_cols, D] result, over
+    chunks of the real slots (``ell.live``, found once on the host) whose
+    [slots, D] terms fit ``budget``, in row-major order.  Its shapes are
+    fixed when the table is built and it reads nothing back to the host,
+    so a CUDA graph can hold it.
+
+    The sum is deterministic on both devices: ``index_add_`` on the CPU;
+    on the card, whose ``index_add_`` adds floats atomically in no fixed
+    order, ``index_put_(accumulate=True)``, which sorts the target rows
+    and sums each row's terms in slot order, so two runs and a replayed
+    graph agree bit for bit."""
     k = ell.idx.shape[1]
     d = g.shape[1]
     out = g.new_zeros((n_cols, d))
@@ -107,9 +113,12 @@ def ell_mm_t(ell: ell_lib.Ell, g: torch.Tensor, n_cols: int,
     for i in range(0, ell.live.shape[0], chunk):
         live = ell.live[i:i + chunk]
         rows = torch.div(live, k, rounding_mode="floor")
-        out.index_add_(0, idx.index_select(0, live).long(),
-                       val.index_select(0, live)[:, None]
-                       * g.index_select(0, rows))
+        dest = idx.index_select(0, live).long()
+        terms = val.index_select(0, live)[:, None] * g.index_select(0, rows)
+        if out.is_cuda:
+            out.index_put_((dest,), terms, accumulate=True)
+        else:
+            out.index_add_(0, dest, terms)
     return out
 
 

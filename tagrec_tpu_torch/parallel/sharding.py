@@ -1,0 +1,203 @@
+"""Placement on the (data, model) mesh (tagrec_tpu/parallel/sharding.py).
+
+JAX's rule, exactly (``_shardable``): a parameter whose dim 0 holds at
+least 64 rows and divides by the ``model`` axis is row-sharded over
+``model``; every other parameter is replicated.  Adam's moments follow
+their parameter, since the Adam is built over what each rank holds.
+
+JAX annotates shardings and XLA inserts the collectives.  Here they are
+explicit, and the models stay as they are:
+
+* ``shard_params`` (JAX's ``params_sharding`` + ``place``, and the job of
+  ``constrain_params``, which pins the layout across steps) registers on
+  each shardable parameter a parametrization whose original is this
+  rank's row block and whose value is the table all-gathered over
+  ``model``.  The layout holds by construction: Adam updates the blocks
+  in place.  ``gathered()`` gathers each table once per step.
+* The gather's backward is this rank's slice of the incoming gradient,
+  not a reduce-scatter sum: the propagation runs whole on every ``model``
+  rank, so every one of them computes the same full gradient.
+* ``constrain_batch`` (JAX's ``constrain_batch``) is this rank's slice of
+  the global batch; ``data_mean_`` averages gradients and loss terms over
+  ``data``.
+* ``gdev_sharding``: the graph tables (adjacencies, masks, EdgeMaps,
+  samplers' tables) stay whole on every rank, and each layer's compute
+  with them; JAX row-shards them and XLA partitions each layer.
+  Partitioning each layer's rows over ``model`` is ROADMAP.md queue A.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch import nn
+from torch.nn.utils import parametrize
+
+from tagrec_tpu_torch.parallel.launch import row_block
+from tagrec_tpu_torch.parallel.mesh import Mesh
+
+MIN_ROWS = 64
+# batch entries kept whole on every rank: DGCF's distance-correlation ids,
+# a term that is not a mean over batch rows
+WHOLE = ("cor",)
+
+
+def shardable(shape, mesh: Mesh) -> bool:
+    """JAX's ``_shardable``: at least 64 rows, divisible by ``model``."""
+    return (len(shape) >= 1 and shape[0] >= MIN_ROWS
+            and shape[0] % mesh.shape["model"] == 0)
+
+
+class _GatherRows(torch.autograd.Function):
+    """[rows / model, ...] blocks -> the [rows, ...] table on every
+    ``model`` rank; backward: this rank's rows of the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, block, gather):
+        ctx.rows = (gather.start, gather.stop)
+        parts = [torch.empty_like(block)
+                 for _ in range(gather.mesh.shape["model"])]
+        dist.all_gather(parts, block.contiguous(),
+                        group=gather.mesh.group("model"))
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        start, stop = ctx.rows
+        return grad[start:stop], None
+
+
+class RowGather(nn.Module):
+    """The parametrization of a row-sharded parameter of ``n_rows`` rows:
+    original = this rank's rows [start, stop), value = the whole table."""
+
+    def __init__(self, mesh: Mesh, n_rows: int):
+        super().__init__()
+        self.mesh = mesh
+        self.n_rows = n_rows
+        self.start, self.stop = row_block(n_rows, mesh)
+
+    def forward(self, block):
+        return _GatherRows.apply(block, self)
+
+    def right_inverse(self, table):
+        return table[self.start:self.stop].clone()
+
+
+def jax_name(name: str) -> str:
+    """A parameter's name with the parametrization's path taken out:
+    ``embed.parametrizations.0.original`` -> ``embed.0``, JAX's leaf
+    path."""
+    parts = name.split(".")
+    if parts[-1] == "original" and "parametrizations" in parts:
+        i = parts.index("parametrizations")
+        parts = parts[:i] + parts[i + 1:-1]
+    return ".".join(parts)
+
+
+def gathers(model: nn.Module) -> Dict[str, RowGather]:
+    """{JAX name: its RowGather} of ``model``'s row-sharded parameters."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        if not parametrize.is_parametrized(mod):
+            continue
+        for attr, plist in mod.parametrizations.items():
+            if isinstance(plist[0], RowGather):
+                out[f"{prefix}.{attr}" if prefix else attr] = plist[0]
+    return out
+
+
+def mesh_of(model: nn.Module) -> Optional[Mesh]:
+    """The mesh ``model`` is sharded over, or None."""
+    gs = gathers(model)
+    return next(iter(gs.values())).mesh if gs else None
+
+
+def full_shapes(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
+    """{JAX name: the whole table's shape} of ``model``'s parameters."""
+    gs = gathers(model)
+    return {jax_name(n): (tuple(p.shape) if jax_name(n) not in gs else
+                          (gs[jax_name(n)].n_rows,) + tuple(p.shape[1:]))
+            for n, p in model.named_parameters()}
+
+
+def value(model: nn.Module, name: str) -> torch.Tensor:
+    """The parameter ``name`` (JAX's name) as the model reads it: a
+    row-sharded one all-gathered (a collective over ``model``)."""
+    owner, _, attr = name.rpartition(".")
+    return getattr(model.get_submodule(owner) if owner else model, attr)
+
+
+def params_sharding(model: nn.Module, mesh: Mesh) -> Dict[str, Optional[str]]:
+    """{JAX name: "model" (row-sharded) or None (replicated)} by JAX's
+    rule, on the whole tables' shapes."""
+    return {name: ("model" if shardable(shape, mesh) else None)
+            for name, shape in full_shapes(model).items()}
+
+
+def gdev_sharding(model: nn.Module, mesh: Mesh) -> Dict[str, None]:
+    """{buffer name: None}: the graph tables stay whole on every rank in
+    this port (see the module docstring)."""
+    return {n: None for n, _ in model.named_buffers()}
+
+
+def shard_params(model: nn.Module, mesh: Mesh) -> Dict[str, Optional[str]]:
+    """Row-shard ``model``'s shardable parameters over ``mesh`` in place
+    (each keeps its Parameter object, now holding this rank's rows) ->
+    ``params_sharding``.  A model already sharded over ``mesh`` is left
+    as it is; one sharded over another mesh raises."""
+    have = mesh_of(model)
+    if have is not None:
+        if have is not mesh:
+            raise ValueError(f"the model is sharded over {have}, not {mesh}")
+        return params_sharding(model, mesh)
+    spec = params_sharding(model, mesh)
+    for name, axis in spec.items():
+        if axis is None:
+            continue
+        owner, _, attr = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        n_rows = getattr(mod, attr).shape[0]
+        parametrize.register_parametrization(mod, attr,
+                                             RowGather(mesh, n_rows),
+                                             unsafe=True)
+    return spec
+
+
+def gathered():
+    """Within it, each row-sharded table is all-gathered once and the
+    result reused by every read (``parametrize.cached``)."""
+    return parametrize.cached()
+
+
+def constrain_batch(batch, mesh: Mesh, whole=WHOLE):
+    """This rank's slice over ``data`` of a global batch (a tensor or a
+    dict of them): a tensor whose dim 0 divides by ``data`` is sliced, any
+    other, and every entry named in ``whole``, kept whole."""
+    d, i = mesh.shape["data"], mesh.index("data")
+
+    def c(x):
+        if isinstance(x, dict):
+            return {k: (v if k in whole else c(v)) for k, v in x.items()}
+        if x.ndim >= 1 and x.shape[0] > 0 and x.shape[0] % d == 0:
+            n = x.shape[0] // d
+            return x[i * n:(i + 1) * n]
+        return x
+    return c(batch)
+
+
+def data_mean_(tensors, mesh: Mesh) -> None:
+    """In place: each of ``tensors`` its mean over the ``data`` axis, one
+    all-reduce a dtype.  Over one rank the tensors come back unchanged."""
+    by_dtype: Dict[torch.dtype, list] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        dist.all_reduce(flat, group=mesh.group("data"))
+        flat.div_(mesh.shape["data"])
+        for t, piece in zip(ts, flat.split([t.numel() for t in ts])):
+            t.copy_(piece.view_as(t))
+

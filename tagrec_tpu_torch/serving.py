@@ -7,7 +7,9 @@
   artifacts.
 * **retrieve** (online): per block of request users, sigmoid(U_sel @ I^T),
   the users' train positives set to ``MASK_SCORE`` (the evaluator's
-  protocol), then top-k.
+  protocol), then top-k.  Under a mesh the item table is row-sharded over
+  ``model`` and each block goes through
+  ``parallel.topk.distributed_masked_topk``.
 
 Query a saved artifact from the shell:
 ``python -m tagrec_tpu_torch.serving --artifact art.npz --users 1 2 3 --k 10``
@@ -24,6 +26,8 @@ import torch
 
 from tagrec_tpu_torch.device import resolve
 from tagrec_tpu_torch.ops import metrics
+from tagrec_tpu_torch.parallel import sharding
+from tagrec_tpu_torch.parallel import topk as ptopk
 
 EXPORT_VERSION = 1
 MASK_SCORE = metrics.MASK_VALUE  # the evaluator's train-positive sentinel
@@ -37,7 +41,7 @@ def export_tables(model, *, n_item: Optional[int] = None):
 
     ``n_item`` trims an entity-wide item table to its first ``n_item`` rows.
     """
-    with torch.no_grad():
+    with torch.no_grad(), sharding.gathered():
         embs = model.forward()
     u_all = embs[0].float().cpu().numpy()
     i_all = embs[1].float().cpu().numpy()
@@ -108,19 +112,23 @@ class Retriever:
     [block, n_item] score matrix), masks each user's train positives to
     MASK_SCORE and returns global item ids + sigmoid scores.  Ties between
     equal scores may come in any order.
+
+    ``mesh``: an optional ``parallel.Mesh``; this rank keeps its block of
+    the item table (zero-padded to the ``model`` axis), and every rank of
+    the mesh calls ``topk`` together and gets the same answer.
     """
 
     def __init__(self, user_table, item_table, *, train_pad=None,
                  block: int = 256, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded item table needs the parallel port (ROADMAP.md A18)")
         dev = resolve(device)
+        self.mesh = mesh
         self.n_user, self.dim = user_table.shape
         self.n_item = item_table.shape[0]
         self.block = max(int(block), 1)
         self._U = torch.as_tensor(np.asarray(user_table, np.float32), device=dev)
         self._I = torch.as_tensor(np.asarray(item_table, np.float32), device=dev)
+        if mesh is not None:  # this rank's rows only
+            self._I = ptopk.shard_items(self._I, mesh)[0].clone()
         if train_pad is None:
             train_pad = np.full((self.n_user, 1), PAD_ID, dtype=np.int32)
         self._train_pad = torch.as_tensor(
@@ -133,6 +141,10 @@ class Retriever:
                    train_pad=data.get("train_pad"), **kw)
 
     def _block_topk(self, users: torch.Tensor, k: int):
+        if self.mesh is not None:
+            return ptopk.distributed_masked_topk(
+                self._U[users], self._I, self._train_pad[users], k, self.mesh,
+                n_valid=self.n_item)
         scores = torch.sigmoid(self._U[users] @ self._I.T)      # [B, I]
         metrics.mask_train_positives(scores, self._train_pad[users])
         return torch.topk(scores, k, dim=1)

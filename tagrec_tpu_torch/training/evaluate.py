@@ -7,6 +7,13 @@ for KGAT), the train positives masked to -1024, top-k, recall / precision /
 HR / NDCG at each k of ``topks`` and the mean AUC, optionally broken down
 into cold-start user groups.  Per-block sums stay on the device and come to
 the host once per pass.
+
+Under a (data, model) mesh the item table is row-sharded over ``model``
+(``parallel.topk.shard_items``) and each block goes through
+``parallel.topk.sharded_eval_metrics``: per-shard scoring, the top-k
+merge and the count-based AUC.  Every rank evaluates every user (users
+are replicated, as in JAX) and gets the same results.  The last block is
+shorter, never padded, on either path.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ from tagrec_tpu_torch.config import TrainConfig
 from tagrec_tpu_torch.data.graph import HeteroGraph
 from tagrec_tpu_torch.device import resolve
 from tagrec_tpu_torch.ops import metrics as M
+from tagrec_tpu_torch.parallel import sharding
+from tagrec_tpu_torch.parallel import topk as ptopk
 
 
 def _padded(lists: Dict[int, List[int]], n_user: int, fill: int, device):
@@ -33,15 +42,15 @@ def _padded(lists: Dict[int, List[int]], n_user: int, fill: int, device):
 
 class Evaluator:
     """Evaluates a model's tables on ``device``: the test split, or the
-    validation split when ``cfg.has_val`` and not ``istest``."""
+    validation split when ``cfg.has_val`` and not ``istest``.  ``mesh``:
+    an optional ``parallel.Mesh``; every rank of it runs ``run`` together
+    (its collectives span the ``model`` axis)."""
 
     def __init__(self, graph: HeteroGraph, cfg: TrainConfig, *, mesh=None,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded evaluation needs the parallel port (ROADMAP.md A18)")
         dev = resolve(device)
         self.cfg = cfg
+        self.mesh = mesh
         self.pos_ui = graph.user_items["train"]
         self.true_ui = {"test": graph.user_items["test"]}
         if cfg.has_val:
@@ -57,32 +66,47 @@ class Evaluator:
         the reference keys them."""
         split = "val" if (not istest and self.cfg.has_val) else "test"
         true_ui = self.true_ui[split]
-        with torch.no_grad():
+        with torch.no_grad(), sharding.gathered():
             embs = model.forward()
         u_all, i_all = embs[0], embs[1]
+        n_valid = None
+        if self.mesh is not None:
+            i_all, n_valid = ptopk.shard_items(i_all, self.mesh)
         if group_k > 1:
             return {f"inter<{bound}-{len(users)}":
-                    self._eval_users(u_all, i_all, split, users)
+                    self._eval_users(u_all, i_all, split, users, n_valid)
                     for bound, users in user_group_split(
                         true_ui, self.pos_ui, group_k).items()}
-        return self._eval_users(u_all, i_all, split, sorted(true_ui))
+        return self._eval_users(u_all, i_all, split, sorted(true_ui), n_valid)
+
+    def _block(self, u_all, i_all, u, test_pad, test_deg, n_valid):
+        """One block's sums, on one device or over the mesh's shards."""
+        topks = tuple(self.cfg.topks)
+        te, td = test_pad[u], test_deg[u]
+        if self.mesh is not None:
+            return ptopk.sharded_eval_metrics(
+                u_all[u], i_all, self._train_pad[u], te, td,
+                self._train_deg[u], topks, self.mesh, n_valid=n_valid)
+        scores = torch.sigmoid(u_all[u] @ i_all.T)
+        masked = M.mask_train_positives(scores, self._train_pad[u])
+        top = torch.topk(masked, max(topks), dim=1).indices
+        block = M.batch_metric_sums(M.hit_labels(top, te), td, topks)
+        block["auc"] = M.batch_auc_sum(masked, te, td,
+                                       self._train_deg[u])[None]
+        return block
 
     @torch.no_grad()
-    def _eval_users(self, u_all, i_all, split: str, users: List[int]) -> Dict:
+    def _eval_users(self, u_all, i_all, split: str, users: List[int],
+                    n_valid=None) -> Dict:
         topks = tuple(self.cfg.topks)
         test_pad, test_deg = self._test[split]
         users_t = torch.as_tensor(np.asarray(users, dtype=np.int64),
                                   device=u_all.device)
         sums = []
         for i in range(0, len(users), self.cfg.test_batch):
-            u = users_t[i:i + self.cfg.test_batch]
-            scores = torch.sigmoid(u_all[u] @ i_all.T)
-            masked = M.mask_train_positives(scores, self._train_pad[u])
-            top = torch.topk(masked, max(topks), dim=1).indices
-            te, td = test_pad[u], test_deg[u]
-            block = M.batch_metric_sums(M.hit_labels(top, te), td, topks)
-            block["auc"] = M.batch_auc_sum(masked, te, td,
-                                           self._train_deg[u])[None]
+            block = self._block(u_all, i_all,
+                                users_t[i:i + self.cfg.test_batch],
+                                test_pad, test_deg, n_valid)
             sums.append(torch.cat([block[k] for k in
                                    ("recall", "precision", "hr", "ndcg",
                                     "auc")]))

@@ -18,6 +18,19 @@ phase and replayed for every later step of every epoch.  On the CPU the
 same step body runs eagerly.  The losses come back to the host once per
 phase.  ``Trainer.run`` adds the periodic evaluation, the early stop,
 the metrics stream and the train-state file that a run resumes from.
+
+Under a (data, model) mesh (``parallel``) a step computes what it
+computes on one device.  Every rank draws the whole global batch from
+the same generator, so every random stream (shuffles, negatives, the
+correlation ids, dropout) is the single-device run's, and steps on its
+``data`` slice; the loss terms, means over batch rows, are averaged over
+``data``, and so are the gradients, which counts a term computed whole
+on every rank (DGCF's distance correlation) once.  Embedding tables are
+row-sharded over ``model`` and all-gathered once a step; the
+propagation runs whole on every rank.  On the card the collectives are
+inside the captured step, which needs an NCCL group.  Every rank takes
+the same decisions (the loss check, the early stop, the resume epoch)
+from the same averaged losses and metrics.
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ import torch
 from tagrec_tpu_torch.config import TrainConfig
 from tagrec_tpu_torch.ops import dma_gather, flash_attention, flash_routing
 from tagrec_tpu_torch.ops import sampling
+from tagrec_tpu_torch.parallel import sharding
 from tagrec_tpu_torch.training import checkpoint, optim
 
 # every kernel wrapper's launch counter; a replay runs no Python, so the
@@ -237,35 +251,61 @@ class Trainer:
     ``capture=False`` runs every step eagerly, the same body, for a hold
     of the captured run against the eager one.  A capture that fails
     raises, naming the phase and the operation; no phase falls back to
-    eager.  The generator is registered with every graph."""
+    eager.  The generator is registered with every graph.
+
+    ``mesh``: an optional ``parallel.Mesh`` with its process groups; the
+    Trainer row-shards the model's tables over it (``placement``) and
+    every rank of it runs the same calls.  A capture on the card needs
+    the mesh's group to be NCCL: a gloo group raises here, and a caller
+    that means to run eagerly passes ``capture=False``."""
 
     def __init__(self, model: torch.nn.Module, phases: List[PhaseSpec],
                  cfg: TrainConfig, *, generator: torch.Generator, mesh=None,
                  capture: bool = True):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SPMD training needs the parallel port (ROADMAP.md A18)")
         self.model = model
         self.phases = phases
         self.cfg = cfg
         self.generator = generator
-        self.opt = optim.make_optimizer(model.parameters(), cfg)
+        self.mesh = mesh
         self.device = next(model.parameters()).device
         self.capture = capture and self.device.type == "cuda"
+        self.placement = None
+        if mesh is not None:
+            if mesh.groups is None:
+                raise ValueError(f"{mesh} has no process groups: make it "
+                                 "after torch.distributed is initialised")
+            if self.capture and mesh.backend != "nccl":
+                raise ValueError(
+                    f"a CUDA graph cannot capture the collectives of a "
+                    f"{mesh.backend!r} process group (only NCCL's run on a "
+                    "CUDA stream); pass capture=False to step eagerly")
+            self.placement = {
+                "params": sharding.shard_params(model, mesh),
+                "buffers": sharding.gdev_sharding(model, mesh)}
+        self.opt = optim.make_optimizer(model.parameters(), cfg)
         self.runs: Dict[str, PhaseRun] = {}
         self._side = None
 
     def step(self, phase: PhaseSpec, batch) -> torch.Tensor:
         """One optimizer step on ``batch`` -> the loss terms [n_terms].
         Clearing the grads to None makes a captured backward allocate its
-        own: a second phase's graph never adds into the first one's."""
+        own: a second phase's graph never adds into the first one's.  Under
+        a mesh ``batch`` is this rank's slice, and the gradients and loss
+        terms are averaged over ``data`` before Adam's step."""
         self.opt.zero_grad(set_to_none=True)
-        parts = phase.loss_fn(batch, self.generator)
+        with sharding.gathered():
+            parts = phase.loss_fn(batch, self.generator)
         sum(parts).backward()
+        parts = torch.stack([p.detach() for p in parts])
+        if self.mesh is not None:
+            sharding.data_mean_([p.grad for g in self.opt.param_groups
+                                 for p in g["params"]
+                                 if p.grad is not None], self.mesh)
+            sharding.data_mean_([parts], self.mesh)
         if self.cfg.adam_impl == "global":
             optim.fill_missing_grads(self.opt)
         self.opt.step()
-        return torch.stack([p.detach() for p in parts])
+        return parts
 
     def _body(self, phase: PhaseSpec, run: PhaseRun) -> None:
         """The graph-safe step: the batch at the device counter, one
@@ -273,6 +313,8 @@ class Trainer:
         advanced."""
         batch = phase.make_batch(self.generator, run.counter, run.state,
                                  phase.data)
+        if self.mesh is not None:
+            batch = sharding.constrain_batch(batch, self.mesh)
         parts = self.step(phase, batch)
         if run.losses is None:  # the first (eager) step sizes it
             run.losses = parts.new_zeros((phase.steps_per_epoch,
@@ -367,11 +409,21 @@ class Trainer:
         mean loss and time and each evaluation's results.  ``state_path``: a
         train-state file, written at every evaluation (the epoch to resume
         at, the parameters and Adam's state) and restored first when it
-        exists.  A non-finite loss raises FloatingPointError naming the
-        epoch, the phase and the last saved state."""
+        exists.  Under a mesh ``state_path`` is a directory of step
+        directories, each rank writing its own shards (``save_sharded``,
+        the newest 3 kept) and restoring from the newest.  A non-finite loss
+        raises FloatingPointError naming the epoch, the phase and the last
+        saved state."""
         cfg = self.cfg
         start_ep = 0
-        if state_path and os.path.exists(state_path):
+        if self.mesh is not None:
+            last = (checkpoint.latest_step_dir(state_path) if state_path
+                    else None)
+            if last:
+                start_ep = checkpoint.load_sharded(last, self.model, self.opt,
+                                                   cfg.adam_impl)
+                log(f"resumed sharded state from {last} at epoch {start_ep}")
+        elif state_path and os.path.exists(state_path):
             start_ep = checkpoint.restore_train_state(
                 state_path, self.model, self.opt, cfg.adam_impl)
             log(f"resumed from {state_path} at epoch {start_ep}")
@@ -402,7 +454,11 @@ class Trainer:
                 log(f"[Epoch {ep}][eval {time.time() - t0:.2f}s] {results}")
                 if metrics is not None:
                     metrics.results(ep, results, cfg.topks)
-                if state_path:
+                if state_path and self.mesh is not None:
+                    checkpoint.save_sharded(state_path, self.model, self.opt,
+                                            ep + 1, adam_impl=cfg.adam_impl,
+                                            rotate=3)
+                elif state_path:
                     checkpoint.save_train_state(state_path, self.model,
                                                 self.opt, ep + 1,
                                                 cfg.adam_impl)

@@ -221,8 +221,8 @@ def test_ported_models_and_tiers_run(tmp_path, argv):
 
 
 @pytest.mark.parametrize("argv, error, match", [
-    (["--dp", "2"], NotImplementedError, "A18"),
-    (["--mp", "2"], NotImplementedError, "A18"),
+    (["--dp", "2"], SystemExit, "needs 2 processes.*have 1"),
+    (["--mp", "2"], SystemExit, "needs 2 processes.*have 1"),
     (["--model", "nosuch"], ValueError, "unknown model"),
     (["--dataset", "missing_dir"], FileNotFoundError, "train.txt"),
 ])

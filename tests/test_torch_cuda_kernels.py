@@ -748,6 +748,41 @@ def test_gather_reduce_on_an_asymmetric_pairs_transpose(cuda, d):
 
 
 @pytest.mark.cuda
+def test_ell_mm_t_on_the_card_is_deterministic(cuda):
+    """node_drop's backward A^T @ g over a skewed table (a few hub columns
+    take most slots): two eager calls and a replayed CUDA graph agree bit
+    for bit, and all match the float64 sum on the CPU."""
+    from tagrec_tpu_torch.ops import ell, propagate
+
+    rng = np.random.default_rng(8)
+    n, m, d, e = 3000, 2000, 64, 120_000
+    row = rng.integers(0, n, e)
+    col = np.where(rng.random(e) < 0.5, rng.integers(0, 4, e),
+                   rng.integers(0, m, e))
+    val = rng.standard_normal(e)
+    host = ell.build_ell(row, col, val, n, m)
+    t = ell.to_device(host, cuda)
+    g = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(
+        cuda)
+    first = propagate.ell_mm_t(t, g, m)
+    assert torch.equal(propagate.ell_mm_t(t, g, m), first)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        propagate.ell_mm_t(t, g, m)
+        with torch.cuda.graph(graph):
+            static = propagate.ell_mm_t(t, g, m)
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    assert torch.equal(static, first)
+    want = propagate.ell_mm_t(ell.to_device(host, "cpu"), g.cpu().double(),
+                              m)  # float32 values times float64 g: float64
+    torch.testing.assert_close(first.cpu().double(), want, rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,m,d", [(2000, 10000, 64), (3000, 2000, 32)])
 def test_bf16_block_product_accumulates_in_float32(cuda, n, m, d):
     """A bfloat16 block times x: ``torch.mm(..., out_dtype=float32)`` on the
@@ -1099,3 +1134,66 @@ def test_a_capture_that_fails_names_its_phase(cuda):
                       generator=torch.Generator(device="cuda").manual_seed(0))
     with pytest.raises(RuntimeError, match="capture of phase 'bad' failed"):
         trainer.run_phase(bad, max_steps=4)
+
+
+@pytest.fixture
+def process_group(cuda):
+    """A one-rank process group in this process; ``start(backend)``
+    makes it, and it is torn down after the test."""
+    import torch.distributed as dist
+
+    def start(backend):
+        kw = ({"device_id": torch.device("cuda", torch.cuda.current_device())}
+              if backend == "nccl" else {})
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1, **kw)
+
+    yield start
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_capture_on_a_gloo_mesh_raises(process_group):
+    """gloo's collectives cannot be captured: asking for a capture on a
+    gloo mesh raises and names the reason; ``capture=False`` steps."""
+    from tagrec_tpu_torch.parallel.mesh import make_mesh
+    from tagrec_tpu_torch.training.train import Trainer
+
+    process_group("gloo")
+    mesh = make_mesh(1)
+    pipe, tcfg = _capture_pipeline("dgcf", dict(reg=1e-3))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with pytest.raises(ValueError, match="cannot capture.*'gloo'"):
+        Trainer(pipe.model, pipe.phases, tcfg, generator=gen, mesh=mesh)
+    trainer = Trainer(pipe.model, pipe.phases, tcfg, generator=gen,
+                      mesh=mesh, capture=False)
+    assert np.isfinite(trainer.run_phase(pipe.phases[0], max_steps=3)).all()
+    assert trainer.runs["bpr"].graph is None
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_mesh_captures_bit_for_bit(process_group):
+    """DGCF with its correlation term, captured on a one-rank NCCL mesh
+    (the all-gathers and the gradient all-reduce inside the graph) and
+    without one: the same losses and parameters, bit for bit."""
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.parallel.mesh import make_mesh
+    from tagrec_tpu_torch.training import checkpoint
+    from tagrec_tpu_torch.training.train import Trainer
+
+    process_group("nccl")
+    out = []
+    for mesh in (None, make_mesh(1)):
+        pipe, tcfg = _capture_pipeline("dgcf", dict(reg=1e-3, cor_reg=0.1))
+        trainer = Trainer(pipe.model, pipe.phases, tcfg, mesh=mesh,
+                          generator=torch.Generator(device="cuda").manual_seed(0))
+        losses = trainer.run_phase(pipe.phases[0], max_steps=5)
+        assert trainer.runs["bpr"].graph is not None
+        with torch.no_grad(), sharding.gathered():
+            out.append((losses, {n: sharding.value(pipe.model, n).clone()
+                                 for n in checkpoint.jax_leaf_order(
+                                     pipe.model)}))
+    (l0, p0), (l1, p1) = out
+    np.testing.assert_array_equal(l1, l0)
+    assert all(torch.equal(p1[n], p0[n]) for n in p0)

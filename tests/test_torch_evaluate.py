@@ -207,9 +207,3 @@ def test_early_stop_stops_and_saves_as_jax(tmp_path):
     for a, b in zip(saved["embed"], jax_stop.best_params["embed"]):
         np.testing.assert_array_equal(np.asarray(a), b)
     assert torch.all(port.best_params["embed.0"] == 1.0)
-
-
-def test_evaluator_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="A18"):
-        Evaluator(tsyn.synthetic_graph(**GRAPHS["tiny"]), TrainConfig(),
-                  mesh=object(), device="cpu")

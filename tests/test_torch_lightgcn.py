@@ -243,14 +243,6 @@ def test_node_drop_trains():
     assert np.isfinite(trainer.run_epoch(max_steps=2)["bpr"]).all()
 
 
-def test_unported_options_raise():
-    gen = torch.Generator().manual_seed(0)
-    pipe, _ = _port("dense")
-    with pytest.raises(NotImplementedError, match="A18"):
-        Trainer(pipe.model, pipe.phases, TrainConfig(), mesh=object(),
-                generator=gen)
-
-
 def test_message_dropout_draws_from_the_generator():
     pipe, _ = _port("ell", message_drop_list=(0.5, 0.5, 0.5))
     m = pipe.model

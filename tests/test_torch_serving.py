@@ -121,5 +121,3 @@ def test_export_tables_and_query_cli(tmp_path, capsys):
                   "--device", "cpu"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 2 and '"user": 1' in lines[0]
-    with pytest.raises(NotImplementedError, match="A18"):
-        serving.Retriever(u_t, i_t, device="cpu", mesh=object())

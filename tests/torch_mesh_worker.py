@@ -1,0 +1,304 @@
+"""Ranks of the port's mesh tests: each a process of torch and the port
+only (no JAX), on gloo over the CPU.
+
+``start_ranks(world, scenario, args, tmp)`` starts ``world`` processes
+of this file, each initialising a gloo group on a free local port (one
+intra-op thread, a 60 s collective timeout) and running
+``SCENARIOS[scenario](args, tmp)``; ``wait_ranks`` returns their results
+by rank.  It waits up to a deadline, kills every rank when one fails or
+the deadline passes, and raises with their output: a hung collective
+fails a test instead of stalling the suite.
+
+``train_models`` is also what the parent runs without a mesh, as the
+reference the ranks are held against.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import time
+from datetime import timedelta
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+DEADLINE_S = 150
+
+# (name, preset overrides, adj_mode); LightGCN on the gather (ELL) tier,
+# DGCF with the distance-correlation term, KGAT's BPR and TransE phases
+MODELS = (("lightgcn", {"reg": 1e-4}, "ell"),
+          ("dgcf", {"reg": 1e-3, "cor_reg": 0.1}, "auto"),
+          ("kgat", {"agg_type": "bi_inter", "transe_batch": 64}, "auto"))
+STEPS = 3
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tiny_graph(n_user=40, n_item=90):
+    from tagrec_tpu_torch.data.synthetic import synthetic_graph
+
+    return synthetic_graph(n_user=n_user, n_item=n_item, n_tag=25, avg_deg=8,
+                           seed=7)
+
+
+# the checkpoint scenario's graph: 64 users and 96 items split into row
+# blocks over 2 and over 4 ranks, so a 2 x 2 save reshards under 1 x 4
+CKPT_GRAPH = {"n_user": 64, "n_item": 96}
+
+
+def tcfg():
+    from tagrec_tpu_torch.config import TrainConfig
+
+    return TrainConfig(train_batch=64, test_batch=16, epochs=2,
+                       test_interval=1, patient_epoch=10)
+
+
+def pipeline(name, over, adj_mode, mesh=None, graph=None):
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import model_preset
+
+    return build_pipeline(graph or tiny_graph(),
+                          model_preset(name, adj_mode=adj_mode, **over),
+                          tcfg(), device="cpu", mesh=mesh,
+                          generator=torch.Generator().manual_seed(0))
+
+
+def full_params(model):
+    """{JAX name: the whole table} (gathered over the mesh's model axis)."""
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training import checkpoint
+
+    with torch.no_grad(), sharding.gathered():
+        return {n: sharding.value(model, n).detach().clone().numpy()
+                for n in checkpoint.jax_leaf_order(model)}
+
+
+def train_models(mesh=None, steps=STEPS):
+    """``steps`` steps of each phase of each of MODELS, then one
+    evaluation and 3 top-k requests -> {model: {"losses": {phase: [steps,
+    n]}, "params": ..., "eval": ..., "ids": ...}}."""
+    from tagrec_tpu_torch import serving
+    from tagrec_tpu_torch.training.train import Trainer
+
+    out = {}
+    for name, over, adj_mode in MODELS:
+        pipe = pipeline(name, over, adj_mode, mesh)
+        trainer = Trainer(pipe.model, pipe.phases, tcfg(), mesh=mesh,
+                          capture=False,
+                          generator=torch.Generator().manual_seed(1))
+        losses = {ph.name: trainer.run_phase(ph, max_steps=steps)
+                  for ph in pipe.phases}
+        u_t, i_t = serving.export_tables(pipe.model,
+                                         n_item=pipe.graph.n_item)
+        r = serving.Retriever(u_t, i_t, device="cpu", mesh=mesh, block=8,
+                              train_pad=serving.metrics.pad_lists(
+                                  pipe.graph.user_items["train"],
+                                  u_t.shape[0], serving.PAD_ID)[0])
+        ids, scores = r.topk(list(range(0, 40, 3)), k=10)
+        out[name] = {"losses": losses, "params": full_params(pipe.model),
+                     "eval": pipe.evaluator.run(pipe.model),
+                     "ids": ids, "scores": scores,
+                     "placement": trainer.placement}
+    return out
+
+
+# ------------------------------------------------------------- scenarios
+
+def _mesh(args):
+    from tagrec_tpu_torch.parallel import launch
+
+    return launch.global_mesh(args["dp"], args["mp"])
+
+
+def scenario_train(args, tmp):
+    """``train_models`` on the mesh, then each of ``args["then"]``."""
+    out = {"models": train_models(_mesh(args))}
+    for extra in args.get("then", ()):
+        out[extra] = SCENARIOS[extra](args, tmp)
+    return out
+
+
+def scenario_checkpoint(args, tmp):
+    """On a 2 x 2 mesh: train LightGCN, save_sharded, load it back under
+    1 x 4, read the JAX-written directory ``args["jax_dir"]`` if given,
+    and resume a meshed ``Trainer.run`` from its state directory."""
+    from tagrec_tpu_torch.parallel.mesh import make_mesh
+    from tagrec_tpu_torch.training import checkpoint
+    from tagrec_tpu_torch.training.early_stop import EarlyStop
+    from tagrec_tpu_torch.training.train import Trainer
+
+    mesh = _mesh(args)
+    name, over, adj_mode = MODELS[0]
+    graph = tiny_graph(**CKPT_GRAPH)
+    pipe = pipeline(name, over, adj_mode, mesh, graph)
+    trainer = Trainer(pipe.model, pipe.phases, tcfg(), mesh=mesh,
+                      capture=False, generator=torch.Generator().manual_seed(1))
+    trainer.run_phase(pipe.phases[0], max_steps=STEPS)
+    ck = os.path.join(tmp, "ck")
+    step_dir = checkpoint.save_sharded(ck, pipe.model, trainer.opt, 7)
+    out = {"saved": full_params(pipe.model), "step_dir": step_dir,
+           "adam": adam_full(pipe.model, trainer.opt)}
+
+    wide = make_mesh(4, data_parallel=1)  # 1 x 4
+    pipe2 = pipeline(name, over, adj_mode, wide, graph)
+    t2 = Trainer(pipe2.model, pipe2.phases, tcfg(), mesh=wide, capture=False,
+                 generator=torch.Generator().manual_seed(1))
+    out["step_1x4"] = checkpoint.load_sharded(step_dir, pipe2.model, t2.opt)
+    out["loaded_1x4"] = full_params(pipe2.model)
+    out["adam_1x4"] = adam_full(pipe2.model, t2.opt)
+    if args.get("jax_dir"):
+        pipe3 = pipeline(name, over, adj_mode, mesh, graph)
+        t3 = Trainer(pipe3.model, pipe3.phases, tcfg(), mesh=mesh,
+                     capture=False, generator=torch.Generator().manual_seed(1))
+        out["jax_step"] = checkpoint.load_sharded(args["jax_dir"],
+                                                  pipe3.model, t3.opt)
+        out["jax_loaded"] = full_params(pipe3.model)
+        out["jax_adam"] = adam_full(pipe3.model, t3.opt)
+
+    # Trainer.run with a state directory: 2 epochs, then resumed to 3
+    state = os.path.join(tmp, "state")
+    logs = []
+    pipe4 = pipeline(name, over, adj_mode, mesh, graph)
+    for epochs in (2, 3):
+        t4 = Trainer(pipe4.model, pipe4.phases, tcfg().replace(epochs=epochs),
+                     mesh=mesh, capture=False,
+                     generator=torch.Generator().manual_seed(1))
+        t4.run(pipe4.evaluator, EarlyStop(10), log=logs.append,
+               state_path=state)
+    out["logs"] = logs
+    out["latest"] = os.path.basename(checkpoint.latest_step_dir(state))
+    return out
+
+
+def adam_full(model, opt):
+    """{JAX name: (count, mu, nu)}, the moments gathered over ``model``."""
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training import checkpoint
+
+    gs = sharding.gathers(model)
+    params = checkpoint.named_params(model)
+    out = {}
+    for n in checkpoint.jax_leaf_order(model):
+        st = opt.state.get(params[n])
+        if not st:
+            out[n] = None
+            continue
+        moments = []
+        for key in ("exp_avg", "exp_avg_sq"):
+            t = st[key]
+            if n in gs:
+                parts = [torch.empty_like(t)
+                         for _ in range(gs[n].mesh.shape["model"])]
+                torch.distributed.all_gather(parts, t,
+                                             group=gs[n].mesh.group("model"))
+                t = torch.cat(parts)
+            moments.append(t.numpy().copy())
+        out[n] = (int(st["step"]), *moments)
+    return out
+
+
+def scenario_scaling(args, tmp):
+    """launch.scaling_report over meshes of 1 and 2 ranks."""
+    from tagrec_tpu_torch.parallel import launch, sharding
+
+    def args_fn(mesh, rep):
+        return (torch.full((4, 3), float(rep + 1)), mesh)
+
+    def step(x, mesh):
+        y = x.clone()
+        sharding.data_mean_([y], mesh)
+        return y
+
+    return launch.scaling_report(step, args_fn, [1, 2], batch=4, reps=2)
+
+
+SCENARIOS = {"train": scenario_train, "checkpoint": scenario_checkpoint,
+             "scaling": scenario_scaling}
+
+
+# ------------------------------------------------------------ the parent
+
+def start_ranks(world: int, scenario: str, args: dict, tmp: str):
+    """Start ``scenario`` on ``world`` gloo ranks -> a handle for
+    ``wait_ranks``."""
+    port = free_port()
+    os.makedirs(tmp, exist_ok=True)
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE=str(world), OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT, HERE, os.environ.get("PYTHONPATH", "")]))
+    procs = []
+    for rank in range(world):
+        log = open(os.path.join(tmp, f"rank{rank}.log"), "w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, __file__, scenario, tmp, json.dumps(args)],
+            env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank)),
+            stdout=log, stderr=subprocess.STDOUT), log))
+    return {"scenario": scenario, "world": world, "tmp": tmp, "procs": procs}
+
+
+def wait_ranks(*handles, deadline_s: float = DEADLINE_S):
+    """Wait for every rank of ``handles`` -> each handle's results by
+    rank.  When a rank fails or the deadline passes, every rank of every
+    handle is killed and the ranks' output raised."""
+    procs = [p for h in handles for p, _ in h["procs"]]
+    end = time.monotonic() + deadline_s
+    failed = None
+    while failed is None and any(p.poll() is None for p in procs):
+        if any(p.poll() not in (None, 0) for p in procs):
+            failed = "a rank failed"
+        elif time.monotonic() > end:
+            failed = f"deadline of {deadline_s} s passed"
+        else:
+            time.sleep(0.05)
+    if failed is None and any(p.returncode for p in procs):
+        failed = "a rank failed"
+    if failed:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        logs = []
+        for h in handles:
+            for rank, (p, log) in enumerate(h["procs"]):
+                log.seek(0)
+                logs.append(f"--- {h['scenario']} rank {rank}/{h['world']} "
+                            f"(exit {p.returncode}):\n{log.read()[-3000:]}")
+        raise RuntimeError(f"mesh test ranks: {failed}\n" + "\n".join(logs))
+    out = []
+    for h in handles:
+        res = []
+        for rank, (_, log) in enumerate(h["procs"]):
+            log.close()
+            with open(os.path.join(h["tmp"], f"result{rank}.pkl"), "rb") as f:
+                res.append(pickle.load(f))
+        out.append(res)
+    return out
+
+
+def main():
+    scenario, tmp, args = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+    torch.set_num_threads(1)
+    from tagrec_tpu_torch.parallel import launch
+
+    launch.initialize(device="cpu", timeout=timedelta(seconds=60))
+    try:
+        result = SCENARIOS[scenario](args, tmp)
+        with open(os.path.join(tmp, f"result{launch.rank()}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+    finally:
+        launch.shutdown()
+
+
+if __name__ == "__main__":
+    main()
