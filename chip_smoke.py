@@ -3075,12 +3075,13 @@ def mesh_graph():
                                  TAG_PER_INTER, seed=0)
 
 
-def mesh_run(torch, graph, mesh, capture, on_launches=None):
-    """DGCF (cor_reg 0.1) at the preset's width on ``graph`` through
-    ``build_pipeline(mesh=)`` and ``Trainer(mesh=)``: HETREC_BPR_STEPS
-    steps, each synchronised and timed, ``on_launches(i)`` after each ->
-    {"pipe", "trainer", "losses", "params" (gathered, by JAX name, on the
-    host), "ms"}."""
+def mesh_run(torch, graph, mesh, capture, on_launches=None,
+             family=("dgcf", {"cor_reg": 0.1})):
+    """``family`` (name, preset overrides; DGCF with cor_reg 0.1) at the
+    preset's width on ``graph`` through ``build_pipeline(mesh=)`` and
+    ``Trainer(mesh=)``: HETREC_BPR_STEPS steps, each synchronised and
+    timed, ``on_launches(i)`` after each -> {"pipe", "trainer", "losses",
+    "params" (gathered, by JAX name, on the host), "ms"}."""
     from tagrec_tpu_torch.compose import build_pipeline
     from tagrec_tpu_torch.config import TrainConfig, model_preset
     from tagrec_tpu_torch.parallel import sharding
@@ -3088,7 +3089,7 @@ def mesh_run(torch, graph, mesh, capture, on_launches=None):
     from tagrec_tpu_torch.training.train import Trainer
 
     tcfg = TrainConfig()
-    pipe = build_pipeline(graph, model_preset("dgcf", cor_reg=0.1), tcfg,
+    pipe = build_pipeline(graph, model_preset(family[0], **family[1]), tcfg,
                           generator=torch.Generator().manual_seed(0),
                           device="cuda", mesh=mesh)
     trainer = Trainer(pipe.model, pipe.phases, tcfg, mesh=mesh,
@@ -3442,6 +3443,402 @@ def mesh_phase(torch, fr, graph, card):
     return launches
 
 
+# ------------------------------- phase R: the graph tables over ``model``
+
+# a LightGCN or NGCF BPR step on the 10x hybrid tier: 3 layers x (7 buckets;
+# inv_perm and the hub columns), forward and backward over the pair
+ROW_STEP = {"gather_reduce": 42, "gather_rows": 12}
+ROW_RANKS = 2          # model = 2, two ranks on the one card
+ROW_TIMEOUT_S = 300
+# each path of R2: (label, family, graph, BPR steps, node_drop and serving)
+ROW_PATHS = (("LightGCN 10x", "lightgcn", "10x", 5, True),
+             ("NGCF 10x", "ngcf", "10x", 3, False),
+             ("LightGCN hetrec", "lightgcn", "hetrec", 3, False))
+
+
+def row_bucket_rows(torch, dg, adj, x):
+    """[(block, rows)]: each forward bucket's ``gather_reduce`` rows from
+    ``x`` over the rows the rank holds (its block, or (0, n) whole);
+    empty on a dense form."""
+    from tagrec_tpu_torch.ops import ell
+
+    fwd = adj.fwd
+    blocks = fwd.blocks if isinstance(fwd, ell.RowShard) else None
+    form = fwd.form if blocks is not None else fwd
+    if not isinstance(form, ell.Hybrid):
+        return []
+    out = []
+    for j, p in enumerate(form.ell.parts):
+        n = p.idx.shape[0]
+        blk = (blocks[j] if blocks is not None else None) or (0, n)
+        rows = dg.gather_reduce(x, p.idx, p.val, p.deg) if n else x[:0]
+        out.append((blk, rows.cpu().numpy()))
+    return out
+
+
+def row_path(torch, dg, graph, name, steps, extras, mesh):
+    """One path of phase R2 through ``build_pipeline(mesh=)`` and an eager
+    ``Trainer(mesh=)`` (``mesh`` None: the one-device run): the graph
+    tables' bytes; the forward and each bucket's ``gather_reduce`` rows
+    from the initial tables; ``steps`` BPR steps, each timed but the
+    last, which is profiled; with ``extras`` one ``node_drop`` step (a
+    Trainer of its own), an evaluation, the export and N_REQUESTS top-k
+    requests.
+    -> the results on the host, with the main path's gather launches,
+    the peak memory above the path's start and the seconds."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from tagrec_tpu_torch import serving
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+    from tagrec_tpu_torch.ops import ell
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training import checkpoint
+    from tagrec_tpu_torch.training.train import Trainer
+
+    secs, t0 = {}, time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    # the peak above what the process already holds (the one-device run
+    # shares its process with the earlier phases' tensors)
+    base = torch.cuda.memory_allocated()
+    tcfg = TrainConfig()
+    pipe = build_pipeline(graph, model_preset(name), tcfg, device="cuda",
+                          generator=torch.Generator().manual_seed(0),
+                          mesh=mesh)
+    model = pipe.model
+    out = {"bytes": ell.graph_bytes(model.adj),
+           "sharded": isinstance(model.adj.fwd, ell.RowShard)}
+    secs["build"] = time.perf_counter() - t0
+    with torch.no_grad(), sharding.gathered():
+        x = torch.cat(list(model.embed))
+        out["buckets"] = row_bucket_rows(torch, dg, model.adj, x)
+        out["forward"] = [t.cpu().numpy() for t in model.forward()]
+    del x
+    reset_counts(dg, GATHER)
+    t0 = time.perf_counter()
+    trainer = Trainer(model, pipe.phases, tcfg, mesh=mesh, capture=False,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    times, last = [], [time.perf_counter()]
+
+    def on_step(i, parts):
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - last[0]) * 1e3)
+        last[0] = time.perf_counter()
+
+    out["losses"] = trainer.run_phase(pipe.phases[0], max_steps=steps - 1,
+                                      on_step=on_step)
+    out["step_ms"] = times
+    out["step_launches"] = counts(dg, GATHER)
+    secs["steps"] = time.perf_counter() - t0
+    # the last step (a new epoch's first) under the profiler: its device
+    # busy ms, operations, and the host-device copies gloo stages through
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out["losses_profiled"] = trainer.run_phase(pipe.phases[0],
+                                                   max_steps=1)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if on_device(e)]
+    copies = [e for e in dev if "DtoH" in e.name or "HtoD" in e.name]
+    out["profiled"] = {
+        "busy_ms": sum(e.time_range.elapsed_us() for e in dev) / 1e3,
+        "ops": len(dev), "host_copies": len(copies),
+        "host_copies_ms": sum(e.time_range.elapsed_us()
+                              for e in copies) / 1e3,
+        "nccl_or_gloo": len([e for e in dev if "nccl" in e.name.lower()])}
+    if extras:
+        t0 = time.perf_counter()
+        cfg = model.cfg
+        model.cfg = cfg.replace(node_drop=NODE_DROP)
+        drop = Trainer(model, pipe.phases, tcfg, mesh=mesh, capture=False,
+                       generator=torch.Generator(device="cuda").manual_seed(1))
+        out["drop_losses"] = drop.run_phase(pipe.phases[0], max_steps=1)
+        model.cfg = cfg
+        secs["node_drop step"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["eval"] = pipe.evaluator.run(model)
+        secs["evaluation"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        u_t, i_t = serving.export_tables(model, n_item=graph.n_item)
+        pad, _ = serving.metrics.pad_lists(graph.user_items["train"],
+                                           graph.n_user, serving.PAD_ID)
+        r = serving.Retriever(u_t, i_t, train_pad=pad, mesh=mesh,
+                              device="cuda")
+        rng = np.random.default_rng(0)
+        out["ids"], out["scores"] = map(np.stack, zip(*(
+            r.topk(rng.choice(graph.n_user, REQUEST_USERS, replace=False),
+                   TOP_K) for _ in range(N_REQUESTS))))
+        secs["export and requests"] = time.perf_counter() - t0
+    out["launches"] = counts(dg, GATHER)
+    with torch.no_grad(), sharding.gathered():
+        out["params"] = {n: sharding.value(model, n).detach().cpu().numpy()
+                         for n in checkpoint.jax_leaf_order(model)}
+    torch.cuda.synchronize()
+    out["peak"] = torch.cuda.max_memory_allocated() - base
+    out["seconds"] = secs
+    del trainer, pipe, model
+    gc_cuda(torch)
+    return out
+
+
+def row_paths(torch, graphs, mesh):
+    """Every path of ROW_PATHS -> {label: ``row_path``'s results}."""
+    from tagrec_tpu_torch.ops import dma_gather as dg
+
+    return {label: row_path(torch, dg, graphs[g], name, steps, extras, mesh)
+            for label, name, g, steps, extras in ROW_PATHS}
+
+
+def row_rank_main(argv):
+    """One rank of phase R2 (``chip_smoke.py row-rank GRAPHS OUT`` under
+    RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT): gloo over CUDA
+    tensors, eager, model = 2; ``row_paths`` over the pickled graphs,
+    pickled to OUT/rank{r}.pkl."""
+    import pickle
+    from datetime import timedelta
+
+    import torch
+
+    from tagrec_tpu_torch.parallel import launch
+
+    graphs_path, out = argv[0], argv[1]
+    launch.initialize("gloo", device="cuda",
+                      timeout=timedelta(seconds=ROW_TIMEOUT_S // 2))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with open(graphs_path, "rb") as f:
+            graphs = pickle.load(f)
+        mesh = launch.global_mesh(1, ROW_RANKS)
+        res = row_paths(torch, graphs, mesh)
+        with open(os.path.join(out, f"rank{launch.rank()}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        launch.shutdown()
+    return 0
+
+
+def start_row_ranks(graphs_path, out):
+    """The ROW_RANKS ranks of phase R2 on this card, each ``chip_smoke.py
+    row-rank`` in its own process."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(ROW_RANKS):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(ROW_RANKS),
+                   LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        log = open(os.path.join(out, f"rank{rank}.log"), "w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "row-rank",
+             graphs_path, out], env=env, stdout=log,
+            stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def row_one_rank(torch, dg, graph, card):
+    """R1: LightGCN at full width on the 10x graph (hybrid tier) on a
+    one-rank NCCL mesh, its graph tables one row block, captured: bit for
+    bit (losses and parameters) against the same captured run without a
+    mesh, ROW_STEP gather launches each step; ms a step with and without
+    the mesh, and the mesh's own operations' share of a replay.  -> the
+    mesh run's launches."""
+    import torch.distributed as dist
+
+    from tagrec_tpu_torch.ops import ell
+    from tagrec_tpu_torch.parallel.mesh import make_mesh
+
+    family = ("lightgcn", {})
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda:0"))
+    try:
+        mesh = make_mesh(1)
+        plain = mesh_run(torch, graph, None, capture=True, family=family)
+        reset_counts(dg, GATHER)
+        total = {k: 0 for k in GATHER}
+        checker = launch_checker(dg, GATHER, ROW_STEP, "R1 mesh step")
+
+        def on_launches(i):
+            for k, v in checker(i).items():
+                total[k] += v
+
+        meshed = mesh_run(torch, graph, mesh, capture=True,
+                          on_launches=on_launches, family=family)
+        run = meshed["trainer"].runs["bpr"]
+        adj = meshed["pipe"].model.adj
+        placed = meshed["trainer"].placement["graph"]
+        check(run.graph is not None, "R1: the mesh step was not captured")
+        check(isinstance(adj.fwd, ell.RowShard) and "model" in placed.values(),
+              "R1: the graph tables were not placed on the mesh")
+        diff = held_equal(torch, meshed["params"], plain["params"])
+        same_loss = (meshed["losses"] == plain["losses"]).all()
+        on_model = sum(v == "model" for v in placed.values())
+        print(f"R1 LightGCN 10x captured on a one-rank NCCL mesh {mesh}, "
+              f"{HETREC_BPR_STEPS} steps: {on_model} of {len(placed)} graph "
+              f"leaves on 'model' (one block), "
+              f"{ell.graph_bytes(adj)} bytes; launches {total}; losses "
+              f"{'bit for bit' if same_loss else 'DIFFER'} "
+              f"({plain['losses'].sum(axis=1).tolist()}), parameters "
+              f"{'bit for bit' if not diff else 'DIFFER: ' + str(diff)}")
+        check(same_loss and not diff,
+              "R1: the one-rank mesh's captured run is not bit for bit the "
+              "plain captured run")
+        walls = {"plain": [], "mesh": []}
+        for key in ("plain", "mesh", "mesh", "plain"):
+            r = plain if key == "plain" else meshed
+            walls[key].append(phase_wall_ms(torch, r["trainer"],
+                                            r["pipe"].phases[0],
+                                            MESH_WALL_STEPS)
+                              / MESH_WALL_STEPS)
+        plain_run = plain["trainer"].runs["bpr"]
+        run.counter.zero_()
+        plain_run.counter.zero_()
+        m_ops = replay_ops(torch, run.graph)
+        p_ops = replay_ops(torch, plain_run.graph)
+        extra, extra_ms, busy = mesh_ops(m_ops, p_ops)
+        top = sorted(extra.items(), key=lambda kv: -kv[1][1])[:8]
+        print(f"R1 captured LightGCN 10x step ({card}): ms a step over "
+              f"{MESH_WALL_STEPS} steps with one sync (plain, mesh, mesh, "
+              f"plain): without the mesh {walls['plain']}, with "
+              f"{walls['mesh']}; per step (host clock, synchronised) "
+              f"without {plain['ms']}, with {meshed['ms']}; a replay "
+              f"(profiler): device busy {busy:.4f} ms with the mesh "
+              f"({sum(n for n, _ in m_ops.values()):.0f} device operations), "
+              f"{sum(ms for _, ms in p_ops.values()):.4f} ms without "
+              f"({sum(n for n, _ in p_ops.values()):.0f}); the mesh's own "
+              f"operations {sum(n for n, _ in extra.values()):.0f} a "
+              f"replay, {extra_ms:.4f} ms ({extra_ms / busy:.4f} of the busy "
+              f"time); largest "
+              f"{[(k[:60], n, round(ms, 4)) for k, (n, ms) in top]}")
+        return total
+    finally:
+        dist.destroy_process_group()
+
+
+def rounded(secs):
+    return {k: round(v, 2) for k, v in secs.items()}
+
+
+def row_hold(label, got, want, ranks, steps, card):
+    """A rank's R2 path against the one-device run; prints and checks."""
+    import numpy as np
+
+    fwd_ok = all(np.allclose(a, b, rtol=RTOL, atol=ATOL)
+                 for a, b in zip(got["forward"], want["forward"]))
+    fwd_err = max(float(np.abs(a - b).max())
+                  for a, b in zip(got["forward"], want["forward"]))
+    buckets_ok = len(got["buckets"]) == len(want["buckets"]) and all(
+        np.array_equal(rows, w[s:e]) for ((s, e), rows), (_, w) in
+        zip(got["buckets"], want["buckets"]))
+    keys = [k for k in ("losses", "losses_profiled", "drop_losses")
+            if k in want]
+    losses, wlosses = [got[k] for k in keys], [want[k] for k in keys]
+    loss_err = max(float(np.abs(a - b).max()) for a, b in zip(losses,
+                                                              wlosses))
+    param_err = max(float(np.abs(got["params"][n] - want["params"][n]).max())
+                    for n in want["params"])
+    bound = 0.01 * 0.01 * steps  # a hundredth of TrainConfig's lr a step
+    agree = all(all(np.array_equal(r["params"][n], got["params"][n])
+                    for n in got["params"]) for r in ranks)
+    same_launches = all(r["launches"] == want["launches"] for r in ranks)
+    print(f"R2 {label} (model = {ROW_RANKS}, gloo over CUDA tensors, eager; "
+          f"{card}): graph tables per rank {[r['bytes'] for r in ranks]} "
+          f"bytes against {want['bytes']} on one device; peak memory "
+          f"above the path's start per rank "
+          f"{[round(r['peak'] / 2**30, 3) for r in ranks]} GiB against "
+          f"{want['peak'] / 2**30:.3f}; forward max abs err "
+          f"{fwd_err:.3e} (rtol {RTOL}, atol {ATOL}) "
+          f"{'ok' if fwd_ok else 'FAIL'}; {len(got['buckets'])} buckets' "
+          f"gather_reduce rows {'bit for bit' if buckets_ok else 'DIFFER'}; "
+          f"|losses - one device| {loss_err:.3e} (bound {MESH_LOSS_ATOL}); "
+          f"|parameters - one device| {param_err:.3e} (bound {bound:.1e}); "
+          f"ranks' parameters {'bit for bit' if agree else 'DIFFER'}; "
+          f"launches per rank {[r['launches'] for r in ranks]} (one device "
+          f"{want['launches']}, BPR steps {want['step_launches']}); ms a "
+          f"step (host clock, synchronised) rank 0 "
+          f"{[round(t, 3) for t in got['step_ms']]}, one device "
+          f"{[round(t, 3) for t in want['step_ms']]}; a profiled step: rank "
+          f"0 {got['profiled']}, one device {want['profiled']}; seconds "
+          f"per rank {[rounded(r['seconds']) for r in ranks]}, one device "
+          f"{rounded(want['seconds'])}")
+    check(all(r["sharded"] for r in ranks) and not want["sharded"],
+          f"R2 {label}: the ranks' graph tables are not row shards")
+    check(fwd_ok and buckets_ok and loss_err <= MESH_LOSS_ATOL
+          and param_err <= bound and agree and same_launches,
+          f"R2 {label}: a rank is outside its hold against one device")
+    # the hybrid tier runs the gather kernels; the dense sectors none
+    check(not want["buckets"] or all(
+        r["launches"]["gather_reduce"] > 0 and r["launches"]["gather_rows"]
+        > 0 for r in ranks), f"R2 {label}: a rank launched no gather kernel")
+    if "eval" in want:
+        check_metrics(got["eval"], want["eval"], False, f"R2 {label}")
+        check(bool(np.allclose(got["scores"], want["scores"], rtol=0,
+                               atol=1e-4)),
+              f"R2 {label}: the requests' scores differ")
+        print(f"R2 {label}: evaluation {got['eval']} (one device "
+              f"{want['eval']}); {N_REQUESTS} requests' scores within 1e-4")
+
+
+def row_two_ranks(torch, graphs, card):
+    """R2: ``row_paths`` on ROW_RANKS ranks (model = 2) on this card
+    against the one-device eager run -> every rank's gather launches."""
+    import pickle
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graphs.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(graphs, f)
+        procs = start_row_ranks(path, tmp)
+        want = row_paths(torch, graphs, None)
+        end = time.monotonic() + ROW_TIMEOUT_S
+        while any(p.poll() is None for p, _ in procs):
+            if (any(p.poll() not in (None, 0) for p, _ in procs)
+                    or time.monotonic() > end):
+                break
+            time.sleep(0.1)
+        failed = any(p.poll() != 0 for p, _ in procs)
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if failed:
+                print(text[-3000:])
+        check(not failed, "R2: a rank failed or timed out")
+        ranks = []
+        for r in range(ROW_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    launches = {k: 0 for k in GATHER}
+    for label, _, _, steps, extras in ROW_PATHS:
+        rs = [r[label] for r in ranks]
+        row_hold(label, rs[0], want[label], rs, steps + extras, card)
+        for r in rs:
+            for k in GATHER:
+                launches[k] += r["launches"][k]
+    return launches
+
+
+def row_phase(torch, dg, graphs, card):
+    """Phase R: LightGCN's and NGCF's graph tables row-sharded over
+    ``model``.  -> the gather launches of its main paths (R1's captured
+    mesh steps, R2's ranks)."""
+    done = phase_timer("R1 one-rank NCCL mesh, LightGCN 10x")
+    launches = row_one_rank(torch, dg, graphs["10x"], card)
+    done()
+    gc_cuda(torch)
+    done = phase_timer("R2 model = 2 on one card")
+    two = row_two_ranks(torch, graphs, card)
+    done()
+    gc_cuda(torch)
+    return {k: launches[k] + two[k] for k in GATHER}
+
+
 # ------------------------------------------ phase E: the EdgeMap tier
 
 EM_F, EM_DK = 4, 16  # DGCF's factors and factor width
@@ -3749,7 +4146,8 @@ def edgemap_10x_holds(torch, dg, em, f, d, live):
     kernel over the transpose, and d vals, the row-chunked ``_dot_raw``)
     and one ``edge_dot`` (row-chunked where a bucket's gather is over
     ``EDGEMAP_GATHER_BUDGET_BYTES``) against float64 references; then
-    timed.  -> the record's measured fields."""
+    timed, beside one ``torch.sparse.mm`` over the factors' block-diagonal
+    CSR.  -> the record's measured fields."""
     from tagrec_tpu_torch.ops import edgemap
 
     chunks = [edgemap._row_chunk_for(i.shape[0], i.shape[1], d, 4, (f,))
@@ -3809,13 +4207,24 @@ def edgemap_10x_holds(torch, dg, em, f, d, live):
     ms, dev = time_ms(torch, kern, runs=15), device_ms(torch, kern)
     in_graph = graph_ms(torch, kern)
     bound, by, gathered = edgemap_bound(em, f, d)
+    # one torch.sparse.mm over the factors' block-diagonal CSR: the same
+    # function, timed beside the kernel as at hetrec
+    n = em.f_inv.shape[0]
+    lib_a = block_diagonal_csr(torch, em, vals)
+    lib = lambda: torch.sparse.mm(lib_a, x.reshape(-1, d))  # noqa: E731
+    lib_err = float((lib().reshape(f, n, d) - kern()).abs().max())
+    lib_ms, lib_dev = time_ms(torch, lib, runs=15), device_ms(torch, lib)
     print(f"edge_reduce at DGCF 10x ({f * live} launches): kernel {ms:.4f} "
           f"ms (median of 15), device {dev:.4f} ms, replayed in a CUDA graph "
-          f"{in_graph:.4f} ms (CUDA events); bound {bound:.4f} ms "
+          f"{in_graph:.4f} ms (CUDA events); torch.sparse.mm (block-diagonal "
+          f"CSR, {lib_a._nnz()} values, differs by {lib_err:.3e}) "
+          f"{lib_ms:.4f} ms, device {lib_dev:.4f} ms; bound {bound:.4f} ms "
           f"({by}); its gathered rows at the memory rate {gathered:.4f} ms")
+    del lib_a
     return {"max_abs_err": err, "edge_dot_max_abs_err": dot_err, "ms": ms,
             "device_ms": dev, "graph_ms": in_graph, "bound_ms": bound,
-            "bound_by": by}
+            "bound_by": by, "library_ms": lib_ms,
+            "library_device_ms": lib_dev, "library_max_abs_err": lib_err}
 
 
 def dgcf_10x_phase(torch, dg, graph, records, tmp):
@@ -4007,7 +4416,6 @@ def run(torch):
     edgemap_primitives_phase(torch, dg, graph, records)
     with tempfile.TemporaryDirectory() as tmp:
         em_launches += dgcf_10x_phase(torch, dg, graph_10x, records, tmp)
-    del graph_10x
     gc_cuda(torch)
     with tempfile.TemporaryDirectory() as tmp:
         kg_phase(torch, graph, tmp)
@@ -4027,6 +4435,12 @@ def run(torch):
     launches.update({k: launches[k] + meshed[k] for k in ROUTING})
     print(f"routing launches over phase P's captured one-rank mesh steps: "
           f"{meshed}; over every path: { {k: launches[k] for k in ROUTING} }")
+    rows = row_phase(torch, dg, {"10x": graph_10x, "hetrec": graph}, card)
+    del graph_10x
+    launches.update({k: launches[k] + rows[k] for k in GATHER})
+    print(f"gather launches over phase R's main paths (R1's captured mesh "
+          f"steps, R2's ranks): {rows}; over every path: "
+          f"{ {k: launches[k] for k in GATHER} }")
 
     print(f"capture phase, every path ({card}): {json.dumps(CAPTURED)}")
     slower = [f"{r['path']} {r['phase']}" for r in CAPTURED
@@ -4073,6 +4487,8 @@ def run(torch):
 def main() -> int:
     if sys.argv[1:2] == ["mesh-rank"]:  # a rank of phase P2, started by it
         return mesh_rank_main(sys.argv[2:])
+    if sys.argv[1:2] == ["row-rank"]:  # a rank of phase R2, started by it
+        return row_rank_main(sys.argv[2:])
     try:
         import torch
     except ImportError:

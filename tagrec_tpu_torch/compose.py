@@ -26,6 +26,8 @@ from tagrec_tpu_torch.training.train import (PhaseSpec, bpr_phase,
 
 # the families trained by the resampling phase
 RESAMPLED = ("dgcf", "disengcn", "disenhan")
+# the families whose adjacency pair a mesh row-shards over ``model``
+GRAPH_SHARDED = ("lightgcn", "ngcf")
 
 
 @dataclass
@@ -52,13 +54,17 @@ def build_pipeline(graph: HeteroGraph, mcfg: ModelConfig, tcfg: TrainConfig,
     ``generator`` (CPU) draws the weights.  ``kg``: an optional
     ``data.kg.KnowledgeGraph``, which puts KGAT over the knowledge graph
     (other families ignore it).  ``mesh``: an optional
-    ``parallel.Mesh``, which makes the evaluation sharded (the Trainer
-    takes the same mesh for training, as JAX's)."""
+    ``parallel.Mesh``, which makes the evaluation sharded and gives
+    LightGCN and NGCF only this rank's rows of their graph tables, cut
+    before the upload (the Trainer takes the same mesh for training, as
+    JAX's)."""
     cls = model_class(mcfg.name)
     dev = resolve(device)
     over_kg = mcfg.name == "kgat" and kg is not None
-    model = cls(graph, mcfg, generator=generator, device=dev,
-                **({"kg": kg} if over_kg else {}))
+    kw = {"kg": kg} if over_kg else {}
+    if mesh is not None and mcfg.name in GRAPH_SHARDED:
+        kw["mesh"] = mesh
+    model = cls(graph, mcfg, generator=generator, device=dev, **kw)
     pt = sampling.build_pos_table(graph.user_items["train"], graph.n_user,
                                   graph.n_item, device=dev)
     edges = graph.edge_index["train"]

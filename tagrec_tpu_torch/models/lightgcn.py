@@ -33,11 +33,13 @@ from tagrec_tpu_torch.ops.propagate import (adj_mm, edge_dropout,
 class LightGCN(nn.Module):
     """``embed`` holds the user, item[, tag] tables, drawn from
     ``generator`` (a CPU ``torch.Generator``); ``adj`` is the adjacency
-    pair (``ops.ell.AdjPair``) on ``device``."""
+    pair (``ops.ell.AdjPair``) on ``device``, built from ``adj_host``;
+    with ``mesh`` its pieces are that rank's rows (``ops.ell.shard_rows``,
+    ``parallel.sharding.shard_graph``)."""
 
     def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
                  generator: torch.Generator, device="cuda",
-                 per_layer_normalize: bool = True):
+                 per_layer_normalize: bool = True, mesh=None):
         super().__init__()
         dev = resolve(device)
         self.cfg = cfg
@@ -56,7 +58,9 @@ class LightGCN(nn.Module):
             sectors=(tuple(self.num_list)
                      if cfg.norm_type in ("bi_norm", "plain", "si_norm")
                      else None))
-        self.adj = ell_lib.to_device(host, dev)
+        self.adj_host = host
+        self.adj = ell_lib.to_device(
+            host if mesh is None else ell_lib.shard_rows(host, mesh), dev)
         self.embed = nn.ParameterList(
             base.init_embeddings(self.num_list, cfg.dim_latent, generator, dev))
 

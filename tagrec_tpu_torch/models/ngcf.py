@@ -37,10 +37,12 @@ class NGCF(nn.Module):
     """Parameters ``embed.{0,1[,2]}`` (user, item[, tag]) and
     ``mat.{W1,b1,W2,b2}_k``, drawn in that order from ``generator`` (a CPU
     ``torch.Generator``), the tree of JAX's params; ``adj`` is the
-    adjacency pair (``ops.ell.AdjPair``) on ``device``."""
+    adjacency pair (``ops.ell.AdjPair``) on ``device``, built from
+    ``adj_host``; with ``mesh`` its pieces are that rank's rows
+    (``ops.ell.shard_rows``, ``parallel.sharding.shard_graph``)."""
 
     def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
-                 generator: torch.Generator, device="cuda"):
+                 generator: torch.Generator, device="cuda", mesh=None):
         super().__init__()
         dev = resolve(device)
         self.cfg = cfg
@@ -58,7 +60,9 @@ class NGCF(nn.Module):
             sectors=(tuple(self.num_list)
                      if stored_norm in ("bi_norm", "plain", "si_norm")
                      else None))
-        self.adj = ell_lib.to_device(host, dev)
+        self.adj_host = host
+        self.adj = ell_lib.to_device(
+            host if mesh is None else ell_lib.shard_rows(host, mesh), dev)
         self.embed = nn.ParameterList(
             base.init_embeddings(self.num_list, cfg.dim_latent, generator, dev))
         mat = {}

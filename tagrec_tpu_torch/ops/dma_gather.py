@@ -163,16 +163,25 @@ def gather_rows(x, idx):
     return out
 
 
-def gather_reduce(x, idx, val, deg=None):
+def gather_reduce(x, idx, val, deg=None, out=None):
     """out[n] = sum_k val[n, k] * x[idx[n, k]] -> [N, D] over the slots
     k < deg[n] (``deg`` [N] int32, the ELL rows' degrees), or over every
-    slot without it; ids must lie in [0, M), pad slots hold value 0."""
+    slot without it; ids must lie in [0, M), pad slots hold value 0.
+    ``out``: an optional contiguous float32 [N, D] tensor on x's device
+    that receives the rows (a slice of a larger buffer)."""
     _check("gather_reduce", x, idx, val, deg)
-    if not _on_card("gather_reduce", x, idx, val, deg):
-        return gather_reduce_plain(x, idx, val, deg)
     n, k = idx.shape
     d = x.shape[1]
-    out = torch.empty((n, d), device=x.device, dtype=torch.float32)
+    if out is not None and (tuple(out.shape) != (n, d) or not
+                            out.is_contiguous() or out.dtype != torch.float32
+                            or out.device != x.device):
+        raise ValueError(f"gather_reduce: out must be a contiguous float32 "
+                         f"[{n}, {d}] tensor on {x.device}")
+    if not _on_card("gather_reduce", x, idx, val, deg):
+        rows = gather_reduce_plain(x, idx, val, deg)
+        return rows if out is None else out.copy_(rows)
+    if out is None:
+        out = torch.empty((n, d), device=x.device, dtype=torch.float32)
     if n:
         span = SPAN if k > WIDE_K else 0
         blocks = -(-k // span) if span else 1

@@ -425,8 +425,11 @@ def _block(a: np.ndarray, device) -> torch.Tensor:
 
 def to_device(h, device):
     """The device container of a host form (EllHost, EllBucketsHost,
-    HybridHost, DenseSectorsHost or AdjPairHost), its tensors on
-    ``device``."""
+    HybridHost, DenseSectorsHost, RowShardHost or AdjPairHost), its
+    tensors on ``device``."""
+    if isinstance(h, RowShardHost):
+        return RowShard(form=to_device(h.form, device), blocks=h.blocks,
+                        rows=h.rows, mesh=h.mesh)
     if isinstance(h, AdjPairHost):
         fwd = to_device(h.fwd, device)
         return AdjPair(fwd=fwd, bwd=fwd if h.bwd is h.fwd
@@ -445,12 +448,143 @@ def to_device(h, device):
             dense_block=None if h.dense_block is None
             else _block(h.dense_block, device))
     if isinstance(h, EllBucketsHost):
-        n_out = sum(b.idx.shape[0] for b in h.buckets)
+        # inv_perm indexes the whole buckets' rows, also for a rank's cut
         return EllBuckets(parts=tuple(to_device(b, device)
                                       for b in h.buckets),
-                          inv_perm=_ids(h.inv_perm, max(n_out, 1), device))
+                          inv_perm=_ids(h.inv_perm, max(h.n_rows, 1), device))
     if isinstance(h, EllHost):
         return Ell(idx=_ids(h.idx, h.n_cols, device), val=_f32(h.val, device),
                    deg=torch.as_tensor(h.deg.astype(np.int32), device=device),
                    live=torch.as_tensor(live_slots(h), device=device))
     raise TypeError(f"no device form for {type(h).__name__}")
+
+
+# ------------------------------------------- rows over the ``model`` axis
+
+# JAX's rule (``_shardable``, tagrec_tpu/parallel/sharding.py): a table of
+# at least this many rows, which divide by the ``model`` axis, is
+# row-sharded over it; every other table is whole on every rank
+MIN_SHARD_ROWS = 64
+# the leaves JAX row-shards too, but which stay whole here: a rank's rows
+# of the product are put in order by the whole inv_perm, and its hub
+# products read the whole hub column ids (ROADMAP.md section C)
+WHOLE_LEAVES = ("inv_perm", "dense_cols")
+
+
+def row_sharded(n_rows: int, model: int) -> bool:
+    """JAX's ``_shardable`` for a table of ``n_rows`` rows."""
+    return n_rows >= MIN_SHARD_ROWS and n_rows % model == 0
+
+
+class RowShardHost(NamedTuple):
+    """One ``model`` rank's rows of a Hybrid or DenseSectors form
+    (``shard_rows``).  Its pieces are the tables that hold rows of the
+    product, in order: a Hybrid's buckets, then its dense block; a
+    DenseSectors' blocks."""
+
+    form: object   # the form, each row-sharded piece cut to the rank's rows
+    blocks: tuple  # per piece: (start, stop) of the rank's rows, or None
+    #                for a piece that is whole on every rank
+    rows: tuple    # per piece: the whole piece's rows
+    mesh: object   # the parallel.Mesh
+
+
+class RowShard(NamedTuple):
+    """A RowShardHost on the device (``ops.propagate.sharded_mm``)."""
+
+    form: object   # Hybrid or DenseSectors
+    blocks: tuple
+    rows: tuple
+    mesh: object
+
+
+def cut_rows(a, block):
+    """Rows [start, stop) = ``block`` of ``a``; all of ``a`` for None."""
+    return a if block is None else a[block[0]:block[1]]
+
+
+def shard_rows(h, mesh):
+    """``mesh``'s rank's rows of a host form (AdjPairHost, HybridHost or
+    DenseSectorsHost), cut before anything is uploaded, as JAX's
+    ``gdev_sharding`` places them: each bucket's idx, val and deg, the
+    dense block and each sector block row-sharded over ``model`` where
+    ``row_sharded``, the rank's block the i-th of ``model`` even blocks;
+    every other table whole.  A cut bucket gets its own real-slot list
+    (``Ell.live``, made by ``to_device``).  ``inv_perm`` and
+    ``dense_cols`` stay whole (WHOLE_LEAVES).  A symmetric pair stays
+    one structure."""
+    if isinstance(h, AdjPairHost):
+        fwd = shard_rows(h.fwd, mesh)
+        return AdjPairHost(fwd=fwd, bwd=fwd if h.bwd is h.fwd
+                           else shard_rows(h.bwd, mesh))
+    m, i = mesh.shape["model"], mesh.index("model")
+
+    def block(n):
+        return ((i * (n // m), (i + 1) * (n // m)) if row_sharded(n, m)
+                else None)
+
+    if isinstance(h, DenseSectorsHost):
+        rows = tuple(b.shape[0] for _, _, b in h.blocks)
+        blocks = tuple(block(n) for n in rows)
+        form = h._replace(blocks=tuple((ri, ci, cut_rows(b, k)) for
+                                       (ri, ci, b), k in zip(h.blocks,
+                                                             blocks)))
+    elif isinstance(h, HybridHost):
+        rows = tuple([b.idx.shape[0] for b in h.ell.buckets]
+                     + ([] if h.dense_block is None
+                        else [h.dense_block.shape[0]]))
+        blocks = tuple(block(n) for n in rows)
+        buckets = [EllHost(idx=cut_rows(b.idx, k), val=cut_rows(b.val, k),
+                           deg=cut_rows(b.deg, k), n_cols=b.n_cols)
+                   for b, k in zip(h.ell.buckets, blocks)]
+        form = h._replace(
+            ell=h.ell._replace(buckets=buckets),
+            dense_block=None if h.dense_block is None
+            else cut_rows(h.dense_block, blocks[-1]))
+    else:
+        raise TypeError(f"no row shards of {type(h).__name__}")
+    return RowShardHost(form=form, blocks=blocks, rows=rows, mesh=mesh)
+
+
+def leaves(h, prefix: str = "adj"):
+    """[(JAX's leaf path, array)] of an adjacency form, host or device (a
+    row shard's form under the same paths), in JAX's leaf order:
+    ``adj.fwd.ell.parts.0.idx``, ``...val``, ``...deg``,
+    ``adj.fwd.ell.inv_perm``, ``adj.fwd.dense_cols``,
+    ``adj.fwd.dense_block``; a DenseSectors' blocks ``adj.fwd.0``, ...;
+    a pair's ``fwd`` then ``bwd``, also when they are one structure."""
+    if isinstance(h, (AdjPairHost, AdjPair)):
+        return leaves(h.fwd, prefix + ".fwd") + leaves(h.bwd, prefix + ".bwd")
+    if isinstance(h, (RowShardHost, RowShard)):
+        return leaves(h.form, prefix)
+    if isinstance(h, DenseSectorsHost):
+        return [(f"{prefix}.{j}", b) for j, (_, _, b) in enumerate(h.blocks)]
+    if isinstance(h, DenseSectors):
+        return [(f"{prefix}.{j}", b) for j, b in enumerate(h.blocks)]
+    if isinstance(h, (HybridHost, Hybrid)):
+        return leaves(h.ell, prefix + ".ell") + [
+            (f"{prefix}.{k}", getattr(h, k)) for k in ("dense_cols",
+                                                       "dense_block")
+            if getattr(h, k) is not None]
+    if isinstance(h, (EllBucketsHost, EllBuckets)):
+        parts = h.buckets if isinstance(h, EllBucketsHost) else h.parts
+        return [(f"{prefix}.parts.{j}.{k}", getattr(p, k))
+                for j, p in enumerate(parts) for k in ("idx", "val", "deg")
+                ] + [(f"{prefix}.inv_perm", h.inv_perm)]
+    raise TypeError(f"no leaves of {type(h).__name__}")
+
+
+def graph_bytes(adj) -> int:
+    """Bytes of the device tensors of ``adj`` (an AdjPair, RowShard or
+    form), each counted once: the leaves and the buckets' real-slot
+    lists."""
+    seen = {}
+
+    def walk(t):
+        if isinstance(t, torch.Tensor):
+            seen[id(t)] = t.numel() * t.element_size()
+        elif isinstance(t, (tuple, list)):
+            for v in t:
+                walk(v)
+    walk(adj)
+    return sum(seen.values())

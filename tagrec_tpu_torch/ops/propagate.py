@@ -13,11 +13,35 @@ transpose tables.  An adjacency with no transpose, such as the one
 scatter-add of JAX's autodiff (a deterministic accumulate over the ELL
 slots, the hub block's transpose product into the hub columns).  ``coo_spmm`` is the
 oracle.
+
+Under a mesh, LightGCN's and NGCF's pair holds one ``model`` rank's rows
+(``ops.ell.RowShard``, JAX's ``gdev_sharding``), and ``sharded_mm`` is the
+partition XLA derives from those rows: the rank's bucket rows through
+``gather_reduce``, its hub rows ``dense_block @ gather_rows(x,
+dense_cols)``, its sector rows, each written into the rank's part of one
+buffer that one all-gather over ``model`` fills (in place on NCCL); the
+whole [N, D] is then put in order (``gather_rows(., inv_perm)``) and
+summed as on one device, by the same piece code (``_pieces``,
+``_assemble``).  A piece whole on every rank (fewer than 64 rows, or
+rows that do not divide) is computed whole on each.  The design returns
+the WHOLE product on every ``model`` rank, so everything outside the
+SpMM sees whole, identical tensors as it does without a mesh: the
+parameters' gather keeps its slice backward, NGCF's replicated ``W``
+gradients need no all-reduce, and the backward, over ``bwd``, takes the
+whole gradient, identical on every ``model`` rank.  Returning row
+blocks instead would save the gather's
+bytes, but turn that slice into a reduce-scatter and every replicated
+gradient into an all-reduce.  ``edge_dropout`` draws each table's
+whole-shape mask and keeps the rank's rows, so the masks equal one
+device's; the dropped form has no transpose tables, and its backward is
+``transpose_mm`` over the rank's rows, a partial [N, D] summed by one
+all-reduce over ``model``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from tagrec_tpu_torch.ops import ell as ell_lib
 from tagrec_tpu_torch.ops.dma_gather import (GATHER_BUDGET_BYTES,
@@ -43,18 +67,19 @@ def ell_buckets_mm(eb: ell_lib.EllBuckets, x: torch.Tensor) -> torch.Tensor:
     return gather_rows(outs, eb.inv_perm)
 
 
-def block_mm(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """b @ x for a dense adjacency block.  A bfloat16 block times x rounded
-    to bfloat16, accumulated and returned in float32: on the card one
-    ``torch.mm(..., out_dtype=float32)``; on the CPU, which has no kernel
-    for it, the same product of the operands widened to float32 (exact:
-    a product of two bfloat16 values fits a float32)."""
+def block_mm(b: torch.Tensor, x: torch.Tensor, out=None) -> torch.Tensor:
+    """b @ x for a dense adjacency block, into ``out`` when given.  A
+    bfloat16 block times x rounded to bfloat16, accumulated and returned
+    in float32: on the card one ``torch.mm(..., out_dtype=float32)``; on
+    the CPU, which has no kernel for it, the same product of the operands
+    widened to float32 (exact: a product of two bfloat16 values fits a
+    float32)."""
     if b.dtype != torch.bfloat16:
-        return b @ x
+        return torch.mm(b, x, out=out)
     xb = x.to(torch.bfloat16)
-    if b.is_cuda:
-        return torch.mm(b, xb, out_dtype=torch.float32)
-    return b.float() @ xb.float()
+    y = (torch.mm(b, xb, out_dtype=torch.float32) if b.is_cuda
+         else b.float() @ xb.float())
+    return y if out is None else out.copy_(y)
 
 
 def block_t_mm(b: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -66,29 +91,59 @@ def block_t_mm(b: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return (b.t().float() @ g).to(torch.bfloat16).float()
 
 
-def dense_sectors_mm(ds: ell_lib.DenseSectors, x: torch.Tensor) -> torch.Tensor:
-    """Sector-blocked dense SpMM: one matmul per nonzero sector block."""
-    xs = torch.split(x, list(ds.sizes))
-    outs = [None] * len(ds.sizes)
-    for b, (ri, ci) in zip(ds.blocks, ds.coords):
-        y = block_mm(b, xs[ci])
-        outs[ri] = y if outs[ri] is None else outs[ri] + y
-    return torch.cat([o if o is not None else x.new_zeros((s, x.shape[1]))
-                      for o, s in zip(outs, ds.sizes)])
+def _pieces(form, x: torch.Tensor):
+    """The products of a Hybrid's or DenseSectors' pieces with x, each a
+    function of an ``out`` (None, or the buffer that takes the rows), in
+    piece order: a Hybrid's buckets (``gather_reduce``; one with no rows
+    launches nothing), then its dense block (the hub product, or the
+    whole adjacency's); a DenseSectors' blocks."""
+    if isinstance(form, ell_lib.DenseSectors):
+        xs = torch.split(x, list(form.sizes))
+        return [lambda o, b=b, xc=xs[ci]: block_mm(b, xc, out=o)
+                for b, (_, ci) in zip(form.blocks, form.coords)]
+    out = [lambda o, p=p: gather_reduce(x, p.idx, p.val, p.deg, out=o)
+           for p in form.ell.parts]
+    b = form.dense_block
+    if b is not None and form.dense_cols is None:
+        out.append(lambda o: block_mm(b, x, out=o))
+    elif b is not None:
+        out.append(lambda o: torch.mm(b, gather_rows(x, form.dense_cols),
+                                      out=o))
+    return out
+
+
+def _piece_rows(form):
+    """The rows of each of a Hybrid's or DenseSectors' pieces."""
+    if isinstance(form, ell_lib.DenseSectors):
+        return [b.shape[0] for b in form.blocks]
+    return [p.idx.shape[0] for p in form.ell.parts] + (
+        [] if form.dense_block is None else [form.dense_block.shape[0]])
+
+
+def _assemble(form, outs, x: torch.Tensor) -> torch.Tensor:
+    """The product from its pieces' products (each the whole piece's
+    rows): the buckets' rows put in order by one ``gather_rows``, plus the
+    hub product; the sector blocks summed into their row sectors."""
+    if isinstance(form, ell_lib.DenseSectors):
+        acc = [None] * len(form.sizes)
+        for y, (ri, _) in zip(outs, form.coords):
+            acc[ri] = y if acc[ri] is None else acc[ri] + y
+        return torch.cat([o if o is not None else x.new_zeros((s, x.shape[1]))
+                          for o, s in zip(acc, form.sizes)])
+    if form.dense_cols is None and form.dense_block is not None:
+        return outs[0]  # the whole adjacency as one block
+    n = len(form.ell.parts)
+    out = gather_rows(torch.cat(outs[:n]), form.ell.inv_perm)
+    if form.dense_block is not None:
+        out = out + outs[n]
+    return out
 
 
 def hybrid_mm(h, x: torch.Tensor) -> torch.Tensor:
     """Hybrid SpMM: the ELL tail plus the hub block times the hub columns'
     rows; a block with no hub columns is the whole adjacency.  Also takes
-    the sector-blocked dense form."""
-    if isinstance(h, ell_lib.DenseSectors):
-        return dense_sectors_mm(h, x)
-    if h.dense_block is not None and h.dense_cols is None:
-        return block_mm(h.dense_block, x)
-    out = ell_buckets_mm(h.ell, x)
-    if h.dense_block is not None:
-        out = out + h.dense_block @ gather_rows(x, h.dense_cols)
-    return out
+    the sector-blocked dense form: one matmul per nonzero sector block."""
+    return _assemble(h, [product(None) for product in _pieces(h, x)], x)
 
 
 def ell_mm_t(ell: ell_lib.Ell, g: torch.Tensor, n_cols: int,
@@ -122,40 +177,56 @@ def ell_mm_t(ell: ell_lib.Ell, g: torch.Tensor, n_cols: int,
     return out
 
 
+def _transpose_pieces(form, g: torch.Tensor, n_cols: int, cuts,
+                      lead: bool = True) -> torch.Tensor:
+    """A^T @ g over a Hybrid or DenseSectors form, each piece's part over
+    its rows of g.  ``cuts``: per piece (block, rows): the rows [start,
+    stop) of the piece's whole ``rows`` that the form holds, or None for
+    all; a piece held whole adds its part only when ``lead``."""
+    keep = [blk is not None or lead for blk, _ in cuts]
+    d = g.shape[1]
+    if isinstance(form, ell_lib.DenseSectors):
+        gs = torch.split(g, list(form.sizes))
+        acc = [None] * len(form.sizes)
+        for b, (ri, ci), (blk, _), k in zip(form.blocks, form.coords, cuts,
+                                            keep):
+            if k:
+                y = block_t_mm(b, ell_lib.cut_rows(gs[ri], blk))
+                acc[ci] = y if acc[ci] is None else acc[ci] + y
+        return torch.cat([o if o is not None else g.new_zeros((s, d))
+                          for o, s in zip(acc, form.sizes)])
+    if form.dense_cols is None and form.dense_block is not None:
+        return (block_t_mm(form.dense_block, ell_lib.cut_rows(g, cuts[0][0]))
+                if keep[0] else g.new_zeros((n_cols, d)))
+    n = len(form.ell.parts)
+    g_cat = torch.empty_like(g)  # the buckets' rows in concatenated order
+    g_cat[form.ell.inv_perm.long()] = g
+    out, start = None, 0
+    for p, (blk, rows), k in zip(form.ell.parts, cuts, keep):
+        if k:
+            y = ell_mm_t(p, ell_lib.cut_rows(g_cat[start:start + rows], blk),
+                         n_cols)
+            out = y if out is None else out + y
+        start += rows
+    if out is None:
+        out = g.new_zeros((n_cols, d))
+    if form.dense_block is not None and keep[n]:
+        out.index_add_(0, form.dense_cols.long(), form.dense_block.t()
+                       @ ell_lib.cut_rows(g, cuts[n][0]))
+    return out
+
+
 def transpose_mm(h, g: torch.Tensor, n_cols: int) -> torch.Tensor:
     """A^T @ g for any one adjacency form (Hybrid, DenseSectors,
     EllBuckets, Ell) with ``n_cols`` columns: the backward of
     ``hybrid_mm``, as JAX's autodiff computes it (a scatter-add over the
     ELL slots; the dense blocks' transpose products, ``block_t_mm``)."""
-    if isinstance(h, ell_lib.DenseSectors):
-        gs = torch.split(g, list(h.sizes))
-        outs = [None] * len(h.sizes)
-        for b, (ri, ci) in zip(h.blocks, h.coords):
-            y = block_t_mm(b, gs[ri])
-            outs[ci] = y if outs[ci] is None else outs[ci] + y
-        return torch.cat([o if o is not None else g.new_zeros((s, g.shape[1]))
-                          for o, s in zip(outs, h.sizes)])
-    if isinstance(h, ell_lib.Hybrid):
-        if h.dense_block is not None and h.dense_cols is None:
-            return block_t_mm(h.dense_block, g)
-        out = transpose_mm(h.ell, g, n_cols)
-        if h.dense_block is not None:
-            out.index_add_(0, h.dense_cols.long(), h.dense_block.t() @ g)
-        return out
+    if isinstance(h, ell_lib.Ell):
+        return ell_mm_t(h, g, n_cols)
     if isinstance(h, ell_lib.EllBuckets):
-        if not h.parts:
-            return g.new_zeros((n_cols, g.shape[1]))
-        # the buckets' rows in concatenated order: row r sits at inv_perm[r]
-        g_cat = torch.empty_like(g)
-        g_cat[h.inv_perm.long()] = g
-        out, start = None, 0
-        for p in h.parts:
-            rows = p.idx.shape[0]
-            y = ell_mm_t(p, g_cat[start:start + rows], n_cols)
-            out = y if out is None else out + y
-            start += rows
-        return out
-    return ell_mm_t(h, g, n_cols)
+        h = ell_lib.Hybrid(ell=h, dense_cols=None, dense_block=None)
+    return _transpose_pieces(h, g, n_cols,
+                             [(None, n) for n in _piece_rows(h)])
 
 
 class _AdjSpmm(torch.autograd.Function):
@@ -196,12 +267,103 @@ def pair_spmm(x: torch.Tensor, fwd, bwd) -> torch.Tensor:
     return _PairSpmm.apply(x.contiguous(), fwd, bwd)
 
 
+# ----------------------------------------- rows over the ``model`` axis
+
+# the collective that fills one tensor with every rank's rows (renamed
+# all_gather_single in later torch)
+_GATHER_INTO = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+
+
+def _gathered_products(shard, x: torch.Tensor):
+    """Each piece of a rank's form (``ell.RowShard``) times x, the whole
+    piece's rows in order.  The row-sharded pieces write the rank's rows
+    into its part of one [model * R, D] buffer (R the rows each rank
+    holds of them), which one all-gather over ``model`` fills in place;
+    the whole pieces are computed whole."""
+    mesh, d = shard.mesh, x.shape[1]
+    m, i = mesh.shape["model"], mesh.index("model")
+    rows = [0 if b is None else b[1] - b[0] for b in shard.blocks]
+    r_all = sum(rows)
+    full = x.new_empty((m, r_all, d))
+    outs, off = [], 0
+    for product, blk, r in zip(_pieces(shard.form, x), shard.blocks, rows):
+        outs.append(product(None if blk is None else full[i, off:off + r]))
+        off += r
+    if not r_all:
+        return outs
+    group = mesh.group("model")
+    if mesh.backend == "nccl":  # in place: the rank's part is the input
+        _GATHER_INTO(full.view(m * r_all, d), full[i], group=group)
+    else:  # gloo: one all_gather into the buffer's parts
+        dist.all_gather(list(full.unbind(0)), full[i].clone(), group=group)
+    res, off = [], 0
+    for o, blk, r in zip(outs, shard.blocks, rows):
+        res.append(o if blk is None
+                   else full[:, off:off + r].reshape(m * r, d))
+        off += r
+    return res
+
+
+def sharded_mm(shard, x: torch.Tensor) -> torch.Tensor:
+    """A @ x, whole on every ``model`` rank, from the rank's rows of A
+    (``ell.RowShard``): its pieces' products, one all-gather over
+    ``model``, then the buckets' rows put in order and the pieces
+    summed."""
+    return _assemble(shard.form, _gathered_products(shard, x), x)
+
+
+def sharded_transpose_mm(shard, g: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """A^T @ g from the rank's rows of A: ``transpose_mm`` over each
+    row-sharded piece's rows of g, each whole piece's on ``model`` rank 0
+    only, summed over ``model`` by one all-reduce (with ``model`` = 1 the
+    sum of ``transpose_mm``, in its order)."""
+    out = _transpose_pieces(shard.form, g, n_cols,
+                            list(zip(shard.blocks, shard.rows)),
+                            lead=shard.mesh.index("model") == 0)
+    dist.all_reduce(out, group=shard.mesh.group("model"))
+    return out
+
+
+class _ShardedPairSpmm(torch.autograd.Function):
+    """``_PairSpmm`` over a rank's rows: A @ x by ``sharded_mm`` over
+    ``fwd``, its gradient A^T @ g by ``sharded_mm`` over ``bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        ctx.bwd = bwd
+        return sharded_mm(fwd, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sharded_mm(ctx.bwd, g.contiguous()), None, None
+
+
+class _ShardedSpmm(torch.autograd.Function):
+    """``_AdjSpmm`` over a rank's rows (the dropped form): A @ x by
+    ``sharded_mm``, its gradient by ``sharded_transpose_mm``."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard, ctx.n = shard, x.shape[0]
+        return sharded_mm(shard, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sharded_transpose_mm(ctx.shard, g.contiguous(), ctx.n), None
+
+
 def adj_mm(adj, x: torch.Tensor) -> torch.Tensor:
     """Propagate with an AdjPair (its gradient over the transpose tables),
     or with a Hybrid, DenseSectors, EllBuckets or Ell (its gradient by
-    ``transpose_mm``)."""
+    ``transpose_mm``); a pair of RowShards or a RowShard the same over a
+    rank's rows."""
     if isinstance(adj, ell_lib.AdjPair):
+        if isinstance(adj.fwd, ell_lib.RowShard):
+            return _ShardedPairSpmm.apply(x.contiguous(), adj.fwd, adj.bwd)
         return pair_spmm(x, adj.fwd, adj.bwd)
+    if isinstance(adj, ell_lib.RowShard):
+        return _ShardedSpmm.apply(x.contiguous(), adj)
     return _AdjSpmm.apply(x.contiguous(), adj)
 
 
@@ -237,11 +399,15 @@ def message_dropout(x: torch.Tensor, rate: float,
     return torch.where(mask, x / keep, 0.0)
 
 
-def _drop(v: torch.Tensor, keep: float, generator) -> torch.Tensor:
+def _drop(v: torch.Tensor, keep: float, generator, block=None,
+          rows: int = 0) -> torch.Tensor:
     """v * floor(u + keep) / keep, u uniform on [0, 1) from ``generator``:
     each value kept with probability ``keep`` and scaled by 1 / keep; a
-    zero stays zero."""
-    u = torch.rand(v.shape, generator=generator, device=v.device)
+    zero stays zero.  ``v`` the rows ``block`` = (start, stop) of a table
+    of ``rows`` rows: u drawn for the whole table, its rows kept."""
+    shape = v.shape if block is None else (rows,) + tuple(v.shape[1:])
+    u = torch.rand(shape, generator=generator, device=v.device)
+    u = ell_lib.cut_rows(u, block)
     return v * torch.floor(u + keep).to(v.dtype) / keep
 
 
@@ -251,14 +417,27 @@ def edge_dropout(adj, rate: float, generator: torch.Generator,
     dropped with probability ``rate``, the survivors scaled by 1 / (1 -
     rate), the masks drawn from ``generator`` (on the adjacency's device).
     Takes an Ell, EllBuckets, Hybrid (its ELL slots and every hub-block
-    cell), DenseSectors or AdjPair.  A dropped AdjPair is its dropped
-    forward form, with no transpose tables, as in JAX: ``adj_mm``
-    differentiates it by ``transpose_mm``."""
+    cell), DenseSectors, RowShard (each table's whole mask drawn, its
+    rows kept: one device's masks) or AdjPair.  A dropped AdjPair is its
+    dropped forward form, with no transpose tables, as in JAX: ``adj_mm``
+    differentiates it by ``transpose_mm`` (``sharded_transpose_mm``)."""
     if not training or rate == 0.0:
         return adj
     keep = 1.0 - rate
     if isinstance(adj, ell_lib.AdjPair):
         return edge_dropout(adj.fwd, rate, generator, training)
+    if isinstance(adj, ell_lib.RowShard):
+        f, cuts = adj.form, list(zip(adj.blocks, adj.rows))
+        if isinstance(f, ell_lib.DenseSectors):
+            return adj._replace(form=f._replace(blocks=tuple(
+                _drop(b, keep, generator, *c) for b, c in zip(f.blocks,
+                                                              cuts))))
+        parts = tuple(p._replace(val=_drop(p.val, keep, generator, *c))
+                      for p, c in zip(f.ell.parts, cuts))
+        return adj._replace(form=f._replace(
+            ell=f.ell._replace(parts=parts),
+            dense_block=None if f.dense_block is None
+            else _drop(f.dense_block, keep, generator, *cuts[-1])))
     if isinstance(adj, ell_lib.DenseSectors):
         return ell_lib.DenseSectors(
             blocks=tuple(_drop(b, keep, generator) for b in adj.blocks),

@@ -20,10 +20,14 @@ explicit, and the models stay as they are:
 * ``constrain_batch`` (JAX's ``constrain_batch``) is this rank's slice of
   the global batch; ``data_mean_`` averages gradients and loss terms over
   ``data``.
-* ``gdev_sharding``: the graph tables (adjacencies, masks, EdgeMaps,
-  samplers' tables) stay whole on every rank, and each layer's compute
-  with them; JAX row-shards them and XLA partitions each layer.
-  Partitioning each layer's rows over ``model`` is ROADMAP.md queue A.
+* ``shard_graph`` (JAX's ``gdev_sharding`` + ``place`` of the graph
+  tables): LightGCN's and NGCF's adjacency pair keeps this rank's rows of
+  each table JAX row-shards (``ops.ell.shard_rows``), and its SpMM
+  computes those rows and all-gathers them over ``model`` once
+  (``ops.propagate.sharded_mm``), the partition XLA derives.  The other
+  families' graph tables (masks, EdgeMaps, TGCN's and the KG's tables)
+  stay whole on every rank, and each layer's compute with them:
+  ROADMAP.md queue A.
 """
 
 from __future__ import annotations
@@ -35,10 +39,10 @@ import torch.distributed as dist
 from torch import nn
 from torch.nn.utils import parametrize
 
+from tagrec_tpu_torch.ops import ell as ell_lib
 from tagrec_tpu_torch.parallel.launch import row_block
 from tagrec_tpu_torch.parallel.mesh import Mesh
 
-MIN_ROWS = 64
 # batch entries kept whole on every rank: DGCF's distance-correlation ids,
 # a term that is not a mean over batch rows
 WHOLE = ("cor",)
@@ -46,8 +50,8 @@ WHOLE = ("cor",)
 
 def shardable(shape, mesh: Mesh) -> bool:
     """JAX's ``_shardable``: at least 64 rows, divisible by ``model``."""
-    return (len(shape) >= 1 and shape[0] >= MIN_ROWS
-            and shape[0] % mesh.shape["model"] == 0)
+    return len(shape) >= 1 and ell_lib.row_sharded(shape[0],
+                                                   mesh.shape["model"])
 
 
 class _GatherRows(torch.autograd.Function):
@@ -137,10 +141,45 @@ def params_sharding(model: nn.Module, mesh: Mesh) -> Dict[str, Optional[str]]:
             for name, shape in full_shapes(model).items()}
 
 
-def gdev_sharding(model: nn.Module, mesh: Mesh) -> Dict[str, None]:
-    """{buffer name: None}: the graph tables stay whole on every rank in
-    this port (see the module docstring)."""
-    return {n: None for n, _ in model.named_buffers()}
+def gdev_sharding(model: nn.Module, mesh: Mesh) -> Dict[str, Optional[str]]:
+    """{graph table: "model" (row-sharded) or None (whole on every rank)},
+    as ``shard_graph`` places them.  A model with an adjacency pair
+    (``model.adj_host``: LightGCN, NGCF): JAX's leaf paths
+    (``adj.fwd.ell.parts.0.idx``, ``adj.fwd.dense_block``, ``adj.fwd.0``
+    ...) by JAX's rule, but ``inv_perm`` and ``dense_cols`` whole
+    (``ell.WHOLE_LEAVES``).  Any other family: its buffers by name, every
+    one whole."""
+    host = getattr(model, "adj_host", None)
+    if host is None:
+        return {n: None for n, _ in model.named_buffers()}
+    return {path: ("model" if not path.endswith(ell_lib.WHOLE_LEAVES)
+                   and shardable(a.shape, mesh) else None)
+            for path, a in ell_lib.leaves(host)}
+
+
+def graph_mesh(model: nn.Module) -> Optional[Mesh]:
+    """The mesh ``model``'s adjacency pair is row-sharded over, or None."""
+    fwd = getattr(getattr(model, "adj", None), "fwd", None)
+    return fwd.mesh if isinstance(fwd, ell_lib.RowShard) else None
+
+
+def shard_graph(model: nn.Module, mesh: Mesh) -> Dict[str, Optional[str]]:
+    """Put ``model``'s graph tables on ``mesh`` -> ``gdev_sharding``.  A
+    model with an adjacency pair swaps ``model.adj`` for this rank's rows
+    (``ell.shard_rows`` of ``model.adj_host``, uploaded to its
+    parameters' device; the whole tables are let go first).  A model
+    already sharded over ``mesh`` is left as it is; one sharded over
+    another mesh raises.  Other families keep their tables whole."""
+    if getattr(model, "adj_host", None) is not None:
+        have = graph_mesh(model)
+        if have is None:
+            device = next(model.parameters()).device
+            model.adj = None
+            model.adj = ell_lib.to_device(
+                ell_lib.shard_rows(model.adj_host, mesh), device)
+        elif have is not mesh:
+            raise ValueError(f"the graph is sharded over {have}, not {mesh}")
+    return gdev_sharding(model, mesh)
 
 
 def shard_params(model: nn.Module, mesh: Mesh) -> Dict[str, Optional[str]]:

@@ -118,6 +118,24 @@ def test_gather_reduce_with_deg_equals_jax(jax_out):
     assert np.all(got.numpy()[7] == 0.0)
 
 
+def test_gather_reduce_writes_into_a_given_buffer(jax_out):
+    """``out=`` (the partitioned SpMM's send buffer): the rows land in a
+    slice of a larger buffer, equal to the rows returned without it and
+    to JAX's; the rest of the buffer is untouched; a buffer of another
+    shape or dtype raises."""
+    x, h = _ell_inputs()
+    args = [torch.from_numpy(a) for a in (x, h.idx, h.val, h.deg)]
+    buf = torch.full((60, 64), 7.0)
+    got = dg.gather_reduce(*args, out=buf[5:53])
+    assert got.data_ptr() == buf[5:53].data_ptr()
+    assert torch.equal(got, dg.gather_reduce(*args))
+    np.testing.assert_allclose(got.numpy(), jax_out[2], rtol=RTOL, atol=ATOL)
+    assert (buf[:5] == 7.0).all() and (buf[53:] == 7.0).all()
+    for bad in (buf[:10], buf[5:53].double(), buf[5:53, ::2]):
+        with pytest.raises(ValueError, match="out must be"):
+            dg.gather_reduce(*args, out=bad)
+
+
 def test_deg_keeps_pad_slots_out_of_the_rows():
     """With deg the pad slots are not read: a NaN in row 0 of x reaches only
     the rows that have 0 as a real neighbour (without deg it reaches every

@@ -44,11 +44,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def tiny_graph(n_user=40, n_item=90):
+def tiny_graph(n_user=40, n_item=90, n_tag=25):
     from tagrec_tpu_torch.data.synthetic import synthetic_graph
 
-    return synthetic_graph(n_user=n_user, n_item=n_item, n_tag=25, avg_deg=8,
-                           seed=7)
+    return synthetic_graph(n_user=n_user, n_item=n_item, n_tag=n_tag,
+                           avg_deg=8, seed=7)
 
 
 # the checkpoint scenario's graph: 64 users and 96 items split into row
@@ -222,8 +222,144 @@ def scenario_scaling(args, tmp):
     return launch.scaling_report(step, args_fn, [1, 2], batch=4, reps=2)
 
 
+# ---------------------------------------- the partitioned propagation
+
+# 480 joint nodes: over 2 and 4 ranks the degree buckets, the hub block and
+# the sector blocks mix row-sharded pieces (80, 84, 120, 300 and 480 rows)
+# with whole ones (269 rows, odd; and fewer than 64)
+PROP_GRAPH = {"n_user": 120, "n_item": 300, "n_tag": 60}
+HUB_MIN = 12  # hub columns on this graph (tests/test_torch_lightgcn.py)
+# case -> (family, adj_mode, preset overrides, hub columns)
+PROP_CASES = {"ell": ("lightgcn", "ell", {"reg": 1e-4}, False),
+              "hub": ("lightgcn", "hybrid", {"reg": 1e-4}, True),
+              "sectors": ("lightgcn", "dense", {"reg": 1e-4}, False),
+              "ngcf": ("ngcf", "hybrid", {}, True),
+              "drop": ("lightgcn", "hybrid", {"reg": 1e-4, "node_drop": 0.1},
+                       True)}
+DROP_SEED = 5
+
+
+def prop_graph():
+    return tiny_graph(**PROP_GRAPH)
+
+
+def hub_pair(graph, name, build):
+    """The family's stored pair (LightGCN bi_norm, symmetric; NGCF
+    si_norm, its own transpose) on the hybrid tier with hub columns;
+    ``build`` is either package's ``build_adj_pair``."""
+    norm = "bi_norm" if name == "lightgcn" else "si_norm"
+    return build(graph.joint_norm_adj(norm, True), symmetric=norm == "bi_norm",
+                 mode="hybrid", hub_min_degree=HUB_MIN)
+
+
+def prop_pipeline(case, mesh=None):
+    """The case's pipeline on the CPU: with hub columns, the model's pair
+    rebuilt with them, then (under ``mesh``) cut to the rank's rows."""
+    from tagrec_tpu_torch.ops import ell
+
+    name, mode, over, hub = PROP_CASES[case]
+    pipe = pipeline(name, over, mode, mesh, prop_graph())
+    if hub:
+        m = pipe.model
+        m.adj_host = hub_pair(pipe.graph, name, ell.build_adj_pair)
+        m.adj = ell.to_device(m.adj_host if mesh is None
+                              else ell.shard_rows(m.adj_host, mesh), "cpu")
+    return pipe
+
+
+def dropped_leaves(adj):
+    """{leaf path: values} of ``adj`` under node_drop's dropout from
+    DROP_SEED."""
+    from tagrec_tpu_torch.ops import ell
+    from tagrec_tpu_torch.ops.propagate import edge_dropout
+
+    rate = PROP_CASES["drop"][2]["node_drop"]
+    dropped = edge_dropout(adj, rate, torch.Generator().manual_seed(DROP_SEED),
+                           True)
+    return {p: a.numpy().copy() for p, a in ell.leaves(dropped, "adj.fwd")}
+
+
+def prop_runs(mesh=None, steps=STEPS):
+    """Each of PROP_CASES: the forward, ``steps`` BPR steps (losses, the
+    gathered parameters), the graph's placement, leaf shapes and bytes;
+    the drop case's dropped tables too."""
+    from tagrec_tpu_torch.ops import ell
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training.train import Trainer
+
+    out = {}
+    for case in PROP_CASES:
+        pipe = prop_pipeline(case, mesh)
+        trainer = Trainer(pipe.model, pipe.phases, tcfg(), mesh=mesh,
+                          capture=False,
+                          generator=torch.Generator().manual_seed(1))
+        with torch.no_grad(), sharding.gathered():
+            fwd = [t.numpy().copy() for t in pipe.model.forward()]
+        adj = pipe.model.adj
+        out[case] = {
+            "forward": fwd,
+            "losses": trainer.run_phase(pipe.phases[0], max_steps=steps),
+            "params": full_params(pipe.model),
+            "placement": trainer.placement and trainer.placement["graph"],
+            "leaves": {p: tuple(a.shape) for p, a in ell.leaves(adj)},
+            "bytes": ell.graph_bytes(adj)}
+        if case == "drop":
+            out[case]["dropped"] = dropped_leaves(adj)
+    return out
+
+
+def full_grads(model):
+    """{JAX name: the whole gradient} of ``model``'s parameters after a
+    step (a row-sharded one gathered over ``model``)."""
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training import checkpoint
+
+    gs, params = sharding.gathers(model), checkpoint.named_params(model)
+    out = {}
+    for n in checkpoint.jax_leaf_order(model):
+        g = params[n].grad
+        if n in gs:
+            parts = [torch.empty_like(g)
+                     for _ in range(gs[n].mesh.shape["model"])]
+            torch.distributed.all_gather(parts, g,
+                                         group=gs[n].mesh.group("model"))
+            g = torch.cat(parts)
+        out[n] = g.numpy().copy()
+    return out
+
+
+def jax_step(args, mesh=None):
+    """One BPR step of the hub case from the JAX parameters and batch in
+    ``args`` -> (summed loss terms, the gathered parameters, the gathered
+    gradients the step took)."""
+    import numpy as np
+
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training import checkpoint
+    from tagrec_tpu_torch.training.train import Trainer
+
+    pipe = prop_pipeline("hub", mesh)
+    with np.load(args["jax_params"]) as f:
+        checkpoint.params_from_jax(pipe.model, {"embed": [
+            f[f"embed.{i}"] for i in range(len(f.files))]})
+    trainer = Trainer(pipe.model, pipe.phases, tcfg(), mesh=mesh,
+                      capture=False, generator=torch.Generator().manual_seed(1))
+    batch = torch.as_tensor(np.asarray(args["batch"], dtype=np.int64))
+    if mesh is not None:
+        batch = sharding.constrain_batch(batch, mesh)
+    parts = trainer.step(pipe.phases[0], batch)
+    return (float(parts.sum()), full_params(pipe.model),
+            full_grads(pipe.model))
+
+
+def scenario_propagate(args, tmp):
+    """``prop_runs`` and ``jax_step`` on the mesh."""
+    mesh = _mesh(args)
+    return {"cases": prop_runs(mesh), "jax_step": jax_step(args, mesh)}
+
+
 SCENARIOS = {"train": scenario_train, "checkpoint": scenario_checkpoint,
-             "scaling": scenario_scaling}
+             "scaling": scenario_scaling, "propagate": scenario_propagate}
 
 
 # ------------------------------------------------------------ the parent
