@@ -157,7 +157,20 @@ Phases:
    refuses two ranks on one device): the same DGCF steps, an evaluation
    and the requests, held against the one-device eager run, model alone
    bit for bit, data within 1e-6 (losses) and a hundredth of lr a step
-   (parameters: 5e-4 after 5 steps); each sub-phase's seconds;
+   (parameters: 5e-4 after 5 steps); each sub-phase's seconds; then
+   phase R, the graph tables row-sharded over ``model``: R1 LightGCN 10x
+   captured on a one-rank NCCL mesh, bit for bit against the unmeshed
+   captured run; R2 two ``chip_smoke.py row-rank`` processes (model = 2,
+   gloo, eager: LightGCN 10x, NGCF 10x, LightGCN hetrec) against the
+   one-device run; R3 the EdgeMap tier: R3a DGCF 10x captured on a
+   one-rank NCCL mesh, bit for bit, 252 ``gather_reduce`` launches a
+   step, ms a step with and without the mesh and the mesh's own
+   operations a replay; R3b two ``chip_smoke.py em-rank`` processes
+   (DGCF and DisenGCN hetrec ``ell``, DGCF 10x) against the one-device
+   run: forward within RTOL/ATOL, each bucket's ``gather_reduce`` rows
+   over the rank's rows bit for bit, losses and parameters within R2's
+   bounds, the ranks bit for bit, each rank's map bytes and peak memory;
+   TGCN's tables (phase 5) must come from the native sampler;
 10. the ``kernels`` JSON line (launches summed over every path above,
    replays counted; ``gather_reduce`` with its ``edgemap`` record), then
    ``{"ok": true, "device": {...}}`` last.
@@ -2583,6 +2596,9 @@ def tgcn_run(torch, graph, mode, dtype, batch):
         generator=torch.Generator().manual_seed(0)).to(dtype)
     want = {"auto": "dedup", "ell": "ell"}.get(mode, "takes")
     check(model.tier == want, f"TGCN {mode}: tier {model.tier}, not {want}")
+    check(model.sampler == "native",
+          f"TGCN {mode}: tables drawn by the {model.sampler} sampler, not "
+          f"the native one JAX draws with by default")
     with torch.no_grad():
         first_ms, fwd, _ = synced_ms(torch, model.forward)
         fwd_ms, fwd, gib = synced_ms(torch, model.forward)
@@ -2694,6 +2710,10 @@ def tgcn_phase(torch, dg, graph, tmp, records):
                                     ("auto", 64, torch.float64),
                                     ("ell", 32, torch.float32),
                                     ("ell", 64, torch.float64))}
+    from tagrec_tpu_torch import runtime
+
+    print(f"TGCN neighbour tables drawn by the {runtime.sampler()} sampler "
+          f"({runtime.LIB}), as JAX's default draws them")
     print(f"TGCN dedup buckets (rows x width) per table: "
           f"{runs['auto', 32]['buckets']}")
     ref, a64 = runs["dense_xla", 64], runs["auto", 64]
@@ -3590,11 +3610,11 @@ def row_paths(torch, graphs, mesh):
             for label, name, g, steps, extras in ROW_PATHS}
 
 
-def row_rank_main(argv):
-    """One rank of phase R2 (``chip_smoke.py row-rank GRAPHS OUT`` under
-    RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT): gloo over CUDA
-    tensors, eager, model = 2; ``row_paths`` over the pickled graphs,
-    pickled to OUT/rank{r}.pkl."""
+def row_rank_main(argv, paths):
+    """One rank of phase R2 or R3b (``chip_smoke.py row-rank GRAPHS OUT``
+    or ``em-rank``, under RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT):
+    gloo over CUDA tensors, eager, model = 2; ``paths`` (``row_paths`` or
+    ``em_paths``) over the pickled graphs, pickled to OUT/rank{r}.pkl."""
     import pickle
     from datetime import timedelta
 
@@ -3610,7 +3630,7 @@ def row_rank_main(argv):
         with open(graphs_path, "rb") as f:
             graphs = pickle.load(f)
         mesh = launch.global_mesh(1, ROW_RANKS)
-        res = row_paths(torch, graphs, mesh)
+        res = paths(torch, graphs, mesh)
         with open(os.path.join(out, f"rank{launch.rank()}.pkl"), "wb") as f:
             pickle.dump(res, f)
     finally:
@@ -3618,9 +3638,10 @@ def row_rank_main(argv):
     return 0
 
 
-def start_row_ranks(graphs_path, out):
-    """The ROW_RANKS ranks of phase R2 on this card, each ``chip_smoke.py
-    row-rank`` in its own process."""
+def start_row_ranks(graphs_path, out, cmd):
+    """The ROW_RANKS ranks of phase R2 (``cmd`` "row-rank") or R3b
+    ("em-rank") on this card, each ``chip_smoke.py cmd`` in its own
+    process."""
     import socket
 
     with socket.socket() as s:
@@ -3633,10 +3654,47 @@ def start_row_ranks(graphs_path, out):
                    MASTER_PORT=str(port))
         log = open(os.path.join(out, f"rank{rank}.log"), "w+")
         procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "row-rank",
+            [sys.executable, os.path.abspath(__file__), cmd,
              graphs_path, out], env=env, stdout=log,
             stderr=subprocess.STDOUT), log))
     return procs
+
+
+def two_rank_results(torch, graphs, cmd, paths, label):
+    """ROW_RANKS ranks of ``cmd`` on this card and, meanwhile, ``paths``
+    without a mesh in this process -> (the one-device results, each
+    rank's); a rank that fails or outlives ROW_TIMEOUT_S fails the
+    phase."""
+    import pickle
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graphs.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(graphs, f)
+        procs = start_row_ranks(path, tmp, cmd)
+        want = paths(torch, graphs, None)
+        end = time.monotonic() + ROW_TIMEOUT_S
+        while any(p.poll() is None for p, _ in procs):
+            if (any(p.poll() not in (None, 0) for p, _ in procs)
+                    or time.monotonic() > end):
+                break
+            time.sleep(0.1)
+        failed = any(p.poll() != 0 for p, _ in procs)
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if failed:
+                print(text[-3000:])
+        check(not failed, f"{label}: a rank failed or timed out")
+        ranks = []
+        for r in range(ROW_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    return want, ranks
 
 
 def row_one_rank(torch, dg, graph, card):
@@ -3785,35 +3843,8 @@ def row_hold(label, got, want, ranks, steps, card):
 def row_two_ranks(torch, graphs, card):
     """R2: ``row_paths`` on ROW_RANKS ranks (model = 2) on this card
     against the one-device eager run -> every rank's gather launches."""
-    import pickle
-
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "graphs.pkl")
-        with open(path, "wb") as f:
-            pickle.dump(graphs, f)
-        procs = start_row_ranks(path, tmp)
-        want = row_paths(torch, graphs, None)
-        end = time.monotonic() + ROW_TIMEOUT_S
-        while any(p.poll() is None for p, _ in procs):
-            if (any(p.poll() not in (None, 0) for p, _ in procs)
-                    or time.monotonic() > end):
-                break
-            time.sleep(0.1)
-        failed = any(p.poll() != 0 for p, _ in procs)
-        for p, log in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            log.seek(0)
-            text = log.read()
-            log.close()
-            if failed:
-                print(text[-3000:])
-        check(not failed, "R2: a rank failed or timed out")
-        ranks = []
-        for r in range(ROW_RANKS):
-            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
-                ranks.append(pickle.load(f))
+    want, ranks = two_rank_results(torch, graphs, "row-rank", row_paths,
+                                   "R2")
     launches = {k: 0 for k in GATHER}
     for label, _, _, steps, extras in ROW_PATHS:
         rs = [r[label] for r in ranks]
@@ -3837,6 +3868,264 @@ def row_phase(torch, dg, graphs, card):
     done()
     gc_cuda(torch)
     return {k: launches[k] + two[k] for k in GATHER}
+
+
+# --------------------- phase R3: the EdgeMap tier's rows over ``model``
+
+# a DGCF BPR step on the 10x EdgeMap: 3 layers x 2 iterations x 4 factors x
+# 7 non-empty buckets forward, 3 x 4 x 7 over the transpose backward
+EM_STEP = {"gather_reduce": 252}
+EM_WALL_STEPS = 10     # captured steps a timed run, with and without the mesh
+# each path of R3b: (label, family, graph, BPR steps), adj_mode="ell"
+EM_PATHS = (("DGCF hetrec", "dgcf", "hetrec", 3),
+            ("DisenGCN hetrec", "disengcn", "hetrec", 3),
+            ("DGCF 10x", "dgcf", "10x", 2))
+
+
+def em_bucket_rows(torch, dg, em, x):
+    """[(block, rows)]: each forward bucket's ``gather_reduce`` rows of
+    the map's static payload times ``x``, over the rows the rank holds
+    (its block, or (0, n) for a bucket whole on every rank)."""
+    from tagrec_tpu_torch.ops import edgemap
+
+    shard = isinstance(em, edgemap.EdgeMapShard)
+    local = em.local if shard else em
+    out = []
+    for j, (idx, val, deg) in enumerate(zip(local.f_idx, local.f_val,
+                                            local.f_deg)):
+        n, k = idx.shape
+        blk = (em.f_blocks[j] if shard else None) or (0, n)
+        rows = (dg.gather_reduce(x, idx, val, deg) if n and k
+                else x.new_zeros((n, x.shape[1])))
+        out.append((blk, rows.cpu().numpy()))
+    return out
+
+
+def em_path(torch, dg, graph, name, steps, mesh):
+    """One path of phase R3b through ``build_pipeline(mesh=)`` and an
+    eager ``Trainer(mesh=)`` on the EdgeMap tier (``mesh`` None: the
+    one-device run): the map's bytes on the card; the forward and each
+    bucket's ``gather_reduce`` rows from the initial tables; ``steps``
+    BPR steps, each timed.  -> the results on the host, with the steps'
+    ``gather_reduce`` launches, the peak memory above the path's start and
+    the seconds."""
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+    from tagrec_tpu_torch.ops import edgemap, ell
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training import checkpoint
+    from tagrec_tpu_torch.training.train import Trainer
+
+    secs, t0 = {}, time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tcfg = TrainConfig()
+    pipe = build_pipeline(graph, model_preset(name, adj_mode="ell"), tcfg,
+                          device="cuda", mesh=mesh,
+                          generator=torch.Generator().manual_seed(0))
+    model = pipe.model
+    em = model.edges["em"]
+    out = {"bytes": ell.graph_bytes(em), "tier": model.tier,
+           "sharded": isinstance(em, edgemap.EdgeMapShard) and em.model > 1}
+    secs["build"] = time.perf_counter() - t0
+    with torch.no_grad(), sharding.gathered():
+        x = torch.cat(list(model.embed))
+        out["buckets"] = em_bucket_rows(torch, dg, em, x)
+        out["forward"] = [t.cpu().numpy() for t in model.forward()]
+    del x, em
+    reset_counts(dg, ("gather_reduce",))
+    t0 = time.perf_counter()
+    trainer = Trainer(model, pipe.phases, tcfg, mesh=mesh, capture=False,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    times, last = [], [time.perf_counter()]
+
+    def on_step(i, parts):
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - last[0]) * 1e3)
+        last[0] = time.perf_counter()
+
+    out["losses"] = trainer.run_phase(pipe.phases[0], max_steps=steps,
+                                      on_step=on_step)
+    out["step_ms"] = times
+    out["launches"] = counts(dg, ("gather_reduce",))
+    secs["steps"] = time.perf_counter() - t0
+    with torch.no_grad(), sharding.gathered():
+        out["params"] = {n: sharding.value(model, n).detach().cpu().numpy()
+                         for n in checkpoint.jax_leaf_order(model)}
+    torch.cuda.synchronize()
+    out["peak"] = torch.cuda.max_memory_allocated() - base
+    out["seconds"] = secs
+    del trainer, pipe, model
+    gc_cuda(torch)
+    return out
+
+
+def em_paths(torch, graphs, mesh):
+    """Every path of EM_PATHS -> {label: ``em_path``'s results}."""
+    from tagrec_tpu_torch.ops import dma_gather as dg
+
+    return {label: em_path(torch, dg, graphs[g], name, steps, mesh)
+            for label, name, g, steps in EM_PATHS}
+
+
+def em_hold(label, got, want, ranks, steps, card):
+    """A rank's R3b path against the one-device run; prints and checks:
+    the forward within RTOL/ATOL (and whether bit for bit), each bucket's
+    rows bit for bit, losses within MESH_LOSS_ATOL, parameters within a
+    hundredth of lr a step, the ranks bit for bit, their launches one
+    device's."""
+    import numpy as np
+
+    fwd_ok = all(np.allclose(a, b, rtol=RTOL, atol=ATOL)
+                 for a, b in zip(got["forward"], want["forward"]))
+    fwd_exact = all(np.array_equal(a, b)
+                    for a, b in zip(got["forward"], want["forward"]))
+    fwd_err = max(float(np.abs(a - b).max())
+                  for a, b in zip(got["forward"], want["forward"]))
+    buckets_ok = len(got["buckets"]) == len(want["buckets"]) and all(
+        np.array_equal(rows, w[s:e]) for ((s, e), rows), (_, w) in
+        zip(got["buckets"], want["buckets"]))
+    cut = sum(1 for ((s, e), _), (_, w) in zip(got["buckets"],
+                                              want["buckets"])
+              if e - s < len(w))
+    loss_err = float(np.abs(got["losses"] - want["losses"]).max())
+    param_err = max(float(np.abs(got["params"][n] - want["params"][n]).max())
+                    for n in want["params"])
+    bound = 0.01 * 0.01 * steps  # a hundredth of TrainConfig's lr a step
+    agree = all(np.array_equal(r["losses"], got["losses"]) and all(
+        np.array_equal(r["params"][n], got["params"][n])
+        for n in got["params"]) for r in ranks)
+    same_launches = all(r["launches"] == want["launches"] for r in ranks)
+    print(f"R3b {label} (EdgeMap tier, model = {ROW_RANKS}, gloo over CUDA "
+          f"tensors, eager; {card}): map bytes per rank "
+          f"{[r['bytes'] for r in ranks]} against {want['bytes']} on one "
+          f"device ({[round(r['bytes'] / want['bytes'], 4) for r in ranks]}"
+          f"x); peak memory above the path's start per rank "
+          f"{[round(r['peak'] / 2**30, 3) for r in ranks]} GiB against "
+          f"{want['peak'] / 2**30:.3f}; forward max abs err {fwd_err:.3e} "
+          f"({'bit for bit' if fwd_exact else f'rtol {RTOL}, atol {ATOL}'}) "
+          f"{'ok' if fwd_ok else 'FAIL'}; {len(got['buckets'])} buckets' "
+          f"gather_reduce rows ({cut} cut to the rank's block) "
+          f"{'bit for bit' if buckets_ok else 'DIFFER'}; |losses - one "
+          f"device| {loss_err:.3e} (bound {MESH_LOSS_ATOL}); |parameters - "
+          f"one device| {param_err:.3e} (bound {bound:.1e}); ranks "
+          f"{'bit for bit' if agree else 'DIFFER'}; gather_reduce launches "
+          f"per rank {[r['launches'] for r in ranks]} (one device "
+          f"{want['launches']}); ms a step (host clock, synchronised) rank 0 "
+          f"{[round(t, 3) for t in got['step_ms']]}, one device "
+          f"{[round(t, 3) for t in want['step_ms']]}; seconds per rank "
+          f"{[rounded(r['seconds']) for r in ranks]}, one device "
+          f"{rounded(want['seconds'])}")
+    check(all(r["sharded"] and r["tier"] == "ell" for r in ranks)
+          and not want["sharded"] and cut > 0,
+          f"R3b {label}: the ranks' maps are not row shards")
+    check(fwd_ok and buckets_ok and loss_err <= MESH_LOSS_ATOL
+          and param_err <= bound and agree and same_launches
+          and want["launches"]["gather_reduce"] > 0,
+          f"R3b {label}: a rank is outside its hold against one device")
+
+
+def em_one_rank(torch, dg, graph, card):
+    """R3a: DGCF at full width on the 10x graph (the EdgeMap tier) on a
+    one-rank NCCL mesh, its map one row block, captured: bit for bit
+    (losses and parameters) against the same captured run without a
+    mesh, EM_STEP ``gather_reduce`` launches each step; ms a step with and
+    without the mesh, and the mesh's own operations in a replay.  -> the
+    mesh run's launches."""
+    import torch.distributed as dist
+
+    from tagrec_tpu_torch.ops import edgemap, ell
+    from tagrec_tpu_torch.parallel.mesh import make_mesh
+
+    family = ("dgcf", {"adj_mode": "ell"})  # auto takes it at 10x too
+    names = ("gather_reduce",)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda:0"))
+    try:
+        mesh = make_mesh(1)
+        plain = mesh_run(torch, graph, None, capture=True, family=family)
+        reset_counts(dg, names)
+        total = {k: 0 for k in names}
+        checker = launch_checker(dg, names, EM_STEP, "R3a mesh step")
+
+        def on_launches(i):
+            for k, v in checker(i).items():
+                total[k] += v
+
+        meshed = mesh_run(torch, graph, mesh, capture=True,
+                          on_launches=on_launches, family=family)
+        run = meshed["trainer"].runs["bpr"]
+        em = meshed["pipe"].model.edges["em"]
+        placed = meshed["trainer"].placement["graph"]
+        check(run.graph is not None, "R3a: the mesh step was not captured")
+        check(isinstance(em, edgemap.EdgeMapShard)
+              and "model" in placed.values(),
+              "R3a: the map was not placed on the mesh")
+        diff = held_equal(torch, meshed["params"], plain["params"])
+        same_loss = (meshed["losses"] == plain["losses"]).all()
+        on_model = sum(v == "model" for v in placed.values())
+        print(f"R3a DGCF 10x (EdgeMap) captured on a one-rank NCCL mesh "
+              f"{mesh}, {HETREC_BPR_STEPS} steps: {on_model} of "
+              f"{len(placed)} map leaves on 'model' (one block), "
+              f"{ell.graph_bytes(em)} bytes; launches {total}; losses "
+              f"{'bit for bit' if same_loss else 'DIFFER'} "
+              f"({plain['losses'].sum(axis=1).tolist()}), parameters "
+              f"{'bit for bit' if not diff else 'DIFFER: ' + str(diff)}")
+        check(same_loss and not diff,
+              "R3a: the one-rank mesh's captured run is not bit for bit the "
+              "plain captured run")
+        del em
+        walls = {"plain": [], "mesh": []}
+        for key in ("plain", "mesh", "mesh", "plain"):
+            r = plain if key == "plain" else meshed
+            walls[key].append(phase_wall_ms(torch, r["trainer"],
+                                            r["pipe"].phases[0],
+                                            EM_WALL_STEPS) / EM_WALL_STEPS)
+        plain_run = plain["trainer"].runs["bpr"]
+        run.counter.zero_()
+        plain_run.counter.zero_()
+        m_ops = replay_ops(torch, run.graph)
+        p_ops = replay_ops(torch, plain_run.graph)
+        extra, extra_ms, busy = mesh_ops(m_ops, p_ops)
+        top = sorted(extra.items(), key=lambda kv: -kv[1][1])[:8]
+        print(f"R3a captured DGCF 10x step ({card}): ms a step over "
+              f"{EM_WALL_STEPS} steps with one sync (plain, mesh, mesh, "
+              f"plain): without the mesh {walls['plain']}, with "
+              f"{walls['mesh']}; per step (host clock, synchronised) "
+              f"without {plain['ms']}, with {meshed['ms']}; a replay "
+              f"(profiler): device busy {busy:.4f} ms with the mesh "
+              f"({sum(n for n, _ in m_ops.values()):.0f} device operations), "
+              f"{sum(ms for _, ms in p_ops.values()):.4f} ms without "
+              f"({sum(n for n, _ in p_ops.values()):.0f}); the mesh's own "
+              f"operations {sum(n for n, _ in extra.values()):.0f} a "
+              f"replay, {extra_ms:.4f} ms ({extra_ms / busy:.4f} of the busy "
+              f"time); largest "
+              f"{[(k[:60], n, round(ms, 4)) for k, (n, ms) in top]}")
+        return total
+    finally:
+        dist.destroy_process_group()
+
+
+def em_phase(torch, dg, graphs, card):
+    """Phase R3: DGCF's and DisenGCN's EdgeMap row-sharded over
+    ``model``.  -> the ``gather_reduce`` launches of its main paths (R3a's
+    captured mesh steps, R3b's ranks)."""
+    t0 = time.perf_counter()
+    done = phase_timer("R3a one-rank NCCL mesh, DGCF 10x (EdgeMap)")
+    launches = em_one_rank(torch, dg, graphs["10x"], card)["gather_reduce"]
+    done()
+    gc_cuda(torch)
+    done = phase_timer("R3b model = 2 on one card, the EdgeMap tier")
+    want, ranks = two_rank_results(torch, graphs, "em-rank", em_paths,
+                                   "R3b")
+    for label, _, _, steps in EM_PATHS:
+        rs = [r[label] for r in ranks]
+        em_hold(label, rs[0], want[label], rs, steps, card)
+        launches += sum(r["launches"]["gather_reduce"] for r in rs)
+    done()
+    gc_cuda(torch)
+    print(f"phase R3: {time.perf_counter() - t0:.1f} s (host clock)")
+    return launches
 
 
 # ------------------------------------------ phase E: the EdgeMap tier
@@ -4436,11 +4725,16 @@ def run(torch):
     print(f"routing launches over phase P's captured one-rank mesh steps: "
           f"{meshed}; over every path: { {k: launches[k] for k in ROUTING} }")
     rows = row_phase(torch, dg, {"10x": graph_10x, "hetrec": graph}, card)
-    del graph_10x
     launches.update({k: launches[k] + rows[k] for k in GATHER})
     print(f"gather launches over phase R's main paths (R1's captured mesh "
           f"steps, R2's ranks): {rows}; over every path: "
           f"{ {k: launches[k] for k in GATHER} }")
+    em_rows = em_phase(torch, dg, {"10x": graph_10x, "hetrec": graph}, card)
+    del graph_10x
+    launches["gather_reduce"] += em_rows
+    print(f"gather_reduce launches over phase R3's main paths (R3a's "
+          f"captured mesh steps, R3b's ranks): {em_rows}; over every path: "
+          f"{launches['gather_reduce']}")
 
     print(f"capture phase, every path ({card}): {json.dumps(CAPTURED)}")
     slower = [f"{r['path']} {r['phase']}" for r in CAPTURED
@@ -4488,7 +4782,9 @@ def main() -> int:
     if sys.argv[1:2] == ["mesh-rank"]:  # a rank of phase P2, started by it
         return mesh_rank_main(sys.argv[2:])
     if sys.argv[1:2] == ["row-rank"]:  # a rank of phase R2, started by it
-        return row_rank_main(sys.argv[2:])
+        return row_rank_main(sys.argv[2:], row_paths)
+    if sys.argv[1:2] == ["em-rank"]:  # a rank of phase R3b, started by it
+        return row_rank_main(sys.argv[2:], em_paths)
     try:
         import torch
     except ImportError:

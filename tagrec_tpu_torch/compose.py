@@ -26,8 +26,9 @@ from tagrec_tpu_torch.training.train import (PhaseSpec, bpr_phase,
 
 # the families trained by the resampling phase
 RESAMPLED = ("dgcf", "disengcn", "disenhan")
-# the families whose adjacency pair a mesh row-shards over ``model``
-GRAPH_SHARDED = ("lightgcn", "ngcf")
+# the families whose graph tables a mesh row-shards over ``model``: the
+# adjacency pair, or the EdgeMap tier's map
+GRAPH_SHARDED = ("lightgcn", "ngcf", "dgcf", "disengcn")
 
 
 @dataclass
@@ -55,8 +56,8 @@ def build_pipeline(graph: HeteroGraph, mcfg: ModelConfig, tcfg: TrainConfig,
     ``data.kg.KnowledgeGraph``, which puts KGAT over the knowledge graph
     (other families ignore it).  ``mesh``: an optional
     ``parallel.Mesh``, which makes the evaluation sharded and gives
-    LightGCN and NGCF only this rank's rows of their graph tables, cut
-    before the upload (the Trainer takes the same mesh for training, as
+    LightGCN and NGCF (and DGCF and DisenGCN on the EdgeMap tier) only
+    this rank's rows of their graph tables, cut before the upload (the Trainer takes the same mesh for training, as
     JAX's)."""
     cls = model_class(mcfg.name)
     dev = resolve(device)

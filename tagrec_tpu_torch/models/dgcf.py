@@ -20,9 +20,11 @@ Two tiers, as JAX picks them (``ops.dense_adj.use_dense``):
   iterations on the chunked dense tier (``ops.dense_adj``) instead.
 * EdgeMap (``adj_mode="ell"``, or a graph over the dense budget): S is
   held per degree bucket ([F, Nb, Kb] each); the degree is the per-bucket
-  row sums of the routed values, the aggregation ``edge_reduce`` (the
-  ``gather_reduce`` kernel per factor) and the score update ``edge_dot``
-  (``ops.edgemap``).
+  row sums of the routed values (``row_sums``), the aggregation
+  ``edge_reduce`` (the ``gather_reduce`` kernel per factor) and the score
+  update ``edge_dot`` (``ops.edgemap``).  Under a mesh the map holds one
+  ``model`` rank's rows, S only those rows, and the row sums and the
+  aggregation come back whole on every rank (``ops.edgemap``).
 """
 
 from __future__ import annotations
@@ -43,11 +45,13 @@ class DGCF(nn.Module):
     ``generator`` (a CPU ``torch.Generator``).  On the dense tier the edge
     mask of the joint graph is a bool buffer [N, N] on ``device``, and
     ``maskT`` its transpose, None where the mask is symmetric (``mask_t``
-    is the mask then); on the EdgeMap tier both are None and ``edges``
-    holds the joint graph's EdgeMap."""
+    is the mask then); on the EdgeMap tier both are None, ``em_host``
+    keeps the joint graph's EdgeMapHost and ``edges`` holds its EdgeMap,
+    or with ``mesh`` the rank's rows of it (``ops.edgemap.shard_edge_map``,
+    ``parallel.sharding.shard_graph``)."""
 
     def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
-                 generator: torch.Generator, device="cuda"):
+                 generator: torch.Generator, device="cuda", mesh=None):
         super().__init__()
         dev = resolve(device)
         self.cfg = cfg
@@ -62,12 +66,16 @@ class DGCF(nn.Module):
         self.dense = dense_adj.use_dense(cfg.adj_mode, *coo.shape)
         self.flash = cfg.adj_mode != "dense_xla"
         mask = mask_t = None
+        self.em_host = None
         if self.dense:
             mask, mask_t = dense_adj.routing_masks(coo, cfg.adj_mode, dev)
         else:
+            host = edgemap.build_edge_map(coo.row, coo.col, coo.val,
+                                          *coo.shape)
+            self.em_host = host
             self.edges = edgemap.EdgeMapBuffers({"em": edgemap.to_device(
-                edgemap.build_edge_map(coo.row, coo.col, coo.val,
-                                       *coo.shape), dev)})
+                host if mesh is None else edgemap.shard_edge_map(host, mesh),
+                dev)})
         self.register_buffer("mask", mask)
         self.register_buffer("maskT", mask_t)
         self.embed = nn.ParameterList(
@@ -138,9 +146,9 @@ class DGCF(nn.Module):
             a_used = tuple(torch.softmax(av, dim=0).detach() * m[None]
                            for av, m in zip(a_values, masks))
             # each row's degree per factor: per-bucket row sums, row order
-            d = torch.cat([a.sum(dim=2) for a in a_used], dim=1)
+            d = edgemap.row_sums(em, a_used)                   # [F, n]
             d = torch.where(d > 0, torch.rsqrt(torch.where(d > 0, d, 1.0)),
-                            0.0)[:, em.f_inv]                  # [F, n]
+                            0.0)
             agg = edgemap.edge_reduce(em, a_used, ego_f * d[:, :, None])
             femb = d[:, :, None] * agg
             # the score update (head = row, tail = ego): it reaches the

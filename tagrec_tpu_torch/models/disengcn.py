@@ -17,7 +17,8 @@ transpose) and the residual; the routing weights get none, as in JAX.
 dense budget, or under ``adj_mode="ell"``, the routing runs on the
 EdgeMap tier (``ops.edgemap``), as JAX picks it: the per-edge affinities
 by ``edge_dot``, their factor softmax detached, the aggregation by
-``edge_reduce`` (the ``gather_reduce`` kernel per factor).
+``edge_reduce`` (the ``gather_reduce`` kernel per factor); under a mesh
+over the rank's rows of the map, the aggregation whole on every rank.
 """
 
 from __future__ import annotations
@@ -41,10 +42,12 @@ class DisenGCN(nn.Module):
     ``torch.Generator``), the tree of JAX's params; the edge mask of the
     joint graph is a bool buffer [N, N] on ``device``, and ``maskT`` its
     transpose, None where the mask is symmetric; on the EdgeMap tier both
-    are None and ``edges`` holds the joint graph's EdgeMap."""
+    are None, ``em_host`` keeps the joint graph's EdgeMapHost and
+    ``edges`` holds its EdgeMap, or with ``mesh`` the rank's rows of it
+    (``ops.edgemap.shard_edge_map``, ``parallel.sharding.shard_graph``)."""
 
     def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
-                 generator: torch.Generator, device="cuda"):
+                 generator: torch.Generator, device="cuda", mesh=None):
         super().__init__()
         dev = resolve(device)
         self.cfg = cfg
@@ -58,12 +61,16 @@ class DisenGCN(nn.Module):
         self.dense = dense_adj.use_dense(cfg.adj_mode, *coo.shape)
         self.flash = cfg.adj_mode != "dense_xla"
         mask = mask_t = None
+        self.em_host = None
         if self.dense:
             mask, mask_t = dense_adj.routing_masks(coo, cfg.adj_mode, dev)
         else:
+            host = edgemap.build_edge_map(coo.row, coo.col, coo.val,
+                                          *coo.shape)
+            self.em_host = host
             self.edges = edgemap.EdgeMapBuffers({"em": edgemap.to_device(
-                edgemap.build_edge_map(coo.row, coo.col, coo.val,
-                                       *coo.shape), dev)})
+                host if mesh is None else edgemap.shard_edge_map(host, mesh),
+                dev)})
         self.register_buffer("mask", mask)
         self.register_buffer("maskT", mask_t)
         self.embed = nn.ParameterList(

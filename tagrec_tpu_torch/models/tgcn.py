@@ -40,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tagrec_tpu_torch import runtime
 from tagrec_tpu_torch.config import ModelConfig
 from tagrec_tpu_torch.data.graph import COO, HeteroGraph
 from tagrec_tpu_torch.device import resolve
@@ -56,14 +57,19 @@ def neighbor_sample_csr(indptr: np.ndarray, cols: np.ndarray,
                         vals: np.ndarray, k: int,
                         seed: int) -> Tuple[np.ndarray, np.ndarray]:
     """k slots per row drawn with replacement from its CSR list -> ([n, k]
-    neighbour ids + 1, [n, k] weight ids), 0 for a row without neighbours
-    (the numpy path of tagrec_tpu/runtime ``neighbor_sample_csr``)."""
-    n_rows = len(indptr) - 1
-    idx = np.zeros((n_rows, k), dtype=np.int32)
-    w = np.zeros((n_rows, k), dtype=np.int32)
+    neighbour ids + 1, [n, k] weight ids), 0 for a row without neighbours,
+    as tagrec_tpu/runtime ``neighbor_sample_csr`` draws them: the native
+    sampler (``runtime.neighbor_sample``, ``std::mt19937_64``) whenever
+    its library loads, the numpy loop only when it does not."""
     indptr = np.ascontiguousarray(indptr, dtype=np.int64)
     cols = np.ascontiguousarray(cols, dtype=np.int64)
     vals = np.ascontiguousarray(vals, dtype=np.float32)
+    native = runtime.neighbor_sample(indptr, cols, vals, k, seed)
+    if native is not None:
+        return native
+    n_rows = len(indptr) - 1
+    idx = np.zeros((n_rows, k), dtype=np.int32)
+    w = np.zeros((n_rows, k), dtype=np.int32)
     rng = np.random.default_rng(seed)
     for r in range(n_rows):
         lo, hi = indptr[r], indptr[r + 1]
@@ -236,8 +242,10 @@ class TGCN(nn.Module):
     ``layers.L.atten1.{user,item,tag}.{W1,W2,b,v}``, ``layers.L.{U,q,p,bit,
     Wf,bf}`` and ``layers.L.vec.0..2``: JAX's tree as dotted names, drawn
     from ``generator`` (a CPU ``torch.Generator``).  The six neighbour
-    tables are sampled on the host from ``sample_seed`` (or taken from
-    ``tables``, six (idx, w) arrays in ``REL_ORDER``) and live on
+    tables are sampled on the host from ``sample_seed`` as JAX samples
+    them (``neighbor_sample_csr``; ``sampler`` names the sampler that drew
+    them), or taken from ``tables``, six (idx, w) arrays in ``REL_ORDER``,
+    and live on
     ``device`` as int64 buffers: the tables, or under ``auto`` their dedup
     buckets, or under ``resample_each_layer`` the CSR lists too; under
     ``ell`` ``edges`` holds each relation's EdgeMaps ``<name>_j`` and
@@ -290,10 +298,13 @@ class TGCN(nn.Module):
         adjs = [graph.ui_adj, graph.ut_adj, graph.ui_adj.transpose(),
                 graph.it_adj, graph.ut_adj.transpose(),
                 graph.it_adj.transpose()]
+        # which sampler drew the tables: "native", "numpy", or "given"
+        self.sampler = "given"
         if tables is None:
             rng = np.random.default_rng(sample_seed)
             tables = [_sample_neighbor_table(a, cfg.neighbor_k, rng)
                       for a in adjs]
+            self.sampler = runtime.sampler()
         self.tables_host = tables
 
         def buf(name, arr):

@@ -45,6 +45,22 @@ PyTorch: ``edge_dot``'s forward and ``edge_reduce``'s d vals use
 Buckets whose [rows, K, D] gather is over ``EDGEMAP_GATHER_BUDGET_BYTES``
 (priced with JAX's TPU padding, so the same buckets chunk) run in row
 chunks, each recomputed in the backward rather than saved.
+
+Under a mesh, DGCF's and DisenGCN's map holds one ``model`` rank's rows
+(``shard_edge_map``, JAX's ``gdev_sharding`` rule per bucket; an
+``EdgeMapShard``).  Per-slot values live on the rank that holds their
+row.  ``edge_reduce`` runs ``gather_reduce(out=)`` over the rank's rows
+of each sharded bucket into its part of one send buffer, computes each
+whole bucket whole, all-gathers the buffer once over ``model`` and
+returns the WHOLE product on every rank, as ``ops.propagate.sharded_mm``
+does; ``row_sums`` the same for a per-row sum.  ``transpose_vals`` is one
+``all_to_all_single`` over ``model``: the host maps each slot's partner
+in the other layout once to (owning rank, that rank's slot), which fixes
+the send indices and split sizes, so a captured step holds the exchange.
+``edge_dot`` and the d vals of ``edge_reduce`` are local to the rank's
+slots.  Over one rank the shard's tables are the whole map's and today's
+code runs.  ``rows_gather``, ``edge_gather`` and ``edge_vgather`` take
+whole maps (DisenHAN, KGAT and TGCN keep theirs whole).
 """
 
 from __future__ import annotations
@@ -53,11 +69,13 @@ from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tagrec_tpu_torch.ops import dma_gather
 from tagrec_tpu_torch.ops import ell as ell_lib
+from tagrec_tpu_torch.ops.propagate import all_gather_parts
 
 
 class EdgeMapHost(NamedTuple):
@@ -164,9 +182,24 @@ def slot_payload(host: EdgeMapHost, per_edge: np.ndarray, fill=0,
     return _split_flat(h, flat)
 
 
-def to_device(host: EdgeMapHost, device) -> EdgeMap:
+def _i32(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a).astype(np.int32), device=device)
+
+
+def to_device(host, device):
+    """The device form of an EdgeMapHost (an EdgeMap) or of a rank's
+    EdgeMapShardHost (an EdgeMapShard)."""
+    if isinstance(host, EdgeMapShardHost):
+        em = to_device(host.cut._replace(f_src=host.f_read,
+                                         b_src=host.b_read), device)
+        return EdgeMapShard(
+            local=em, f_blocks=host.f_blocks, b_blocks=host.b_blocks,
+            f_x=host.f_x._replace(send=_i32(host.f_x.send, device)),
+            b_x=host.b_x._replace(send=_i32(host.b_x.send, device)),
+            mesh=host.mesh)
+
     def i32(a):
-        return torch.as_tensor(np.asarray(a).astype(np.int32), device=device)
+        return _i32(a, device)
 
     def side(h):
         return (tuple(ell_lib._ids(b.idx, h.n_cols, device)
@@ -185,16 +218,265 @@ def to_device(host: EdgeMapHost, device) -> EdgeMap:
                    b_src=tuple(i32(s) for s in host.b_src))
 
 
+# ---------------------------------------------------------------------------
+# rows over the ``model`` axis
+# ---------------------------------------------------------------------------
+
+# the leaves JAX row-shards too, but which stay whole here: a rank's rows
+# of a product are put in order by the whole permutation (ROADMAP.md
+# section C)
+WHOLE_LEAVES = ("f_inv", "b_inv")
+_FIELDS = ("idx", "val", "rows", "deg")
+
+
+class Exchange(NamedTuple):
+    """One ``all_to_all_single`` over ``model`` that moves per-slot values
+    of one layout to the ranks whose slots of the other layout read them:
+    ``send`` the rank's own flat slots it sends, grouped by destination
+    rank; the split sizes by ``model`` rank (0 for itself); ``total`` the
+    values every pair of ranks moves together (0: no exchange at all)."""
+
+    send: object        # [S] int32 (numpy on the host, a tensor on a device)
+    send_splits: tuple
+    recv_splits: tuple
+    total: int
+
+
+class EdgeMapShardHost(NamedTuple):
+    """One ``model`` rank's rows of an EdgeMapHost (``shard_edge_map``):
+    ``cut`` the map with each row-sharded bucket of either layout cut to
+    the rank's block (its ``f_src``/``b_src`` still JAX's global flat
+    slots, its ``*_inv`` whole); ``f_read``/``b_read`` per bucket the
+    position each of the rank's slots reads in the rank's extended slot
+    vector of the other layout (its own slots, a zero sentinel, then the
+    values the exchange brings); ``f_x`` moves forward values to the
+    transpose's readers, ``b_x`` back."""
+
+    cut: EdgeMapHost
+    f_read: List[np.ndarray]
+    b_read: List[np.ndarray]
+    f_blocks: tuple     # per forward bucket (start, stop) of the rank's rows,
+    b_blocks: tuple     # or None for a bucket whole on every rank
+    f_x: Exchange
+    b_x: Exchange
+    mesh: object        # the parallel.Mesh
+
+
+class EdgeMapShard(NamedTuple):
+    """An EdgeMapShardHost on the device.  ``local`` is an EdgeMap over the
+    rank's rows whose ``f_src``/``b_src`` are the read tables; the
+    primitives take an EdgeMapShard where they take an EdgeMap, and its
+    properties are ``local``'s."""
+
+    local: EdgeMap
+    f_blocks: tuple
+    b_blocks: tuple
+    f_x: Exchange
+    b_x: Exchange
+    mesh: object
+
+    @property
+    def model(self) -> int:
+        return self.mesh.shape["model"]
+
+    f_idx = property(lambda self: self.local.f_idx)
+    f_rows = property(lambda self: self.local.f_rows)
+    f_deg = property(lambda self: self.local.f_deg)
+    f_inv = property(lambda self: self.local.f_inv)
+    b_src = property(lambda self: self.local.b_src)
+
+    @property
+    def n_buckets(self) -> int:
+        return self.local.n_buckets
+
+    def masks(self, dtype=torch.float32) -> tuple:
+        """The rank's rows of each bucket's validity mask, from its own
+        ``deg`` (the masks are not stored)."""
+        return self.local.masks(dtype)
+
+    def transpose(self) -> "EdgeMapShard":
+        return EdgeMapShard(local=self.local.transpose(),
+                            f_blocks=self.b_blocks, b_blocks=self.f_blocks,
+                            f_x=self.b_x, b_x=self.f_x, mesh=self.mesh)
+
+
+def _blocks(h: ell_lib.EllBucketsHost, m: int, i: int) -> tuple:
+    """Per bucket of ``h``: rank i's (start, stop) of the m even row blocks
+    where JAX row-shards the bucket (``ell.row_sharded``), else None."""
+    return tuple((i * (n // m), (i + 1) * (n // m))
+                 if ell_lib.row_sharded(n, m) else None
+                 for n in (b.idx.shape[0] for b in h.buckets))
+
+
+def _cut_side(h: ell_lib.EllBucketsHost, blocks) -> ell_lib.EllBucketsHost:
+    cut = ell_lib.cut_rows
+    return h._replace(
+        buckets=[ell_lib.EllHost(idx=cut(b.idx, k), val=cut(b.val, k),
+                                 deg=cut(b.deg, k), n_cols=b.n_cols)
+                 for b, k in zip(h.buckets, blocks)],
+        rows=[cut(r, k) for r, k in zip(h.rows, blocks)])
+
+
+class _SlotOwners:
+    """Where each global flat slot of one layout lives under m row
+    blocks: its owning rank (-1 in a whole bucket, on every rank) and its
+    position in the owner's flat slots (the same layout on every rank, the
+    blocks being even)."""
+
+    def __init__(self, h: ell_lib.EllBucketsHost, blocks, m: int):
+        shapes = [b.idx.shape for b in h.buckets]
+        self.offs = np.cumsum([0] + [n * k for n, k in shapes])
+        self.total = int(self.offs[-1])
+        self.k = np.array([k for _, k in shapes] + [1], dtype=np.int64)
+        self.per = np.array([(n // m if blk else n) for (n, _), blk in
+                             zip(shapes, blocks)] + [1], dtype=np.int64)
+        self.cut = np.array([blk is not None for blk in blocks] + [False])
+        self.local_offs = np.cumsum([0] + [p * k for p, k in
+                                           zip(self.per[:-1], self.k[:-1])])
+        self.n_local = int(self.local_offs[-1])
+
+    def __call__(self, s: np.ndarray):
+        """-> (owner, local slot) of global slots ``s``; the sentinel
+        (``total``) gets owner -2."""
+        j = np.searchsorted(self.offs, s, side="right") - 1
+        j = np.minimum(j, len(self.k) - 1)
+        rel = s - self.offs[j]
+        r, c = rel // self.k[j], rel % self.k[j]
+        own = np.where(self.cut[j], r // self.per[j], -1)
+        lr = np.where(self.cut[j], r - own * self.per[j], r)
+        local = self.local_offs[j] + lr * self.k[j] + c
+        return np.where(s == self.total, -2, own), local
+
+
+def _exchange(src: ell_lib.EllBucketsHost, src_blocks, dst_tables,
+              dst_rows, m: int, i: int):
+    """The exchange that feeds the slots of the other layout from ``src``'s
+    values, seen from rank i -> (Exchange, per destination bucket rank i's
+    read table).  ``dst_tables``: per destination bucket the global src
+    slot of each slot (``src``'s total on the pads); ``dst_rows(q)``: per
+    destination bucket rank q's (start, stop) or None."""
+    owners = _SlotOwners(src, src_blocks, m)
+    # every destination slot's source, owner and local slot, found once;
+    # rank q's slots are its rows' ranges of them
+    own_all, local_all = owners(np.concatenate(
+        [t.reshape(-1) for t in dst_tables]
+        + [np.zeros(0, np.int64)]).astype(np.int64))
+    offs = np.cumsum([0] + [t.size for t in dst_tables])
+
+    def ranks_slots(a, q):
+        return np.concatenate([a[o:o + t.size] if blk is None else
+                               a[o + blk[0] * t.shape[1]:
+                                 o + blk[1] * t.shape[1]]
+                               for t, o, blk in zip(dst_tables, offs,
+                                                    dst_rows(q))]
+                              + [a[:0]])
+
+    need, counts = {}, {}
+    for q in range(m):
+        need[q] = (ranks_slots(own_all, q), ranks_slots(local_all, q))
+        own = need[q][0]
+        counts[q] = np.bincount(own[own >= 0], minlength=m)
+        counts[q][q] = 0
+    send = [np.zeros(0, np.int64)] * m
+    for q in range(m):
+        if q != i:
+            own, local = need[q]
+            send[q] = local[own == i]
+    own, local = need[i]
+    recv = counts[i]
+    base = owners.n_local + 1
+    read = np.where(own == -2, owners.n_local, local)
+    starts = base + np.concatenate([[0], np.cumsum(recv)[:-1]])
+    for p in range(m):
+        if p != i and recv[p]:
+            read[np.flatnonzero(own == p)] = starts[p] + np.arange(recv[p])
+    tables, off = [], 0
+    for t, blk in zip(dst_tables, dst_rows(i)):
+        shape = ell_lib.cut_rows(t, blk).shape
+        n = int(np.prod(shape))
+        tables.append(read[off:off + n].reshape(shape).astype(np.int32))
+        off += n
+    x = Exchange(send=np.concatenate(send).astype(np.int32),
+                 send_splits=tuple(len(a) for a in send),
+                 recv_splits=tuple(int(c) for c in recv),
+                 total=int(sum(c.sum() for c in counts.values())))
+    return x, tables
+
+
+def shard_edge_map(host: EdgeMapHost, mesh) -> EdgeMapShardHost:
+    """``mesh``'s rank's rows of an EdgeMap, cut on the host before
+    anything is uploaded, as JAX's ``gdev_sharding`` places the map's
+    leaves: each bucket of either layout whose rows JAX row-shards (64 or
+    more, dividing by ``model``: ``ell.row_sharded``) keeps the rank's
+    block, the i-th of ``model`` even blocks, of its idx, val, rows, deg
+    and slot map; every other bucket is whole on every rank; ``f_inv``
+    and ``b_inv`` stay whole (WHOLE_LEAVES).  The slot maps index the
+    other layout's global flat slots; each is mapped once here to (owning
+    rank, that rank's slot), which gives the send indices and split sizes
+    of one ``all_to_all_single`` a direction and the rank's read tables."""
+    m, i = mesh.shape["model"], mesh.index("model")
+    fb, bb = _blocks(host.f, m, i), _blocks(host.b, m, i)
+    cut = EdgeMapHost(
+        f=_cut_side(host.f, fb), b=_cut_side(host.b, bb),
+        f_src=[ell_lib.cut_rows(t, k) for t, k in zip(host.f_src, fb)],
+        b_src=[ell_lib.cut_rows(t, k) for t, k in zip(host.b_src, bb)],
+        f_slot_of_edge=None, b_slot_of_edge=None)
+    f_x, b_read = _exchange(host.f, _blocks(host.f, m, 0), host.b_src,
+                            lambda q: _blocks(host.b, m, q), m, i)
+    b_x, f_read = _exchange(host.b, _blocks(host.b, m, 0), host.f_src,
+                            lambda q: _blocks(host.f, m, q), m, i)
+    return EdgeMapShardHost(cut=cut, f_read=f_read, b_read=b_read,
+                            f_blocks=fb, b_blocks=bb, f_x=f_x, b_x=b_x,
+                            mesh=mesh)
+
+
+def leaves(em, prefix: str = "em"):
+    """[(JAX's leaf path, array)] of an EdgeMapHost, EdgeMap or a rank's
+    form (EdgeMapShardHost: its cut map; EdgeMapShard: its local map), in
+    JAX's leaf order: ``em.f_idx.0`` ... ``em.f_val.*``, ``em.f_rows.*``,
+    ``em.f_deg.*``, ``em.f_inv``, the same of ``b``, then ``em.f_src.*``
+    and ``em.b_src.*``."""
+    if isinstance(em, EdgeMapShardHost):
+        em = em.cut
+    if isinstance(em, EdgeMapShard):
+        em = em.local
+    out = []
+    for side in ("f", "b"):
+        if isinstance(em, EdgeMapHost):
+            h = getattr(em, side)
+            parts = {"idx": [b.idx for b in h.buckets],
+                     "val": [b.val for b in h.buckets], "rows": h.rows,
+                     "deg": [b.deg for b in h.buckets]}
+            inv = h.inv_perm
+        else:
+            parts = {f: getattr(em, f"{side}_{f}") for f in _FIELDS}
+            inv = getattr(em, f"{side}_inv")
+        out += [(f"{prefix}.{side}_{f}.{j}", a) for f in _FIELDS
+                for j, a in enumerate(parts[f])]
+        out.append((f"{prefix}.{side}_inv", inv))
+    return out + [(f"{prefix}.{side}_src.{j}", a) for side in ("f", "b")
+                  for j, a in enumerate(getattr(em, f"{side}_src"))]
+
+
 class EdgeMapBuffers(nn.Module):
-    """EdgeMaps and tuples of slot tables, held as a model's non-persistent
-    buffers: ``.to()`` carries them, ``state_dict`` and the checkpoints do
-    not see them.  ``buffers[key]`` rebuilds the EdgeMap (or tuple) from
-    the current buffers."""
+    """EdgeMaps (or a rank's EdgeMapShards) and tuples of slot tables,
+    held as a model's non-persistent buffers: ``.to()`` carries them,
+    ``state_dict`` and the checkpoints do not see them.  ``buffers[key]``
+    rebuilds the EdgeMap, EdgeMapShard or tuple from the current
+    buffers."""
 
     def __init__(self, items: Dict[str, object]):
         super().__init__()
         self._layout = {}
+        self._shards = {}  # key -> the EdgeMapShard's static part
         for key, item in items.items():
+            if isinstance(item, EdgeMapShard):
+                self._put(f"{key}_f_x", item.f_x.send)
+                self._put(f"{key}_b_x", item.b_x.send)
+                self._shards[key] = item._replace(
+                    local=None, f_x=item.f_x._replace(send=None),
+                    b_x=item.b_x._replace(send=None))
+                item = item.local
             if isinstance(item, EdgeMap):
                 self._layout[key] = {f: self._put(f"{key}_{f}", v)
                                      for f, v in zip(item._fields, item)}
@@ -216,10 +498,16 @@ class EdgeMapBuffers(nn.Module):
 
     def __getitem__(self, key: str):
         lay = self._layout[key]
-        if isinstance(lay, dict):
-            return EdgeMap(**{f: self._get(f"{key}_{f}", n)
-                              for f, n in lay.items()})
-        return self._get(key, lay)
+        if not isinstance(lay, dict):
+            return self._get(key, lay)
+        em = EdgeMap(**{f: self._get(f"{key}_{f}", n)
+                        for f, n in lay.items()})
+        shard = self._shards.get(key)
+        if shard is None:
+            return em
+        return shard._replace(
+            local=em, f_x=shard.f_x._replace(send=getattr(self, f"{key}_f_x")),
+            b_x=shard.b_x._replace(send=getattr(self, f"{key}_b_x")))
 
 
 # ---------------------------------------------------------------------------
@@ -363,11 +651,32 @@ def _flat_slots(vals, tail: int = 0) -> torch.Tensor:
     return torch.cat([flat, zero], dim=len(lead))
 
 
-def transpose_vals(em: EdgeMap, vals):
+def transpose_vals(em, vals):
     """Per-slot values moved from the forward layout to the transpose's;
-    the transpose's pads read the zero sentinel."""
+    the transpose's pads read the zero sentinel.  On an EdgeMapShard over
+    more than one rank, the rank's slots of each layout: the values its
+    transpose slots read from other ranks come in one
+    ``all_to_all_single`` over ``model`` (``Exchange``), the rest are
+    read locally."""
     flat = _flat_slots(vals)
+    if isinstance(em, EdgeMapShard) and em.f_x.total:
+        flat = _exchanged(em, flat)
     return tuple(flat[..., src] for src in em.b_src)
+
+
+def _exchanged(em: "EdgeMapShard", flat: torch.Tensor) -> torch.Tensor:
+    """The rank's forward slot values (``flat``, [..., L + 1] with the zero
+    sentinel last) extended by the values its transpose slots read from
+    other ranks, in the order the read tables expect."""
+    x = em.f_x
+    lead = flat.shape[:-1]
+    f2 = flat.reshape(-1, flat.shape[-1])
+    send = f2[:, x.send].t().contiguous()                 # [S, lead]
+    recv = send.new_empty((sum(x.recv_splits), f2.shape[0]))
+    dist.all_to_all_single(recv, send, list(x.recv_splits),
+                           list(x.send_splits),
+                           group=em.mesh.group("model"))
+    return torch.cat([f2, recv.t()], dim=1).reshape(lead + (-1,))
 
 
 def _transfer_raw(vals, dst_tables):
@@ -379,28 +688,94 @@ def _transfer_raw(vals, dst_tables):
 # the per-bucket sum on the gather_reduce kernel
 # ---------------------------------------------------------------------------
 
-def _bucket_sum(v, idx, deg, x):
+def _bucket_sum(v, idx, deg, x, out=None):
     """sum over k < deg[n] of v[..., n, k] * x[..., idx[n, k], :] for one
     bucket: one ``gather_reduce`` per element of the flattened leading
-    axes; zeros without a launch for a bucket of width 0."""
+    axes; zeros without a launch for a bucket of width 0.  ``out``: a
+    [..., n, D] view whose [n, D] planes are contiguous (the rank's part
+    of a send buffer) that takes the rows."""
     n, k = idx.shape
     lead = _lead("edge_reduce", v, x)
     d = x.shape[-1]
     if n == 0 or k == 0:
-        return x.new_zeros(lead + (n, d))
+        return x.new_zeros(lead + (n, d)) if out is None else out.zero_()
     vf = v.reshape((-1, n, k))
     xf = x.reshape((-1,) + tuple(x.shape[-2:]))
+    if out is not None:
+        of = out.view((-1, n, d))
+        for i in range(vf.shape[0]):
+            dma_gather.gather_reduce(xf[i].contiguous(), idx,
+                                     vf[i].contiguous(), deg, out=of[i])
+        return out
     out = [dma_gather.gather_reduce(xf[i].contiguous(), idx,
                                     vf[i].contiguous(), deg)
            for i in range(vf.shape[0])]
     return torch.stack(out).reshape(lead + (n, d))
 
 
-def _reduce(em: EdgeMap, vals, x):
-    """``_reduce_raw``'s value, each bucket through ``_bucket_sum``."""
-    outs = [_bucket_sum(v, idx, deg, x)
-            for v, idx, deg in zip(vals, em.f_idx, em.f_deg)]
+def _gathered_rows(em: "EdgeMapShard", parts, like: torch.Tensor, lead,
+                   tail=()) -> torch.Tensor:
+    """The row-ordered [*lead, n_rows, *tail] result of per-bucket row
+    results, whole on every ``model`` rank, from a rank's rows.
+    ``parts[j](out)`` gives forward bucket j's rows: into ``out``, the
+    rank's part of one [model, *lead, R, *tail] send buffer (R the rows
+    the rank holds of the sharded buckets), for a row-sharded bucket;
+    returned whole, computed whole on every rank, for a whole one.  One
+    all-gather over ``model`` fills the buffer (in place on NCCL); the
+    buckets' rows are then put in order by the whole ``f_inv``."""
+    m, i = em.model, em.mesh.index("model")
+    ax = len(lead)
+    rows = [0 if b is None else b[1] - b[0] for b in em.f_blocks]
+    r_all = sum(rows)
+    full = like.new_empty((m,) + tuple(lead) + (r_all,) + tuple(tail))
+    outs, off = [], 0
+    for part, blk, r in zip(parts, em.f_blocks, rows):
+        outs.append(part(None if blk is None
+                         else full[i].narrow(ax, off, r)))
+        off += r
+    if r_all:
+        all_gather_parts(full, em.mesh)
+    pieces, off = [], 0
+    for o, blk, r in zip(outs, em.f_blocks, rows):
+        pieces.append(o if blk is None else full.narrow(ax + 1, off, r)
+                      .movedim(0, ax).reshape(tuple(lead) + (m * r,)
+                                              + tuple(tail)))
+        off += r
+    return torch.cat(pieces, dim=ax).index_select(ax, em.f_inv)
+
+
+def _sharded(em) -> bool:
+    """An EdgeMapShard over more than one rank: its rows are the rank's.
+    Over one rank its tables are the whole map's, and today's code runs."""
+    return isinstance(em, EdgeMapShard) and em.model > 1
+
+
+def _reduce(em, vals, x):
+    """``_reduce_raw``'s value, each bucket through ``_bucket_sum``.  On an
+    EdgeMapShard over more than one rank: the rank's rows of each sharded
+    bucket, all-gathered once (``_gathered_rows``); the whole buckets
+    whole on every rank; the WHOLE product on every ``model`` rank."""
+    parts = [lambda out, v=v, idx=idx, deg=deg: _bucket_sum(v, idx, deg, x,
+                                                            out=out)
+             for v, idx, deg in zip(vals, em.f_idx, em.f_deg)]
+    if _sharded(em):
+        return _gathered_rows(em, parts, x, _lead("edge_reduce", vals[0], x),
+                              (x.shape[-1],))
+    outs = [part(None) for part in parts]
     return torch.cat(outs, dim=-2)[..., em.f_inv, :]
+
+
+def row_sums(em, vals) -> torch.Tensor:
+    """Each row's sum of its slots' values, [..., n_rows] in row order
+    (DGCF's routed degree): ``vals`` a tuple of [..., Nb, Kb].  On an
+    EdgeMapShard over more than one rank, the rank's rows of each sharded
+    bucket, all-gathered once."""
+    parts = [lambda out, v=v: (v.sum(dim=-1) if out is None
+                               else out.copy_(v.sum(dim=-1)))
+             for v in vals]
+    if _sharded(em):
+        return _gathered_rows(em, parts, vals[0], vals[0].shape[:-2])
+    return torch.cat([part(None) for part in parts], dim=-1)[..., em.f_inv]
 
 
 # ---------------------------------------------------------------------------

@@ -275,6 +275,18 @@ _GATHER_INTO = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
 
 
+def all_gather_parts(full: torch.Tensor, mesh) -> torch.Tensor:
+    """Fill ``full`` [model, ...] from every ``model`` rank's part: rank
+    i's part ``full[i]`` goes to every rank, in one all-gather over
+    ``model`` (in place on NCCL)."""
+    i, group = mesh.index("model"), mesh.group("model")
+    if mesh.backend == "nccl":  # in place: the rank's part is the input
+        _GATHER_INTO(full.view(-1), full[i].view(-1), group=group)
+    else:  # gloo: one all_gather into the buffer's parts
+        dist.all_gather(list(full.unbind(0)), full[i].clone(), group=group)
+    return full
+
+
 def _gathered_products(shard, x: torch.Tensor):
     """Each piece of a rank's form (``ell.RowShard``) times x, the whole
     piece's rows in order.  The row-sharded pieces write the rank's rows
@@ -292,11 +304,7 @@ def _gathered_products(shard, x: torch.Tensor):
         off += r
     if not r_all:
         return outs
-    group = mesh.group("model")
-    if mesh.backend == "nccl":  # in place: the rank's part is the input
-        _GATHER_INTO(full.view(m * r_all, d), full[i], group=group)
-    else:  # gloo: one all_gather into the buffer's parts
-        dist.all_gather(list(full.unbind(0)), full[i].clone(), group=group)
+    all_gather_parts(full, mesh)
     res, off = [], 0
     for o, blk, r in zip(outs, shard.blocks, rows):
         res.append(o if blk is None

@@ -24,10 +24,14 @@ explicit, and the models stay as they are:
   tables): LightGCN's and NGCF's adjacency pair keeps this rank's rows of
   each table JAX row-shards (``ops.ell.shard_rows``), and its SpMM
   computes those rows and all-gathers them over ``model`` once
-  (``ops.propagate.sharded_mm``), the partition XLA derives.  The other
-  families' graph tables (masks, EdgeMaps, TGCN's and the KG's tables)
-  stay whole on every rank, and each layer's compute with them:
-  ROADMAP.md queue A.
+  (``ops.propagate.sharded_mm``), the partition XLA derives.  DGCF's and
+  DisenGCN's EdgeMap keeps this rank's rows of each bucket JAX
+  row-shards (``ops.edgemap.shard_edge_map``): ``edge_reduce`` computes
+  them and all-gathers them once, and per-slot values move between the
+  forward and transpose layouts by one all-to-all.  The other families'
+  graph tables (the dense masks, DisenHAN's, KGAT's and TGCN's maps,
+  TGCN's and the KG's tables) stay whole on every rank, and each layer's
+  compute with them: ROADMAP.md queue A.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.nn.utils import parametrize
 
+from tagrec_tpu_torch.ops import edgemap
 from tagrec_tpu_torch.ops import ell as ell_lib
 from tagrec_tpu_torch.parallel.launch import row_block
 from tagrec_tpu_torch.parallel.mesh import Mesh
@@ -143,22 +148,32 @@ def params_sharding(model: nn.Module, mesh: Mesh) -> Dict[str, Optional[str]]:
 
 def gdev_sharding(model: nn.Module, mesh: Mesh) -> Dict[str, Optional[str]]:
     """{graph table: "model" (row-sharded) or None (whole on every rank)},
-    as ``shard_graph`` places them.  A model with an adjacency pair
-    (``model.adj_host``: LightGCN, NGCF): JAX's leaf paths
-    (``adj.fwd.ell.parts.0.idx``, ``adj.fwd.dense_block``, ``adj.fwd.0``
-    ...) by JAX's rule, but ``inv_perm`` and ``dense_cols`` whole
-    (``ell.WHOLE_LEAVES``).  Any other family: its buffers by name, every
-    one whole."""
+    as ``shard_graph`` places them, by JAX's rule on JAX's leaf paths.  A
+    model with an adjacency pair (``model.adj_host``: LightGCN, NGCF):
+    ``adj.fwd.ell.parts.0.idx``, ``adj.fwd.dense_block``, ``adj.fwd.0``
+    ..., but ``inv_perm`` and ``dense_cols`` whole (``ell.WHOLE_LEAVES``).
+    A model on the EdgeMap tier with ``em_host`` (DGCF, DisenGCN):
+    ``em.f_idx.0`` ... ``em.b_src.*``, but ``f_inv`` and ``b_inv`` whole
+    (``edgemap.WHOLE_LEAVES``); JAX's ``masks.*`` are not stored (each
+    rank computes its rows of them from its ``deg``).  Any other family:
+    its buffers by name, every one whole."""
     host = getattr(model, "adj_host", None)
-    if host is None:
+    if host is not None:
+        whole, found = ell_lib.WHOLE_LEAVES, ell_lib.leaves(host)
+    elif getattr(model, "em_host", None) is not None:
+        whole, found = edgemap.WHOLE_LEAVES, edgemap.leaves(model.em_host)
+    else:
         return {n: None for n, _ in model.named_buffers()}
-    return {path: ("model" if not path.endswith(ell_lib.WHOLE_LEAVES)
+    return {path: ("model" if not path.endswith(whole)
                    and shardable(a.shape, mesh) else None)
-            for path, a in ell_lib.leaves(host)}
+            for path, a in found}
 
 
 def graph_mesh(model: nn.Module) -> Optional[Mesh]:
-    """The mesh ``model``'s adjacency pair is row-sharded over, or None."""
+    """The mesh ``model``'s graph tables are row-sharded over, or None."""
+    if getattr(model, "em_host", None) is not None:
+        em = model.edges["em"]
+        return em.mesh if isinstance(em, edgemap.EdgeMapShard) else None
     fwd = getattr(getattr(model, "adj", None), "fwd", None)
     return fwd.mesh if isinstance(fwd, ell_lib.RowShard) else None
 
@@ -166,17 +181,26 @@ def graph_mesh(model: nn.Module) -> Optional[Mesh]:
 def shard_graph(model: nn.Module, mesh: Mesh) -> Dict[str, Optional[str]]:
     """Put ``model``'s graph tables on ``mesh`` -> ``gdev_sharding``.  A
     model with an adjacency pair swaps ``model.adj`` for this rank's rows
-    (``ell.shard_rows`` of ``model.adj_host``, uploaded to its
-    parameters' device; the whole tables are let go first).  A model
+    (``ell.shard_rows`` of ``model.adj_host``); one on the EdgeMap tier
+    swaps ``model.edges`` for this rank's rows of its map
+    (``edgemap.shard_edge_map`` of ``model.em_host``); each is uploaded to
+    the parameters' device after the whole tables are let go.  A model
     already sharded over ``mesh`` is left as it is; one sharded over
     another mesh raises.  Other families keep their tables whole."""
-    if getattr(model, "adj_host", None) is not None:
+    adj_host = getattr(model, "adj_host", None)
+    em_host = getattr(model, "em_host", None)
+    if adj_host is not None or em_host is not None:
         have = graph_mesh(model)
         if have is None:
             device = next(model.parameters()).device
-            model.adj = None
-            model.adj = ell_lib.to_device(
-                ell_lib.shard_rows(model.adj_host, mesh), device)
+            if adj_host is not None:
+                model.adj = None
+                model.adj = ell_lib.to_device(
+                    ell_lib.shard_rows(adj_host, mesh), device)
+            else:
+                model.edges = None
+                model.edges = edgemap.EdgeMapBuffers({"em": edgemap.to_device(
+                    edgemap.shard_edge_map(em_host, mesh), device)})
         elif have is not mesh:
             raise ValueError(f"the graph is sharded over {have}, not {mesh}")
     return gdev_sharding(model, mesh)

@@ -2,16 +2,18 @@
 
 Two layers at narrow widths (``dim_latent=16``, ``dim_layer_list=(16, 8)``)
 with the preset's k = 25, so the dedup ladder is exercised; JAX's neighbour
-tables are fed to the port (JAX's native sampler and its numpy fallback
-draw different tables from one seed), and JAX's params carried across.
+tables are fed to the port, and JAX's params carried across.  The port
+draws its default tables as JAX does (its native sampler, the numpy loop
+only when no library loads), so those fed tables equal its own.
 On ``auto`` (the dedup buckets) and ``dense_xla`` (the plain takes): the
 forward at rtol 1e-4, atol 1e-5; the BPR and TransTag loss parts at rtol
 1e-4 and every gradient at rtol 5e-4; a 5-step Adam trajectory (BPR, BPR,
 TransTag, TransTag, BPR) under ``torch_adam`` at rtol 5e-3; the bf16
 forwards at rtol 2e-3, atol 1e-4 (``dense_xla`` against JAX's eager bf16
-forward: jitted, XLA keeps its fused bf16 intermediates in float32).  The sampler (against JAX's numpy
-fallback, the native library switched off in the test) and the dedup
-buckets are array-equal.  JAX's steps are jitted in one module fixture.
+forward: jitted, XLA keeps its fused bf16 intermediates in float32).  The sampler (against JAX's native
+sampler, and against JAX's numpy fallback with both native libraries
+switched off), the default tables and the dedup buckets are array-equal.
+JAX's steps are jitted in one module fixture.
 """
 
 import dataclasses
@@ -30,7 +32,7 @@ from tagrec_tpu.models import tgcn as jtgcn
 from tagrec_tpu.ops import losses as jlosses
 from tagrec_tpu.training import checkpoint as jckpt
 from tagrec_tpu.training import optim as joptim
-from tagrec_tpu_torch import serving
+from tagrec_tpu_torch import runtime, serving
 from tagrec_tpu_torch.compose import build_pipeline
 from tagrec_tpu_torch.config import TrainConfig, model_preset
 from tagrec_tpu_torch.data import synthetic as tsyn
@@ -149,12 +151,45 @@ def _model(mode, run=None, **kw):
     return model
 
 
-def test_sampler_equals_jax_fallback(tiny_graph, monkeypatch):
-    """With JAX's native library off, JAX's tables are its numpy fallback's:
-    the port's default tables equal them, and so does each draw."""
-    monkeypatch.setattr(jruntime, "get_lib", lambda: None)
+@pytest.mark.parametrize("k", [25, 42])
+def test_sampler_equals_jax_native(tiny_graph, k):
+    """Both native libraries load here (g++ is present): the port's draw
+    of every relation's table equals JAX's native draw at two seeds."""
+    assert jruntime.available() and runtime.sampler() == "native"
+    graph = tsyn.synthetic_graph(**TINY)
+    for seed in (0, 3):
+        rng, jrng = np.random.default_rng(seed), np.random.default_rng(seed)
+        for coo, jcoo in zip((graph.ui_adj, graph.it_adj, graph.ut_adj),
+                             (tiny_graph.ui_adj, tiny_graph.it_adj,
+                              tiny_graph.ut_adj)):
+            got = tgcn._sample_neighbor_table(coo, k, rng)
+            want = jtgcn._sample_neighbor_table(jcoo, k, jrng)
+            assert got[0].shape == (coo.shape[0], k)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+
+
+def test_default_tables_equal_jax_default(tiny_graph):
+    """From one seed the port's TGCN holds JAX's default tables."""
     want = jtgcn.TGCN(tiny_graph, jax_preset("tgcn", **CFG))._tables
-    got = _model("auto").tables_host
+    model = _model("auto")
+    assert model.sampler == "native"
+    assert len(model.tables_host) == len(want) == 6
+    for (gi, gw), (wi, ww) in zip(model.tables_host, want):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gw, ww)
+
+
+def test_sampler_equals_jax_fallback(tiny_graph, monkeypatch):
+    """With both native libraries off, JAX's tables are its numpy
+    fallback's: the port's default tables equal them, and so does each
+    draw."""
+    monkeypatch.setattr(jruntime, "get_lib", lambda: None)
+    monkeypatch.setattr(runtime, "get_lib", lambda: None)
+    want = jtgcn.TGCN(tiny_graph, jax_preset("tgcn", **CFG))._tables
+    model = _model("auto")
+    assert model.sampler == "numpy"
+    got = model.tables_host
     assert len(got) == len(want) == 6
     for (gi, gw), (wi, ww) in zip(got, want):
         assert gi.shape[1] == 25

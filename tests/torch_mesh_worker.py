@@ -358,8 +358,114 @@ def scenario_propagate(args, tmp):
     return {"cases": prop_runs(mesh), "jax_step": jax_step(args, mesh)}
 
 
+# ------------------------------------- the EdgeMap tier's partition
+
+# case -> (family, preset overrides), each on PROP_GRAPH's EdgeMap
+# (adj_mode="ell"): forward buckets of 112, 96, 100 and 64 rows shard over
+# 2 and 4 ranks, those of 69 (width 0), 27, 9 and 3 stay whole
+EM_CASES = {"dgcf": ("dgcf", {"reg": 1e-3}), "disengcn": ("disengcn", {})}
+EM_SEED = 3  # the per-slot values moved by transpose_vals
+
+
+def em_pipeline(case, mesh=None):
+    name, over = EM_CASES[case]
+    return pipeline(name, over, "ell", mesh, prop_graph())
+
+
+def em_slot_values(em_host, f=4):
+    """[f, Nb, Kb] values per forward bucket of the whole map, from
+    EM_SEED."""
+    import numpy as np
+
+    rng = np.random.default_rng(EM_SEED)
+    return [rng.standard_normal((f,) + b.idx.shape).astype(np.float32)
+            for b in em_host.f.buckets]
+
+
+def em_transposed(model):
+    """``transpose_vals`` of ``em_slot_values`` (each bucket's rows the
+    map holds), and back -> (transpose layout, forward layout) tables."""
+    from tagrec_tpu_torch.ops import edgemap
+
+    em = model.edges["em"]
+    blocks = getattr(em, "f_blocks", [None] * em.n_buckets)
+    vals = tuple(torch.as_tensor(cut(v, k))
+                 for v, k in zip(em_slot_values(model.em_host), blocks))
+    there = edgemap.transpose_vals(em, vals)
+    back = edgemap.transpose_vals(em.transpose(), there)
+    return ([t.numpy().copy() for t in there],
+            [t.numpy().copy() for t in back])
+
+
+def cut(a, block):
+    """Rows [start, stop) = ``block`` of the last two axes' rows."""
+    return a if block is None else a[..., block[0]:block[1], :]
+
+
+def em_runs(mesh=None, steps=STEPS):
+    """Each of EM_CASES: the forward, the moved slot values, ``steps``
+    resampling BPR steps (losses, the gathered parameters), the graph's
+    placement, leaf shapes and bytes."""
+    from tagrec_tpu_torch.ops import edgemap, ell
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training.train import Trainer
+
+    out = {}
+    for case in EM_CASES:
+        pipe = em_pipeline(case, mesh)
+        model = pipe.model
+        trainer = Trainer(model, pipe.phases, tcfg(), mesh=mesh,
+                          capture=False,
+                          generator=torch.Generator().manual_seed(1))
+        with torch.no_grad(), sharding.gathered():
+            fwd = [t.numpy().copy() for t in model.forward()]
+        em = model.edges["em"]
+        out[case] = {
+            "forward": fwd, "transposed": em_transposed(model),
+            "blocks": (getattr(em, "f_blocks", None),
+                       getattr(em, "b_blocks", None)),
+            "losses": trainer.run_phase(pipe.phases[0], max_steps=steps),
+            "params": full_params(model),
+            "placement": trainer.placement and trainer.placement["graph"],
+            "leaves": {p: tuple(a.shape) for p, a in edgemap.leaves(em)},
+            "bytes": ell.graph_bytes(em)}
+    return out
+
+
+def em_jax_step(args, mesh=None):
+    """One DGCF BPR step from the JAX parameters and batch in ``args`` ->
+    (summed loss terms, the gathered parameters, the gathered gradients
+    the step took)."""
+    import numpy as np
+
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training import checkpoint
+    from tagrec_tpu_torch.training.train import Trainer
+
+    pipe = em_pipeline("dgcf", mesh)
+    with np.load(args["jax_params"]) as f:
+        checkpoint.params_from_jax(pipe.model, {"embed": [
+            f[f"embed.{i}"] for i in range(len(f.files))]})
+    trainer = Trainer(pipe.model, pipe.phases, tcfg(), mesh=mesh,
+                      capture=False, generator=torch.Generator().manual_seed(1))
+    batch = {"bpr": torch.as_tensor(np.asarray(args["batch"],
+                                               dtype=np.int64))}
+    if mesh is not None:
+        batch = sharding.constrain_batch(batch, mesh)
+    parts = trainer.step(pipe.phases[0], batch)
+    return (float(parts.sum()), full_params(pipe.model),
+            full_grads(pipe.model))
+
+
+def scenario_edgemap(args, tmp):
+    """``em_runs`` and ``em_jax_step`` on the mesh."""
+    mesh = _mesh(args)
+    return {"cases": em_runs(mesh), "jax_step": em_jax_step(args, mesh)}
+
+
 SCENARIOS = {"train": scenario_train, "checkpoint": scenario_checkpoint,
-             "scaling": scenario_scaling, "propagate": scenario_propagate}
+             "scaling": scenario_scaling, "propagate": scenario_propagate,
+             "edgemap": scenario_edgemap}
 
 
 # ------------------------------------------------------------ the parent
