@@ -3611,10 +3611,11 @@ def row_paths(torch, graphs, mesh):
 
 
 def row_rank_main(argv, paths):
-    """One rank of phase R2 or R3b (``chip_smoke.py row-rank GRAPHS OUT``
-    or ``em-rank``, under RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT):
-    gloo over CUDA tensors, eager, model = 2; ``paths`` (``row_paths`` or
-    ``em_paths``) over the pickled graphs, pickled to OUT/rank{r}.pkl."""
+    """One rank of phase R2, R3b or R4b (``chip_smoke.py row-rank GRAPHS
+    OUT``, ``em-rank`` or ``em4-rank``, under RANK, WORLD_SIZE,
+    MASTER_ADDR and MASTER_PORT): gloo over CUDA tensors, eager, model =
+    2; ``paths`` (``row_paths``, ``em_paths`` or ``em4_paths``) over the
+    pickled graphs, pickled to OUT/rank{r}.pkl."""
     import pickle
     from datetime import timedelta
 
@@ -3639,9 +3640,9 @@ def row_rank_main(argv, paths):
 
 
 def start_row_ranks(graphs_path, out, cmd):
-    """The ROW_RANKS ranks of phase R2 (``cmd`` "row-rank") or R3b
-    ("em-rank") on this card, each ``chip_smoke.py cmd`` in its own
-    process."""
+    """The ROW_RANKS ranks of phase R2 (``cmd`` "row-rank"), R3b
+    ("em-rank") or R4b ("em4-rank") on this card, each ``chip_smoke.py
+    cmd`` in its own process."""
     import socket
 
     with socket.socket() as s:
@@ -3876,20 +3877,26 @@ def row_phase(torch, dg, graphs, card):
 # 7 non-empty buckets forward, 3 x 4 x 7 over the transpose backward
 EM_STEP = {"gather_reduce": 252}
 EM_WALL_STEPS = 10     # captured steps a timed run, with and without the mesh
-# each path of R3b: (label, family, graph, BPR steps), adj_mode="ell"
-EM_PATHS = (("DGCF hetrec", "dgcf", "hetrec", 3),
-            ("DisenGCN hetrec", "disengcn", "hetrec", 3),
-            ("DGCF 10x", "dgcf", "10x", 2))
+# each path of R3b and R4b: (label, family, preset overrides (adj_mode
+# "ell" unless they say otherwise), graph ("kg": the hetrec graph and
+# parallel_kg's KG), BPR steps, the map whose buckets' rows are held)
+EM_PATHS = (("DGCF hetrec", "dgcf", {}, "hetrec", 3, "em"),
+            ("DisenGCN hetrec", "disengcn", {}, "hetrec", 3, "em"),
+            ("DGCF 10x", "dgcf", {}, "10x", 2, "em"))
+BUCKET_D = 64          # the width of the bucket rows' seeded x
 
 
-def em_bucket_rows(torch, dg, em, x):
+def em_bucket_rows(torch, dg, em):
     """[(block, rows)]: each forward bucket's ``gather_reduce`` rows of
-    the map's static payload times ``x``, over the rows the rank holds
-    (its block, or (0, n) for a bucket whole on every rank)."""
+    the map's static payload times a seeded x [n_cols, BUCKET_D], over
+    the rows the rank holds (its block, or (0, n) for a bucket whole on
+    every rank)."""
     from tagrec_tpu_torch.ops import edgemap
 
     shard = isinstance(em, edgemap.EdgeMapShard)
     local = em.local if shard else em
+    x = torch.randn((int(local.b_inv.shape[0]), BUCKET_D), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(7))
     out = []
     for j, (idx, val, deg) in enumerate(zip(local.f_idx, local.f_val,
                                             local.f_deg)):
@@ -3901,38 +3908,43 @@ def em_bucket_rows(torch, dg, em, x):
     return out
 
 
-def em_path(torch, dg, graph, name, steps, mesh):
-    """One path of phase R3b through ``build_pipeline(mesh=)`` and an
-    eager ``Trainer(mesh=)`` on the EdgeMap tier (``mesh`` None: the
-    one-device run): the map's bytes on the card; the forward and each
-    bucket's ``gather_reduce`` rows from the initial tables; ``steps``
-    BPR steps, each timed.  -> the results on the host, with the steps'
-    ``gather_reduce`` launches, the peak memory above the path's start and
-    the seconds."""
+def em_path(torch, dg, graphs, path, mesh):
+    """One path of phase R3b or R4b (an entry of EM_PATHS or EM4_PATHS)
+    through ``build_pipeline(mesh=)`` and an eager ``Trainer(mesh=)`` on
+    the EdgeMap tier (``mesh`` None: the one-device run): the maps' bytes
+    on the card; the forward and the held map's buckets' ``gather_reduce``
+    rows from the initial tables; ``steps`` BPR steps, each timed.  -> the
+    results on the host, with the steps' ``gather_reduce`` launches, the
+    peak memory above the path's start and the seconds."""
     from tagrec_tpu_torch.compose import build_pipeline
     from tagrec_tpu_torch.config import TrainConfig, model_preset
-    from tagrec_tpu_torch.ops import edgemap, ell
+    from tagrec_tpu_torch.ops import edgemap
     from tagrec_tpu_torch.parallel import sharding
     from tagrec_tpu_torch.training import checkpoint
     from tagrec_tpu_torch.training.train import Trainer
 
+    _, name, over, g, steps, key = path
     secs, t0 = {}, time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     tcfg = TrainConfig()
-    pipe = build_pipeline(graph, model_preset(name, adj_mode="ell"), tcfg,
-                          device="cuda", mesh=mesh,
+    pipe = build_pipeline(graphs["hetrec" if g == "kg" else g],
+                          model_preset(name, **{"adj_mode": "ell", **over}),
+                          tcfg, device="cuda", mesh=mesh,
+                          kg=graphs["kg"] if g == "kg" else None,
                           generator=torch.Generator().manual_seed(0))
     model = pipe.model
-    em = model.edges["em"]
-    out = {"bytes": ell.graph_bytes(em), "tier": model.tier,
-           "sharded": isinstance(em, edgemap.EdgeMapShard) and em.model > 1}
+    em = model.edges[key]
+    out = {"bytes": model.edges.nbytes(), "tier": model.tier,
+           "sharded": isinstance(em, edgemap.EdgeMapShard) and em.model > 1
+           and all(isinstance(model.edges[k], (edgemap.EdgeMapShard,
+                                               edgemap.SlotMapShard))
+                   for k in model.em_hosts)}
     secs["build"] = time.perf_counter() - t0
+    out["buckets"] = em_bucket_rows(torch, dg, em)
     with torch.no_grad(), sharding.gathered():
-        x = torch.cat(list(model.embed))
-        out["buckets"] = em_bucket_rows(torch, dg, em, x)
         out["forward"] = [t.cpu().numpy() for t in model.forward()]
-    del x, em
+    del em
     reset_counts(dg, ("gather_reduce",))
     t0 = time.perf_counter()
     trainer = Trainer(model, pipe.phases, tcfg, mesh=mesh, capture=False,
@@ -3960,20 +3972,20 @@ def em_path(torch, dg, graph, name, steps, mesh):
     return out
 
 
-def em_paths(torch, graphs, mesh):
-    """Every path of EM_PATHS -> {label: ``em_path``'s results}."""
+def em_paths(torch, graphs, mesh, paths=EM_PATHS):
+    """Every path of ``paths`` -> {label: ``em_path``'s results}."""
     from tagrec_tpu_torch.ops import dma_gather as dg
 
-    return {label: em_path(torch, dg, graphs[g], name, steps, mesh)
-            for label, name, g, steps in EM_PATHS}
+    return {path[0]: em_path(torch, dg, graphs, path, mesh)
+            for path in paths}
 
 
-def em_hold(label, got, want, ranks, steps, card):
-    """A rank's R3b path against the one-device run; prints and checks:
-    the forward within RTOL/ATOL (and whether bit for bit), each bucket's
-    rows bit for bit, losses within MESH_LOSS_ATOL, parameters within a
-    hundredth of lr a step, the ranks bit for bit, their launches one
-    device's."""
+def em_hold(label, got, want, ranks, steps, card, phase="R3b"):
+    """A rank's R3b or R4b path against the one-device run; prints and
+    checks: the forward within RTOL/ATOL (and whether bit for bit), each
+    bucket's rows bit for bit, losses within MESH_LOSS_ATOL, parameters
+    within a hundredth of lr a step, the ranks bit for bit, their
+    launches one device's, each rank's map bytes below one device's."""
     import numpy as np
 
     fwd_ok = all(np.allclose(a, b, rtol=RTOL, atol=ATOL)
@@ -3989,15 +4001,16 @@ def em_hold(label, got, want, ranks, steps, card):
                                               want["buckets"])
               if e - s < len(w))
     loss_err = float(np.abs(got["losses"] - want["losses"]).max())
-    param_err = max(float(np.abs(got["params"][n] - want["params"][n]).max())
-                    for n in want["params"])
+    param_err, worst = max(
+        (float(np.abs(got["params"][n] - want["params"][n]).max()), n)
+        for n in want["params"])
     bound = 0.01 * 0.01 * steps  # a hundredth of TrainConfig's lr a step
     agree = all(np.array_equal(r["losses"], got["losses"]) and all(
         np.array_equal(r["params"][n], got["params"][n])
         for n in got["params"]) for r in ranks)
     same_launches = all(r["launches"] == want["launches"] for r in ranks)
-    print(f"R3b {label} (EdgeMap tier, model = {ROW_RANKS}, gloo over CUDA "
-          f"tensors, eager; {card}): map bytes per rank "
+    print(f"{phase} {label} (EdgeMap tier, model = {ROW_RANKS}, gloo over "
+          f"CUDA tensors, eager; {card}): map bytes per rank "
           f"{[r['bytes'] for r in ranks]} against {want['bytes']} on one "
           f"device ({[round(r['bytes'] / want['bytes'], 4) for r in ranks]}"
           f"x); peak memory above the path's start per rank "
@@ -4008,7 +4021,8 @@ def em_hold(label, got, want, ranks, steps, card):
           f"gather_reduce rows ({cut} cut to the rank's block) "
           f"{'bit for bit' if buckets_ok else 'DIFFER'}; |losses - one "
           f"device| {loss_err:.3e} (bound {MESH_LOSS_ATOL}); |parameters - "
-          f"one device| {param_err:.3e} (bound {bound:.1e}); ranks "
+          f"one device| {param_err:.3e}"
+          f"{f' ({worst})' if param_err else ''} (bound {bound:.1e}); ranks "
           f"{'bit for bit' if agree else 'DIFFER'}; gather_reduce launches "
           f"per rank {[r['launches'] for r in ranks]} (one device "
           f"{want['launches']}); ms a step (host clock, synchronised) rank 0 "
@@ -4016,13 +4030,13 @@ def em_hold(label, got, want, ranks, steps, card):
           f"{[round(t, 3) for t in want['step_ms']]}; seconds per rank "
           f"{[rounded(r['seconds']) for r in ranks]}, one device "
           f"{rounded(want['seconds'])}")
-    check(all(r["sharded"] and r["tier"] == "ell" for r in ranks)
+    check(all(r["sharded"] and r["tier"] == "ell"
+              and r["bytes"] < want["bytes"] for r in ranks)
           and not want["sharded"] and cut > 0,
-          f"R3b {label}: the ranks' maps are not row shards")
+          f"{phase} {label}: the ranks' maps are not row shards")
     check(fwd_ok and buckets_ok and loss_err <= MESH_LOSS_ATOL
-          and param_err <= bound and agree and same_launches
-          and want["launches"]["gather_reduce"] > 0,
-          f"R3b {label}: a rank is outside its hold against one device")
+          and param_err <= bound and agree and same_launches,
+          f"{phase} {label}: a rank is outside its hold against one device")
 
 
 def em_one_rank(torch, dg, graph, card):
@@ -4118,13 +4132,195 @@ def em_phase(torch, dg, graphs, card):
     done = phase_timer("R3b model = 2 on one card, the EdgeMap tier")
     want, ranks = two_rank_results(torch, graphs, "em-rank", em_paths,
                                    "R3b")
-    for label, _, _, steps in EM_PATHS:
+    for label, _, _, _, steps, _ in EM_PATHS:
         rs = [r[label] for r in ranks]
         em_hold(label, rs[0], want[label], rs, steps, card)
+        check(want[label]["launches"]["gather_reduce"] > 0,
+              f"R3b {label}: no gather_reduce launch")
         launches += sum(r["launches"]["gather_reduce"] for r in rs)
     done()
     gc_cuda(torch)
     print(f"phase R3: {time.perf_counter() - t0:.1f} s (host clock)")
+    return launches
+
+
+# ------ phase R4: DisenHAN's, KGAT's and TGCN ``ell``'s maps over ``model``
+
+KGAT_10X = ("kgat", {"agg_type": "bi_inter"})  # auto takes the EdgeMap
+R4_WALL_STEPS = 5      # captured steps a timed run, with and without the mesh
+EM4_PATHS = (("DisenHAN hetrec", "disenhan", {}, "hetrec", 3, "ems.1"),
+             ("KGAT hetrec", "kgat", {"agg_type": "bi_inter"}, "hetrec", 3,
+              "em"),
+             ("KGAT KG fallback", "kgat", {"agg_type": "bi_inter"}, "kg", 3,
+              "em"),
+             ("TGCN hetrec", "tgcn", {}, "hetrec", 3, "em.i_uw.0"),
+             ("KGAT 10x", "kgat", {"agg_type": "bi_inter", "adj_mode": "auto"},
+              "10x", 2, "em"))
+
+
+def em4_paths(torch, graphs, mesh):
+    """Every path of EM4_PATHS -> {label: ``em_path``'s results}."""
+    return em_paths(torch, graphs, mesh, EM4_PATHS)
+
+
+def kgat_step_launches(model) -> dict:
+    """``gather_reduce`` launches of one KGAT BPR step on the EdgeMap
+    tier: each layer's ``edge_reduce`` over ``em``'s non-empty forward
+    buckets, and over its transpose's in the backward; ``edge_dot``'s two
+    backward reductions over ``emk``'s and its transpose's."""
+    def live(em):
+        return sum(1 for i in em.f_idx if i.shape[0] and i.shape[1])
+
+    em, emk = model.edges["em"], model.edges["emk"]
+    return {"gather_reduce": model.cfg.num_layer * (live(em)
+                                                    + live(em.transpose()))
+            + live(emk) + live(emk.transpose())}
+
+
+def kgat_10x_one_rank(torch, dg, graph, card):
+    """R4a: KGAT ``bi_inter`` at the preset's width on the 10x graph (the
+    EdgeMap tier) on a one-rank NCCL mesh, its maps and slot maps one row
+    block, captured: bit for bit (losses and parameters) against the same
+    captured run without a mesh, ``kgat_step_launches`` each step; ms a
+    step with and without the mesh, the mesh's own operations in a
+    replay, the maps' bytes, and without the mesh a replay's busy, idle
+    and operations and the run's peak.  -> the mesh run's launches."""
+    import torch.distributed as dist
+
+    from tagrec_tpu_torch.ops import edgemap
+    from tagrec_tpu_torch.parallel.mesh import make_mesh
+
+    names = ("gather_reduce",)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda:0"))
+    try:
+        mesh = make_mesh(1)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        plain = mesh_run(torch, graph, None, capture=True, family=KGAT_10X)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        model = plain["pipe"].model
+        check(model.tier == "ell", f"R4a: KGAT 10x took {model.tier}")
+        want = kgat_step_launches(model)
+        plain_bytes = model.edges.nbytes()
+        del model
+        reset_counts(dg, names)
+        total = {k: 0 for k in names}
+        checker = launch_checker(dg, names, want, "R4a mesh step")
+
+        def on_launches(i):
+            for k, v in checker(i).items():
+                total[k] += v
+
+        meshed = mesh_run(torch, graph, mesh, capture=True,
+                          on_launches=on_launches, family=KGAT_10X)
+        run = meshed["trainer"].runs["bpr"]
+        edges = meshed["pipe"].model.edges
+        placed = meshed["trainer"].placement["graph"]
+        check(run.graph is not None, "R4a: the mesh step was not captured")
+        check(all(isinstance(edges[k], (edgemap.EdgeMapShard,
+                                        edgemap.SlotMapShard))
+                  for k in meshed["pipe"].model.em_hosts)
+              and "model" in placed.values(),
+              "R4a: the maps were not placed on the mesh")
+        diff = held_equal(torch, meshed["params"], plain["params"])
+        same_loss = (meshed["losses"] == plain["losses"]).all()
+        on_model = sum(v == "model" for v in placed.values())
+        print(f"R4a KGAT bi_inter 10x (EdgeMap) captured on a one-rank NCCL "
+              f"mesh {mesh}, {HETREC_BPR_STEPS} steps: {on_model} of "
+              f"{len(placed)} map and slot-map leaves on 'model' (one "
+              f"block), {edges.nbytes()} bytes ({plain_bytes} without the "
+              f"mesh); launches {total} ({want} a step); losses "
+              f"{'bit for bit' if same_loss else 'DIFFER'} "
+              f"({plain['losses'].sum(axis=1).tolist()}), parameters "
+              f"{'bit for bit' if not diff else 'DIFFER: ' + str(diff)}")
+        check(same_loss and not diff,
+              "R4a: the one-rank mesh's captured run is not bit for bit the "
+              "plain captured run")
+        del edges
+        walls = {"plain": [], "mesh": []}
+        for key in ("plain", "mesh", "mesh", "plain"):
+            r = plain if key == "plain" else meshed
+            walls[key].append(phase_wall_ms(torch, r["trainer"],
+                                            r["pipe"].phases[0],
+                                            R4_WALL_STEPS) / R4_WALL_STEPS)
+        plain_run = plain["trainer"].runs["bpr"]
+        run.counter.zero_()
+        plain_run.counter.zero_()
+        m_ops = replay_ops(torch, run.graph)
+        p_ops = replay_ops(torch, plain_run.graph)
+        extra, extra_ms, busy = mesh_ops(m_ops, p_ops)
+        p_busy, p_idle, p_n = replay_profile(torch, plain_run.graph,
+                                             PROFILED_REPLAYS)
+        top = sorted(extra.items(), key=lambda kv: -kv[1][1])[:8]
+        by_op = sorted(p_ops.items(), key=lambda kv: -kv[1][1])[:6]
+        print(f"R4a captured KGAT 10x step ({card}): ms a step over "
+              f"{R4_WALL_STEPS} steps with one sync (plain, mesh, mesh, "
+              f"plain): without the mesh {walls['plain']}, with "
+              f"{walls['mesh']}; per step (host clock, synchronised) "
+              f"without {plain['ms']}, with {meshed['ms']}; a replay "
+              f"(profiler): device busy {busy:.4f} ms with the mesh "
+              f"({sum(n for n, _ in m_ops.values()):.0f} device operations), "
+              f"{sum(ms for _, ms in p_ops.values()):.4f} ms without "
+              f"({sum(n for n, _ in p_ops.values()):.0f}); the mesh's own "
+              f"operations {sum(n for n, _ in extra.values()):.0f} a "
+              f"replay, {extra_ms:.4f} ms ({extra_ms / busy:.4f} of the busy "
+              f"time); largest "
+              f"{[(k[:60], n, round(ms, 4)) for k, (n, ms) in top]}")
+        print(f"R4a KGAT 10x without the mesh, one device ({card}): a "
+              f"replay busy {p_busy:.4f} ms, idle share {p_idle:.4f}, "
+              f"{p_n:.0f} device operations; peak memory above the start "
+              f"{peak / 2**30:.3f} GiB; map bytes {plain_bytes}; largest "
+              f"operations "
+              f"{[(k[:50], n, round(ms, 3)) for k, (n, ms) in by_op]}")
+        return total
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_kg(graph):
+    """Phase K's KG with ``KG_PARALLEL`` triples repeated under another
+    relation, which ``rel_id_host`` refuses: KGAT takes the EdgeMap."""
+    import numpy as np
+
+    from tagrec_tpu_torch.data.kg import KnowledgeGraph
+
+    kg = KnowledgeGraph.synthetic(graph, **KG_SIZE)
+    rng = np.random.default_rng(1)
+    extra = kg.kg_data[rng.choice(len(kg.kg_data), KG_PARALLEL,
+                                  replace=False)].copy()
+    extra[:, 1] = (extra[:, 1] + 1) % kg.num_rela
+    kg.kg_data = np.concatenate([kg.kg_data, extra])
+    kg._finish_init()
+    return kg
+
+
+def em4_phase(torch, dg, graphs, card):
+    """Phase R4: DisenHAN's, KGAT's and TGCN ``ell``'s maps row-sharded
+    over ``model``.  -> the ``gather_reduce`` launches of its main paths
+    (R4a's captured mesh steps, R4b's ranks)."""
+    t0 = time.perf_counter()
+    done = phase_timer("R4a one-rank NCCL mesh, KGAT 10x (EdgeMap)")
+    launches = kgat_10x_one_rank(torch, dg, graphs["10x"],
+                                 card)["gather_reduce"]
+    done()
+    gc_cuda(torch)
+    done = phase_timer("R4b model = 2 on one card, DisenHAN, KGAT, TGCN")
+    graphs = dict(graphs, kg=parallel_kg(graphs["hetrec"]))
+    want, ranks = two_rank_results(torch, graphs, "em4-rank", em4_paths,
+                                   "R4b")
+    for label, name, _, _, steps, _ in EM4_PATHS:
+        rs = [r[label] for r in ranks]
+        em_hold(label, rs[0], want[label], rs, steps, card, phase="R4b")
+        check((want[label]["launches"]["gather_reduce"] > 0)
+              == (name != "tgcn"),
+              f"R4b {label}: gather_reduce launches "
+              f"{want[label]['launches']}")
+        launches += sum(r["launches"]["gather_reduce"] for r in rs)
+    done()
+    gc_cuda(torch)
+    print(f"phase R4: {time.perf_counter() - t0:.1f} s (host clock)")
     return launches
 
 
@@ -4344,21 +4540,12 @@ def kg_fallback_phase(torch, dg, graph):
     computation (``kg_runs``, ``hold_tiers``), then 3 BPR and 3 TransE
     steps, one BPR step profiled.  Returns its ``gather_reduce``
     launches."""
-    import numpy as np
-
     from tagrec_tpu_torch.compose import build_pipeline
     from tagrec_tpu_torch.config import TrainConfig, model_preset
-    from tagrec_tpu_torch.data.kg import KnowledgeGraph
     from tagrec_tpu_torch.training.train import Trainer
 
     done = phase_timer("KGAT KG EdgeMap fallback")
-    kg = KnowledgeGraph.synthetic(graph, **KG_SIZE)
-    rng = np.random.default_rng(1)
-    extra = kg.kg_data[rng.choice(len(kg.kg_data), KG_PARALLEL,
-                                  replace=False)].copy()
-    extra[:, 1] = (extra[:, 1] + 1) % kg.num_rela
-    kg.kg_data = np.concatenate([kg.kg_data, extra])
-    kg._finish_init()
+    kg = parallel_kg(graph)
     t0 = time.perf_counter()
     tcfg = TrainConfig()
     pipe = build_pipeline(graph, model_preset("kgat", agg_type="bi_inter"),
@@ -4730,10 +4917,16 @@ def run(torch):
           f"steps, R2's ranks): {rows}; over every path: "
           f"{ {k: launches[k] for k in GATHER} }")
     em_rows = em_phase(torch, dg, {"10x": graph_10x, "hetrec": graph}, card)
-    del graph_10x
     launches["gather_reduce"] += em_rows
     print(f"gather_reduce launches over phase R3's main paths (R3a's "
           f"captured mesh steps, R3b's ranks): {em_rows}; over every path: "
+          f"{launches['gather_reduce']}")
+    em4_rows = em4_phase(torch, dg, {"10x": graph_10x, "hetrec": graph},
+                         card)
+    del graph_10x
+    launches["gather_reduce"] += em4_rows
+    print(f"gather_reduce launches over phase R4's main paths (R4a's "
+          f"captured mesh steps, R4b's ranks): {em4_rows}; over every path: "
           f"{launches['gather_reduce']}")
 
     print(f"capture phase, every path ({card}): {json.dumps(CAPTURED)}")
@@ -4785,6 +4978,8 @@ def main() -> int:
         return row_rank_main(sys.argv[2:], row_paths)
     if sys.argv[1:2] == ["em-rank"]:  # a rank of phase R3b, started by it
         return row_rank_main(sys.argv[2:], em_paths)
+    if sys.argv[1:2] == ["em4-rank"]:  # a rank of phase R4b, started by it
+        return row_rank_main(sys.argv[2:], em4_paths)
     try:
         import torch
     except ImportError:

@@ -1,17 +1,32 @@
 #!/usr/bin/env python3
-"""Phase R3 of ``chip_smoke.py`` alone: DGCF's and DisenGCN's EdgeMap
-tier row-sharded over ``model`` on one NVIDIA GPU.
+"""Phase R3 or R4 of ``chip_smoke.py`` alone: the EdgeMap tier row-sharded
+over ``model`` on one NVIDIA GPU.
 
-Builds the gather kernels, the hetrec and 10x graphs of ``chip_smoke.py``,
-times the host's build of DGCF 10x's EdgeMap and of one rank's cut and
-exchange plan at ``model`` = 2 (``ops.edgemap.shard_edge_map``), then runs
-``chip_smoke.em_phase``: R3a (DGCF 10x captured on a one-rank NCCL mesh
-against the unmeshed captured run) and R3b (two ``chip_smoke.py em-rank``
-processes on gloo, DGCF and DisenGCN hetrec ``ell`` and DGCF 10x, against
-the one-device run), with every hold of the full smoke run.  A quicker
-loop than the whole ``chip_smoke.py`` for work on this path:
+Builds the gather kernels and the hetrec and 10x graphs of
+``chip_smoke.py``, prints a host report, then runs the phase with every
+hold of the full smoke run.  A quicker loop than the whole
+``chip_smoke.py`` for work on this path:
 
-    python3 experiments/torch_edgemap_partition.py
+    python3 experiments/torch_edgemap_partition.py R3
+    python3 experiments/torch_edgemap_partition.py R4
+
+R3 (DGCF's and DisenGCN's maps): the host's build of DGCF 10x's EdgeMap
+and of one rank's cut and exchange plan at ``model`` = 2
+(``ops.edgemap.shard_edge_map``), timed; then ``chip_smoke.em_phase``: R3a
+(DGCF 10x captured on a one-rank NCCL mesh against the unmeshed captured
+run) and R3b (two ``chip_smoke.py em-rank`` processes on gloo, DGCF and
+DisenGCN hetrec ``ell`` and DGCF 10x, against the one-device run).
+
+R4 (DisenHAN's, KGAT's and TGCN ``ell``'s maps): for each map of every
+R4b path the share of its slots in buckets JAX's rule row-shards over
+``model`` = 2 (``ops.ell.row_sharded``), and the time of the maps' host
+build and of one rank's cut and exchange plans
+(``ops.edgemap.maps_to_device``'s host part); then
+``chip_smoke.em4_phase``: R4a (KGAT ``bi_inter`` 10x captured on a
+one-rank NCCL mesh against the unmeshed captured run) and R4b (two
+``chip_smoke.py em4-rank`` processes on gloo: DisenHAN, KGAT and TGCN
+hetrec ``ell``, KGAT over phase K's KG with parallel triples, KGAT 10x,
+against the one-device run).
 
 Needs one NVIDIA GPU; prints the card's name and power limit first and
 last.  Exits non-zero when a hold fails.
@@ -19,6 +34,7 @@ last.  Exits non-zero when a hold fails.
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 import time
@@ -32,29 +48,14 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 
-def main() -> int:
-    from tagrec_tpu_torch.data.synthetic import synthetic_graph_large
-    from tagrec_tpu_torch.ops import _build, edgemap
-    from tagrec_tpu_torch.ops import dma_gather as dg
+def r3_report(graphs) -> None:
+    """DGCF 10x's EdgeMap built on the host, and rank 0's cut and plan at
+    ``model`` = 2, timed on the host clock."""
+    from tagrec_tpu_torch.ops import edgemap
     from tagrec_tpu_torch.parallel.mesh import make_mesh
 
-    if not torch.cuda.is_available():
-        print("no CUDA device; this script runs only on a GPU",
-              file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = cs.gpu_name_and_limit()
-    print(card, torch.__version__, torch.version.cuda)
     t0 = time.perf_counter()
-    _build.build(["gather_reduce", "gather_rows"])
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    graph = synthetic_graph_large(cs.N_USER, cs.N_ITEM, cs.N_TAG, cs.N_EDGES,
-                                  cs.TAG_PER_INTER, seed=0)
-    graph_10x = synthetic_graph_large(*cs.LGCN_10X, cs.TAG_PER_INTER, seed=0)
-    print(f"graphs built in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    coo = graph_10x.joint_norm_adj("plain", True)
+    coo = graphs["10x"].joint_norm_adj("plain", True)
     host = edgemap.build_edge_map(coo.row, coo.col, coo.val, *coo.shape)
     print(f"DGCF 10x EdgeMap built on the host in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -66,14 +67,88 @@ def main() -> int:
           f"{shard.f_x.send_splits}, receive {shard.f_x.recv_splits}; "
           f"transpose-to-forward {shard.b_x.send_splits}, "
           f"{shard.b_x.recv_splits}")
-    del host, shard, coo
+
+
+def split_shares(hosts, m: int = 2) -> dict:
+    """{map key: the share of its forward and transpose slots in buckets
+    JAX's rule row-shards over ``m``} of a model's EdgeMapHosts."""
+    from tagrec_tpu_torch.ops import edgemap, ell
+
+    out = {}
+    for key, h in hosts.items():
+        if not isinstance(h, edgemap.EdgeMapHost):
+            continue
+        sizes = [(b.idx.size, ell.row_sharded(b.idx.shape[0], m))
+                 for side in (h.f, h.b) for b in side.buckets]
+        total = sum(n for n, _ in sizes)
+        out[key] = round(sum(n for n, cut in sizes if cut) / max(total, 1), 4)
+    return out
+
+
+def r4_report(graphs) -> None:
+    """The split shares of every R4b path's maps, their host build and one
+    rank's cut and plans, timed on the host clock."""
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.models import model_class
+    from tagrec_tpu_torch.ops import edgemap
+    from tagrec_tpu_torch.parallel.mesh import make_mesh
+
+    graphs = dict(graphs, kg=cs.parallel_kg(graphs["hetrec"]))
+    for label, name, over, g, _, _ in cs.EM4_PATHS:
+        t0 = time.perf_counter()
+        kw = {"kg": graphs["kg"]} if g == "kg" else {}
+        model = model_class(name)(
+            graphs["hetrec" if g == "kg" else g],
+            model_preset(name, **{"adj_mode": "ell", **over}), device="cpu",
+            generator=torch.Generator().manual_seed(0), **kw)
+        built = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        edgemap.maps_to_device(model.em_hosts, "cpu",
+                               make_mesh(2, 1, rank=0))
+        print(f"{label}: maps built on the host in {built:.1f} s, rank 0's "
+              f"cut and exchange plans at model = 2 in "
+              f"{time.perf_counter() - t0:.1f} s; slots in row-sharded "
+              f"buckets {split_shares(model.em_hosts)}")
+        del model
+
+
+PHASES = {"R3": (r3_report, cs.em_phase), "R4": (r4_report, cs.em4_phase)}
+
+
+def main() -> int:
+    from tagrec_tpu_torch.data.synthetic import synthetic_graph_large
+    from tagrec_tpu_torch.ops import _build
+    from tagrec_tpu_torch.ops import dma_gather as dg
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("phase", choices=sorted(PHASES))
+    phase = ap.parse_args().phase
+    report, run = PHASES[phase]
+    if not torch.cuda.is_available():
+        print("no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = cs.gpu_name_and_limit()
+    print(card, torch.__version__, torch.version.cuda)
+    t0 = time.perf_counter()
+    _build.build(["gather_reduce", "gather_rows"])
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    graphs = {"hetrec": synthetic_graph_large(cs.N_USER, cs.N_ITEM, cs.N_TAG,
+                                              cs.N_EDGES, cs.TAG_PER_INTER,
+                                              seed=0),
+              "10x": synthetic_graph_large(*cs.LGCN_10X, cs.TAG_PER_INTER,
+                                           seed=0)}
+    print(f"graphs built in {time.perf_counter() - t0:.1f} s")
+    report(graphs)
     try:
-        launches = cs.em_phase(torch, dg, {"10x": graph_10x,
-                                           "hetrec": graph}, card)
+        launches = run(torch, dg, graphs, card)
     except Exception:
         traceback.print_exc()
         return 1
-    print(f"gather_reduce launches on phase R3's main paths: {launches}")
+    print(f"gather_reduce launches on phase {phase}'s main paths: "
+          f"{launches}")
     print(card)
     return 0
 

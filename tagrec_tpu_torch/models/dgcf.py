@@ -45,10 +45,10 @@ class DGCF(nn.Module):
     ``generator`` (a CPU ``torch.Generator``).  On the dense tier the edge
     mask of the joint graph is a bool buffer [N, N] on ``device``, and
     ``maskT`` its transpose, None where the mask is symmetric (``mask_t``
-    is the mask then); on the EdgeMap tier both are None, ``em_host``
-    keeps the joint graph's EdgeMapHost and ``edges`` holds its EdgeMap,
-    or with ``mesh`` the rank's rows of it (``ops.edgemap.shard_edge_map``,
-    ``parallel.sharding.shard_graph``)."""
+    is the mask then); on the EdgeMap tier both are None, ``em_hosts``
+    keeps the joint graph's EdgeMapHost as ``em`` and ``edges`` holds its
+    EdgeMap, or with ``mesh`` the rank's rows of it
+    (``ops.edgemap.shard_edge_map``, ``parallel.sharding.shard_graph``)."""
 
     def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
                  generator: torch.Generator, device="cuda", mesh=None):
@@ -66,16 +66,14 @@ class DGCF(nn.Module):
         self.dense = dense_adj.use_dense(cfg.adj_mode, *coo.shape)
         self.flash = cfg.adj_mode != "dense_xla"
         mask = mask_t = None
-        self.em_host = None
+        self.em_hosts = {}
         if self.dense:
             mask, mask_t = dense_adj.routing_masks(coo, cfg.adj_mode, dev)
         else:
-            host = edgemap.build_edge_map(coo.row, coo.col, coo.val,
-                                          *coo.shape)
-            self.em_host = host
-            self.edges = edgemap.EdgeMapBuffers({"em": edgemap.to_device(
-                host if mesh is None else edgemap.shard_edge_map(host, mesh),
-                dev)})
+            self.em_hosts = {"em": edgemap.build_edge_map(
+                coo.row, coo.col, coo.val, *coo.shape)}
+            self.edges = edgemap.EdgeMapBuffers(
+                edgemap.maps_to_device(self.em_hosts, dev, mesh))
         self.register_buffer("mask", mask)
         self.register_buffer("maskT", mask_t)
         self.embed = nn.ParameterList(

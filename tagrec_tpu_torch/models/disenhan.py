@@ -23,7 +23,10 @@ dense budget each relation is a rectangular bool edge mask
 the budget, each relation is an EdgeMap (``ops.edgemap``): the separable
 scores from ``rows_gather`` and ``edge_gather``, ``edge_softmax`` over each
 source's edges, and ``edge_reduce`` (the ``gather_reduce`` kernel per
-factor) over the probabilities broadcast to the factors.
+factor) over the probabilities broadcast to the factors.  Under a mesh
+each map holds one ``model`` rank's rows (``ops.edgemap.shard_edge_map``):
+the scores and the softmax over the rank's slots, every row-ordered
+result (``edge_reduce``, the backwards) whole on every rank.
 """
 
 from __future__ import annotations
@@ -51,11 +54,13 @@ class DisenHAN(nn.Module):
     ``layers.{i}.{Wtk,at,W,q_rela}``, drawn in that order from
     ``generator`` (a CPU ``torch.Generator``), the tree of JAX's params;
     on the dense tier the six relation masks are bool buffers
-    ``mask_0..5`` on ``device``, on the EdgeMap tier ``edges`` holds the
-    six relations' EdgeMaps ``0..5``."""
+    ``mask_0..5`` on ``device``; on the EdgeMap tier ``em_hosts`` keeps
+    the six relations' EdgeMapHosts ``ems.0..5`` (JAX's leaf prefixes)
+    and ``edges`` their EdgeMaps, or with ``mesh`` the rank's rows of
+    them (``parallel.sharding.shard_graph``)."""
 
     def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
-                 generator: torch.Generator, device="cuda"):
+                 generator: torch.Generator, device="cuda", mesh=None):
         super().__init__()
         dev = resolve(device)
         self.cfg = cfg
@@ -69,15 +74,16 @@ class DisenHAN(nn.Module):
         ui, ut, it = graph.ui_adj, graph.ut_adj, graph.it_adj
         rel_coos = (ui, ui.transpose(), ut, ut.transpose(), it,
                     it.transpose())
+        self.em_hosts = {}
         if self.dense:
             for e, c in enumerate(rel_coos):
                 self.register_buffer(f"mask_{e}", torch.from_numpy(
                     dense_adj.dense_mask_host(c.row, c.col, *c.shape)).to(dev))
         else:
-            self.edges = edgemap.EdgeMapBuffers({
-                str(e): edgemap.to_device(edgemap.build_edge_map(
-                    c.row, c.col, c.val, *c.shape), dev)
-                for e, c in enumerate(rel_coos)})
+            self.em_hosts = {f"ems.{e}": edgemap.build_edge_map(
+                c.row, c.col, c.val, *c.shape) for e, c in enumerate(rel_coos)}
+            self.edges = edgemap.EdgeMapBuffers(
+                edgemap.maps_to_device(self.em_hosts, dev, mesh))
         self.embed = nn.ParameterList(
             base.init_embeddings(self.num_list, cfg.dim_latent, generator, dev))
         f_, d, dk = cfg.factor_k, cfg.dim_latent, self.dim_k
@@ -100,7 +106,7 @@ class DisenHAN(nn.Module):
         """The six relations' masks (dense tier) or EdgeMaps."""
         if self.dense:
             return [getattr(self, f"mask_{e}") for e in range(6)]
-        return [self.edges[str(e)] for e in range(6)]
+        return [self.edges[f"ems.{e}"] for e in range(6)]
 
     def _rela_update(self, lp, e, mask, new_src, old_dst, r_src):
         """One relation's attention aggregation over ``mask`` (its mask or

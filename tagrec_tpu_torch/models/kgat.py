@@ -33,7 +33,11 @@ by (relation, node).  The scores are ``edge_dot`` over the keyed map of
 the per-relation projection tables, moved to the node-keyed layout by
 ``slot_transfer``, softmaxed over each head's out-edges
 (``edge_softmax``), and each layer's propagation is ``edge_reduce`` (the
-``gather_reduce`` kernel).
+``gather_reduce`` kernel).  Under a mesh both maps hold one ``model``
+rank's rows (``ops.edgemap.shard_edge_map``) and the slot tables the
+rank's rows of their destination map, moving what other ranks hold by
+one exchange (``ops.edgemap.shard_slot_map``); the propagation comes
+back whole on every rank.
 
 Quirk #3: the shipped preset sets ``agg_type="bi_agg"``, which skips
 propagation; the model then builds no masks and ``forward`` returns the ego
@@ -71,11 +75,14 @@ class KGAT(nn.Module):
     transposes ``fmaskT_0..2`` (the column backward's masks, built once);
     under ``dense_xla`` the joint edge mask is the bool buffer ``mask``
     [N, N] instead; over a KG (``kg=``) the int8 buffer ``rel_id`` [N, N];
-    on the EdgeMap tier ``edges`` holds the maps ``em`` and ``emk`` and
-    their slot tables ``k2n`` and ``n2k``."""
+    on the EdgeMap tier ``em_hosts`` keeps the maps ``em`` and ``emk``
+    and their slot tables ``k2n`` and ``n2k`` (JAX's leaf prefixes) and
+    ``edges`` holds them on ``device``, or with ``mesh`` the rank's rows
+    of them (``parallel.sharding.shard_graph``)."""
 
     def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
-                 generator: torch.Generator, device="cuda", kg=None):
+                 generator: torch.Generator, device="cuda", kg=None,
+                 mesh=None):
         super().__init__()
         dev = resolve(device)
         self.cfg = cfg
@@ -112,6 +119,7 @@ class KGAT(nn.Module):
             mat[f"b2_{k}"] = xavier(1, d_out)
         self.mat = nn.ParameterDict(mat)
         self.dense = self.flash = False
+        self.em_hosts = {}
         if self.skip_adj:  # quirk #3: no adjacency is ever read
             return
 
@@ -132,7 +140,7 @@ class KGAT(nn.Module):
             return
         self.dense = kg is None and fits
         if not self.dense:
-            self._build_edge_maps(rows, cols, rels, dev)
+            self._build_edge_maps(rows, cols, rels, dev, mesh)
             return
         self.flash = cfg.adj_mode != "dense_xla"
         self.segs = ((0, graph.n_user),
@@ -164,25 +172,23 @@ class KGAT(nn.Module):
              tuple(int(r) for r in np.unique(rels[~user]))))
         return True
 
-    def _build_edge_maps(self, rows, cols, rels, dev):
+    def _build_edge_maps(self, rows, cols, rels, dev, mesh):
         """The EdgeMap tier: a node-keyed map for the row softmax and the
         propagation, a (relation, node)-keyed map on which the scores are
         plain per-edge dot products of the projection tables, and the slot
-        tables between the two."""
+        tables between the two (``k2n``: each ``em`` slot's ``emk`` slot;
+        ``n2k`` the reverse)."""
         n, rk = self.n, rels * self.n
         em = edgemap.build_edge_map(rows, cols, None, n, n)
         emk = edgemap.build_edge_map(rk + rows, rk + cols, None,
                                      self.num_relation * n,
                                      self.num_relation * n)
         k2n, n2k = edgemap.cross_slot_maps(emk, em)
-
-        def tables(ts):
-            return tuple(torch.as_tensor(t, device=dev) for t in ts)
-
-        self.edges = edgemap.EdgeMapBuffers({
-            "em": edgemap.to_device(em, dev),
-            "emk": edgemap.to_device(emk, dev),
-            "k2n": tables(k2n), "n2k": tables(n2k)})
+        self.em_hosts = {"em": em, "emk": emk,
+                         "k2n": edgemap.SlotMapHost(k2n, "emk", "em"),
+                         "n2k": edgemap.SlotMapHost(n2k, "em", "emk")}
+        self.edges = edgemap.EdgeMapBuffers(
+            edgemap.maps_to_device(self.em_hosts, dev, mesh))
 
     def _build_flash_masks(self, rows, cols, rels):
         """Per-row-type int8 masks [pad(la), pad(l1) + pad(l2)] in the

@@ -28,8 +28,15 @@ neighbour and weight-id spaces, its pads real edges to row 0: the
 neighbour and weight rows come from ``edge_vgather``, the centre rows from
 ``rows_gather``, whose backwards are gathers over the transpose tables,
 not scatter-adds into the node tables; the softmax runs over all k slots,
-and the tables stay float32, as in JAX.  Per-layer resampling draws new
-tables every step and keeps the plain takes.
+and the tables stay float32, as in JAX.  There every weight multiplies a
+whole node table before the slot reads, and the score weight ``v`` goes
+through ``edge_score``, so under a mesh, where each map holds one
+``model`` rank's rows (``ops.edgemap.shard_edge_map``), no weight's
+gradient sums over one rank's slots alone; the scores and weighted sums
+run over fixed row blocks, so a rank's rows get one device's bits; the
+rows come back whole on every rank (``rows_ordered``).  The neighbour
+tables themselves stay whole (ROADMAP.md queue A).  Per-layer
+resampling draws new tables every step and keeps the plain takes.
 """
 
 from __future__ import annotations
@@ -191,21 +198,29 @@ def _atten1_em(ap, ev, ej0, ew0, em_j, em_w):
     """Attention1 over a relation's EdgeMaps (``em_j`` over the neighbour
     rows, ``em_w`` over the weight ids, one slot layout): every table read
     is an ``ops.edgemap`` primitive, so the backward takes gathers over the
-    transpose tables.  The softmax spans the table's k slots, node-0 pad
-    edges included (deg == k); only ELL width padding is masked."""
-    e_nj = edgemap.edge_vgather(em_j, ej0)               # ([Nb, K, d], ...)
-    e_nw = edgemap.edge_vgather(em_w, ew0)               # ([Nb, K, dw], ...)
-    evb = edgemap.rows_gather(em_j, ev)                  # ([Nb, d], ...)
+    transpose tables.  JAX's per-slot products (e_v W1v + e_w W1w + e_j W2
+    + b) are taken of the whole tables, then read per slot, and the score
+    weight is ``edge_score``'s: on a rank's rows no weight's gradient is
+    that rank's part alone.  The scores and the weighted sum are
+    products over fixed row blocks (``edge_score``, ``slot_sums``), which
+    give a row the same bits however many rows the rank holds.  The
+    softmax spans the table's k slots, node-0 pad edges included (deg ==
+    k); only ELL width padding is masked."""
     d = ev.shape[1]
     w1v, w1w = ap["W1"][:d], ap["W1"][d:]
-    outs = []
-    for eb, ew_, ej_, m in zip(evb, e_nw, e_nj, em_j.masks(torch.bool)):
-        av = (eb @ w1v)[:, None, :] + ew_ @ w1w + ej_ @ ap["W2"] + ap["b"]
-        x = (torch.relu(av) @ ap["v"].T)[..., 0]         # [Nb, K]
-        a = torch.softmax(torch.where(m, x, torch.finfo(x.dtype).min),
-                          dim=-1) * m
-        outs.append(torch.einsum("nk,nkd->nd", a, ej_))
-    return torch.cat(outs, dim=-2)[..., em_j.f_inv, :]
+    # e_j and e_j W2 in one read ([Nb, K, d + A]), split as views: two
+    # reads cost more than the split
+    both = edgemap.edge_vgather(em_j, torch.cat([ej0, ej0 @ ap["W2"]], 1))
+    nj, pj = zip(*(t.split([d, t.shape[-1] - d], dim=-1) for t in both))
+    nw = edgemap.edge_vgather(em_w, ew0 @ w1w)           # ([Nb, K, A], ...)
+    cv = edgemap.rows_gather(em_j, ev @ w1v + ap["b"])   # ([Nb, A], ...)
+    hid = tuple(torch.relu(w + p + c[:, None, :])
+                for c, w, p in zip(cv, nw, pj))
+    att = tuple(torch.softmax(torch.where(m, x, torch.finfo(x.dtype).min),
+                              dim=-1) * m
+                for x, m in zip(edgemap.edge_score(em_j, hid, ap["v"]),
+                                em_j.masks(torch.bool)))
+    return edgemap.rows_ordered(em_j, edgemap.slot_sums(att, nj))
 
 
 def _wide(dt):
@@ -248,15 +263,19 @@ class TGCN(nn.Module):
     and live on
     ``device`` as int64 buffers: the tables, or under ``auto`` their dedup
     buckets, or under ``resample_each_layer`` the CSR lists too; under
-    ``ell`` ``edges`` holds each relation's EdgeMaps ``<name>_j`` and
-    ``<name>_w``."""
+    ``ell`` ``em_hosts`` keeps each relation's EdgeMapHosts
+    ``em.<name>.0`` (neighbours) and ``em.<name>.1`` (weight ids), JAX's
+    leaf prefixes, and ``edges`` holds them on ``device``, or with
+    ``mesh`` the rank's rows of them (``parallel.sharding.shard_graph``;
+    the neighbour tables stay whole)."""
 
     REL_ORDER = REL_ORDER
 
     def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
                  generator: torch.Generator, device="cuda",
                  resample_each_layer: bool = False, sample_seed: int = 0,
-                 tables: Optional[List[Tuple[np.ndarray, np.ndarray]]] = None):
+                 tables: Optional[List[Tuple[np.ndarray, np.ndarray]]] = None,
+                 mesh=None):
         super().__init__()
         dev = resolve(device)
         self.cfg = cfg
@@ -326,21 +345,24 @@ class TGCN(nn.Module):
                     buf(f"{name}_b{b}_mult", mult)
                 buf(f"{name}_inv", inv.astype(np.int64))
         self.ell = cfg.adj_mode == "ell" and not resample_each_layer
+        self.em_hosts = {}
         if self.ell:
             # each table is a fixed edge set over the shifted column space,
-            # every row with k edges (pad_multiple 1: no width rounding)
-            maps = {}
-            for name, (idx, w), a in zip(REL_ORDER, tables, adjs):
+            # every row with k edges (pad_multiple 1: no width rounding);
+            # JAX's order: the relations' names sorted
+            tabs = dict(zip(REL_ORDER, zip(tables, adjs)))
+            for name in sorted(REL_ORDER):
+                (idx, w), a = tabs[name]
                 n, k = idx.shape
                 rows = np.repeat(np.arange(n, dtype=np.int64), k)
-                for part, cols, n_cols in (
-                        ("j", idx, a.shape[1] + 1),
-                        ("w", w, self.num_weight + 1)):
-                    maps[f"{name}_{part}"] = edgemap.to_device(
+                for part, cols, n_cols in ((0, idx, a.shape[1] + 1),
+                                           (1, w, self.num_weight + 1)):
+                    self.em_hosts[f"em.{name}.{part}"] = (
                         edgemap.build_edge_map(
                             rows, cols.ravel().astype(np.int64), None, n,
-                            n_cols, pad_multiple=1), dev)
-            self.edges = edgemap.EdgeMapBuffers(maps)
+                            n_cols, pad_multiple=1))
+            self.edges = edgemap.EdgeMapBuffers(
+                edgemap.maps_to_device(self.em_hosts, dev, mesh))
         if resample_each_layer:
             # the full CSR lists (cols +1, weight ids), one zero slot past
             # the end so a degree-0 last row indexes in range
@@ -349,6 +371,13 @@ class TGCN(nn.Module):
                 buf(f"{name}_starts", starts)
                 buf(f"{name}_cols", np.append(cols + 1, 0).astype(np.int64))
                 buf(f"{name}_cw", np.append(vals.astype(np.int64), 0))
+
+    @property
+    def whole_graph_leaves(self) -> List[str]:
+        """JAX's leaf paths of the neighbour tables on the EdgeMap tier,
+        which stay whole on every rank under a mesh (ROADMAP.md queue A)."""
+        return ([f"{name}.{j}" for name in sorted(REL_ORDER) for j in (0, 1)]
+                if self.ell else [])
 
     @property
     def tier(self) -> str:
@@ -419,8 +448,8 @@ class TGCN(nn.Module):
             for name, (ap, ev, ej) in plan.items():
                 if self.ell:
                     agg[name] = _atten1_em(ap, ev, ej, ew0,
-                                           self.edges[f"{name}_j"],
-                                           self.edges[f"{name}_w"])
+                                           self.edges[f"em.{name}.0"],
+                                           self.edges[f"em.{name}.1"])
                 elif self.dedup:
                     agg[name] = _atten1_dedup(ap, ev, ej, ew0,
                                               *self.buckets(name))

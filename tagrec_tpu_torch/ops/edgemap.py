@@ -19,6 +19,11 @@ transpose structure with gathers only, never a scatter or ``index_add_``:
 * ``edge_gather(em, v)``        s[r, k] = v[idx[r, k]]         (0 on pads)
 * ``edge_vgather(em, x)``       s[r, k, :] = x[idx[r, k], :]   (0 on pads)
 * ``rows_gather(em, x)``        row-ordered node data split into bucket order
+* ``rows_ordered(em, parts)``   its adjoint: per-bucket row results in row
+    order (TGCN's attention)
+* ``edge_score(em, h, v)``      s[r, k] = h[r, k, :] . v[0], one shared
+    weight row over per-slot vectors
+* ``slot_sums(vals, vecs)``     out[r] = sum_k vals[r, k] * vecs[r, k, :]
 * ``slot_transfer(vals, to, from)`` per-slot values between two EdgeMaps of
     one edge set (``cross_slot_maps``)
 
@@ -44,23 +49,38 @@ PyTorch: ``edge_dot``'s forward and ``edge_reduce``'s d vals use
 ``_dot_raw``, and the tests differentiate both against the Functions.
 Buckets whose [rows, K, D] gather is over ``EDGEMAP_GATHER_BUDGET_BYTES``
 (priced with JAX's TPU padding, so the same buckets chunk) run in row
-chunks, each recomputed in the backward rather than saved.
+chunks, each recomputed in the backward rather than saved.  ``_dot_raw``
+runs one batched product a block of ``_dot_rows`` rows, a count set by
+the bucket's width and the device, never by its row count: on the card
+a batched product's kernel, and its order of sums, follow its batch
+count.
 
-Under a mesh, DGCF's and DisenGCN's map holds one ``model`` rank's rows
-(``shard_edge_map``, JAX's ``gdev_sharding`` rule per bucket; an
-``EdgeMapShard``).  Per-slot values live on the rank that holds their
-row.  ``edge_reduce`` runs ``gather_reduce(out=)`` over the rank's rows
-of each sharded bucket into its part of one send buffer, computes each
-whole bucket whole, all-gathers the buffer once over ``model`` and
-returns the WHOLE product on every rank, as ``ops.propagate.sharded_mm``
-does; ``row_sums`` the same for a per-row sum.  ``transpose_vals`` is one
-``all_to_all_single`` over ``model``: the host maps each slot's partner
-in the other layout once to (owning rank, that rank's slot), which fixes
-the send indices and split sizes, so a captured step holds the exchange.
-``edge_dot`` and the d vals of ``edge_reduce`` are local to the rank's
-slots.  Over one rank the shard's tables are the whole map's and today's
-code runs.  ``rows_gather``, ``edge_gather`` and ``edge_vgather`` take
-whole maps (DisenHAN, KGAT and TGCN keep theirs whole).
+Under a mesh each map holds one ``model`` rank's rows (``shard_edge_map``,
+JAX's ``gdev_sharding`` rule per bucket; an ``EdgeMapShard``), and each
+slot map between two maps (KGAT's ``k2n`` and ``n2k``) the rank's rows of
+its destination map (``shard_slot_map``; a ``SlotMapShard``, which
+without a mesh holds the whole tables and exchanges nothing).  Per-slot
+values live on the rank that holds their row.  A value that another rank
+reads moves in one ``all_to_all_single`` over ``model``: the host maps
+each slot's source slot once to (owning rank, that rank's slot), which
+fixes the send indices and split sizes (``Exchange``), so a captured step
+holds the exchange.  Whatever a primitive returns in row order is WHOLE on
+every ``model`` rank: the rank's rows of each sharded bucket, one
+all-gather over ``model`` (``_gathered_rows``), each whole bucket computed
+whole, then the whole ``f_inv``.  So ``edge_reduce`` (through
+``gather_reduce(out=)``), ``row_sums``, ``rows_ordered`` and the
+backwards of ``rows_gather``, ``edge_gather`` and ``edge_vgather`` (the
+cotangents moved to the transpose layout by the exchange, then summed over
+the rank's transpose rows) return the whole product, and a gradient that
+reaches a whole tensor is the full gradient on every rank.
+``transpose_vals`` and ``slot_transfer`` are the exchanges; ``edge_dot``,
+``edge_gather``'s and ``edge_vgather``'s forwards, ``edge_softmax`` and
+the d vals of ``edge_reduce`` are local to the rank's slots.  A weight
+applied to per-slot values would get only the rank's part of its
+gradient, so ``edge_score`` sums a weight row's gradient per row, puts the
+rows in order whole, then sums them.  Over one rank the shard's tables are
+the whole map's and today's code runs.  ``_reduce_raw`` takes whole maps
+only, and raises on a shard.
 """
 
 from __future__ import annotations
@@ -187,8 +207,13 @@ def _i32(a, device) -> torch.Tensor:
 
 
 def to_device(host, device):
-    """The device form of an EdgeMapHost (an EdgeMap) or of a rank's
-    EdgeMapShardHost (an EdgeMapShard)."""
+    """The device form of an EdgeMapHost (an EdgeMap), of a rank's
+    EdgeMapShardHost (an EdgeMapShard) or of a SlotMapShardHost (a
+    SlotMapShard)."""
+    if isinstance(host, SlotMapShardHost):
+        return SlotMapShard(read=tuple(_i32(t, device) for t in host.read),
+                            x=host.x._replace(send=_i32(host.x.send, device)),
+                            mesh=host.mesh)
     if isinstance(host, EdgeMapShardHost):
         em = to_device(host.cut._replace(f_src=host.f_read,
                                          b_src=host.b_read), device)
@@ -355,6 +380,10 @@ def _exchange(src: ell_lib.EllBucketsHost, src_blocks, dst_tables,
     read table).  ``dst_tables``: per destination bucket the global src
     slot of each slot (``src``'s total on the pads); ``dst_rows(q)``: per
     destination bucket rank q's (start, stop) or None."""
+    if m == 1:  # every slot is the rank's own: the tables are the reads
+        return (Exchange(send=np.zeros(0, np.int32), send_splits=(0,),
+                         recv_splits=(0,), total=0),
+                [np.asarray(t, np.int32) for t in dst_tables])
     owners = _SlotOwners(src, src_blocks, m)
     # every destination slot's source, owner and local slot, found once;
     # rank q's slots are its rows' ranges of them
@@ -430,6 +459,90 @@ def shard_edge_map(host: EdgeMapHost, mesh) -> EdgeMapShardHost:
                             mesh=mesh)
 
 
+class SlotMapHost(NamedTuple):
+    """Per forward bucket of the map ``dst`` the global flat forward slot
+    of the map ``src`` each slot reads (``src``'s total on the pads): one
+    direction of ``cross_slot_maps`` (KGAT's ``k2n``: ``em`` reading
+    ``emk``; ``n2k`` the reverse).  ``src`` and ``dst`` are the maps' keys
+    among the model's hosts."""
+
+    tables: List[np.ndarray]
+    src: str
+    dst: str
+
+
+class SlotMapShardHost(NamedTuple):
+    """One ``model`` rank's rows of a SlotMapHost (``shard_slot_map``):
+    ``cut`` its tables cut as the destination map's forward buckets (still
+    global slots: JAX's blocks), ``read`` per bucket the position each of
+    the rank's slots reads in the rank's extended slot vector of the
+    source map, ``x`` the exchange that brings the values other ranks
+    hold.  Without a mesh (``mesh`` None) or over one rank ``cut`` and
+    ``read`` are the whole tables and ``x`` exchanges nothing."""
+
+    cut: List[np.ndarray]
+    read: List[np.ndarray]
+    x: Exchange
+    mesh: object
+
+
+class SlotMapShard(NamedTuple):
+    """A SlotMapShardHost on the device, the form ``slot_transfer``
+    takes."""
+
+    read: tuple
+    x: Exchange
+    mesh: object
+
+
+def shard_slot_map(host: SlotMapHost, hosts, mesh) -> SlotMapShardHost:
+    """``mesh``'s rank's rows of a slot map, ``hosts`` holding its source
+    and destination maps by key: the table of each destination bucket JAX
+    row-shards cut to the rank's block, as the destination's forward
+    buckets are; the source slots each owner sends and each rank's read
+    tables from ``_exchange``, as ``shard_edge_map`` finds its own.
+    ``mesh`` None: the whole tables, as over one rank."""
+    m, i = (1, 0) if mesh is None else (mesh.shape["model"],
+                                         mesh.index("model"))
+    src, dst = hosts[host.src].f, hosts[host.dst].f
+    x, read = _exchange(src, _blocks(src, m, 0), host.tables,
+                        lambda q: _blocks(dst, m, q), m, i)
+    return SlotMapShardHost(
+        cut=[ell_lib.cut_rows(t, k)
+             for t, k in zip(host.tables, _blocks(dst, m, i))],
+        read=read, x=x, mesh=mesh)
+
+
+def maps_to_device(hosts, device, mesh=None) -> Dict[str, object]:
+    """A model's maps and slot maps ({JAX's leaf prefix: EdgeMapHost or
+    SlotMapHost}) on ``device``, for ``EdgeMapBuffers``: whole, or under
+    ``mesh`` each cut to the rank's rows on the host before the upload;
+    a slot map always as a SlotMapShard (``shard_slot_map``)."""
+    out = {}
+    for key, h in hosts.items():
+        if isinstance(h, SlotMapHost):
+            h = shard_slot_map(h, hosts, mesh)
+        elif mesh is not None:
+            h = shard_edge_map(h, mesh)
+        out[key] = to_device(h, device)
+    return out
+
+
+def host_leaves(hosts):
+    """[(JAX's leaf path, array)] of a model's maps and slot maps, in
+    ``hosts``' order (JAX's): each map's ``leaves``, each slot map's
+    tables ``<key>.0`` ...; a rank's cut forms (EdgeMapShardHost,
+    SlotMapShardHost) give their cut tables."""
+    out = []
+    for key, h in hosts.items():
+        if isinstance(h, (SlotMapHost, SlotMapShardHost)):
+            tables = h.tables if isinstance(h, SlotMapHost) else h.cut
+            out += [(f"{key}.{j}", t) for j, t in enumerate(tables)]
+        else:
+            out += leaves(h, key)
+    return out
+
+
 def leaves(em, prefix: str = "em"):
     """[(JAX's leaf path, array)] of an EdgeMapHost, EdgeMap or a rank's
     form (EdgeMapShardHost: its cut map; EdgeMapShard: its local map), in
@@ -459,16 +572,16 @@ def leaves(em, prefix: str = "em"):
 
 
 class EdgeMapBuffers(nn.Module):
-    """EdgeMaps (or a rank's EdgeMapShards) and tuples of slot tables,
-    held as a model's non-persistent buffers: ``.to()`` carries them,
+    """EdgeMaps (or a rank's EdgeMapShards) and SlotMapShards, held as a
+    model's non-persistent buffers: ``.to()`` carries them,
     ``state_dict`` and the checkpoints do not see them.  ``buffers[key]``
-    rebuilds the EdgeMap, EdgeMapShard or tuple from the current
-    buffers."""
+    rebuilds the item from the current buffers; a key may be a dotted JAX
+    leaf prefix (``ems.0``)."""
 
     def __init__(self, items: Dict[str, object]):
         super().__init__()
         self._layout = {}
-        self._shards = {}  # key -> the EdgeMapShard's static part
+        self._shards = {}  # key -> the shard's static part
         for key, item in items.items():
             if isinstance(item, EdgeMapShard):
                 self._put(f"{key}_f_x", item.f_x.send)
@@ -477,13 +590,19 @@ class EdgeMapBuffers(nn.Module):
                     local=None, f_x=item.f_x._replace(send=None),
                     b_x=item.b_x._replace(send=None))
                 item = item.local
+            elif isinstance(item, SlotMapShard):
+                self._put(f"{key}_x", item.x.send)
+                self._shards[key] = item._replace(
+                    read=None, x=item.x._replace(send=None))
+                item = item.read
             if isinstance(item, EdgeMap):
                 self._layout[key] = {f: self._put(f"{key}_{f}", v)
                                      for f, v in zip(item._fields, item)}
             else:
-                self._layout[key] = self._put(key, tuple(item))
+                self._layout[key] = self._put(key, item)
 
     def _put(self, name: str, v):
+        name = name.replace(".", "_")
         if isinstance(v, tuple):
             for i, t in enumerate(v):
                 self.register_buffer(f"{name}_{i}", t, persistent=False)
@@ -492,22 +611,30 @@ class EdgeMapBuffers(nn.Module):
         return None
 
     def _get(self, name: str, n):
+        name = name.replace(".", "_")
         if n is None:
             return getattr(self, name)
         return tuple(getattr(self, f"{name}_{i}") for i in range(n))
 
     def __getitem__(self, key: str):
         lay = self._layout[key]
+        shard = self._shards.get(key)
         if not isinstance(lay, dict):
-            return self._get(key, lay)
+            return shard._replace(
+                read=self._get(key, lay),
+                x=shard.x._replace(send=self._get(f"{key}_x", None)))
         em = EdgeMap(**{f: self._get(f"{key}_{f}", n)
                         for f, n in lay.items()})
-        shard = self._shards.get(key)
         if shard is None:
             return em
         return shard._replace(
-            local=em, f_x=shard.f_x._replace(send=getattr(self, f"{key}_f_x")),
-            b_x=shard.b_x._replace(send=getattr(self, f"{key}_b_x")))
+            local=em,
+            f_x=shard.f_x._replace(send=self._get(f"{key}_f_x", None)),
+            b_x=shard.b_x._replace(send=self._get(f"{key}_b_x", None)))
+
+    def nbytes(self) -> int:
+        """Bytes of every buffer: the maps, slot maps and exchange plans."""
+        return sum(t.numel() * t.element_size() for t in self.buffers())
 
 
 # ---------------------------------------------------------------------------
@@ -561,6 +688,54 @@ def _row_chunks(body, n: int, chunk: int) -> torch.Tensor:
     return torch.cat(outs, dim=-2)
 
 
+def _fixed_rows(body, *ts, dim: int, rows: int):
+    """body(*blocks) over blocks of exactly ``rows`` rows of ``ts`` (row
+    axis ``dim`` of each), the last block zero-padded; the results, rows
+    on ``dim``, cut to the rows given and concatenated.  Every call has one
+    shape, so a library kernel's choice, and with it the order in which it
+    sums, does not depend on how many rows there are: a ``model`` rank's
+    block of a bucket gets one device's bits.  The blocks are ``split``
+    views (made contiguous), whose backward is one concatenation."""
+    outs = []
+    for blk in zip(*(t.split(rows, dim) for t in ts)):
+        short = rows - blk[0].shape[dim]
+        # contiguous, as a padded block is: a library call may take
+        # another route for a strided view
+        blk = [torch.nn.functional.pad(
+                   b, [0, 0] * (b.dim() - 1 - dim % b.dim()) + [0, short])
+               if short else b.contiguous() for b in blk]
+        out = body(*blk)
+        outs.append(out.narrow(dim, 0, rows - short) if short else out)
+    return torch.cat(outs, dim=dim) if len(outs) > 1 else outs[0]
+
+
+# Rows of one block of ``edge_score``'s and ``slot_sums``' products, by
+# device type: a few launches a bucket on the card; few pad rows on the
+# CPU (the plain path), whose buckets are small.
+SLOT_BLOCK_ROWS = {"cuda": 2048}
+SLOT_BLOCK_ROWS_ELSE = 256
+
+
+def _slot_rows(device) -> int:
+    return SLOT_BLOCK_ROWS.get(device.type, SLOT_BLOCK_ROWS_ELSE)
+
+
+# Elements of one ``_dot_bucket`` block's [rows, K, D] gather, by device
+# type: large on the card, where a block costs a few launches; small
+# elsewhere (the CPU's plain path), where the last block's pad rows cost.
+DOT_BLOCK_ELEMS = {"cuda": 1 << 24}
+DOT_BLOCK_ELEMS_ELSE = 1 << 16
+
+
+def _dot_rows(k: int, d: int, itemsize: int, lead, device) -> int:
+    """The rows of one ``_dot_bucket`` block: set by the bucket's width
+    and the device, never by its row count; within the gather budget."""
+    per_row = _gather_bytes_per_row(k, d, itemsize) * _lead_n(lead)
+    budget = max(EDGEMAP_GATHER_BUDGET_BYTES // per_row // 8 * 8, 8)
+    elems = DOT_BLOCK_ELEMS.get(device.type, DOT_BLOCK_ELEMS_ELSE)
+    return max(min(budget, elems // (k * d * _lead_n(lead)) // 8 * 8), 8)
+
+
 def _reduce_bucket(v, idx, x):
     """sum_k v[..., n, k] * x[..., idx[n, k], :] for one bucket, over row
     chunks where the [chunk, Kb, D] gather is over the budget."""
@@ -579,25 +754,38 @@ def _reduce_bucket(v, idx, x):
 
 def _reduce_raw(em: EdgeMap, vals, x):
     """out[..., r, :] = sum_k vals[..., rb, k] * x[..., idx[rb, k], :] in
-    row order (the pads' vals must be 0)."""
+    row order (the pads' vals must be 0).  A whole map only: on a rank's
+    rows the whole ``f_inv`` would take rows the rank does not hold."""
+    if _sharded(em):
+        raise ValueError("_reduce_raw takes a whole EdgeMap, not one "
+                         "model rank's rows; edge_reduce takes both")
     outs = [_reduce_bucket(v, idx, x) for v, idx in zip(vals, em.f_idx)]
     return torch.cat(outs, dim=-2)[..., em.f_inv, :]
 
 
 def _dot_bucket(ar, idx, b):
-    """s[..., n, k] = ar[..., n, :] . b[..., idx[n, k], :] for one bucket,
-    chunked on the same budget as ``_reduce_bucket``."""
+    """s[..., n, k] = ar[..., n, :] . b[..., idx[n, k], :] for one bucket:
+    batched products over blocks of ``_dot_rows`` rows (``_fixed_rows``),
+    since on the card a batched product's kernel, and its order of sums,
+    follow its batch count, and a rank's rows must get one device's bits;
+    each block recomputed in the backward where the bucket's gather is
+    over the budget (``_row_chunk_for``), as ``_reduce_bucket``'s."""
     n, k = idx.shape
     lead = _lead("dot", ar, b)
-    chunk = _row_chunk_for(n, k, b.shape[-1], b.element_size(), lead)
+    d, size = b.shape[-1], b.element_size()
 
-    def body(i, j):
-        return torch.einsum("...nd,...nkd->...nk", ar[..., i:j, :],
-                            b[..., idx[i:j], :])
+    def body(a_, i_):
+        return torch.einsum("...nd,...nkd->...nk", a_, b[..., i_, :])
 
-    if chunk == 0 or n <= chunk:
-        return body(0, n)
-    return _row_chunks(body, n, chunk)
+    if n == 0 or k == 0 or d == 0:
+        return body(ar, idx)
+    block = body
+    if _row_chunk_for(n, k, d, size, lead) and torch.is_grad_enabled():
+        def block(a_, i_):
+            return checkpoint(body, a_, i_, use_reentrant=False,
+                              preserve_rng_state=False)
+    return _fixed_rows(block, ar, idx, dim=-2,
+                       rows=_dot_rows(k, d, size, lead, b.device))
 
 
 def _dot_raw(em: EdgeMap, a, b, masked: bool = True):
@@ -651,37 +839,45 @@ def _flat_slots(vals, tail: int = 0) -> torch.Tensor:
     return torch.cat([flat, zero], dim=len(lead))
 
 
-def transpose_vals(em, vals):
+def transpose_vals(em, vals, tail: int = 0):
     """Per-slot values moved from the forward layout to the transpose's;
-    the transpose's pads read the zero sentinel.  On an EdgeMapShard over
-    more than one rank, the rank's slots of each layout: the values its
-    transpose slots read from other ranks come in one
-    ``all_to_all_single`` over ``model`` (``Exchange``), the rest are
-    read locally."""
-    flat = _flat_slots(vals)
+    the transpose's pads read the zero sentinel; ``tail`` trailing axes
+    (``edge_vgather``'s D) ride along.  On an EdgeMapShard over more than
+    one rank, the rank's slots of each layout: the values its transpose
+    slots read from other ranks come in one ``all_to_all_single`` over
+    ``model`` (``Exchange``), the rest are read locally."""
+    flat = _flat_slots(vals, tail)
     if isinstance(em, EdgeMapShard) and em.f_x.total:
-        flat = _exchanged(em, flat)
-    return tuple(flat[..., src] for src in em.b_src)
+        flat = _exchanged(em.f_x, em.mesh, flat, tail)
+    return tuple(flat[(Ellipsis, src) + (slice(None),) * tail]
+                 for src in em.b_src)
 
 
-def _exchanged(em: "EdgeMapShard", flat: torch.Tensor) -> torch.Tensor:
-    """The rank's forward slot values (``flat``, [..., L + 1] with the zero
-    sentinel last) extended by the values its transpose slots read from
-    other ranks, in the order the read tables expect."""
-    x = em.f_x
-    lead = flat.shape[:-1]
-    f2 = flat.reshape(-1, flat.shape[-1])
-    send = f2[:, x.send].t().contiguous()                 # [S, lead]
+def _exchanged(x: Exchange, mesh, flat: torch.Tensor,
+               tail: int = 0) -> torch.Tensor:
+    """The rank's slot values (``flat``, its slot axis the ``tail``-th
+    from the end, [..., L + 1, *tail] with the zero sentinel last)
+    extended on that axis by the values ``x`` brings from other ranks, in
+    the order the read tables expect."""
+    ax = flat.dim() - 1 - tail
+    f = flat.movedim(ax, -1)
+    f2 = f.reshape(-1, f.shape[-1])
+    send = f2[:, x.send].t().contiguous()                 # [S, rest]
     recv = send.new_empty((sum(x.recv_splits), f2.shape[0]))
     dist.all_to_all_single(recv, send, list(x.recv_splits),
-                           list(x.send_splits),
-                           group=em.mesh.group("model"))
-    return torch.cat([f2, recv.t()], dim=1).reshape(lead + (-1,))
+                           list(x.send_splits), group=mesh.group("model"))
+    out = torch.cat([f2, recv.t()], dim=1)
+    return out.reshape(f.shape[:-1] + (-1,)).movedim(-1, ax)
 
 
-def _transfer_raw(vals, dst_tables):
+def _transfer(vals, slot_map: "SlotMapShard"):
+    """``slot_transfer``'s move: each destination slot's value from the
+    rank's extended slot vector by its read table, the other ranks' values
+    brought by the slot map's exchange (none without a mesh)."""
     flat = _flat_slots(vals)
-    return tuple(flat[..., t] for t in dst_tables)
+    if slot_map.x.total:
+        flat = _exchanged(slot_map.x, slot_map.mesh, flat)
+    return tuple(flat[..., t] for t in slot_map.read)
 
 
 # ---------------------------------------------------------------------------
@@ -750,19 +946,34 @@ def _sharded(em) -> bool:
     return isinstance(em, EdgeMapShard) and em.model > 1
 
 
+def _in_row_order(em, parts, like: torch.Tensor, lead, tail=()):
+    """Per forward bucket row results in row order, [*lead, n_rows,
+    *tail]: ``parts[j](out)`` gives bucket j's rows (into ``out`` where
+    given).  On an EdgeMapShard over more than one rank
+    ``_gathered_rows``, whole on every ``model`` rank; else the buckets'
+    rows concatenated and put in order by ``f_inv``."""
+    if _sharded(em):
+        return _gathered_rows(em, parts, like, lead, tail)
+    ax = len(lead)
+    return torch.cat([part(None) for part in parts],
+                     dim=ax).index_select(ax, em.f_inv)
+
+
+def _into(t: torch.Tensor):
+    """A part for ``_in_row_order`` that gives ``t``."""
+    return lambda out: t if out is None else out.copy_(t)
+
+
 def _reduce(em, vals, x):
     """``_reduce_raw``'s value, each bucket through ``_bucket_sum``.  On an
     EdgeMapShard over more than one rank: the rank's rows of each sharded
     bucket, all-gathered once (``_gathered_rows``); the whole buckets
     whole on every rank; the WHOLE product on every ``model`` rank."""
+    lead = _lead("edge_reduce", vals[0], x)
     parts = [lambda out, v=v, idx=idx, deg=deg: _bucket_sum(v, idx, deg, x,
                                                             out=out)
              for v, idx, deg in zip(vals, em.f_idx, em.f_deg)]
-    if _sharded(em):
-        return _gathered_rows(em, parts, x, _lead("edge_reduce", vals[0], x),
-                              (x.shape[-1],))
-    outs = [part(None) for part in parts]
-    return torch.cat(outs, dim=-2)[..., em.f_inv, :]
+    return _in_row_order(em, parts, x, lead, (x.shape[-1],))
 
 
 def row_sums(em, vals) -> torch.Tensor:
@@ -770,12 +981,8 @@ def row_sums(em, vals) -> torch.Tensor:
     (DGCF's routed degree): ``vals`` a tuple of [..., Nb, Kb].  On an
     EdgeMapShard over more than one rank, the rank's rows of each sharded
     bucket, all-gathered once."""
-    parts = [lambda out, v=v: (v.sum(dim=-1) if out is None
-                               else out.copy_(v.sum(dim=-1)))
-             for v in vals]
-    if _sharded(em):
-        return _gathered_rows(em, parts, vals[0], vals[0].shape[:-2])
-    return torch.cat([part(None) for part in parts], dim=-1)[..., em.f_inv]
+    return _in_row_order(em, [_into(v.sum(dim=-1)) for v in vals], vals[0],
+                         vals[0].shape[:-2])
 
 
 # ---------------------------------------------------------------------------
@@ -790,14 +997,39 @@ class _RowsGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *dparts):
-        # the buckets partition the rows: the cotangent is a gather
-        return None, torch.cat(dparts, dim=-2)[..., ctx.em.f_inv, :]
+        # the buckets partition the rows: the cotangent is a gather (on a
+        # rank's rows, whole after one all-gather)
+        d = dparts[0]
+        return None, _in_row_order(ctx.em, [_into(p) for p in dparts], d,
+                                   d.shape[:-2], d.shape[-1:])
 
 
-def rows_gather(em: EdgeMap, x) -> tuple:
+def rows_gather(em, x) -> tuple:
     """Row-ordered node data [..., n_rows, D] split into the buckets' row
-    order -> tuple of [..., Nb, D]."""
+    order -> tuple of [..., Nb, D] (on an EdgeMapShard, the rank's rows of
+    each bucket)."""
     return _RowsGather.apply(em, x)
+
+
+class _RowsOrdered(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, em, *parts):
+        ctx.em = em
+        d = parts[0]
+        return _in_row_order(em, [_into(p) for p in parts], d,
+                             d.shape[:-2], d.shape[-1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *_rows_gather_raw(ctx.em, g))
+
+
+def rows_ordered(em, parts) -> torch.Tensor:
+    """Per-bucket row results (a tuple of [..., Nb, D], on an EdgeMapShard
+    the rank's rows of each bucket) put in row order -> [..., n_rows, D],
+    whole on every ``model`` rank (JAX's ``take(concat(parts), f_inv)``):
+    ``rows_gather``'s adjoint, whose backward is ``rows_gather``."""
+    return _RowsOrdered.apply(em, *parts)
 
 
 class _EdgeReduce(torch.autograd.Function):
@@ -857,13 +1089,13 @@ class _EdgeGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *ds):
+        # each transpose row's sum of its slots, whole on every rank
         em = ctx.em
-        ds_t = transpose_vals(em, _mask_tuple(em, ds))
-        dv = torch.cat([s.sum(dim=-1) for s in ds_t], dim=-1)[..., em.b_inv]
-        return None, dv
+        return None, row_sums(em.transpose(),
+                              transpose_vals(em, _mask_tuple(em, ds)))
 
 
-def edge_gather(em: EdgeMap, v) -> tuple:
+def edge_gather(em, v) -> tuple:
     """Per-slot gather of a per-node value: s[r, k] = v[idx[r, k]], 0 on
     the pads; v [..., n_cols] -> tuple of [..., Nb, Kb]."""
     return _EdgeGather.apply(em, v)
@@ -880,12 +1112,14 @@ class _EdgeVGather(torch.autograd.Function):
         # the forward's pad slots are in no b_src table, so their
         # cotangents drop out; D stays the minor axis throughout
         em = ctx.em
-        flat = _flat_slots(ds, tail=1)
-        parts = [flat[..., src, :].sum(dim=-2) for src in em.b_src]
-        return None, torch.cat(parts, dim=-2)[..., em.b_inv, :]
+        d = ds[0]
+        ds_t = transpose_vals(em, ds, tail=1)
+        return None, _in_row_order(em.transpose(),
+                                   [_into(s.sum(dim=-2)) for s in ds_t], d,
+                                   d.shape[:-3], d.shape[-1:])
 
 
-def edge_vgather(em: EdgeMap, x) -> tuple:
+def edge_vgather(em, x) -> tuple:
     """Per-slot vector gather: s[r, k, :] = x[idx[r, k], :], zero vectors
     on the pads; x [..., n_cols, D] -> tuple of [..., Nb, Kb, D].  Its
     backward sums each transpose row's slots (TGCN's neighbour reads,
@@ -893,10 +1127,11 @@ def edge_vgather(em: EdgeMap, x) -> tuple:
     return _EdgeVGather.apply(em, x)
 
 
-def edge_softmax(em: EdgeMap, scores) -> tuple:
+def edge_softmax(em, scores) -> tuple:
     """Masked softmax over each row's slots (torch.sparse.softmax over
     dim 1): 0 on the pads, all-zero rows for degree-0 rows; the row max is
-    detached, as JAX's stop_gradient.  scores: tuple of [..., Nb, Kb]."""
+    detached, as JAX's stop_gradient.  scores: tuple of [..., Nb, Kb].
+    Row-local: on an EdgeMapShard the rank's rows."""
     out = []
     for s, idx, deg in zip(scores, em.f_idx, em.f_deg):
         if s.shape[-1] == 0:
@@ -909,6 +1144,62 @@ def edge_softmax(em: EdgeMap, scores) -> tuple:
         z = torch.sum(e, dim=-1, keepdim=True)
         out.append(e / torch.where(z == 0, 1.0, z))
     return tuple(out)
+
+
+def _slot_blocks(body, vals, vecs):
+    """body(vals, vecs) over fixed row blocks (``_fixed_rows``), with the
+    row axes (-2 of vals [..., Nb, Kb], -3 of vecs [..., Nb, Kb, X])
+    moved first and the result's (``body``'s first axis) moved to -2."""
+    return _fixed_rows(body, vals.movedim(-2, 0), vecs.movedim(-3, 0),
+                       dim=0, rows=_slot_rows(vecs.device)).movedim(0, -2)
+
+
+class _EdgeScore(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, em, v, *h):
+        ctx.em = em
+        ctx.save_for_backward(v, *h)
+        return tuple(_fixed_rows(lambda h_: (h_ @ v.T)[..., 0],
+                                 hb.movedim(-3, 0), dim=0,
+                                 rows=_slot_rows(hb.device)).movedim(0, -2)
+                     for hb in h)
+
+    @staticmethod
+    def backward(ctx, *ds):
+        em = ctx.em
+        v, *h = ctx.saved_tensors
+        dh = tuple(d[..., None] * v for d in ds)
+        # d v: each row's sum over its slots, the rows in order (whole on
+        # every rank), then their sum: the same on every rank and over one
+        parts = [_into(_slot_blocks(
+            lambda d_, h_: torch.einsum("n...k,n...ka->n...a", d_, h_),
+            d, hb)) for d, hb in zip(ds, h)]
+        rows = _in_row_order(em, parts, v, ds[0].shape[:-2], v.shape[-1:])
+        return (None, rows.reshape(-1, v.shape[-1]).sum(dim=0,
+                                                        keepdim=True), *dh)
+
+
+def edge_score(em, h, v) -> tuple:
+    """Per-slot scores of per-slot vectors against one shared weight row:
+    h a tuple of [..., Nb, Kb, A], v [1, A] -> tuple of [..., Nb, Kb],
+    s = (h @ v.T)[..., 0] (TGCN's attention scores), in products over
+    fixed row blocks, so a rank's rows are one device's bit for bit.  v's
+    gradient is summed per row and over the rows in row order, so on an
+    EdgeMapShard it is the full gradient on every rank, not the rank's
+    part."""
+    return _EdgeScore.apply(em, v, *h)
+
+
+def slot_sums(vals, vecs) -> tuple:
+    """Each row's sum of its slots' vectors weighted by the slots' values,
+    out[..., n, :] = sum_k vals[..., n, k] * vecs[..., n, k, :]: vals a
+    tuple of [..., Nb, Kb], vecs of [..., Nb, Kb, D] -> tuple of
+    [..., Nb, D] (TGCN's attention-weighted neighbour sum), in batched
+    products over fixed row blocks, so a rank's rows get one device's
+    bits; differentiable in both."""
+    return tuple(_slot_blocks(
+        lambda a_, x_: torch.einsum("n...k,n...kd->n...d", a_, x_), a, x)
+        for a, x in zip(vals, vecs))
 
 
 # ---------------------------------------------------------------------------
@@ -933,17 +1224,19 @@ def cross_slot_maps(host_from: EdgeMapHost, host_to: EdgeMapHost):
 
 class _SlotTransfer(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, to_tables, from_tables, *vals):
-        ctx.from_tables = from_tables
-        return _transfer_raw(vals, to_tables)
+    def forward(ctx, to, from_, *vals):
+        ctx.from_ = from_
+        return _transfer(vals, to)
 
     @staticmethod
     def backward(ctx, *ds):
         # the inverse transfer: a gather, not a scatter
-        return (None, None, *_transfer_raw(ds, ctx.from_tables))
+        return (None, None, *_transfer(ds, ctx.from_))
 
 
-def slot_transfer(vals, to_tables, from_tables) -> tuple:
+def slot_transfer(vals, to, from_) -> tuple:
     """Per-slot values moved between the layouts of two EdgeMaps over one
-    edge set (``cross_slot_maps``'s tables)."""
-    return _SlotTransfer.apply(tuple(to_tables), tuple(from_tables), *vals)
+    edge set: ``to`` and ``from_`` each direction's SlotMapShard
+    (``shard_slot_map`` of ``cross_slot_maps``' tables), whose exchanges
+    bring what other ranks hold."""
+    return _SlotTransfer.apply(to, from_, *vals)

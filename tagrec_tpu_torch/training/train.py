@@ -257,9 +257,9 @@ class Trainer:
     eager.  The generator is registered with every graph.
 
     ``mesh``: an optional ``parallel.Mesh`` with its process groups; the
-    Trainer row-shards the model's tables and LightGCN's, NGCF's, DGCF's
-    and DisenGCN's graph tables over it (``placement``: ``params`` and ``graph``) and
-    every rank of it runs the same calls.  A capture on the card needs
+    Trainer row-shards the model's tables, and LightGCN's and NGCF's
+    graph tables and every family's EdgeMaps, over it (``placement``:
+    ``params`` and ``graph``) and every rank of it runs the same calls.  A capture on the card needs
     the mesh's group to be NCCL: a gloo group raises here, and a caller
     that means to run eagerly passes ``capture=False``."""
 

@@ -329,8 +329,8 @@ def test_slot_transfer_equals_jax():
         node = lib.build_edge_map(r, c, None, n, n)
         key = lib.build_edge_map(rel * n + r, rel * n + c, None, N_REL * n,
                                  N_REL * n)
-        out[lib] = (key, lib.cross_slot_maps(key, node))
-    key, (k2n, n2k) = out[em_lib]
+        out[lib] = (key, lib.cross_slot_maps(key, node), node)
+    key, (k2n, n2k), node = out[em_lib]
     jk2n, jn2k = out[jem][1]
     rng = np.random.default_rng(6)
     vals = tuple(rng.standard_normal((F,) + b.idx.shape).astype(np.float32)
@@ -346,9 +346,11 @@ def test_slot_transfer_equals_jax():
 
     jg = jax.grad(jloss)(tuple(map(jnp.asarray, vals)))
     tv = tuple(torch.tensor(v, requires_grad=True) for v in vals)
-    got = em_lib.slot_transfer(
-        tv, tuple(torch.from_numpy(t) for t in k2n),
-        tuple(torch.from_numpy(t) for t in n2k))
+    hosts = {"em": node, "emk": key}
+    got = em_lib.slot_transfer(tv, *(
+        em_lib.to_device(em_lib.shard_slot_map(
+            em_lib.SlotMapHost(t, src, dst), hosts, None), "cpu")
+        for t, src, dst in ((k2n, "emk", "em"), (n2k, "em", "emk"))))
     _close(got, [np.asarray(w) for w in want], 0, 0)
     sum((o * torch.from_numpy(c)).sum() for o, c in zip(got, cots)
         ).backward()
@@ -385,6 +387,68 @@ def test_chunked_gather_budget_matches_unchunked(maps, monkeypatch, lead):
                          else g.numpy() for g in w_grads], RTOL, ATOL)
 
 
+def _blocked_ops(b, v, lead):
+    """{name: (op(idx, a, s, h) over a bucket's rows, its one-product
+    value)}: ``_dot_bucket``, ``edge_score`` and ``slot_sums``, each over
+    fixed row blocks."""
+    def gathered(idx):
+        return b[..., idx.long(), :]
+
+    return {
+        "edge_dot": (lambda idx, a, s, h: em_lib._dot_bucket(a, idx, b),
+                     lambda idx, a, s, h: torch.einsum(
+                         "...nd,...nkd->...nk", a, gathered(idx))),
+        "edge_score": (lambda idx, a, s, h: em_lib.edge_score(
+            None, (h,), v)[0], lambda idx, a, s, h: (h @ v.T)[..., 0]),
+        "slot_sums": (lambda idx, a, s, h: em_lib.slot_sums(
+            (s,), (gathered(idx),))[0],
+                      lambda idx, a, s, h: torch.einsum(
+                          "...nk,...nkd->...nd", s, gathered(idx)))}
+
+
+@pytest.mark.parametrize("name", ["edge_dot", "edge_score", "slot_sums"])
+@pytest.mark.parametrize("lead", LEADS, ids=["no_lead", "factor_axis"])
+def test_block_products_do_not_depend_on_the_row_count(maps, monkeypatch,
+                                                       lead, name):
+    """The products over fixed row blocks (``_dot_bucket``, ``edge_score``,
+    ``slot_sums``) over a bucket's two halves (a ``model`` rank's rows)
+    equal them over the whole bucket bit for bit, in blocks of a few rows
+    so that the halves end in padded blocks; and one product over all the
+    rows within float32 rounding."""
+    em, _ = maps
+    monkeypatch.setattr(em_lib, "DOT_BLOCK_ELEMS_ELSE", 1 << 10)
+    monkeypatch.setattr(em_lib, "SLOT_BLOCK_ROWS_ELSE", 8)
+    rng = np.random.default_rng(9)
+
+    def randn(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(lead + shape).astype(np.float32))
+
+    op, one = _blocked_ops(randn(N_COLS, 16), randn(1, 16)[(0,) * len(lead)],
+                           lead)[name]
+    def half(args, r):
+        a, s, hv = args
+        return a[..., r, :], s[..., r, :], hv[..., r, :, :]
+
+    padded = 0
+    for idx in em.f_idx:
+        n, k = idx.shape
+        if k == 0 or n < 2:
+            continue
+        args = (randn(n, 16), randn(n, k), randn(n, k, 16))
+        rows = (em_lib._dot_rows(k, 16, 4, lead, idx.device)
+                if name == "edge_dot" else em_lib.SLOT_BLOCK_ROWS_ELSE)
+        h = n // 2
+        padded += n > rows and h % rows != 0
+        whole = op(idx, *args)
+        halves = torch.cat([op(idx[:h], *half(args, slice(0, h))),
+                            op(idx[h:], *half(args, slice(h, n)))], dim=-2)
+        assert torch.equal(whole, halves)
+        torch.testing.assert_close(whole, one(idx, *args), rtol=1e-5,
+                                   atol=1e-6)
+    assert padded
+
+
 @pytest.mark.parametrize("chunked", [False, True], ids=["whole", "chunked"])
 @pytest.mark.parametrize("name", ["edge_reduce", "edge_dot"])
 def test_mixed_leading_axes_raise(maps, monkeypatch, name, chunked):
@@ -412,14 +476,18 @@ def test_buffers_follow_the_module(maps):
     """EdgeMapBuffers: non-persistent (no state_dict entry), rebuilt equal,
     and carried by ``.to()``."""
     em, _ = maps
-    holder = em_lib.EdgeMapBuffers({"em": em, "tables": em.f_src})
+    none = em_lib.Exchange(send=torch.zeros(0, dtype=torch.int32),
+                           send_splits=(0,), recv_splits=(0,), total=0)
+    holder = em_lib.EdgeMapBuffers({"em": em, "tables": em_lib.SlotMapShard(
+        read=em.f_src, x=none, mesh=None)})
     assert not holder.state_dict()
     back = holder["em"]
     for got, want in zip(back, em):
         for g, w in zip(got if isinstance(got, tuple) else (got,),
                         want if isinstance(want, tuple) else (want,)):
             assert torch.equal(g, w)
-    assert all(torch.equal(g, w) for g, w in zip(holder["tables"], em.f_src))
+    assert all(torch.equal(g, w) for g, w in zip(holder["tables"].read,
+                                                 em.f_src))
     moved = holder.to(torch.float64)["em"]
     assert moved.f_val[0].dtype == torch.float64
     assert moved.f_idx[0].dtype == torch.int32

@@ -177,7 +177,7 @@ def test_rank_blocks_equal_jax_addressable_shards(runs, case, mesh):
     ranks = np.vectorize(lambda d: d.id)(jmesh.devices)
     mine = {}
     for r in range(dp * mp):
-        shard = edgemap.shard_edge_map(model.em_host,
+        shard = edgemap.shard_edge_map(model.em_hosts["em"],
                                        make_mesh(dp * mp, dp, rank=r))
         masks = edgemap.to_device(shard, "cpu").masks()
         mine[r] = dict(edgemap.leaves(shard), **{
@@ -313,7 +313,7 @@ def test_one_rank_holds_the_whole_map():
     from tagrec_tpu_torch.ops import edgemap
     from tagrec_tpu_torch.parallel.mesh import make_mesh
 
-    host = W.em_pipeline("dgcf").model.em_host
+    host = W.em_pipeline("dgcf").model.em_hosts["em"]
     whole = edgemap.to_device(host, "cpu")
     one = edgemap.to_device(edgemap.shard_edge_map(host, make_mesh(1)),
                             "cpu")

@@ -375,8 +375,8 @@ def test_ell_raises_a17():
     model = _model("ell")
     assert model.ell and not model.dedup
     for name in tgcn.REL_ORDER:
-        for part in ("j", "w"):
-            em = model.edges[f"{name}_{part}"]
+        for part in (0, 1):
+            em = model.edges[f"em.{name}.{part}"]
             assert [tuple(i.shape) for i in em.f_idx] == [
                 (model.table(name)[0].shape[0], model.cfg.neighbor_k)]
 

@@ -390,7 +390,8 @@ def em_transposed(model):
     em = model.edges["em"]
     blocks = getattr(em, "f_blocks", [None] * em.n_buckets)
     vals = tuple(torch.as_tensor(cut(v, k))
-                 for v, k in zip(em_slot_values(model.em_host), blocks))
+                 for v, k in zip(em_slot_values(model.em_hosts["em"]),
+                                 blocks))
     there = edgemap.transpose_vals(em, vals)
     back = edgemap.transpose_vals(em.transpose(), there)
     return ([t.numpy().copy() for t in there],
@@ -463,9 +464,198 @@ def scenario_edgemap(args, tmp):
     return {"cases": em_runs(mesh), "jax_step": em_jax_step(args, mesh)}
 
 
+# ------------------- the EdgeMap tier of DisenHAN, KGAT and TGCN ``ell``
+
+# case -> (family, preset overrides, over KG_TINY), each on PROP_GRAPH under
+# adj_mode="ell": DisenHAN's six maps; KGAT's em, emk, k2n and n2k, on the
+# tag graph and over a KG; TGCN's twelve, one forward bucket each, of 120
+# and 300 rows (row-sharded over 2 ranks) or 60 (whole)
+EMM_CASES = {"disenhan": ("disenhan", {"reg": 1e-3}, False),
+             "kgat": ("kgat", {"agg_type": "bi_inter", "transe_batch": 64},
+                      False),
+             "kgat_kg": ("kgat", {"agg_type": "bi_inter", "transe_batch": 64},
+                         True),
+             "tgcn": ("tgcn", {"reg": 1e-3, "transtag_batch": 64}, False)}
+KG_TINY = {"n_entity": 400, "n_triples": 1200, "n_rela": 3, "seed": 0}
+# the map each case's primitives run on
+EMM_PRIM = {"disenhan": "ems.1", "kgat": "em", "kgat_kg": "emk",
+            "tgcn": "em.i_uw.0"}
+PRIM_F, PRIM_D = 2, 3  # the primitives' leading axis and vector width
+
+
+def emm_pipeline(case, mesh=None):
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.data.kg import KnowledgeGraph
+
+    name, over, with_kg = EMM_CASES[case]
+    graph = prop_graph()
+    kg = KnowledgeGraph.synthetic(graph, **KG_TINY) if with_kg else None
+    return build_pipeline(graph, model_preset(name, adj_mode="ell", **over),
+                          tcfg(), device="cpu", mesh=mesh, kg=kg,
+                          generator=torch.Generator().manual_seed(0))
+
+
+def cut1(a, block):
+    """Rows [start, stop) = ``block`` of axis 1 (after the leading F)."""
+    return a if block is None else a[:, block[0]:block[1]]
+
+
+def emm_primitives(model, case):
+    """Each primitive over the case's map (and KGAT's ``slot_transfer``),
+    from whole seeded inputs cut to the rows the map holds, with a whole
+    seeded cotangent cut the same way -> {primitive: {"out": [(block,
+    array)], "grad": [(block, array)]}}: a block the rows of axis 1 the
+    array holds (None: all of them)."""
+    import numpy as np
+
+    from tagrec_tpu_torch.ops import edgemap
+
+    f, d = PRIM_F, PRIM_D
+    rng = np.random.default_rng(EM_SEED)
+
+    def draw(shape, block=None):
+        return torch.tensor(cut1(rng.standard_normal(shape).astype(
+            np.float32), block), requires_grad=True)
+
+    def blocks(key):
+        m = model.edges[key]
+        return (m.f_blocks if isinstance(m, edgemap.EdgeMapShard)
+                else (None,) * m.n_buckets)
+
+    def slots(key, *tail):
+        """(whole shapes, blocks) of per-slot values over ``key``'s map."""
+        return ([(f,) + b.idx.shape + tail
+                 for b in model.em_hosts[key].f.buckets], blocks(key))
+
+    def run(fn, ins, outs_like):
+        """``fn`` over ``ins`` ([(whole shape, block)]), its outputs held
+        as ``outs_like`` says, then backward from a seeded cotangent."""
+        leaves = [draw(shape, k) for shape, k in ins]
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        cots = [draw(shape, k).detach() for shape, k in outs_like]
+        sum((o * c).sum() for o, c in zip(outs, cots)).backward()
+        return {"out": [(k, o.detach().numpy().copy())
+                        for o, (_, k) in zip(outs, outs_like)],
+                "grad": [(k, t.grad.numpy().copy())
+                         for t, (_, k) in zip(leaves, ins)]}
+
+    def pairs(shapes_blocks):
+        shapes, blks = shapes_blocks
+        return list(zip(shapes, blks))
+
+    key = EMM_PRIM[case]
+    em, h = model.edges[key], model.em_hosts[key].f
+    rows = (f, h.n_rows, d)
+    sv, svd = pairs(slots(key)), pairs(slots(key, d))
+    part = [((f, len(r), d), k) for r, k in zip(h.rows, blocks(key))]
+    res = {
+        "rows_gather": run(lambda x: edgemap.rows_gather(em, x),
+                           [(rows, None)], part),
+        "edge_gather": run(lambda v: edgemap.edge_gather(em, v),
+                           [((f, h.n_cols), None)], sv),
+        "edge_vgather": run(lambda x: edgemap.edge_vgather(em, x),
+                            [((f, h.n_cols, d), None)], svd),
+        "edge_softmax": run(lambda *s: edgemap.edge_softmax(em, s), sv, sv),
+        "rows_ordered": run(lambda *p: edgemap.rows_ordered(em, p), part,
+                            [(rows, None)]),
+        "edge_score": run(lambda w, *x: edgemap.edge_score(em, x, w),
+                          [((1, d), None)] + svd, sv)}
+    if "k2n" in model.em_hosts:
+        k2n, n2k = model.edges["k2n"], model.edges["n2k"]
+        res["slot_transfer"] = run(
+            lambda *v: edgemap.slot_transfer(v, k2n, n2k),
+            pairs(slots("emk")), pairs(slots("em")))
+    return res
+
+
+def edges_leaves(model):
+    """[(JAX's leaf path, tensor)] of every map and slot map the model
+    holds: a map's ``leaves`` (a shard's local tables), a slot map's
+    tables (a shard's read tables)."""
+    from tagrec_tpu_torch.ops import edgemap
+
+    out = []
+    for key in model.em_hosts:
+        item = model.edges[key]
+        if isinstance(item, (edgemap.EdgeMap, edgemap.EdgeMapShard)):
+            out += edgemap.leaves(item, key)
+        else:
+            out += [(f"{key}.{j}", t) for j, t in enumerate(item.read)]
+    return out
+
+
+def emm_runs(mesh=None, cases=tuple(EMM_CASES), steps=STEPS):
+    """Each of ``cases``: the forward, the primitives, ``steps`` steps of
+    each phase (losses, the gathered parameters), the graph's placement,
+    the maps' leaf shapes and bytes."""
+    from tagrec_tpu_torch.ops import edgemap
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training.train import Trainer
+
+    out = {}
+    for case in cases:
+        pipe = emm_pipeline(case, mesh)
+        model = pipe.model
+        trainer = Trainer(model, pipe.phases, tcfg(), mesh=mesh,
+                          capture=False,
+                          generator=torch.Generator().manual_seed(1))
+        with torch.no_grad(), sharding.gathered():
+            fwd = [t.numpy().copy() for t in model.forward()]
+        out[case] = {
+            "tier": model.tier, "forward": fwd,
+            "prims": emm_primitives(model, case),
+            "losses": {ph.name: trainer.run_phase(ph, max_steps=steps)
+                       for ph in pipe.phases},
+            "params": full_params(model),
+            "placement": trainer.placement and trainer.placement["graph"],
+            "sharded": [k for k in model.em_hosts if isinstance(
+                model.edges[k], (edgemap.EdgeMapShard,
+                                 edgemap.SlotMapShard))
+                and model.edges[k].mesh is not None],
+            "leaves": {p: tuple(a.shape) for p, a in edges_leaves(model)},
+            "bytes": model.edges.nbytes()}
+    return out
+
+
+def emm_jax_step(args, mesh=None):
+    """One KGAT BPR step from the JAX parameters and batch in ``args`` ->
+    (summed loss terms, the gathered parameters, the gathered gradients
+    the step took)."""
+    import numpy as np
+
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training import checkpoint
+    from tagrec_tpu_torch.training.train import Trainer
+
+    pipe = emm_pipeline("kgat", mesh)
+    with np.load(args["jax_params"]) as f:
+        checkpoint.params_from_jax(pipe.model, checkpoint._tree_of(
+            {k: f[k] for k in f.files}))
+    trainer = Trainer(pipe.model, pipe.phases, tcfg(), mesh=mesh,
+                      capture=False, generator=torch.Generator().manual_seed(1))
+    batch = torch.as_tensor(np.asarray(args["batch"], dtype=np.int64))
+    if mesh is not None:
+        batch = sharding.constrain_batch(batch, mesh)
+    parts = trainer.step(pipe.phases[0], batch)
+    return (float(parts.sum()), full_params(pipe.model),
+            full_grads(pipe.model))
+
+
+def scenario_em_models(args, tmp):
+    """``emm_runs`` of ``args["cases"]`` on the mesh, and ``emm_jax_step``
+    where ``args`` asks for it."""
+    mesh = _mesh(args)
+    out = {"cases": emm_runs(mesh, args["cases"])}
+    if args.get("jax_step"):
+        out["jax_step"] = emm_jax_step(args, mesh)
+    return out
+
+
 SCENARIOS = {"train": scenario_train, "checkpoint": scenario_checkpoint,
              "scaling": scenario_scaling, "propagate": scenario_propagate,
-             "edgemap": scenario_edgemap}
+             "edgemap": scenario_edgemap, "em_models": scenario_em_models}
 
 
 # ------------------------------------------------------------ the parent
