@@ -57,7 +57,8 @@ Phases:
    the bucket's degrees, as the path runs it) and at the two row gathers of
    an SpMM, with its time, bound, plain time and one PyTorch call
    (``embedding_bag``, ``index_select``) as a yardstick, the kernel and the
-   call timed both by CUDA events and by the profiler's device time;
+   call timed both by CUDA events and by their device time (``device_ms``:
+   10 calls captured in a CUDA graph, its replays timed by events);
    serving (export -> artifact -> 3 top-k requests), 5 BPR steps through
    the Trainer with the launches checked per step, one BPR step profiled,
    the peak device memory, one evaluation over every test user and one
@@ -170,6 +171,17 @@ Phases:
    run: forward within RTOL/ATOL, each bucket's ``gather_reduce`` rows
    over the rank's rows bit for bit, losses and parameters within R2's
    bounds, the ranks bit for bit, each rank's map bytes and peak memory;
+   R4 the other families' EdgeMaps (R4a KGAT 10x captured on a one-rank
+   NCCL mesh; R4b ``em4-rank`` processes: DisenHAN, KGAT, TGCN ``ell``,
+   KGAT over a KG, KGAT 10x); R5 TGCN's neighbour tables and dedup
+   buckets (R5a TGCN ``auto`` hetrec captured on a one-rank NCCL mesh,
+   bit for bit; R5b ``tgcn-rank`` processes: TGCN ``auto``,
+   ``dense_xla`` and ``ell`` at hetrec, each rank's table bytes, peak and
+   attention rows, the forward, evaluation, export and losses against
+   one device, the first step's well-conditioned parameters, at most 8
+   entries of the trajectory past its bound, and one float64 step's
+   gradients and parameters within 1e-9 of scale, each gradient within
+   1e-6 of its own scale plus 1e-12 of the largest gradient's);
    TGCN's tables (phase 5) must come from the native sampler;
 10. the ``kernels`` JSON line (launches summed over every path above,
    replays counted; ``gather_reduce`` with its ``edgemap`` record), then
@@ -250,21 +262,14 @@ def time_ms(torch, fn, runs: int):
     return ms[len(ms) // 2]
 
 
-def device_ms(torch, fn, reps: int = 10):
-    """Mean device time of ``fn()``'s CUDA kernels over ``reps`` calls, from
-    torch.profiler's trace after one warm-up call: without the host's launch
-    cost, which CUDA events around a call of under 0.1 ms take in."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if on_device(e))
-    return us / reps / 1e3
+def device_ms(torch, fn, calls: int = 10, runs: int = 5):
+    """Device time of one ``fn()``: ``calls`` calls captured in one CUDA
+    graph, the median of ``runs`` replays (``graph_ms``) over ``calls``,
+    which launches every kernel of the calls without the host's cost of
+    launching them one by one.  torch.profiler's trace is no such source:
+    on the card it missed some launches of the hand-written kernels, down
+    to all of a call's."""
+    return graph_ms(torch, fn, runs, calls) / calls
 
 
 def on_device(event) -> bool:
@@ -535,21 +540,23 @@ def capture_hold(torch, label, model, phases, tcfg):
     done()
 
 
-def graph_ms(torch, fn, runs: int = 15):
-    """Median device time of one replay of ``fn`` captured in a CUDA graph
-    (CUDA events, as ``time_ms``): its launches without the host's cost.
-    The capture's launch counts are taken back."""
+def graph_ms(torch, fn, runs: int = 15, calls: int = 1):
+    """Median device time of one replay of ``calls`` calls of ``fn``
+    captured in one CUDA graph (CUDA events, as ``time_ms``): their
+    launches without the host's cost.  The launch counts of the warm-up
+    call and the capture are taken back."""
     from tagrec_tpu_torch.training.train import COUNTED
 
+    before = [f.launches for f in COUNTED]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    before = [f.launches for f in COUNTED]
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(calls):
+            fn()
     for f, n in zip(COUNTED, before):
         f.launches = n
     ms = time_ms(torch, graph.replay, runs)
@@ -1426,7 +1433,7 @@ def gather_kernel_phase(torch, dg, model):
     gather_reduce over every bucket of the forward structure with the
     bucket's degrees (as ``ell_mm`` runs it), gather_rows over ``inv_perm``
     and ``dense_cols``.  ms, plain_ms and library_ms (CUDA events) and
-    device_ms and library_device_ms (the profiler's device time of the
+    device_ms and library_device_ms (``device_ms``: the device time of the
     kernel and of the library call) are summed over one SpMM's launches;
     bound_ms is that of the SpMM's bytes and operations together, with x
     counted once for gather_reduce (its launches, one per bucket, run back
@@ -1474,9 +1481,9 @@ def gather_kernel_phase(torch, dg, model):
             rec[key] += v
         print(f"{name} {label}: kernel {ms:.4f} ms (median of 15), plain "
               f"{plain_ms:.4f} ms (median of 5), library {lib_ms:.4f} ms "
-              f"(median of 15); device time (profiler, mean of 10): kernel "
-              f"{dev_ms:.4f} ms, library {lib_dev_ms:.4f} ms; {io_bytes} "
-              f"bytes, {ops} operations")
+              f"(median of 15); device time (10 calls a CUDA graph, median "
+              f"of 5 replays): kernel {dev_ms:.4f} ms, library "
+              f"{lib_dev_ms:.4f} ms; {io_bytes} bytes, {ops} operations")
         return dev_ms
 
     shapes = []
@@ -1775,9 +1782,9 @@ def ngcf_gather_phase(torch, dg, pair):
     (bit for bit) on each side's inv_perm and dense_cols, at D = 64 and 32.
     The plain gather_reduce runs in float64 on buckets wider than WIDE_K
     (long float32 sums drift by themselves).  Per side and width, summed
-    over one SpMM: ms (CUDA events, median of 15), device_ms (profiler,
-    mean of 10), plain_ms (median of 3), bound_ms (x once, the real edges'
-    bytes; or the row gathers' bytes)."""
+    over one SpMM: ms (CUDA events, median of 15), device_ms
+    (``device_ms``), plain_ms (median of 3), bound_ms (x once, the real
+    edges' bytes; or the row gathers' bytes)."""
     h0 = pair.fwd
     n = h0.dense_block.shape[0]
     gen = torch.Generator(device="cuda").manual_seed(17)
@@ -3611,11 +3618,12 @@ def row_paths(torch, graphs, mesh):
 
 
 def row_rank_main(argv, paths):
-    """One rank of phase R2, R3b or R4b (``chip_smoke.py row-rank GRAPHS
-    OUT``, ``em-rank`` or ``em4-rank``, under RANK, WORLD_SIZE,
-    MASTER_ADDR and MASTER_PORT): gloo over CUDA tensors, eager, model =
-    2; ``paths`` (``row_paths``, ``em_paths`` or ``em4_paths``) over the
-    pickled graphs, pickled to OUT/rank{r}.pkl."""
+    """One rank of phase R2, R3b, R4b or R5b (``chip_smoke.py row-rank
+    GRAPHS OUT``, ``em-rank``, ``em4-rank`` or ``tgcn-rank``, under RANK,
+    WORLD_SIZE, MASTER_ADDR and MASTER_PORT): gloo over CUDA tensors,
+    eager, model = 2; ``paths`` (``row_paths``, ``em_paths``,
+    ``em4_paths`` or ``tgcn_paths``) over the pickled graphs, pickled to
+    OUT/rank{r}.pkl."""
     import pickle
     from datetime import timedelta
 
@@ -3641,8 +3649,8 @@ def row_rank_main(argv, paths):
 
 def start_row_ranks(graphs_path, out, cmd):
     """The ROW_RANKS ranks of phase R2 (``cmd`` "row-rank"), R3b
-    ("em-rank") or R4b ("em4-rank") on this card, each ``chip_smoke.py
-    cmd`` in its own process."""
+    ("em-rank"), R4b ("em4-rank") or R5b ("tgcn-rank") on this card, each
+    ``chip_smoke.py cmd`` in its own process."""
     import socket
 
     with socket.socket() as s:
@@ -4324,6 +4332,397 @@ def em4_phase(torch, dg, graphs, card):
     return launches
 
 
+# ------ phase R5: TGCN's neighbour tables and dedup buckets over ``model``
+
+TGCN_FAMILY = ("tgcn", {})  # auto: the dedup tier
+R5_WALL_STEPS = 5      # captured steps a timed run, with and without the mesh
+R5_TRANSTAG_STEPS = 2
+# each path of R5b: (label, adj_mode, BPR steps, evaluation and export,
+# the float64 step)
+TGCN_PATHS = (("TGCN auto hetrec", "auto", 3, True, True),
+              ("TGCN dense_xla hetrec", "dense_xla", 2, False, True),
+              ("TGCN ell hetrec", "ell", 2, False, False))
+# a float64 step's gradients and parameters on the scale of the largest
+# gradient: the same sums grouped two ways agree to rounding
+R5_F64_BOUND = 1e-9
+# each float64 gradient within R5_F64_LEAF_BOUND of its own scale plus
+# R5_F64_FLOOR of the largest gradient's (the parallel tests' rule,
+# 5e-4 |g| + 1e-4 max|g|, in float64): a missing sum or a double count
+# moves a leaf by a share of its own scale, which this sees on every leaf
+# above the floor.  The floor is float64's rounding at the largest
+# gradient (2.7e-14 of it at hetrec): the last layer's user and item
+# attention W1 and b have gradients zero in exact arithmetic (1e-19 of
+# the largest in float64: experiments/torch_tgcn_grad_scales.py), so
+# both runs hold rounding residue there, 1.5x apart on their own scale,
+# and no fault can move them
+R5_F64_LEAF_BOUND = 1e-6
+R5_F64_FLOOR = 1e-12
+# the float32 trajectory's entries past its bound: those whose gradient
+# sits near Adam's eps on some step, where a last-bit change moves an entry
+# by a share of lr (1 of 1,226,366 in TGCN auto's runs)
+R5_PAST_MAX = 8
+
+
+def tgcn_one_rank(torch, graph, card):
+    """R5a: TGCN at the preset's width on the hetrec graph (``auto``, the
+    dedup tier) on a one-rank NCCL mesh, its tables one row block,
+    captured: bit for bit (losses and parameters) against the same
+    captured run without a mesh; ms a step with and without the mesh, a
+    replay's busy time and operations, the mesh's own operations, the
+    tables' bytes and the peak memory."""
+    import torch.distributed as dist
+
+    from tagrec_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda:0"))
+    try:
+        mesh = make_mesh(1)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        plain = mesh_run(torch, graph, None, capture=True,
+                         family=TGCN_FAMILY)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        plain_bytes = plain["pipe"].model.table_nbytes()
+        check(plain["pipe"].model.tier == "dedup",
+              f"R5a: TGCN took {plain['pipe'].model.tier}")
+        meshed = mesh_run(torch, graph, mesh, capture=True,
+                          family=TGCN_FAMILY)
+        model = meshed["pipe"].model
+        run = meshed["trainer"].runs["bpr"]
+        placed = meshed["trainer"].placement["graph"]
+        check(run.graph is not None, "R5a: the mesh step was not captured")
+        check(model.tables_mesh is mesh and "model" in placed.values(),
+              "R5a: the tables were not placed on the mesh")
+        diff = held_equal(torch, meshed["params"], plain["params"])
+        same_loss = (meshed["losses"] == plain["losses"]).all()
+        on_model = sum(v == "model" for v in placed.values())
+        print(f"R5a TGCN auto hetrec captured on a one-rank NCCL mesh "
+              f"{mesh}, {HETREC_BPR_STEPS} steps: {on_model} of "
+              f"{len(placed)} table leaves on 'model' (one block), "
+              f"{model.table_nbytes()} bytes ({plain_bytes} without the "
+              f"mesh); losses {'bit for bit' if same_loss else 'DIFFER'} "
+              f"({plain['losses'].sum(axis=1).tolist()}), parameters "
+              f"{'bit for bit' if not diff else 'DIFFER: ' + str(diff)}")
+        check(same_loss and not diff,
+              "R5a: the one-rank mesh's captured run is not bit for bit the "
+              "plain captured run")
+        del model
+        walls = {"plain": [], "mesh": []}
+        for key in ("plain", "mesh", "mesh", "plain"):
+            r = plain if key == "plain" else meshed
+            walls[key].append(phase_wall_ms(torch, r["trainer"],
+                                            r["pipe"].phases[0],
+                                            R5_WALL_STEPS) / R5_WALL_STEPS)
+        plain_run = plain["trainer"].runs["bpr"]
+        run.counter.zero_()
+        plain_run.counter.zero_()
+        m_ops = replay_ops(torch, run.graph)
+        p_ops = replay_ops(torch, plain_run.graph)
+        extra, extra_ms, busy = mesh_ops(m_ops, p_ops)
+        p_busy, p_idle, p_n = replay_profile(torch, plain_run.graph,
+                                             PROFILED_REPLAYS)
+        top = sorted(extra.items(), key=lambda kv: -kv[1][1])[:8]
+        by_op = sorted(p_ops.items(), key=lambda kv: -kv[1][1])[:6]
+        print(f"R5a captured TGCN auto hetrec step ({card}): ms a step over "
+              f"{R5_WALL_STEPS} steps with one sync (plain, mesh, mesh, "
+              f"plain): without the mesh {walls['plain']}, with "
+              f"{walls['mesh']}; per step (host clock, synchronised) "
+              f"without {plain['ms']}, with {meshed['ms']}; a replay "
+              f"(profiler): device busy {busy:.4f} ms with the mesh "
+              f"({sum(n for n, _ in m_ops.values()):.0f} device operations), "
+              f"{sum(ms for _, ms in p_ops.values()):.4f} ms without "
+              f"({sum(n for n, _ in p_ops.values()):.0f}); the mesh's own "
+              f"operations {sum(n for n, _ in extra.values()):.0f} a "
+              f"replay, {extra_ms:.4f} ms ({extra_ms / busy:.4f} of the busy "
+              f"time); largest "
+              f"{[(k[:60], n, round(ms, 4)) for k, (n, ms) in top]}")
+        print(f"R5a TGCN auto hetrec without the mesh, one device ({card}): "
+              f"a replay busy {p_busy:.4f} ms, idle share {p_idle:.4f}, "
+              f"{p_n:.0f} device operations; peak memory above the start "
+              f"{peak / 2**30:.3f} GiB; table bytes {plain_bytes}; largest "
+              f"operations "
+              f"{[(k[:50], n, round(ms, 3)) for k, (n, ms) in by_op]}")
+    finally:
+        dist.destroy_process_group()
+
+
+def gathered_grads(torch, model):
+    """{JAX name: the whole gradient on the host} of ``model``'s
+    parameters (a row-sharded one all-gathered over ``model``)."""
+    import torch.distributed as dist
+
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training import checkpoint
+
+    gs, params = sharding.gathers(model), checkpoint.named_params(model)
+    out = {}
+    for n in checkpoint.jax_leaf_order(model):
+        g = params[n].grad
+        if n in gs:
+            parts = [torch.empty_like(g)
+                     for _ in range(gs[n].mesh.shape["model"])]
+            dist.all_gather(parts, g, group=gs[n].mesh.group("model"))
+            g = torch.cat(parts)
+        out[n] = g.cpu().numpy().copy()
+    return out
+
+
+def tgcn_f64_step(torch, graph, mode, mesh):
+    """TGCN on ``mode``'s tier in float64 (``mesh`` None: one device): one
+    BPR step from the initial parameters on the phase's first batch ->
+    (its gradients, the parameters after it), gathered, on the host."""
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training import checkpoint
+    from tagrec_tpu_torch.training.train import Trainer
+
+    tcfg = TrainConfig()
+    pipe = build_pipeline(graph, model_preset("tgcn", adj_mode=mode), tcfg,
+                          device="cuda", mesh=mesh,
+                          generator=torch.Generator().manual_seed(0))
+    pipe.model.to(torch.float64)
+    trainer = Trainer(pipe.model, pipe.phases, tcfg, mesh=mesh,
+                      capture=False,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    bpr = pipe.phases[0]
+    batch = bpr.make_batch(trainer.generator, 0,
+                           bpr.epoch_reset(trainer.generator, bpr.data),
+                           bpr.data)
+    if mesh is not None:
+        batch = sharding.constrain_batch(batch, mesh)
+    trainer.step(bpr, batch)
+    grads = gathered_grads(torch, pipe.model)
+    with torch.no_grad(), sharding.gathered():
+        params = {n: sharding.value(pipe.model, n).detach().cpu().numpy()
+                  for n in checkpoint.jax_leaf_order(pipe.model)}
+    del trainer, pipe
+    gc_cuda(torch)
+    return grads, params
+
+
+def tgcn_path(torch, graphs, path, mesh):
+    """One path of phase R5b (an entry of TGCN_PATHS) through
+    ``build_pipeline(mesh=)`` and an eager ``Trainer(mesh=)`` on the
+    hetrec graph (``mesh`` None: the one-device run): the tables' (and
+    maps') bytes on the card and the rows each relation fed the
+    attention; from the initial tables the forward, and
+    with ``answers`` an evaluation and the exported tables; ``steps`` BPR
+    steps, each timed (the first step's gradients and parameters kept),
+    then R5_TRANSTAG_STEPS TransTag steps; with ``f64`` one BPR step in
+    float64 (``tgcn_f64_step``).  -> the results on the host, with the
+    peak memory above the path's start and the seconds."""
+    from tagrec_tpu_torch import serving
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training import checkpoint
+    from tagrec_tpu_torch.training.train import Trainer
+
+    _, mode, steps, answers, f64 = path
+    graph = graphs["hetrec"]
+    secs, t0 = {}, time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tcfg = TrainConfig()
+    pipe = build_pipeline(graph, model_preset("tgcn", adj_mode=mode), tcfg,
+                          device="cuda", mesh=mesh,
+                          generator=torch.Generator().manual_seed(0))
+    model = pipe.model
+    out = {"tier": model.tier, "bytes": model.table_nbytes(),
+           "map_bytes": model.edges.nbytes() if model.ell else 0,
+           "sharded": mesh is not None and any(
+               b is not None for b in model.blocks.values())}
+    secs["build"] = time.perf_counter() - t0
+    def params():  # copies: Adam updates the parameters in place
+        with torch.no_grad(), sharding.gathered():
+            return {n: sharding.value(model, n).detach().cpu().numpy().copy()
+                    for n in checkpoint.jax_leaf_order(model)}
+
+    with torch.no_grad(), sharding.gathered():
+        out["forward"] = [t.cpu().numpy() for t in model.forward()]
+    out["rows"] = dict(model.attention_rows)
+    if answers:
+        t0 = time.perf_counter()
+        out["eval"] = pipe.evaluator.run(model)
+        out["export"] = serving.export_tables(model, n_item=graph.n_item)
+        secs["eval_export"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer = Trainer(model, pipe.phases, tcfg, mesh=mesh, capture=False,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    times, last = [], [time.perf_counter()]
+
+    def on_step(i, parts):
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - last[0]) * 1e3)
+        if i == 0:  # the step from the initial parameters
+            out["first"] = (gathered_grads(torch, model), params())
+        last[0] = time.perf_counter()
+
+    out["losses"] = trainer.run_phase(pipe.phases[0], max_steps=steps,
+                                      on_step=on_step)
+    out["step_ms"] = times
+    out["transtag"] = trainer.run_phase(pipe.phases[1],
+                                        max_steps=R5_TRANSTAG_STEPS)
+    secs["steps"] = time.perf_counter() - t0
+    out["params"] = params()
+    torch.cuda.synchronize()
+    out["peak"] = torch.cuda.max_memory_allocated() - base
+    del trainer, pipe, model
+    gc_cuda(torch)
+    if f64:
+        t0 = time.perf_counter()
+        out["f64"] = tgcn_f64_step(torch, graph, mode, mesh)
+        secs["f64"] = time.perf_counter() - t0
+    out["seconds"] = secs
+    return out
+
+
+def tgcn_paths(torch, graphs, mesh):
+    """Every path of TGCN_PATHS -> {label: ``tgcn_path``'s results}."""
+    return {path[0]: tgcn_path(torch, graphs, path, mesh)
+            for path in TGCN_PATHS}
+
+
+def tgcn_hold(torch, label, got, want, ranks, steps, card):
+    """A rank's R5b path against the one-device run; prints and checks:
+    each rank's table bytes and attention rows below one device's; the
+    forward within RTOL/ATOL (and whether bit for bit); the evaluation
+    within JAX's mesh tolerances and the exported tables within
+    RTOL/ATOL; the BPR and TransTag losses within MESH_LOSS_ATOL; the
+    ranks bit for bit; the first step's parameters within 2e-6 wherever
+    Adam's first step is well conditioned (one device's |g| >= 100 eps,
+    the parallel tests' rule); at most R5_PAST_MAX entries of the
+    parameters after every step past a hundredth of lr a step (TGCN's
+    float32 gradients reach Adam's eps, where a last-bit change moves an
+    entry by a share of lr); the float64 step's gradients and parameters
+    within R5_F64_BOUND of scale, and each gradient within
+    R5_F64_LEAF_BOUND of its own scale plus R5_F64_FLOOR of the largest.
+    Printed: each gradient's float32 error on its own scale."""
+    import numpy as np
+
+    fwd_ok = all(np.allclose(a, b, rtol=RTOL, atol=ATOL)
+                 for a, b in zip(got["forward"], want["forward"]))
+    fwd_exact = all(np.array_equal(a, b)
+                    for a, b in zip(got["forward"], want["forward"]))
+    fwd_err = max(float(np.abs(a - b).max())
+                  for a, b in zip(got["forward"], want["forward"]))
+    loss_err = max(float(np.abs(got[k] - want[k]).max())
+                   for k in ("losses", "transtag"))
+    (g1, p1), (w1g, w1p) = got["first"], want["first"]
+    first_err = max(float(np.abs(p1[n] - p)[np.abs(w1g[n]) >= 1e-6].max(
+        initial=0.0)) for n, p in w1p.items())
+    conditioned = sum(int((np.abs(g) >= 1e-6).sum()) for g in w1g.values())
+    g32 = sorted(((n, grad_errors(torch.from_numpy(g1[n]),
+                                  torch.from_numpy(g))[0])
+                  for n, g in w1g.items()), key=lambda kv: -kv[1])[:3]
+    # a hundredth of TrainConfig's lr a step, BPR and TransTag
+    bound = 0.01 * 0.01 * (steps + R5_TRANSTAG_STEPS)
+    param_err, worst = max(
+        (float(np.abs(got["params"][n] - want["params"][n]).max()), n)
+        for n in want["params"])
+    past = sum(int((np.abs(got["params"][n] - want["params"][n])
+                    > bound).sum()) for n in want["params"])
+    total = sum(a.size for a in want["params"].values())
+    agree = all(np.array_equal(r["losses"], got["losses"]) and all(
+        np.array_equal(r["params"][n], got["params"][n])
+        for n in got["params"]) for r in ranks)
+    fewer = all(sum(r["rows"].values()) < sum(want["rows"].values())
+                for r in ranks)
+    maps = (f"; map bytes per rank {[r['map_bytes'] for r in ranks]} "
+            f"against {want['map_bytes']}" if want["map_bytes"] else "")
+    print(f"R5b {label} (model = {ROW_RANKS}, gloo over CUDA tensors, "
+          f"eager; {card}): tier {got['tier']}; table bytes per rank "
+          f"{[r['bytes'] for r in ranks]} against {want['bytes']} on one "
+          f"device ({[round(r['bytes'] / want['bytes'], 4) for r in ranks]}"
+          f"x){maps}; peak memory above the path's start per rank "
+          f"{[round(r['peak'] / 2**30, 3) for r in ranks]} GiB against "
+          f"{want['peak'] / 2**30:.3f}; attention rows a forward per rank "
+          f"{[sum(r['rows'].values()) for r in ranks]} against "
+          f"{sum(want['rows'].values())}; forward max abs err {fwd_err:.3e} "
+          f"({'bit for bit' if fwd_exact else f'rtol {RTOL}, atol {ATOL}'}) "
+          f"{'ok' if fwd_ok else 'FAIL'}; |losses - one device| "
+          f"{loss_err:.3e} (bound {MESH_LOSS_ATOL}); ranks "
+          f"{'bit for bit' if agree else 'DIFFER'}; the first step's "
+          f"parameters where |g| >= 1e-6 ({conditioned} entries) max |err| "
+          f"{first_err:.3e} (bound 2e-6), its gradients' largest max |err| "
+          f"/ max |g| {[(n, f'{e:.2e}') for n, e in g32]}; after every step "
+          f"|parameters - one device| {param_err:.3e} ({worst}), {past} of "
+          f"{total} entries past {bound:.1e} (at most {R5_PAST_MAX}); ms a BPR step (host clock, "
+          f"synchronised) rank 0 {[round(t, 3) for t in got['step_ms']]}, "
+          f"one device {[round(t, 3) for t in want['step_ms']]}; seconds "
+          f"per rank {[rounded(r['seconds']) for r in ranks]}, one device "
+          f"{rounded(want['seconds'])}")
+    check(all(r["sharded"] and r["tier"] == want["tier"]
+              and r["bytes"] < want["bytes"] for r in ranks)
+          and not want["sharded"] and fewer,
+          f"R5b {label}: the ranks' tables are not row shards")
+    check(fwd_ok and loss_err <= MESH_LOSS_ATOL and agree
+          and first_err <= 2e-6 and past <= R5_PAST_MAX,
+          f"R5b {label}: a rank is outside its hold against one device")
+    if "eval" in want:
+        check_metrics(got["eval"], want["eval"], False, f"R5b {label}")
+        exp_err = max(float(np.abs(a - b).max())
+                      for a, b in zip(got["export"], want["export"]))
+        print(f"R5b {label}, the initial parameters: evaluation "
+              f"{got['eval']} (one device {want['eval']}); exported tables "
+              f"max abs err {exp_err:.3e}")
+        check(all(np.allclose(a, b, rtol=RTOL, atol=ATOL)
+                  for a, b in zip(got["export"], want["export"])),
+              f"R5b {label}: the exported tables differ")
+    if "f64" in want:
+        (gg, gp), (wg, wp) = got["f64"], want["f64"]
+        scale = max(float(np.abs(g).max()) for g in wg.values())
+        g_err = max(float(np.abs(gg[n] - g).max()) for n, g in wg.items())
+        p_err = max(float(np.abs(gp[n] - p).max()) for n, p in wp.items())
+
+        floor = R5_F64_FLOOR * scale
+        # each leaf: (max |err| over its bound, max |err| over its max |g|)
+        leaves = sorted(((float(np.abs(gg[n] - g).max())
+                          / (R5_F64_LEAF_BOUND * float(np.abs(g).max())
+                             + floor),
+                          float(np.abs(gg[n] - g).max())
+                          / max(float(np.abs(g).max()), 1e-300), n)
+                         for n, g in wg.items()), reverse=True)
+        residue = [n for n, g in wg.items() if np.abs(g).max() < floor]
+        print(f"R5b {label} float64, one BPR step from the initial "
+              f"parameters: gradients max |err| {g_err:.3e} on the largest "
+              f"gradient {scale:.3e} ({g_err / scale:.3e}, limit "
+              f"{R5_F64_BOUND}); each gradient against "
+              f"{R5_F64_LEAF_BOUND} of its own max |g| + {R5_F64_FLOOR} of "
+              f"the largest, the largest shares of the bound (and of the "
+              f"leaf's own max |g|) "
+              f"{[(n, f'{b:.2e}', f'{e:.2e}') for b, e, n in leaves[:3]]}; "
+              f"gradients under the floor (rounding residue) {residue}; "
+              f"parameters after it max |err| {p_err:.3e} (limit "
+              f"{R5_F64_BOUND})")
+        check(g_err <= R5_F64_BOUND * scale and p_err <= R5_F64_BOUND
+              and leaves[0][0] <= 1.0,
+              f"R5b {label}: the float64 step is outside its hold")
+
+
+def tgcn_rows_phase(torch, graph, card):
+    """Phase R5: TGCN's neighbour tables and dedup buckets row-sharded
+    over ``model`` (R5a's captured one-rank mesh, R5b's ranks).  TGCN
+    launches no kernel of the port."""
+    t0 = time.perf_counter()
+    done = phase_timer("R5a one-rank NCCL mesh, TGCN auto hetrec")
+    tgcn_one_rank(torch, graph, card)
+    done()
+    gc_cuda(torch)
+    done = phase_timer("R5b model = 2 on one card, TGCN auto, dense_xla, ell")
+    want, ranks = two_rank_results(torch, {"hetrec": graph}, "tgcn-rank",
+                                   tgcn_paths, "R5b")
+    for label, _, steps, _, _ in TGCN_PATHS:
+        tgcn_hold(torch, label, ranks[0][label], want[label],
+                  [r[label] for r in ranks], steps, card)
+    done()
+    gc_cuda(torch)
+    print(f"phase R5: {time.perf_counter() - t0:.1f} s (host clock)")
+
+
 # ------------------------------------------ phase E: the EdgeMap tier
 
 EM_F, EM_DK = 4, 16  # DGCF's factors and factor width
@@ -4928,6 +5327,7 @@ def run(torch):
     print(f"gather_reduce launches over phase R4's main paths (R4a's "
           f"captured mesh steps, R4b's ranks): {em4_rows}; over every path: "
           f"{launches['gather_reduce']}")
+    tgcn_rows_phase(torch, graph, card)
 
     print(f"capture phase, every path ({card}): {json.dumps(CAPTURED)}")
     slower = [f"{r['path']} {r['phase']}" for r in CAPTURED
@@ -4980,6 +5380,8 @@ def main() -> int:
         return row_rank_main(sys.argv[2:], em_paths)
     if sys.argv[1:2] == ["em4-rank"]:  # a rank of phase R4b, started by it
         return row_rank_main(sys.argv[2:], em4_paths)
+    if sys.argv[1:2] == ["tgcn-rank"]:  # a rank of phase R5b, started by it
+        return row_rank_main(sys.argv[2:], tgcn_paths)
     try:
         import torch
     except ImportError:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Phase R3 or R4 of ``chip_smoke.py`` alone: the EdgeMap tier row-sharded
-over ``model`` on one NVIDIA GPU.
+"""Phase R3, R4 or R5 of ``chip_smoke.py`` alone: the EdgeMap tier, or
+TGCN's tables, row-sharded over ``model`` on one NVIDIA GPU.
 
 Builds the gather kernels and the hetrec and 10x graphs of
 ``chip_smoke.py``, prints a host report, then runs the phase with every
@@ -9,6 +9,7 @@ hold of the full smoke run.  A quicker loop than the whole
 
     python3 experiments/torch_edgemap_partition.py R3
     python3 experiments/torch_edgemap_partition.py R4
+    python3 experiments/torch_edgemap_partition.py R5
 
 R3 (DGCF's and DisenGCN's maps): the host's build of DGCF 10x's EdgeMap
 and of one rank's cut and exchange plan at ``model`` = 2
@@ -27,6 +28,15 @@ one-rank NCCL mesh against the unmeshed captured run) and R4b (two
 ``chip_smoke.py em4-rank`` processes on gloo: DisenHAN, KGAT and TGCN
 hetrec ``ell``, KGAT over phase K's KG with parallel triples, KGAT 10x,
 against the one-device run).
+
+R5 (TGCN's neighbour tables and dedup buckets): for each R5b path the
+share of its table slots and of its attention rows in leaves JAX's rule
+row-shards over ``model`` = 2, and the time of the tables' host build
+and of one rank's cut; then ``chip_smoke.tgcn_rows_phase``: R5a (TGCN
+``auto`` hetrec captured on a one-rank NCCL mesh against the unmeshed
+captured run) and R5b (two ``chip_smoke.py tgcn-rank`` processes on
+gloo: TGCN ``auto``, ``dense_xla`` and ``ell`` at hetrec, against the
+one-device run).  R5 needs no kernel and no 10x graph.
 
 Needs one NVIDIA GPU; prints the card's name and power limit first and
 last.  Exits non-zero when a hold fails.
@@ -112,7 +122,49 @@ def r4_report(graphs) -> None:
         del model
 
 
-PHASES = {"R3": (r3_report, cs.em_phase), "R4": (r4_report, cs.em4_phase)}
+def r5_report(graphs) -> None:
+    """Per R5b path: the tables' host build and rank 0's cut at
+    ``model`` = 2, timed on the host clock; the share of the table bytes
+    and of the attention's rows a forward rank 0 holds."""
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.models.tgcn import TGCN
+    from tagrec_tpu_torch.parallel.mesh import make_mesh
+
+    for label, mode, *_ in cs.TGCN_PATHS:
+        t0 = time.perf_counter()
+        model = TGCN(graphs["hetrec"], model_preset("tgcn", adj_mode=mode),
+                     device="cpu", generator=torch.Generator().manual_seed(0))
+        built = time.perf_counter() - t0
+        mesh = make_mesh(2, 1, rank=0)
+        t0 = time.perf_counter()
+        cut = model.table_leaves(mesh)
+        cut_s = time.perf_counter() - t0
+        whole = dict(model.table_leaves())
+        held = sum(a.nbytes for _, a in cut)
+        total = sum(a.nbytes for a in whole.values())
+        blocks = model.leaf_blocks(mesh)
+        rows = {name: sum(whole[p].shape[0] if blocks[p] is None
+                          else blocks[p][1] - blocks[p][0]
+                          for p in model.piece_paths(name))
+                for name in model.REL_ORDER}
+        want = {name: sum(whole[p].shape[0] for p in model.piece_paths(name))
+                for name in model.REL_ORDER}
+        print(f"{label}: tables built on the host in {built:.1f} s, rank "
+              f"0's cut at model = 2 in {cut_s:.2f} s (host clock); rank 0 "
+              f"holds {held} of {total} table bytes on the host "
+              f"({held / total:.4f}); attention rows a layer on rank 0 "
+              f"{rows} of {want} "
+              f"({sum(rows.values()) / sum(want.values()):.4f})")
+        del model
+
+
+def r5_run(torch, dg, graphs, card):
+    cs.tgcn_rows_phase(torch, graphs["hetrec"], card)
+    return 0
+
+
+PHASES = {"R3": (r3_report, cs.em_phase), "R4": (r4_report, cs.em4_phase),
+          "R5": (r5_report, r5_run)}
 
 
 def main() -> int:
@@ -137,9 +189,10 @@ def main() -> int:
     t0 = time.perf_counter()
     graphs = {"hetrec": synthetic_graph_large(cs.N_USER, cs.N_ITEM, cs.N_TAG,
                                               cs.N_EDGES, cs.TAG_PER_INTER,
-                                              seed=0),
-              "10x": synthetic_graph_large(*cs.LGCN_10X, cs.TAG_PER_INTER,
-                                           seed=0)}
+                                              seed=0)}
+    if phase != "R5":
+        graphs["10x"] = synthetic_graph_large(*cs.LGCN_10X, cs.TAG_PER_INTER,
+                                              seed=0)
     print(f"graphs built in {time.perf_counter() - t0:.1f} s")
     report(graphs)
     try:

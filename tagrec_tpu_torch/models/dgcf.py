@@ -40,7 +40,7 @@ from tagrec_tpu_torch.ops import dense_adj, edgemap, flash_routing, losses
 from tagrec_tpu_torch.ops.propagate import l2_normalize
 
 
-class DGCF(nn.Module):
+class DGCF(base.EdgeMapGraph, nn.Module):
     """``embed`` holds the user, item[, tag] tables, drawn from
     ``generator`` (a CPU ``torch.Generator``).  On the dense tier the edge
     mask of the joint graph is a bool buffer [N, N] on ``device``, and

@@ -35,7 +35,7 @@ from tagrec_tpu_torch.ops import dense_adj, edgemap, flash_routing
 from tagrec_tpu_torch.ops.propagate import l2_normalize, message_dropout
 
 
-class DisenGCN(nn.Module):
+class DisenGCN(base.EdgeMapGraph, nn.Module):
     """Parameters ``embed.{0,1,2}`` (user, item, tag: the tag table is
     always there, as in the reference) and ``layers.{i}.W``,
     ``layers.{i}.b``, drawn in that order from ``generator`` (a CPU

@@ -49,7 +49,7 @@ INCIDENT = ((0, 2), (1, 4), (3, 5))
 ROUNDS = 2
 
 
-class DisenHAN(nn.Module):
+class DisenHAN(base.EdgeMapGraph, nn.Module):
     """Parameters ``embed.{0,1,2}`` (user, item, tag) and per layer
     ``layers.{i}.{Wtk,at,W,q_rela}``, drawn in that order from
     ``generator`` (a CPU ``torch.Generator``), the tree of JAX's params;

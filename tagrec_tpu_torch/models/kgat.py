@@ -67,7 +67,7 @@ def _pad_len(n: int) -> int:
     return -(-n // flash_attention.TILE_I) * flash_attention.TILE_I
 
 
-class KGAT(nn.Module):
+class KGAT(base.EdgeMapGraph, nn.Module):
     """Parameters ``user``, ``entity``, ``relation``, ``transE`` and
     ``mat.{W1,b1,W2,b2}_k``, drawn in that order from ``generator`` (a CPU
     ``torch.Generator``); under ``bi_inter`` the three row types' flash masks

@@ -30,7 +30,7 @@ from tagrec_tpu_torch.ops.propagate import (adj_mm, edge_dropout,
                                             l2_normalize, message_dropout)
 
 
-class LightGCN(nn.Module):
+class LightGCN(base.AdjPairGraph, nn.Module):
     """``embed`` holds the user, item[, tag] tables, drawn from
     ``generator`` (a CPU ``torch.Generator``); ``adj`` is the adjacency
     pair (``ops.ell.AdjPair``) on ``device``, built from ``adj_host``;

@@ -33,7 +33,7 @@ from tagrec_tpu_torch.ops import ell as ell_lib
 from tagrec_tpu_torch.ops.propagate import adj_mm, l2_normalize, message_dropout
 
 
-class NGCF(nn.Module):
+class NGCF(base.AdjPairGraph, nn.Module):
     """Parameters ``embed.{0,1[,2]}`` (user, item[, tag]) and
     ``mat.{W1,b1,W2,b2}_k``, drawn in that order from ``generator`` (a CPU
     ``torch.Generator``), the tree of JAX's params; ``adj`` is the

@@ -34,14 +34,28 @@ through ``edge_score``, so under a mesh, where each map holds one
 ``model`` rank's rows (``ops.edgemap.shard_edge_map``), no weight's
 gradient sums over one rank's slots alone; the scores and weighted sums
 run over fixed row blocks, so a rank's rows get one device's bits; the
-rows come back whole on every rank (``rows_ordered``).  The neighbour
-tables themselves stay whole (ROADMAP.md queue A).  Per-layer
+rows come back whole on every rank (``rows_ordered``).  Per-layer
 resampling draws new tables every step and keeps the plain takes.
+
+Under a mesh each rank holds, of every table leaf JAX's ``gdev_sharding``
+row-shards (the [N, k] tables, each dedup bucket's rows, ids, wids and
+mult), its block of rows; each relation's ``inv`` and the CSR lists stay
+whole (``place_tables``).  With more than one ``model`` rank the
+``auto`` and ``dense_xla`` attention runs on the rank's rows of each cut
+bucket or table and whole on each whole bucket, and one all-gather over
+``model`` makes the aggregate whole on every rank (``_atten1_split``):
+what follows it is one device's code.  Backward, each rank takes its own
+rows' cotangent and a whole bucket's on ``model`` rank 0 only, so the
+gradients of the attention's inputs (the centre rows, both tables, W1,
+W2, b, v) are that rank's part; one sum over ``model`` a relation
+(``ops.propagate.model_sum``) makes them whole on every rank before the
+parameters' gather takes its slice.  With no mesh or one ``model`` rank
+the code runs as on one device.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,8 +66,12 @@ from tagrec_tpu_torch.config import ModelConfig
 from tagrec_tpu_torch.data.graph import COO, HeteroGraph
 from tagrec_tpu_torch.device import resolve
 from tagrec_tpu_torch.models import base
-from tagrec_tpu_torch.ops import edgemap, losses
-from tagrec_tpu_torch.ops.propagate import l2_normalize, message_dropout
+from tagrec_tpu_torch.ops import edgemap
+from tagrec_tpu_torch.ops import ell as ell_lib
+from tagrec_tpu_torch.ops import losses
+from tagrec_tpu_torch.ops.propagate import (gathered_rows, l2_normalize,
+                                            leads, message_dropout,
+                                            model_sum)
 
 DEDUP_WIDTHS = (4, 8, 12, 16, 20, 25)
 # neighbour-table order (data/tgcn_load.py:29): ui, ut, iu, it, tu, ti
@@ -172,26 +190,88 @@ def _atten1(ap, ev, ej, ew, v_j, v_w):
     return torch.sum(a.to(dt) * e_nj, dim=1).to(_wide(dt))
 
 
+def _dedup_weights(ap, d: int, dt):
+    """(W1's centre rows, W1's weight rows, W2, b, v^T) in ``dt``."""
+    return (ap["W1"][:d].to(dt), ap["W1"][d:].to(dt), ap["W2"].to(dt),
+            ap["b"].to(dt), ap["v"].T.to(dt))
+
+
+def _dedup_bucket(w, ev_rows, ej, ew, ids, wids, mult):
+    """One dedup bucket's attention: each pair's exp weighted by its
+    multiplicity, -inf on the pad slots -> [Nb, d] in ``ej``'s dtype."""
+    w1v, w1w, w2, b, v_t = w
+    e_nj = ej[ids]                                       # [Nb, W, d]
+    av = (ev_rows @ w1v)[:, None, :] + ew[wids] @ w1w + e_nj @ w2 + b
+    x = (torch.relu(av) @ v_t)[..., 0].to(mult.dtype)   # [Nb, W]
+    xm = torch.where(mult > 0, x, -torch.inf)
+    e = mult * torch.exp(xm - torch.amax(xm, dim=-1, keepdim=True))
+    a = e / torch.sum(e, dim=-1, keepdim=True)
+    return torch.einsum("nw,nwd->nd", a.to(ej.dtype), e_nj)
+
+
 def _atten1_dedup(ap, ev, ej, ew, buckets, inv):
-    """Attention1 over the degree buckets of distinct pairs: each pair's
-    exp weighted by its multiplicity, -inf on the pad slots, the rows taken
-    back to node order by ``inv``."""
+    """Attention1 over the degree buckets of distinct pairs
+    (``_dedup_bucket``), the rows taken back to node order by ``inv``."""
     dt = ej.dtype
-    d = ev.shape[1]
+    w = _dedup_weights(ap, ev.shape[1], dt)
     ev = ev.to(dt)
-    w1v, w1w = ap["W1"][:d].to(dt), ap["W1"][d:].to(dt)
-    w2, b = ap["W2"].to(dt), ap["b"].to(dt)
-    v_t = ap["v"].T.to(dt)
-    outs = []
-    for rows, ids, wids, mult in buckets:
-        e_nj = ej[ids]                                   # [Nb, W, d]
-        av = (ev[rows] @ w1v)[:, None, :] + ew[wids] @ w1w + e_nj @ w2 + b
-        x = (torch.relu(av) @ v_t)[..., 0].to(mult.dtype)   # [Nb, W]
-        xm = torch.where(mult > 0, x, -torch.inf)
-        e = mult * torch.exp(xm - torch.amax(xm, dim=-1, keepdim=True))
-        a = e / torch.sum(e, dim=-1, keepdim=True)
-        outs.append(torch.einsum("nw,nwd->nd", a.to(dt), e_nj))
+    outs = [_dedup_bucket(w, ev[rows], ej, ew, ids, wids, mult)
+            for rows, ids, wids, mult in buckets]
     return torch.cat(outs)[inv].to(_wide(dt))
+
+
+class _RankRows(torch.autograd.Function):
+    """Per-piece attention rows on a ``model`` rank -> the whole
+    row-ordered [N, d] on every rank (``propagate.gathered_rows``: one
+    all-gather of the row-sharded pieces' rows).  Backward: each piece's
+    rows of the cotangent, a whole piece's on the leading rank only
+    (``propagate.leads``; none elsewhere), so that a sum over ``model``
+    counts every row once."""
+
+    @staticmethod
+    def forward(ctx, plan, *outs):
+        mesh, blocks, inv, rows = plan
+        ctx.plan = plan
+        parts = [lambda out, o=o: o if out is None else out.copy_(o)
+                 for o in outs]
+        return gathered_rows(mesh, blocks, inv, parts, outs[0],
+                             tail=outs[0].shape[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, blocks, inv, rows = ctx.plan
+        lead = leads(mesh)
+        return (None, *(None if blk is None and not lead
+                        else ell_lib.cut_rows(g, blk) if r is None
+                        else g.index_select(0, r)
+                        for r, blk in zip(rows, blocks)))
+
+
+def _atten1_split(ap, ev, ej, ew, pieces, blocks, inv, mesh):
+    """Attention1 on a ``model`` rank's rows: ``_atten1`` (``inv`` None:
+    one piece, the (v_j, v_w) table) or ``_atten1_dedup`` (``pieces`` the
+    buckets) over the rows the rank holds of each piece that row-shards
+    (``blocks``), a whole piece whole; one all-gather makes the result
+    whole on every rank (``_RankRows``).  Each rank's gradients of the
+    inputs (the centre rows, both tables, W1, W2, b, v) are its rows'
+    part, so the inputs pass through ``model_sum``: one all-reduce over
+    ``model`` a relation makes them whole before anything reads them."""
+    ev, ej, ew, *ws = model_sum(mesh, ev, ej, ew,
+                                *(ap[k] for k in ("W1", "W2", "b", "v")))
+    ap = dict(zip(("W1", "W2", "b", "v"), ws))
+    dt = ej.dtype
+    if inv is None:
+        (v_j, v_w), = pieces
+        outs = [_atten1(ap, ell_lib.cut_rows(ev, blocks[0]), ej, ew, v_j,
+                        v_w)]
+        rows = [None]
+    else:
+        w = _dedup_weights(ap, ev.shape[1], dt)
+        evd = ev.to(dt)
+        outs = [_dedup_bucket(w, evd[r], ej, ew, ids, wids, mult).to(
+                    _wide(dt)) for r, ids, wids, mult in pieces]
+        rows = [p[0] for p in pieces]
+    return _RankRows.apply((mesh, blocks, inv, rows), *outs)
 
 
 def _atten1_em(ap, ev, ej0, ew0, em_j, em_w):
@@ -252,7 +332,7 @@ def _fusion(lp, x):
     return torch.relu(x @ lp.Wf + lp.bf)
 
 
-class TGCN(nn.Module):
+class TGCN(base.EdgeMapGraph, nn.Module):
     """Parameters ``embed.0..2`` (user, item, tag), ``weight`` and per layer
     ``layers.L.atten1.{user,item,tag}.{W1,W2,b,v}``, ``layers.L.{U,q,p,bit,
     Wf,bf}`` and ``layers.L.vec.0..2``: JAX's tree as dotted names, drawn
@@ -266,8 +346,9 @@ class TGCN(nn.Module):
     ``ell`` ``em_hosts`` keeps each relation's EdgeMapHosts
     ``em.<name>.0`` (neighbours) and ``em.<name>.1`` (weight ids), JAX's
     leaf prefixes, and ``edges`` holds them on ``device``, or with
-    ``mesh`` the rank's rows of them (``parallel.sharding.shard_graph``;
-    the neighbour tables stay whole)."""
+    ``mesh`` the rank's rows of them; with ``mesh`` the tables too hold
+    the rank's rows (``place_tables``; both by ``place_graph``,
+    ``parallel.sharding.shard_graph``)."""
 
     REL_ORDER = REL_ORDER
 
@@ -326,25 +407,45 @@ class TGCN(nn.Module):
             self.sampler = runtime.sampler()
         self.tables_host = tables
 
-        def buf(name, arr):
-            self.register_buffer(name, torch.as_tensor(arr).to(dev))
-
-        for name, (idx, w) in zip(REL_ORDER, tables):
-            buf(f"{name}_idx", idx.astype(np.int64))
-            buf(f"{name}_w", w.astype(np.int64))
         self.dedup = cfg.adj_mode == "auto" and not resample_each_layer
+        self.ell = cfg.adj_mode == "ell" and not resample_each_layer
+        # (JAX's leaf path, buffer name, whole host array) of every table,
+        # in JAX's leaf order (its dicts' keys sorted): the CSR lists, the
+        # dedup buckets, then the [N, k] tables (the maps of ``ell`` are
+        # ``em_hosts``)
+        self._leaves = []
+        if resample_each_layer:
+            # the full CSR lists (cols +1, weight ids), one zero slot past
+            # the end so a degree-0 last row indexes in range
+            csr = {}
+            for name, a in zip(REL_ORDER, adjs):
+                starts, cols, vals = _csr(a)
+                csr[name] = (starts, np.append(cols + 1, 0),
+                             np.append(vals.astype(np.int64), 0))
+            self._leaves += [(f"csr.{name}.{j}", f"{name}_{part}", arr)
+                             for name in sorted(REL_ORDER)
+                             for j, (part, arr) in enumerate(zip(
+                                 ("starts", "cols", "cw"), csr[name]))]
         self._n_buckets = {}
         if self.dedup:
-            for name, (idx, w) in zip(REL_ORDER, tables):
-                buckets, inv = _build_dedup_buckets(idx, w)
+            dedup = {name: _build_dedup_buckets(idx, w)
+                     for name, (idx, w) in zip(REL_ORDER, tables)}
+            for name in sorted(REL_ORDER):
+                buckets, inv = dedup[name]
                 self._n_buckets[name] = len(buckets)
-                for b, (rows, ids, wids, mult) in enumerate(buckets):
-                    buf(f"{name}_b{b}_rows", rows.astype(np.int64))
-                    buf(f"{name}_b{b}_ids", ids.astype(np.int64))
-                    buf(f"{name}_b{b}_wids", wids.astype(np.int64))
-                    buf(f"{name}_b{b}_mult", mult)
-                buf(f"{name}_inv", inv.astype(np.int64))
-        self.ell = cfg.adj_mode == "ell" and not resample_each_layer
+                self._leaves += [
+                    (f"dedup.{name}.0.{b}.{j}", f"{name}_b{b}_{part}", arr)
+                    for b, bucket in enumerate(buckets)
+                    for j, (part, arr) in enumerate(zip(
+                        ("rows", "ids", "wids", "mult"), bucket))]
+                self._leaves.append((f"dedup.{name}.1", f"{name}_inv", inv))
+        tabs = dict(zip(REL_ORDER, tables))
+        self._leaves += [(f"{name}.{j}", f"{name}_{part}", tabs[name][j])
+                         for name in sorted(REL_ORDER)
+                         for j, part in enumerate(("idx", "w"))]
+        self.tables_mesh = None
+        self.blocks = {}
+        self.place_tables(mesh, dev)
         self.em_hosts = {}
         if self.ell:
             # each table is a fixed edge set over the shifted column space,
@@ -363,21 +464,100 @@ class TGCN(nn.Module):
                             n_cols, pad_multiple=1))
             self.edges = edgemap.EdgeMapBuffers(
                 edgemap.maps_to_device(self.em_hosts, dev, mesh))
-        if resample_each_layer:
-            # the full CSR lists (cols +1, weight ids), one zero slot past
-            # the end so a degree-0 last row indexes in range
-            for name, a in zip(REL_ORDER, adjs):
-                starts, cols, vals = _csr(a)
-                buf(f"{name}_starts", starts)
-                buf(f"{name}_cols", np.append(cols + 1, 0).astype(np.int64))
-                buf(f"{name}_cw", np.append(vals.astype(np.int64), 0))
+        # rows each relation fed to its attention in the last forward,
+        # over its layers (a rank's rows under a mesh)
+        self.attention_rows = {}
 
-    @property
-    def whole_graph_leaves(self) -> List[str]:
-        """JAX's leaf paths of the neighbour tables on the EdgeMap tier,
-        which stay whole on every rank under a mesh (ROADMAP.md queue A)."""
-        return ([f"{name}.{j}" for name in sorted(REL_ORDER) for j in (0, 1)]
-                if self.ell else [])
+    # ----------------------------------------------------- tables on a mesh
+    def leaf_blocks(self, mesh=None) -> Dict[str, Optional[Tuple[int, int]]]:
+        """{JAX's leaf path: the (start, stop) rows ``mesh``'s rank holds,
+        or None: whole} of the tables (not the maps), by JAX's rule: a leaf
+        of 64 rows or more that divide by ``model`` row-shards, but each
+        relation's ``inv``, which puts the gathered bucket rows in order,
+        and the CSR lists, which per-layer resampling draws over whole,
+        stay whole on every rank (ROADMAP.md section C).  No mesh: every
+        leaf whole."""
+        if mesh is None:
+            return {path: None for path, _, _ in self._leaves}
+        m, i = mesh.shape["model"], mesh.index("model")
+
+        def block(path, n):
+            parts = path.split(".")
+            if parts[0] == "csr" or parts[0] == "dedup" and parts[2] == "1":
+                return None
+            return ((i * (n // m), (i + 1) * (n // m))
+                    if ell_lib.row_sharded(n, m) else None)
+        return {path: block(path, arr.shape[0])
+                for path, _, arr in self._leaves}
+
+    def table_leaves(self, mesh=None) -> List[Tuple[str, np.ndarray]]:
+        """[(JAX's leaf path, host array)] of the tables in JAX's leaf
+        order: whole, or what ``mesh``'s rank holds of each."""
+        blocks = self.leaf_blocks(mesh)
+        return [(path, ell_lib.cut_rows(arr, blocks[path]))
+                for path, _, arr in self._leaves]
+
+    def place_tables(self, mesh=None, device=None) -> None:
+        """The tables as buffers on ``device`` (the parameters' by
+        default): whole, or each leaf ``leaf_blocks`` cuts for ``mesh``'s
+        rank cut on the host before the upload, the whole buffers let go
+        first.  Integer tables are int64 on the device."""
+        device = device or next(self.parameters()).device
+        for _, name, _ in self._leaves:
+            if name in self._buffers:
+                self._buffers[name] = None
+        for (_, name, _), (_, arr) in zip(self._leaves,
+                                          self.table_leaves(mesh)):
+            if arr.dtype.kind in "iu":
+                arr = arr.astype(np.int64)
+            self.register_buffer(name, torch.as_tensor(arr).to(device))
+        self.tables_mesh = mesh
+        self.blocks = self.leaf_blocks(mesh)
+
+    def graph_leaves(self, mesh) -> Dict[str, Optional[str]]:
+        """The maps' leaves (``ell``) and the tables' (``leaf_blocks``), in
+        JAX's leaf order: its dicts' keys sorted (csr, dedup, em, then the
+        relations)."""
+        spec = super().graph_leaves(mesh)
+        spec.update({path: None if blk is None else "model"
+                     for path, blk in self.leaf_blocks(mesh).items()})
+        return dict(sorted(spec.items(), key=lambda kv: kv[0].split(".")[0]))
+
+    def graph_mesh(self):
+        return self.tables_mesh
+
+    def place_graph(self, mesh) -> None:
+        super().place_graph(mesh)
+        self.place_tables(mesh)
+
+    def table_tensors(self) -> List[Tuple[str, torch.Tensor]]:
+        """[(JAX's leaf path, buffer)] of the tables the model holds."""
+        return [(path, getattr(self, name)) for path, name, _ in self._leaves]
+
+    def table_nbytes(self) -> int:
+        """Bytes of the tables the model holds (the maps of ``ell`` are
+        ``edges.nbytes()``)."""
+        return sum(t.numel() * t.element_size()
+                   for _, t in self.table_tensors())
+
+    def piece_paths(self, name: str) -> List[str]:
+        """The leaf paths of the pieces of relation ``name``'s attention:
+        each dedup bucket's rows (``auto``), or else its [N, k] table."""
+        if self.dedup:
+            return [f"dedup.{name}.0.{b}.0"
+                    for b in range(self._n_buckets[name])]
+        return [f"{name}.0"]
+
+    def _piece_blocks(self, name: str) -> list:
+        """The rows the rank holds of each piece (``blocks``)."""
+        return [self.blocks[p] for p in self.piece_paths(name)]
+
+    def _split(self, name: str) -> bool:
+        """Whether relation ``name``'s attention runs on a rank's rows: a
+        mesh of more than one ``model`` rank that row-shards a piece."""
+        mesh = self.tables_mesh
+        return (mesh is not None and mesh.shape["model"] > 1
+                and any(b is not None for b in self._piece_blocks(name)))
 
     @property
     def tier(self) -> str:
@@ -432,6 +612,7 @@ class TGCN(nn.Module):
         ew0 = torch.cat([self.weight.new_zeros((1, cfg.dim_weight)),
                          self.weight]).to(tdt)
         outs_u, outs_i, outs_t = [eu], [ei], [et]
+        rows = self.attention_rows = dict.fromkeys(REL_ORDER, 0)
         for li, lp in enumerate(self.layers):
             z = eu.new_zeros((1, eu.shape[1]))
             eu0, ei0, et0 = (torch.cat([z, e]).to(tdt) for e in (eu, ei, et))
@@ -440,19 +621,27 @@ class TGCN(nn.Module):
             plan = {"u_iw": (a1["item"], eu, ei0), "u_tw": (a1["tag"], eu, et0),
                     "i_uw": (a1["user"], ei, eu0), "i_tw": (a1["tag"], ei, et0),
                     "t_uw": (a1["user"], et, eu0), "t_iw": (a1["item"], et, ei0)}
-            if self.resample_each_layer and generator is not None:
-                tabs = self._resample(generator)
-            else:
-                tabs = {name: self.table(name) for name in REL_ORDER}
+            tabs_static = not (self.resample_each_layer
+                               and generator is not None)
+            tabs = ({name: self.table(name) for name in REL_ORDER}
+                    if tabs_static else self._resample(generator))
             agg = {}
             for name, (ap, ev, ej) in plan.items():
                 if self.ell:
-                    agg[name] = _atten1_em(ap, ev, ej, ew0,
-                                           self.edges[f"em.{name}.0"],
+                    em_j = self.edges[f"em.{name}.0"]
+                    rows[name] += sum(i.shape[0] for i in em_j.f_idx)
+                    agg[name] = _atten1_em(ap, ev, ej, ew0, em_j,
                                            self.edges[f"em.{name}.1"])
+                    continue
+                pieces, inv = (self.buckets(name) if self.dedup
+                               else ([tabs[name]], None))
+                rows[name] += sum(p[0].shape[0] for p in pieces)
+                if tabs_static and self._split(name):
+                    agg[name] = _atten1_split(
+                        ap, ev, ej, ew0, pieces, self._piece_blocks(name),
+                        inv, self.tables_mesh)
                 elif self.dedup:
-                    agg[name] = _atten1_dedup(ap, ev, ej, ew0,
-                                              *self.buckets(name))
+                    agg[name] = _atten1_dedup(ap, ev, ej, ew0, pieces, inv)
                 else:
                     agg[name] = _atten1(ap, ev, ej, ew0, *tabs[name])
             eu_n = _atten2(lp, eu, agg["u_iw"], agg["u_tw"])

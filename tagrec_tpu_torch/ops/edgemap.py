@@ -66,8 +66,8 @@ each slot's source slot once to (owning rank, that rank's slot), which
 fixes the send indices and split sizes (``Exchange``), so a captured step
 holds the exchange.  Whatever a primitive returns in row order is WHOLE on
 every ``model`` rank: the rank's rows of each sharded bucket, one
-all-gather over ``model`` (``_gathered_rows``), each whole bucket computed
-whole, then the whole ``f_inv``.  So ``edge_reduce`` (through
+all-gather over ``model`` (``propagate.gathered_rows``), each whole bucket
+computed whole, then the whole ``f_inv``.  So ``edge_reduce`` (through
 ``gather_reduce(out=)``), ``row_sums``, ``rows_ordered`` and the
 backwards of ``rows_gather``, ``edge_gather`` and ``edge_vgather`` (the
 cotangents moved to the transpose layout by the exchange, then summed over
@@ -95,7 +95,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tagrec_tpu_torch.ops import dma_gather
 from tagrec_tpu_torch.ops import ell as ell_lib
-from tagrec_tpu_torch.ops.propagate import all_gather_parts
+from tagrec_tpu_torch.ops.propagate import gathered_rows
 
 
 class EdgeMapHost(NamedTuple):
@@ -909,37 +909,6 @@ def _bucket_sum(v, idx, deg, x, out=None):
     return torch.stack(out).reshape(lead + (n, d))
 
 
-def _gathered_rows(em: "EdgeMapShard", parts, like: torch.Tensor, lead,
-                   tail=()) -> torch.Tensor:
-    """The row-ordered [*lead, n_rows, *tail] result of per-bucket row
-    results, whole on every ``model`` rank, from a rank's rows.
-    ``parts[j](out)`` gives forward bucket j's rows: into ``out``, the
-    rank's part of one [model, *lead, R, *tail] send buffer (R the rows
-    the rank holds of the sharded buckets), for a row-sharded bucket;
-    returned whole, computed whole on every rank, for a whole one.  One
-    all-gather over ``model`` fills the buffer (in place on NCCL); the
-    buckets' rows are then put in order by the whole ``f_inv``."""
-    m, i = em.model, em.mesh.index("model")
-    ax = len(lead)
-    rows = [0 if b is None else b[1] - b[0] for b in em.f_blocks]
-    r_all = sum(rows)
-    full = like.new_empty((m,) + tuple(lead) + (r_all,) + tuple(tail))
-    outs, off = [], 0
-    for part, blk, r in zip(parts, em.f_blocks, rows):
-        outs.append(part(None if blk is None
-                         else full[i].narrow(ax, off, r)))
-        off += r
-    if r_all:
-        all_gather_parts(full, em.mesh)
-    pieces, off = [], 0
-    for o, blk, r in zip(outs, em.f_blocks, rows):
-        pieces.append(o if blk is None else full.narrow(ax + 1, off, r)
-                      .movedim(0, ax).reshape(tuple(lead) + (m * r,)
-                                              + tuple(tail)))
-        off += r
-    return torch.cat(pieces, dim=ax).index_select(ax, em.f_inv)
-
-
 def _sharded(em) -> bool:
     """An EdgeMapShard over more than one rank: its rows are the rank's.
     Over one rank its tables are the whole map's, and today's code runs."""
@@ -950,10 +919,12 @@ def _in_row_order(em, parts, like: torch.Tensor, lead, tail=()):
     """Per forward bucket row results in row order, [*lead, n_rows,
     *tail]: ``parts[j](out)`` gives bucket j's rows (into ``out`` where
     given).  On an EdgeMapShard over more than one rank
-    ``_gathered_rows``, whole on every ``model`` rank; else the buckets'
-    rows concatenated and put in order by ``f_inv``."""
+    ``propagate.gathered_rows`` over its forward buckets and ``f_inv``,
+    whole on every ``model`` rank; else the buckets' rows concatenated and
+    put in order by ``f_inv``."""
     if _sharded(em):
-        return _gathered_rows(em, parts, like, lead, tail)
+        return gathered_rows(em.mesh, em.f_blocks, em.f_inv, parts, like,
+                             lead, tail)
     ax = len(lead)
     return torch.cat([part(None) for part in parts],
                      dim=ax).index_select(ax, em.f_inv)
@@ -967,8 +938,9 @@ def _into(t: torch.Tensor):
 def _reduce(em, vals, x):
     """``_reduce_raw``'s value, each bucket through ``_bucket_sum``.  On an
     EdgeMapShard over more than one rank: the rank's rows of each sharded
-    bucket, all-gathered once (``_gathered_rows``); the whole buckets
-    whole on every rank; the WHOLE product on every ``model`` rank."""
+    bucket, all-gathered once (``propagate.gathered_rows``); the whole
+    buckets whole on every rank; the WHOLE product on every ``model``
+    rank."""
     lead = _lead("edge_reduce", vals[0], x)
     parts = [lambda out, v=v, idx=idx, deg=deg: _bucket_sum(v, idx, deg, x,
                                                             out=out)

@@ -35,7 +35,10 @@ gradient into an all-reduce.  ``edge_dropout`` draws each table's
 whole-shape mask and keeps the rank's rows, so the masks equal one
 device's; the dropped form has no transpose tables, and its backward is
 ``transpose_mm`` over the rank's rows, a partial [N, D] summed by one
-all-reduce over ``model``.
+all-reduce over ``model``.  ``gathered_rows`` is that pattern for any
+per-piece row results (the EdgeMap tier's, TGCN's attention), and
+``model_sum`` the identity whose backward sums its inputs' gradients
+over ``model`` in one all-reduce.
 """
 
 from __future__ import annotations
@@ -287,6 +290,74 @@ def all_gather_parts(full: torch.Tensor, mesh) -> torch.Tensor:
     return full
 
 
+def gathered_rows(mesh, blocks, inv, parts, like: torch.Tensor, lead=(),
+                  tail=()) -> torch.Tensor:
+    """The row-ordered [*lead, n_rows, *tail] result of per-piece row
+    results, whole on every ``model`` rank, from a rank's rows.
+    ``parts[j](out)`` gives piece j's rows: into ``out``, the rank's part
+    of one [model, *lead, R, *tail] send buffer (R the rows the rank holds
+    of the row-sharded pieces), for a piece ``blocks[j]`` = (start, stop)
+    row-shards; returned whole, computed whole on every rank, for a whole
+    one (``blocks[j]`` None).  One all-gather over ``model`` fills the
+    buffer (in place on NCCL); the pieces' rows are then concatenated and
+    put in order by the whole ``inv`` (None: piece order is row order)."""
+    m, i = mesh.shape["model"], mesh.index("model")
+    ax = len(lead)
+    rows = [0 if b is None else b[1] - b[0] for b in blocks]
+    r_all = sum(rows)
+    full = like.new_empty((m,) + tuple(lead) + (r_all,) + tuple(tail))
+    outs, off = [], 0
+    for part, blk, r in zip(parts, blocks, rows):
+        outs.append(part(None if blk is None
+                         else full[i].narrow(ax, off, r)))
+        off += r
+    if r_all:
+        all_gather_parts(full, mesh)
+    pieces, off = [], 0
+    for o, blk, r in zip(outs, blocks, rows):
+        pieces.append(o if blk is None else full.narrow(ax + 1, off, r)
+                      .movedim(0, ax).reshape(tuple(lead) + (m * r,)
+                                              + tuple(tail)))
+        off += r
+    out = torch.cat(pieces, dim=ax)
+    return out if inv is None else out.index_select(ax, inv)
+
+
+def leads(mesh) -> bool:
+    """Whether this rank back-propagates a piece computed whole on every
+    ``model`` rank: ``model`` rank 0 alone, so that a sum over ``model``
+    counts the piece once."""
+    return mesh.index("model") == 0
+
+
+class _ModelSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, *xs):
+        ctx.mesh = mesh
+        ctx.like = [(x.shape, x.dtype) for x in xs]
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        wide = torch.float32
+        for _, dt in ctx.like:
+            wide = torch.promote_types(wide, dt)
+        flat = torch.cat([g.reshape(-1).to(wide) for g in gs])
+        dist.all_reduce(flat, group=ctx.mesh.group("model"))
+        out = flat.split([g.numel() for g in gs])
+        return (None, *(p.view(shape).to(dt)
+                        for p, (shape, dt) in zip(out, ctx.like)))
+
+
+def model_sum(mesh, *xs) -> tuple:
+    """``xs`` as they are; in the backward each one's gradient is summed
+    over ``model``, all of them in one all-reduce of one flat buffer in
+    their widest float type (float32 at least).  Put on the inputs of a
+    computation that each rank runs over its own rows, it makes their
+    gradients whole on every rank before anything reads them."""
+    return _ModelSum.apply(mesh, *xs)
+
+
 def _gathered_products(shard, x: torch.Tensor):
     """Each piece of a rank's form (``ell.RowShard``) times x, the whole
     piece's rows in order.  The row-sharded pieces write the rank's rows
@@ -328,7 +399,7 @@ def sharded_transpose_mm(shard, g: torch.Tensor, n_cols: int) -> torch.Tensor:
     sum of ``transpose_mm``, in its order)."""
     out = _transpose_pieces(shard.form, g, n_cols,
                             list(zip(shard.blocks, shard.rows)),
-                            lead=shard.mesh.index("model") == 0)
+                            lead=leads(shard.mesh))
     dist.all_reduce(out, group=shard.mesh.group("model"))
     return out
 

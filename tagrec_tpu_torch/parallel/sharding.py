@@ -21,8 +21,10 @@ explicit, and the models stay as they are:
   the global batch; ``data_mean_`` averages gradients and loss terms over
   ``data``.
 * ``shard_graph`` (JAX's ``gdev_sharding`` + ``place`` of the graph
-  tables): LightGCN's and NGCF's adjacency pair keeps this rank's rows of
-  each table JAX row-shards (``ops.ell.shard_rows``), and its SpMM
+  tables) goes through one protocol of the model, ``graph_leaves``,
+  ``graph_mesh`` and ``place_graph`` (``models.base``).  LightGCN's and
+  NGCF's adjacency pair keeps this rank's rows of each table JAX
+  row-shards (``ops.ell.shard_rows``), and its SpMM
   computes those rows and all-gathers them over ``model`` once
   (``ops.propagate.sharded_mm``), the partition XLA derives.  On the
   EdgeMap tier every map of the model (DGCF's and DisenGCN's ``em``,
@@ -32,10 +34,13 @@ explicit, and the models stay as they are:
   ``n2k`` the rank's rows of their destination map
   (``ops.edgemap.shard_slot_map``): what a primitive returns in row order
   is the rank's rows all-gathered once, and per-slot values that another
-  rank reads move by one all-to-all.  The other tiers' graph tables (the
-  dense masks, the flash masks, TGCN's neighbour tables and dedup
-  buckets, the KG's relation-id table) stay whole on every rank, and each
-  layer's compute with them: ROADMAP.md queue A.
+  rank reads move by one all-to-all.  TGCN keeps the rank's rows of its
+  neighbour tables and dedup buckets (``models.tgcn.TGCN.place_tables``):
+  its attention runs on them and one all-gather makes it whole, and one
+  all-reduce over ``model`` a relation (``ops.propagate.model_sum``)
+  makes its inputs' gradients whole.  The other tiers' graph tables (the
+  dense masks, the flash masks, the KG's relation-id table) stay whole
+  on every rank, and each layer's compute with them: ROADMAP.md queue A.
 """
 
 from __future__ import annotations
@@ -47,7 +52,6 @@ import torch.distributed as dist
 from torch import nn
 from torch.nn.utils import parametrize
 
-from tagrec_tpu_torch.ops import edgemap
 from tagrec_tpu_torch.ops import ell as ell_lib
 from tagrec_tpu_torch.parallel.launch import row_block
 from tagrec_tpu_torch.parallel.mesh import Mesh
@@ -150,74 +154,33 @@ def params_sharding(model: nn.Module, mesh: Mesh) -> Dict[str, Optional[str]]:
             for name, shape in full_shapes(model).items()}
 
 
-def em_hosts(model: nn.Module) -> Dict[str, object]:
-    """{JAX's leaf prefix: EdgeMapHost or SlotMapHost} of ``model``'s maps
-    on the EdgeMap tier (``model.em_hosts``), empty on any other tier."""
-    return getattr(model, "em_hosts", None) or {}
-
-
 def gdev_sharding(model: nn.Module, mesh: Mesh) -> Dict[str, Optional[str]]:
     """{graph table: "model" (row-sharded) or None (whole on every rank)},
-    as ``shard_graph`` places them, by JAX's rule on JAX's leaf paths.  A
-    model with an adjacency pair (``model.adj_host``: LightGCN, NGCF):
-    ``adj.fwd.ell.parts.0.idx``, ``adj.fwd.dense_block``, ``adj.fwd.0``
-    ..., but ``inv_perm`` and ``dense_cols`` whole (``ell.WHOLE_LEAVES``).
-    A model on the EdgeMap tier (``em_hosts``): each map's ``<prefix>.f_idx.0``
-    ... ``<prefix>.b_src.*`` and each slot map's ``<prefix>.0`` ..., but
-    ``f_inv`` and ``b_inv`` whole (``edgemap.WHOLE_LEAVES``), then the
-    model's ``whole_graph_leaves`` (TGCN's neighbour tables), whole; JAX's
-    ``masks.*`` are not stored (each rank computes its rows of them from
-    its ``deg``).  Any other tier: its buffers by name, every one whole."""
-    host = getattr(model, "adj_host", None)
-    if host is not None:
-        whole, found = ell_lib.WHOLE_LEAVES, ell_lib.leaves(host)
-    elif em_hosts(model):
-        whole = edgemap.WHOLE_LEAVES
-        found = edgemap.host_leaves(em_hosts(model))
-    else:
-        return {n: None for n, _ in model.named_buffers()}
-    spec = {path: ("model" if not path.endswith(whole)
-                   and shardable(a.shape, mesh) else None)
-            for path, a in found}
-    spec.update(dict.fromkeys(getattr(model, "whole_graph_leaves", ())))
-    return spec
+    as ``shard_graph`` places them, by JAX's rule on JAX's leaf paths: the
+    model's ``graph_leaves`` (``models.base.AdjPairGraph``,
+    ``EdgeMapGraph``, TGCN's tables beside its maps).  A tier with none of
+    these tables: its buffers by name, every one whole."""
+    return (model.graph_leaves(mesh)
+            or {n: None for n, _ in model.named_buffers()})
 
 
 def graph_mesh(model: nn.Module) -> Optional[Mesh]:
     """The mesh ``model``'s graph tables are row-sharded over, or None."""
-    hosts = em_hosts(model)
-    if hosts:
-        em = model.edges[next(iter(hosts))]
-        return em.mesh if isinstance(em, edgemap.EdgeMapShard) else None
-    fwd = getattr(getattr(model, "adj", None), "fwd", None)
-    return fwd.mesh if isinstance(fwd, ell_lib.RowShard) else None
+    return model.graph_mesh()
 
 
 def shard_graph(model: nn.Module, mesh: Mesh) -> Dict[str, Optional[str]]:
-    """Put ``model``'s graph tables on ``mesh`` -> ``gdev_sharding``.  A
-    model with an adjacency pair swaps ``model.adj`` for this rank's rows
-    (``ell.shard_rows`` of ``model.adj_host``); one on the EdgeMap tier
-    swaps ``model.edges`` for this rank's rows of each of its maps and
-    slot maps (``edgemap.maps_to_device`` of ``model.em_hosts``); each is
-    uploaded to the parameters' device after the whole tables are let go.
-    A model already sharded over ``mesh`` is left as it is; one sharded
-    over another mesh raises.  Other tiers keep their tables whole."""
-    adj_host = getattr(model, "adj_host", None)
-    hosts = em_hosts(model)
-    if adj_host is not None or hosts:
-        have = graph_mesh(model)
-        if have is None:
-            device = next(model.parameters()).device
-            if adj_host is not None:
-                model.adj = None
-                model.adj = ell_lib.to_device(
-                    ell_lib.shard_rows(adj_host, mesh), device)
-            else:
-                model.edges = None
-                model.edges = edgemap.EdgeMapBuffers(
-                    edgemap.maps_to_device(hosts, device, mesh))
-        elif have is not mesh:
-            raise ValueError(f"the graph is sharded over {have}, not {mesh}")
+    """Put this rank's rows of ``model``'s graph tables on ``mesh``
+    (``model.place_graph``: each cut on the host and uploaded to the
+    parameters' device after the whole tables are let go) ->
+    ``gdev_sharding``.  A model already sharded over ``mesh`` is left as
+    it is; one sharded over another mesh raises.  A tier with none of
+    these tables keeps its tables whole."""
+    have = model.graph_mesh()
+    if have is None:
+        model.place_graph(mesh)
+    elif have is not mesh:
+        raise ValueError(f"the graph is sharded over {have}, not {mesh}")
     return gdev_sharding(model, mesh)
 
 

@@ -28,9 +28,10 @@ correlation ids, dropout) is the single-device run's, and steps on its
 on every rank (DGCF's distance correlation) once.  Embedding tables are
 row-sharded over ``model`` and all-gathered once a step.  LightGCN's and
 NGCF's graph tables are row-sharded too, and each SpMM computes the
-rank's rows and all-gathers them; so are DGCF's and DisenGCN's EdgeMaps,
-whose ``edge_reduce`` does the same; the other families' propagation
-runs whole on every rank.  On the card the collectives are
+rank's rows and all-gathers them; so is every model's EdgeMap, whose
+primitives do the same, and TGCN's neighbour tables and dedup buckets,
+whose attention does the same; the other tiers' propagation runs whole
+on every rank.  On the card the collectives are
 inside the captured step, which needs an NCCL group.  Every rank takes
 the same decisions (the loss check, the early stop, the resume epoch)
 from the same averaged losses and metrics.
@@ -258,7 +259,8 @@ class Trainer:
 
     ``mesh``: an optional ``parallel.Mesh`` with its process groups; the
     Trainer row-shards the model's tables, and LightGCN's and NGCF's
-    graph tables and every family's EdgeMaps, over it (``placement``:
+    graph tables, every family's EdgeMaps and TGCN's tables, over it
+    (``placement``:
     ``params`` and ``graph``) and every rank of it runs the same calls.  A capture on the card needs
     the mesh's group to be NCCL: a gloo group raises here, and a caller
     that means to run eagerly passes ``capture=False``."""

@@ -13,9 +13,9 @@ and KGAT on a 2 x 2 one, started together by one module fixture, and are
 held against one process:
 
 * the placement leaf by leaf against JAX's ``gdev_sharding`` on its (1, 2)
-  mesh, but ``f_inv`` and ``b_inv`` and TGCN's neighbour tables, whole
-  here (ROADMAP.md section C and queue A); each rank's cut tables, ``k2n``
-  and ``n2k`` among them, array-equal to JAX's ``addressable_shards``;
+  mesh, but ``f_inv`` and ``b_inv``, whole here (ROADMAP.md section C);
+  each rank's cut tables, ``k2n`` and ``n2k`` and TGCN's neighbour tables
+  among them, array-equal to JAX's ``addressable_shards``;
 * ``rows_gather``, ``edge_gather``, ``edge_vgather``, ``edge_softmax``,
   ``rows_ordered``, ``edge_score`` and ``slot_transfer`` on each rank: the
   forward its rows of one device's, the backward one device's, bit for
@@ -152,15 +152,15 @@ def _jax_placed(case, mesh):
 
 def _kept_whole(case, path):
     """The leaves JAX row-shards that stay whole here: the inverse
-    permutations, and TGCN's neighbour tables (ROADMAP.md queue A)."""
-    return path.endswith(("f_inv", "b_inv")) or (
-        case == "tgcn" and not path.startswith("em."))
+    permutations."""
+    return path.endswith(("f_inv", "b_inv"))
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_placement_matches_jax_leaf_by_leaf(runs, case):
-    """The port's ``gdev_sharding`` against JAX's on the whole maps, in
-    JAX's leaf order; ``f_inv``, ``b_inv`` and TGCN's tables whole here."""
+    """The port's ``gdev_sharding`` against JAX's on the whole maps (and
+    TGCN's tables), in JAX's leaf order; ``f_inv`` and ``b_inv`` whole
+    here."""
     from tagrec_tpu_torch.parallel import sharding
     from tagrec_tpu_torch.parallel.mesh import make_mesh
 
@@ -179,7 +179,7 @@ def test_placement_matches_jax_leaf_by_leaf(runs, case):
 @pytest.mark.parametrize("case", CASES)
 def test_rank_blocks_equal_jax_addressable_shards(runs, case):
     """Every map and slot map cut for each rank (``shard_edge_map``,
-    ``shard_slot_map``) against
+    ``shard_slot_map``), and TGCN's tables (``table_leaves``), against
     the shard JAX puts on that rank's device, leaf by leaf; the leaves
     kept whole here hold JAX's shard at its index."""
     from tagrec_tpu_torch.ops import edgemap
@@ -188,18 +188,20 @@ def test_rank_blocks_equal_jax_addressable_shards(runs, case):
     jmesh = _jmesh(1, 2)
     jleaves = _jax_placed(case, jmesh)
     model = W.emm_pipeline(case).model
-    tables = ({f"{name}.{j}": t for name, pair in
-               zip(model.REL_ORDER, model.tables_host)
-               for j, t in enumerate(pair)} if case == "tgcn" else {})
     ranks = np.vectorize(lambda d: d.id)(jmesh.devices).reshape(-1)
     def cut(h, mesh):
         return (edgemap.shard_slot_map(h, model.em_hosts, mesh)
                 if isinstance(h, edgemap.SlotMapHost)
                 else edgemap.shard_edge_map(h, mesh))
 
+    def tables(mesh):
+        """TGCN's neighbour tables as the rank holds them."""
+        return dict(model.table_leaves(mesh)) if case == "tgcn" else {}
+
     mine = {r: dict(edgemap.host_leaves({
         k: cut(h, make_mesh(2, 1, rank=r))
-        for k, h in model.em_hosts.items()}), **tables) for r in range(2)}
+        for k, h in model.em_hosts.items()}),
+        **tables(make_mesh(2, 1, rank=r))) for r in range(2)}
     assert set(mine[0]) == set(jleaves)
     for path, (spec, leaf) in jleaves.items():
         for shard in leaf.addressable_shards:

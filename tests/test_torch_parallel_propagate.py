@@ -315,17 +315,16 @@ def test_shard_graph_is_idempotent_and_refuses_another_mesh():
 
 def test_other_families_keep_their_graph_tables_whole():
     """The tiers with no EdgeMap and no adjacency pair: DGCF's and
-    DisenHAN's dense tiers, KGAT's flash tier and TGCN's ``auto`` (its
-    neighbour tables and dedup buckets): every buffer whole on every rank
-    (ROADMAP.md queue A)."""
+    DisenHAN's dense tiers and KGAT's flash tier: every buffer whole on
+    every rank (ROADMAP.md queue A).  TGCN's tables are row-sharded
+    (tests/test_torch_parallel_tgcn.py)."""
     from tagrec_tpu_torch.parallel import sharding
     from tagrec_tpu_torch.parallel.mesh import make_mesh
 
     for name, over, mode, tier in (
             ("dgcf", {}, "auto", "kernels"),
             ("disenhan", {}, "auto", "dense"),
-            ("kgat", {"agg_type": "bi_inter"}, "auto", "kernels"),
-            ("tgcn", {}, "auto", "dedup")):
+            ("kgat", {"agg_type": "bi_inter"}, "auto", "kernels")):
         model = W.pipeline(name, over, mode).model
         assert model.tier == tier, name
         spec = sharding.shard_graph(model, make_mesh(2, 1))

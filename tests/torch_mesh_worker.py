@@ -653,9 +653,148 @@ def scenario_em_models(args, tmp):
     return out
 
 
+# ------------------------- TGCN's neighbour tables and dedup buckets
+
+# 556 nodes, one narrow layer: at model = 2 every relation's dedup buckets
+# mix row-sharded ones (64 rows or more, an even count) with whole ones, and
+# every [N, k] table row-shards
+TGCN_GRAPH = {"n_user": 128, "n_item": 300, "n_tag": 128, "seed": 4}
+TGCN_CFG = {"dim_latent": 16, "dim_layer_list": (16,), "reg": 1e-3,
+            "transtag_batch": 64}
+TGCN_CASES = ("auto", "dense_xla")
+# planted faults the gradient hold must catch: every rank back-propagates
+# the whole buckets (counted model times), or no model sum
+TGCN_FAULTS = ("whole_on_every_rank", "no_model_sum")
+
+
+def tgcn_graph():
+    from tagrec_tpu_torch.data.synthetic import synthetic_graph
+
+    return synthetic_graph(**TGCN_GRAPH, avg_deg=8)
+
+
+def tgcn_pipeline(case, mesh=None):
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import model_preset
+
+    return build_pipeline(tgcn_graph(), model_preset("tgcn", adj_mode=case,
+                                                     **TGCN_CFG),
+                          tcfg(), device="cpu", mesh=mesh,
+                          generator=torch.Generator().manual_seed(0))
+
+
+def wait_for(path: str, deadline_s: float = DEADLINE_S) -> str:
+    """``path`` once it exists (the parent moves it in whole, with
+    ``os.replace``, while the ranks run)."""
+    end = time.monotonic() + deadline_s
+    while not os.path.exists(path):
+        if time.monotonic() > end:
+            raise TimeoutError(f"{path} did not appear in {deadline_s} s")
+        time.sleep(0.05)
+    return path
+
+
+class planted:
+    """Within it, ``models.tgcn`` runs with ``fault`` (one of TGCN_FAULTS,
+    or None: none)."""
+
+    def __init__(self, fault):
+        from tagrec_tpu_torch.models import tgcn
+
+        self.mod, self.saved = tgcn, (tgcn.leads, tgcn.model_sum)
+        self.fault = fault
+
+    def __enter__(self):
+        if self.fault == "whole_on_every_rank":
+            self.mod.leads = lambda mesh: True
+        elif self.fault == "no_model_sum":
+            self.mod.model_sum = lambda mesh, *xs: xs
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.leads, self.mod.model_sum = self.saved
+
+
+def tgcn_step(case, args, mesh=None, fault=None):
+    """One BPR step of ``case`` from the JAX parameters and batch in
+    ``args`` -> (summed loss terms, the gathered parameters, the gathered
+    gradients the step took)."""
+    import numpy as np
+
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training import checkpoint
+    from tagrec_tpu_torch.training.train import Trainer
+
+    pipe = tgcn_pipeline(case, mesh)
+    with np.load(wait_for(args["jax_params"])) as f:
+        checkpoint.params_from_jax(pipe.model, checkpoint._tree_of(
+            {k: f[k] for k in f.files}))
+    trainer = Trainer(pipe.model, pipe.phases, tcfg(), mesh=mesh,
+                      capture=False, generator=torch.Generator().manual_seed(1))
+    batch = torch.as_tensor(np.asarray(args["batch"], dtype=np.int64))
+    if mesh is not None:
+        batch = sharding.constrain_batch(batch, mesh)
+    with planted(fault):
+        parts = trainer.step(pipe.phases[0], batch)
+    return (float(parts.sum()), full_params(pipe.model),
+            full_grads(pipe.model))
+
+
+def tgcn_runs(args, mesh=None, steps=STEPS):
+    """Each of TGCN_CASES: the forward and the rows each relation fed its
+    attention, ``steps`` steps of each phase (losses, the gathered
+    parameters), one evaluation, the tables' placement, leaf shapes and
+    bytes, and ``tgcn_step``; on ``auto`` under a mesh ``tgcn_step`` with
+    each of TGCN_FAULTS too."""
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training.train import Trainer
+
+    out = {}
+    for case in TGCN_CASES:
+        pipe = tgcn_pipeline(case, mesh)
+        model = pipe.model
+        trainer = Trainer(model, pipe.phases, tcfg(), mesh=mesh,
+                          capture=False,
+                          generator=torch.Generator().manual_seed(1))
+        with torch.no_grad(), sharding.gathered():
+            fwd = [t.numpy().copy() for t in model.forward()]
+        out[case] = {
+            "tier": model.tier, "forward": fwd,
+            "rows": dict(model.attention_rows),
+            "losses": {ph.name: trainer.run_phase(ph, max_steps=steps)
+                       for ph in pipe.phases},
+            "params": full_params(model),
+            "eval": pipe.evaluator.run(model),
+            "placement": trainer.placement and trainer.placement["graph"],
+            "leaves": {p: tuple(t.shape) for p, t in model.table_tensors()},
+            "bytes": model.table_nbytes(),
+            "step": tgcn_step(case, args, mesh)}
+        if mesh is not None and case == "auto":
+            out[case]["faults"] = {f: tgcn_step(case, args, mesh, f)
+                                   for f in TGCN_FAULTS}
+    return out
+
+
+def scenario_tgcn_rows(args, tmp):
+    """``tgcn_runs`` on the mesh, or without one (``args["plain"]``: the
+    one-device reference); on a ``model`` = 2 world rank 0 also on a
+    one-rank mesh of its own (``one``)."""
+    from tagrec_tpu_torch.parallel.mesh import make_mesh
+
+    if args.get("plain"):
+        return {"cases": tgcn_runs(args)}
+    out = {"cases": tgcn_runs(args, _mesh(args))}
+    if args.get("one_rank"):
+        one = make_mesh(1)  # every rank of the world makes its groups
+        if one.member:
+            out["one"] = tgcn_runs(args, one)
+    return out
+
+
 SCENARIOS = {"train": scenario_train, "checkpoint": scenario_checkpoint,
              "scaling": scenario_scaling, "propagate": scenario_propagate,
-             "edgemap": scenario_edgemap, "em_models": scenario_em_models}
+             "edgemap": scenario_edgemap, "em_models": scenario_em_models,
+             "tgcn_rows": scenario_tgcn_rows}
 
 
 # ------------------------------------------------------------ the parent
