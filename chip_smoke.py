@@ -182,6 +182,15 @@ Phases:
    entries of the trajectory past its bound, and one float64 step's
    gradients and parameters within 1e-9 of scale, each gradient within
    1e-6 of its own scale plus 1e-12 of the largest gradient's);
+   R6 the kernel tiers' masks (each sweep over a block of rows past row
+   0 against its plain version, the column backward's block across the
+   split, and bit for bit with the whole launch's rows; R6a DGCF hetrec
+   captured on a one-rank NCCL mesh, bit for bit, DGCF_STEP routing
+   launches a step; R6b ``mask-rank`` processes: DGCF, DisenGCN and KGAT
+   ``bi_inter`` at hetrec, each rank's mask bytes its rows', its peak
+   below one device's, each sweep's rows, the forward, evaluation,
+   export, losses and parameters bit for bit with one device, the
+   launches one device's over half its mask rows);
    TGCN's tables (phase 5) must come from the native sampler;
 10. the ``kernels`` JSON line (launches summed over every path above,
    replays counted; ``gather_reduce`` with its ``edgemap`` record), then
@@ -3618,12 +3627,12 @@ def row_paths(torch, graphs, mesh):
 
 
 def row_rank_main(argv, paths):
-    """One rank of phase R2, R3b, R4b or R5b (``chip_smoke.py row-rank
-    GRAPHS OUT``, ``em-rank``, ``em4-rank`` or ``tgcn-rank``, under RANK,
-    WORLD_SIZE, MASTER_ADDR and MASTER_PORT): gloo over CUDA tensors,
-    eager, model = 2; ``paths`` (``row_paths``, ``em_paths``,
-    ``em4_paths`` or ``tgcn_paths``) over the pickled graphs, pickled to
-    OUT/rank{r}.pkl."""
+    """One rank of phase R2, R3b, R4b, R5b or R6b (``chip_smoke.py
+    row-rank GRAPHS OUT``, ``em-rank``, ``em4-rank``, ``tgcn-rank`` or
+    ``mask-rank``, under RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT):
+    gloo over CUDA tensors, eager, model = 2; ``paths`` (``row_paths``,
+    ``em_paths``, ``em4_paths``, ``tgcn_paths`` or ``mask_paths``) over
+    the pickled graphs, pickled to OUT/rank{r}.pkl."""
     import pickle
     from datetime import timedelta
 
@@ -3649,8 +3658,8 @@ def row_rank_main(argv, paths):
 
 def start_row_ranks(graphs_path, out, cmd):
     """The ROW_RANKS ranks of phase R2 (``cmd`` "row-rank"), R3b
-    ("em-rank"), R4b ("em4-rank") or R5b ("tgcn-rank") on this card, each
-    ``chip_smoke.py cmd`` in its own process."""
+    ("em-rank"), R4b ("em4-rank"), R5b ("tgcn-rank") or R6b ("mask-rank")
+    on this card, each ``chip_smoke.py cmd`` in its own process."""
     import socket
 
     with socket.socket() as s:
@@ -4723,6 +4732,471 @@ def tgcn_rows_phase(torch, graph, card):
     print(f"phase R5: {time.perf_counter() - t0:.1f} s (host clock)")
 
 
+# ------ phase R6: the kernel tiers' masks over ``model``
+
+R6_WALL_STEPS = 10     # captured steps a timed run, with and without the mesh
+R6_STEPS = 3           # BPR steps of each R6b path
+# each path of R6b: (label, family, preset overrides, evaluation), each on
+# its kernel tier at the preset's width on the hetrec graph; an untrained
+# DisenGCN's tables all but coincide (a user's scores within about 3e-7),
+# so its metrics are tie-breaks, which a sharded evaluation breaks in
+# another order: its exported tables are held instead
+MASK_PATHS = (("DGCF hetrec", "dgcf", {}, True),
+              ("DisenGCN hetrec", "disengcn", {}, False),
+              ("KGAT bi_inter hetrec", "kgat", {"agg_type": "bi_inter"}, True))
+SWEEPS = ROUTING + FLASH
+MASK_SEED = 11         # the seeded inputs of each path's sweeps over its rows
+
+
+def sweep_rows_counts(fr, fa):
+    """{kernel: (launches, mask rows swept)} of the seven sweeps."""
+    return {n: (getattr(m, n).launches, getattr(m, n).rows)
+            for m, names in ((fr, ROUTING), (fa, FLASH)) for n in names}
+
+
+def reset_sweeps(fr, fa):
+    for m, names in ((fr, ROUTING), (fa, FLASH)):
+        for n in names:
+            getattr(m, n).launches = getattr(m, n).rows = 0
+
+
+def mask_sweep_rows(torch, fr, fa, model):
+    """{kernel: [((start, stop), rows axis, [results on the host])]}: each
+    sweep of the model's tier once over the rows it holds of each mask
+    (the rank's block, or all of them), from seeded whole inputs at the
+    path's widths: on DGCF's and DisenGCN's mask (its own transpose)
+    routed_rowsum, routed_mm and routed_mm_bwd at F = 4, dx = 16 and r = 80
+    (DGCF's last iteration) or 16 (DisenGCN's); on each of KGAT's row
+    types' masks the stats, apply and row-backward sweeps, on its
+    transpose the column sweep, at dq = dx = 64.  Every process computes
+    the same inputs, so a rank's rows are held against one device's."""
+    from tagrec_tpu_torch.ops import dense_adj
+
+    out = {}
+
+    def rows(name, mask, axis, fn):
+        local, row0 = dense_adj.sweep_rows(mask)
+        res = fn(local, row0)
+        res = res if isinstance(res, tuple) else (res,)
+        out.setdefault(name, []).append(
+            ((row0, row0 + local.shape[0]), axis,
+             [t.cpu().numpy() for t in res]))
+
+    def whole(mask):
+        return (mask.rows if isinstance(mask, dense_adj.MaskShard)
+                else mask.shape[0])
+
+    if model.cfg.name in ("dgcf", "disengcn"):
+        mask, mask_t = model.routing_masks()
+        r, base = (80, 1.0) if model.cfg.name == "dgcf" else (16, 0.0)
+        q, k, x = kernel_inputs(torch, 4, whole(mask), r, 16, MASK_SEED)
+        g = torch.randn(x.shape, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(MASK_SEED + 1))
+        rows("routed_rowsum", mask, 1, lambda m, r0: fr.routed_rowsum(
+            q, k, m, base, row0=r0))
+        rows("routed_mm", mask, 1, lambda m, r0: fr.routed_mm_rows(
+            q, k, m, x, base, row0=r0))
+        rows("routed_mm_bwd", mask_t, 1, lambda m, r0: fr.routed_mm_bwd(
+            q, k, m, g, base, row0=r0))
+        return out
+    for a, split in enumerate(model.flash_splits()):
+        mask = model.sweep_mask(f"fmask_{a}")
+        mask_t = model.sweep_mask(f"fmaskT_{a}")
+        ns, nd = whole(mask), whole(mask_t)
+        q2, k, x, g = flash_inputs(torch, ns, nd, 64, MASK_SEED + a)
+        delta = torch.randn(ns, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(MASK_SEED + 10 + a))
+        rows("dot_flash_stats", mask, 0, lambda m, r0: fa.dot_flash_stats(
+            q2, k, m, split, row0=r0))
+        ms, zs = fa.dot_flash_stats(q2, k, mask, split)  # whole (gathered)
+        rows("dot_flash_apply", mask, 0, lambda m, r0:
+             fa.dot_flash_apply_rows(q2, k, m, ms, zs, x, split, row0=r0))
+        rows("dot_bwd_row", mask, 1, lambda m, r0: fa.dot_bwd_row(
+            q2, k, m, ms, zs, x, g, delta, split, row0=r0))
+        rows("dot_bwd_col", mask_t, 0, lambda m, r0: fa.dot_bwd_col(
+            q2, k, m, ms, zs, x, g, delta, split, row0=r0))
+    return out
+
+
+def mask_path(torch, graphs, path, mesh):
+    """One path of phase R6b (an entry of MASK_PATHS) through
+    ``build_pipeline(mesh=)`` and an eager ``Trainer(mesh=)`` on the
+    hetrec graph (``mesh`` None: the one-device run): the masks' bytes on
+    the card and their blocks, each sweep over the rows held
+    (``mask_sweep_rows``); then the main path, its sweeps' launches and
+    mask rows counted: the forward, an evaluation (where the path asks for
+    it) and the exported tables from the initial parameters, R6_STEPS BPR
+    steps, each timed.
+    -> the results on the host, with the peak memory above the path's
+    start and the seconds."""
+    from tagrec_tpu_torch import serving
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+    from tagrec_tpu_torch.ops import flash_attention as fa
+    from tagrec_tpu_torch.ops import flash_routing as fr
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training import checkpoint
+    from tagrec_tpu_torch.training.train import Trainer
+
+    _, name, over, answers = path
+    graph = graphs["hetrec"]
+    secs, t0 = {}, time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tcfg = TrainConfig()
+    pipe = build_pipeline(graph, model_preset(name, **over), tcfg,
+                          device="cuda", mesh=mesh,
+                          generator=torch.Generator().manual_seed(0))
+    model = pipe.model
+    out = {"tier": model.tier, "bytes": model.mask_nbytes(),
+           "blocks": dict(model.mask_blocks)}
+    secs["build"] = time.perf_counter() - t0
+    out["sweeps"] = mask_sweep_rows(torch, fr, fa, model)
+    reset_sweeps(fr, fa)
+    t0 = time.perf_counter()
+    with torch.no_grad(), sharding.gathered():
+        out["forward"] = [t.cpu().numpy() for t in model.forward()]
+    out["forward_sweeps"] = sweep_rows_counts(fr, fa)
+    if answers:
+        out["eval"] = pipe.evaluator.run(model)
+    out["export"] = serving.export_tables(model, n_item=graph.n_item)
+    secs["forward_eval_export"] = time.perf_counter() - t0
+    reset_sweeps(fr, fa)
+    t0 = time.perf_counter()
+    trainer = Trainer(model, pipe.phases, tcfg, mesh=mesh, capture=False,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    times, last = [], [time.perf_counter()]
+
+    def on_step(i, parts):
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - last[0]) * 1e3)
+        last[0] = time.perf_counter()
+
+    out["losses"] = trainer.run_phase(pipe.phases[0], max_steps=R6_STEPS,
+                                      on_step=on_step)
+    out["step_ms"] = times
+    out["step_sweeps"] = sweep_rows_counts(fr, fa)
+    secs["steps"] = time.perf_counter() - t0
+    with torch.no_grad(), sharding.gathered():
+        out["params"] = {n: sharding.value(model, n).detach().cpu().numpy()
+                         for n in checkpoint.jax_leaf_order(model)}
+    torch.cuda.synchronize()
+    out["peak"] = torch.cuda.max_memory_allocated() - base
+    out["seconds"] = secs
+    del trainer, pipe, model
+    gc_cuda(torch)
+    return out
+
+
+def mask_paths(torch, graphs, mesh):
+    """Every path of MASK_PATHS -> {label: ``mask_path``'s results}."""
+    return {path[0]: mask_path(torch, graphs, path, mesh)
+            for path in MASK_PATHS}
+
+
+def mask_hold(label, got, want, ranks, card):
+    """A rank's R6b path against the one-device run; prints and checks:
+    each rank's mask bytes exactly its blocks' (1 / ROW_RANKS of one
+    device's) and its peak memory below one device's; each sweep's rows
+    over the rank's block bit for bit with one device's rows; the
+    forward, the evaluation, the exported tables, the losses and the
+    parameters after the steps bit for bit; the ranks bit for bit; the
+    launches of the forward and of the steps one device's, each over
+    1 / ROW_RANKS of one device's mask rows."""
+    import numpy as np
+
+    def cut(a, blk, axis):
+        return a[(slice(None),) * axis + (slice(*blk),)]
+
+    sweeps_ok = set(got["sweeps"]) == set(want["sweeps"]) and all(
+        all(np.array_equal(a, cut(b, gblk, axis))
+            for a, b in zip(gres, wres))
+        for k in want["sweeps"]
+        for (gblk, axis, gres), (_, _, wres) in zip(got["sweeps"][k],
+                                                    want["sweeps"][k]))
+    cut_blocks = sum(1 for k in got["sweeps"] for (blk, _, _), (wblk, _, _)
+                     in zip(got["sweeps"][k], want["sweeps"][k])
+                     if blk[1] - blk[0] < wblk[1] - wblk[0])
+    fwd_exact = all(np.array_equal(a, b)
+                    for a, b in zip(got["forward"], want["forward"]))
+    exp_exact = all(np.array_equal(a, b)
+                    for a, b in zip(got["export"], want["export"]))
+    loss_exact = np.array_equal(got["losses"], want["losses"])
+    diff = [n for n in want["params"]
+            if not np.array_equal(got["params"][n], want["params"][n])]
+    agree = all(np.array_equal(r["losses"], got["losses"]) and all(
+        np.array_equal(r["params"][n], got["params"][n])
+        for n in got["params"]) for r in ranks)
+    used = [k for k, (n, _) in want["step_sweeps"].items() if n]
+    launches_ok = all(
+        r[ph][k][0] == want[ph][k][0] and r[ph][k][1] * ROW_RANKS
+        == want[ph][k][1] for r in ranks
+        for ph in ("forward_sweeps", "step_sweeps") for k in SWEEPS)
+    per_launch = {k: (round(got["step_sweeps"][k][1]
+                            / got["step_sweeps"][k][0]),
+                      round(want["step_sweeps"][k][1]
+                            / want["step_sweeps"][k][0])) for k in used}
+    print(f"R6b {label} (model = {ROW_RANKS}, gloo over CUDA tensors, "
+          f"eager; {card}): tier {got['tier']}; mask bytes per rank "
+          f"{[r['bytes'] for r in ranks]} against {want['bytes']} on one "
+          f"device ({[round(r['bytes'] / want['bytes'], 4) for r in ranks]}"
+          f"x), blocks {[r['blocks'] for r in ranks]}; peak memory above "
+          f"the path's start per rank "
+          f"{[round(r['peak'] / 2**30, 3) for r in ranks]} GiB against "
+          f"{want['peak'] / 2**30:.3f}; "
+          f"{sum(len(v) for v in got['sweeps'].values())} "
+          f"sweeps over the rank's rows ({cut_blocks} of them cut) "
+          f"{'bit for bit' if sweeps_ok else 'DIFFER'} with one device's "
+          f"rows; forward {'bit for bit' if fwd_exact else 'DIFFERS'}, "
+          f"evaluation {got.get('eval', 'not run')}, exported tables "
+          f"{'bit for bit' if exp_exact else 'DIFFER'}, losses "
+          f"{'bit for bit' if loss_exact else 'DIFFER'} "
+          f"({got['losses'].sum(axis=1).tolist()}), parameters "
+          f"{'bit for bit' if not diff else 'DIFFER: ' + str(diff)}; ranks "
+          f"{'bit for bit' if agree else 'DIFFER'}; launches a forward "
+          f"{ {k: v[0] for k, v in got['forward_sweeps'].items() if v[0]} }, "
+          f"over {R6_STEPS} steps "
+          f"{ {k: v[0] for k, v in got['step_sweeps'].items() if v[0]} } "
+          f"(one device's: {'equal' if launches_ok else 'NOT EQUAL'}), mask "
+          f"rows a launch (rank, one device) {per_launch}; ms a step (host "
+          f"clock, synchronised) rank 0 "
+          f"{[round(t, 3) for t in got['step_ms']]}, one device "
+          f"{[round(t, 3) for t in want['step_ms']]}; seconds per "
+          f"rank {[rounded(r['seconds']) for r in ranks]}, one device "
+          f"{rounded(want['seconds'])}")
+    check(all(r["tier"] == "kernels" and r["bytes"] * ROW_RANKS
+              == want["bytes"] and r["peak"] < want["peak"]
+              and all(b is not None for b in r["blocks"].values())
+              for r in ranks)
+          and all(b is None for b in want["blocks"].values())
+          and cut_blocks > 0 and used,
+          f"R6b {label}: the ranks' masks are not row shards")
+    check(sweeps_ok, f"R6b {label}: a sweep's rows differ from one device's")
+    check(fwd_exact and exp_exact and loss_exact and not diff and agree
+          and launches_ok,
+          f"R6b {label}: a rank is not bit for bit with one device")
+    if "eval" in want:
+        check_metrics(got["eval"], want["eval"], True, f"R6b {label}")
+
+
+def mask_block_holds(torch, fr, fa, graph, records):
+    """The sweeps on their own over rank 1's block at ``model`` = 2, at
+    the hetrec shapes: routed_rowsum, routed_mm and routed_mm_bwd over
+    DGCF's mask rows [7500, 15000) at r = 80 against their plain versions
+    evaluated in float64 over the same rows (the backward by the plain
+    version's autograd over the whole mask, cut); KGAT row type 0's stats,
+    apply and row backward over its mask rows [1024, 2048) and the column
+    backward over its transpose's rows [6656, 13312), which straddle the
+    split at 10240, against their plain versions (the backward in
+    float64); each also bit for bit with the whole launch's rows.  Keeps
+    each kernel's largest error in ``records``."""
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.models import model_class
+    from tagrec_tpu_torch.ops import dense_adj
+
+    coo = graph.joint_norm_adj("plain", True)
+    mask = torch.from_numpy(dense_adj.dense_mask_host(
+        coo.row, coo.col, *coo.shape)).cuda()
+    n = mask.shape[0]
+    s0, s = n // 2, slice(n // 2, n)
+    q, k, x = kernel_inputs(torch, 4, n, 80, 16, MASK_SEED)
+    g = torch.randn(x.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(MASK_SEED + 1))
+    q64, k64, x64 = q.double(), k.double(), x.double()
+    cases = {
+        "routed_rowsum": (
+            lambda: fr.routed_rowsum(q, k, mask[s], 1.0, row0=s0),
+            lambda: fr.routed_rowsum_plain(q, k, mask[s], 1.0, row0=s0),
+            lambda: fr.routed_rowsum_plain(q64, k64, mask[s], 1.0, row0=s0),
+            lambda: fr.routed_rowsum(q, k, mask, 1.0)[:, s]),
+        "routed_mm": (
+            lambda: fr.routed_mm_rows(q, k, mask[s], x, 1.0, row0=s0),
+            lambda: fr.routed_mm_plain(q, k, mask[s], x, 1.0, row0=s0),
+            lambda: fr.routed_mm_plain(q64, k64, mask[s], x64, 1.0, row0=s0),
+            lambda: fr.routed_mm_rows(q, k, mask, x, 1.0)[:, s]),
+        "routed_mm_bwd": (  # the joint mask is its own transpose
+            lambda: fr.routed_mm_bwd(q, k, mask[s], g, 1.0, row0=s0),
+            lambda: fr.routed_mm_plain(k, q, mask[s], g, 1.0, row0=s0),
+            lambda: plain_bwd64(torch, fr, q, k, mask, g, 1.0)[:, s],
+            lambda: fr.routed_mm_bwd(q, k, mask, g, 1.0)[:, s])}
+    for name, (kern, plain, plain64, whole) in cases.items():
+        got, max_abs = check_routing(torch, name, f"rows [{s0}, {n})", kern,
+                                     plain, plain64)
+        check(torch.equal(got, whole()),
+              f"{name} over rows [{s0}, {n}) differs from the whole launch's")
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                           max_abs)
+    del mask, q, k, x, g, q64, k64, x64
+    kgat = model_class("kgat")(graph, model_preset("kgat",
+                                                   agg_type="bi_inter"),
+                               device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+    mask, mask_t = kgat.fmask_0, kgat.fmaskT_0
+    split = kgat.flash_splits()[0]
+    ns, nd = mask.shape
+    r0, c0 = ns // 2, nd // 2
+    r, c = slice(r0, ns), slice(c0, nd)
+    check(c0 < split < nd, f"fmaskT_0's rows [{c0}, {nd}) miss the split")
+    q2, kk, xx, gg = flash_inputs(torch, ns, nd, 64, MASK_SEED)
+    m, z = fa.dot_flash_stats(q2, kk, mask, split)
+    out = fa.dot_flash_apply_rows(q2, kk, mask, m, z, xx, split)
+    delta = torch.sum(gg * out, dim=1)
+    args = (m, z, xx, gg, delta, split)
+    args64 = [t.double() for t in (m, z, xx, gg, delta)] + [split]
+    q64, k64 = q2.double(), kk.double()
+    mr, zr = fa.dot_flash_stats(q2, kk, mask[r], split, row0=r0)
+    outr = fa.dot_flash_apply_rows(q2, kk, mask[r], m, z, xx, split, row0=r0)
+    dq2r = fa.dot_bwd_row(q2, kk, mask[r], *args, row0=r0)
+    dkc, dxc = fa.dot_bwd_col(q2, kk, mask_t[c], *args, row0=c0)
+    torch.cuda.synchronize()
+    want_m, want_z = fa.dot_flash_stats_plain(q2, kk, mask[r], split,
+                                              row0=r0)
+    want_dk, want_dx = fa.dot_bwd_col_plain(q64, k64, mask_t[c].T, *args64,
+                                            row0=c0)
+    holds = {
+        "dot_flash_stats": ([(mr, want_m), (zr, want_z)], RTOL,
+                            f"rows [{r0}, {ns})"),
+        "dot_flash_apply": ([(outr, fa.dot_flash_apply_plain(
+            q2, kk, mask[r], m, z, xx, split, row0=r0))], RTOL,
+            f"rows [{r0}, {ns})"),
+        "dot_bwd_row": ([(dq2r.double(), fa.dot_bwd_row_plain(
+            q64, k64, mask[r], *args64, row0=r0))], BWD_RTOL,
+            f"rows [{r0}, {ns})"),
+        "dot_bwd_col": ([(dkc.double(), want_dk), (dxc.double(), want_dx)],
+                        BWD_RTOL, f"fmaskT_0 rows [{c0}, {nd}) across the "
+                        f"split {split}")}
+    for name, (pairs, rtol, label) in holds.items():
+        hold_flash(torch, name, f"type 0 {label}", pairs, rtol,
+                   "against the plain version over the same rows "
+                   + ("in float64 " if rtol == BWD_RTOL else ""), records)
+    dk, dx = fa.dot_bwd_col(q2, kk, mask_t, *args)
+    exact = {"dot_flash_stats": torch.equal(mr, m[r]) and torch.equal(
+                 zr, z[r]),
+             "dot_flash_apply": torch.equal(outr, out[r]),
+             "dot_bwd_row": torch.equal(dq2r, fa.dot_bwd_row(
+                 q2, kk, mask, *args)[:, r]),
+             "dot_bwd_col": torch.equal(dkc, dk[c]) and torch.equal(dxc,
+                                                                   dx[c])}
+    print(f"R6 the flash sweeps over a block's rows against the whole "
+          f"launch's rows: {exact}")
+    check(all(exact.values()), "a flash sweep over a block of rows differs "
+                               "from the whole launch's rows")
+    del kgat
+    gc_cuda(torch)
+
+
+def mask_one_rank(torch, fr, graph, card):
+    """R6a: DGCF at the preset's width on the hetrec graph (the routing
+    kernel tier) on a one-rank NCCL mesh, its mask one row block (each
+    sweep's result gathered over the one rank), captured: bit for bit
+    (losses and parameters) against the same captured run without a mesh,
+    DGCF_STEP routing launches each step; ms a step with and without the
+    mesh, a replay's busy time and operations, and the mesh's own
+    operations.  -> the mesh run's launches."""
+    import torch.distributed as dist
+
+    from tagrec_tpu_torch.ops import dense_adj
+    from tagrec_tpu_torch.parallel.mesh import make_mesh
+
+    family = ("dgcf", {})
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda:0"))
+    try:
+        mesh = make_mesh(1)
+        plain = mesh_run(torch, graph, None, capture=True, family=family)
+        reset_counts(fr, ROUTING)
+        total = {k: 0 for k in ROUTING}
+        checker = launch_checker(fr, ROUTING, DGCF_STEP, "R6a mesh step")
+
+        def on_launches(i):
+            for k, v in checker(i).items():
+                total[k] += v
+
+        meshed = mesh_run(torch, graph, mesh, capture=True,
+                          on_launches=on_launches, family=family)
+        model = meshed["pipe"].model
+        run = meshed["trainer"].runs["bpr"]
+        placed = meshed["trainer"].placement["graph"]
+        check(run.graph is not None, "R6a: the mesh step was not captured")
+        check(isinstance(model.sweep_mask("mask"), dense_adj.MaskShard)
+              and placed == {"mask": "model"},
+              f"R6a: the mask was not placed on the mesh: {placed}")
+        diff = held_equal(torch, meshed["params"], plain["params"])
+        same_loss = (meshed["losses"] == plain["losses"]).all()
+        print(f"R6a DGCF hetrec (routing kernel tier) captured on a "
+              f"one-rank NCCL mesh {mesh}, {HETREC_BPR_STEPS} steps: "
+              f"placement {placed}, mask block {model.mask_blocks}, "
+              f"{model.mask_nbytes()} bytes "
+              f"({plain['pipe'].model.mask_nbytes()} without the mesh); "
+              f"launches {total}; losses "
+              f"{'bit for bit' if same_loss else 'DIFFER'} "
+              f"({plain['losses'].sum(axis=1).tolist()}), parameters "
+              f"{'bit for bit' if not diff else 'DIFFER: ' + str(diff)}")
+        check(same_loss and not diff,
+              "R6a: the one-rank mesh's captured run is not bit for bit the "
+              "plain captured run")
+        del model
+        walls = {"plain": [], "mesh": []}
+        for key in ("plain", "mesh", "mesh", "plain"):
+            r = plain if key == "plain" else meshed
+            walls[key].append(phase_wall_ms(torch, r["trainer"],
+                                            r["pipe"].phases[0],
+                                            R6_WALL_STEPS) / R6_WALL_STEPS)
+        plain_run = plain["trainer"].runs["bpr"]
+        run.counter.zero_()
+        plain_run.counter.zero_()
+        m_ops = replay_ops(torch, run.graph)
+        p_ops = replay_ops(torch, plain_run.graph)
+        extra, extra_ms, busy = mesh_ops(m_ops, p_ops)
+        top = sorted(extra.items(), key=lambda kv: -kv[1][1])[:8]
+        print(f"R6a captured DGCF hetrec step ({card}): ms a step over "
+              f"{R6_WALL_STEPS} steps with one sync (plain, mesh, mesh, "
+              f"plain): without the mesh {walls['plain']}, with "
+              f"{walls['mesh']}; per step (host clock, synchronised) "
+              f"without {plain['ms']}, with {meshed['ms']}; a replay "
+              f"(profiler): device busy {busy:.4f} ms with the mesh "
+              f"({sum(n for n, _ in m_ops.values()):.0f} device operations), "
+              f"{sum(ms for _, ms in p_ops.values()):.4f} ms without "
+              f"({sum(n for n, _ in p_ops.values()):.0f}); the mesh's own "
+              f"operations {sum(n for n, _ in extra.values()):.0f} a "
+              f"replay, {extra_ms:.4f} ms ({extra_ms / busy:.4f} of the busy "
+              f"time); largest "
+              f"{[(k[:60], n, round(ms, 4)) for k, (n, ms) in top]}")
+        return total
+    finally:
+        dist.destroy_process_group()
+
+
+def masks_phase(torch, fr, fa, graph, records, card):
+    """Phase R6: the kernel tiers' masks row-sharded over ``model``: the
+    sweeps over a block of rows on their own, R6a's captured one-rank
+    mesh, R6b's ranks.  -> the sweeps' launches of its main paths (R6a's
+    captured mesh steps, R6b's ranks)."""
+    t0 = time.perf_counter()
+    done = phase_timer("R6 the sweeps over a block of rows")
+    mask_block_holds(torch, fr, fa, graph, records)
+    done()
+    done = phase_timer("R6a one-rank NCCL mesh, DGCF hetrec")
+    launches = dict.fromkeys(SWEEPS, 0)
+    launches.update(mask_one_rank(torch, fr, graph, card))
+    done()
+    gc_cuda(torch)
+    done = phase_timer("R6b model = 2 on one card, DGCF, DisenGCN, KGAT")
+    want, ranks = two_rank_results(torch, {"hetrec": graph}, "mask-rank",
+                                   mask_paths, "R6b")
+    for label, *_ in MASK_PATHS:
+        rs = [r[label] for r in ranks]
+        mask_hold(label, rs[0], want[label], rs, card)
+        for r in rs:
+            for k in SWEEPS:
+                launches[k] += (r["forward_sweeps"][k][0]
+                                + r["step_sweeps"][k][0])
+    done()
+    gc_cuda(torch)
+    print(f"phase R6: {time.perf_counter() - t0:.1f} s (host clock)")
+    return launches
+
+
 # ------------------------------------------ phase E: the EdgeMap tier
 
 EM_F, EM_DK = 4, 16  # DGCF's factors and factor width
@@ -5328,6 +5802,11 @@ def run(torch):
           f"captured mesh steps, R4b's ranks): {em4_rows}; over every path: "
           f"{launches['gather_reduce']}")
     tgcn_rows_phase(torch, graph, card)
+    masked = masks_phase(torch, fr, fa, graph, records, card)
+    launches.update({k: launches[k] + masked[k] for k in SWEEPS})
+    print(f"sweep launches over phase R6's main paths (R6a's captured mesh "
+          f"steps, R6b's ranks): {masked}; over every path: "
+          f"{ {k: launches[k] for k in SWEEPS} }")
 
     print(f"capture phase, every path ({card}): {json.dumps(CAPTURED)}")
     slower = [f"{r['path']} {r['phase']}" for r in CAPTURED
@@ -5382,6 +5861,8 @@ def main() -> int:
         return row_rank_main(sys.argv[2:], em4_paths)
     if sys.argv[1:2] == ["tgcn-rank"]:  # a rank of phase R5b, started by it
         return row_rank_main(sys.argv[2:], tgcn_paths)
+    if sys.argv[1:2] == ["mask-rank"]:  # a rank of phase R6b, started by it
+        return row_rank_main(sys.argv[2:], mask_paths)
     try:
         import torch
     except ImportError:

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Phase R3, R4 or R5 of ``chip_smoke.py`` alone: the EdgeMap tier, or
-TGCN's tables, row-sharded over ``model`` on one NVIDIA GPU.
+"""Phase R3, R4, R5 or R6 of ``chip_smoke.py`` alone: the EdgeMap tier,
+TGCN's tables, or the kernel tiers' masks, row-sharded over ``model`` on
+one NVIDIA GPU.
 
-Builds the gather kernels and the hetrec and 10x graphs of
+Builds the phase's kernels and the hetrec and 10x graphs of
 ``chip_smoke.py``, prints a host report, then runs the phase with every
 hold of the full smoke run.  A quicker loop than the whole
 ``chip_smoke.py`` for work on this path:
@@ -10,6 +11,7 @@ hold of the full smoke run.  A quicker loop than the whole
     python3 experiments/torch_edgemap_partition.py R3
     python3 experiments/torch_edgemap_partition.py R4
     python3 experiments/torch_edgemap_partition.py R5
+    python3 experiments/torch_edgemap_partition.py R6
 
 R3 (DGCF's and DisenGCN's maps): the host's build of DGCF 10x's EdgeMap
 and of one rank's cut and exchange plan at ``model`` = 2
@@ -37,6 +39,17 @@ and of one rank's cut; then ``chip_smoke.tgcn_rows_phase``: R5a (TGCN
 captured run) and R5b (two ``chip_smoke.py tgcn-rank`` processes on
 gloo: TGCN ``auto``, ``dense_xla`` and ``ell`` at hetrec, against the
 one-device run).  R5 needs no kernel and no 10x graph.
+
+R6 (the kernel tiers' masks: DGCF's and DisenGCN's routing mask, KGAT
+``bi_inter``'s flash masks and their transposes): for each R6b path the
+masks' host build and rank 0's cut at ``model`` = 2, timed, and the mask
+bytes rank 0 holds; then ``chip_smoke.masks_phase``: the seven sweeps
+over a block of rows against their plain versions and the whole
+launch's rows, R6a (DGCF hetrec captured on a one-rank NCCL mesh against
+the unmeshed captured run) and R6b (two ``chip_smoke.py mask-rank``
+processes on gloo: DGCF, DisenGCN and KGAT ``bi_inter`` at hetrec,
+against the one-device run).  R6 builds the routing and flash kernels
+and needs no 10x graph.
 
 Needs one NVIDIA GPU; prints the card's name and power limit first and
 last.  Exits non-zero when a hold fails.
@@ -163,8 +176,48 @@ def r5_run(torch, dg, graphs, card):
     return 0
 
 
-PHASES = {"R3": (r3_report, cs.em_phase), "R4": (r4_report, cs.em4_phase),
-          "R5": (r5_report, r5_run)}
+def r6_report(graphs) -> None:
+    """Per R6b path: the masks' host build and rank 0's cut at ``model`` =
+    2, timed on the host clock, and the mask bytes rank 0 holds."""
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.models import model_class
+    from tagrec_tpu_torch.parallel.mesh import make_mesh
+
+    for label, name, over, _ in cs.MASK_PATHS:
+        t0 = time.perf_counter()
+        model = model_class(name)(graphs["hetrec"], model_preset(name, **over),
+                                  device="cpu",
+                                  generator=torch.Generator().manual_seed(0))
+        built = time.perf_counter() - t0
+        whole = model.mask_nbytes()
+        t0 = time.perf_counter()
+        model.place_masks(make_mesh(2, 1, rank=0), "cpu")
+        print(f"{label}: masks built on the host in {built:.1f} s, rank 0's "
+              f"cut at model = 2 in {time.perf_counter() - t0:.2f} s (host "
+              f"clock); rank 0 holds {model.mask_nbytes()} of {whole} mask "
+              f"bytes, blocks {model.mask_blocks}")
+        del model
+
+
+def r6_run(torch, dg, graphs, card):
+    from tagrec_tpu_torch.ops import flash_attention as fa
+    from tagrec_tpu_torch.ops import flash_routing as fr
+
+    records = {k: {"max_abs_err": 0.0} for k in cs.SWEEPS}
+    launches = cs.masks_phase(torch, fr, fa, graphs["hetrec"], records, card)
+    print(f"largest error of each sweep over a block of rows: "
+          f"{ {k: v['max_abs_err'] for k, v in records.items()} }")
+    return launches
+
+
+ROUTING_FLASH = ["routed_rowsum", "routed_mm", "dot_flash_stats",
+                 "dot_flash_apply", "dot_flash_bwd_row", "dot_flash_bwd_col"]
+GATHERS = ["gather_reduce", "gather_rows"]
+# phase -> (host report, the phase, the kernels it builds)
+PHASES = {"R3": (r3_report, cs.em_phase, GATHERS),
+          "R4": (r4_report, cs.em4_phase, GATHERS),
+          "R5": (r5_report, r5_run, GATHERS),
+          "R6": (r6_report, r6_run, ROUTING_FLASH)}
 
 
 def main() -> int:
@@ -175,7 +228,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("phase", choices=sorted(PHASES))
     phase = ap.parse_args().phase
-    report, run = PHASES[phase]
+    report, run, kernels = PHASES[phase]
     if not torch.cuda.is_available():
         print("no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -184,13 +237,13 @@ def main() -> int:
     card = cs.gpu_name_and_limit()
     print(card, torch.__version__, torch.version.cuda)
     t0 = time.perf_counter()
-    _build.build(["gather_reduce", "gather_rows"])
+    _build.build(kernels)
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     graphs = {"hetrec": synthetic_graph_large(cs.N_USER, cs.N_ITEM, cs.N_TAG,
                                               cs.N_EDGES, cs.TAG_PER_INTER,
                                               seed=0)}
-    if phase != "R5":
+    if phase in ("R3", "R4"):
         graphs["10x"] = synthetic_graph_large(*cs.LGCN_10X, cs.TAG_PER_INTER,
                                               seed=0)
     print(f"graphs built in {time.perf_counter() - t0:.1f} s")
@@ -200,8 +253,7 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         return 1
-    print(f"gather_reduce launches on phase {phase}'s main paths: "
-          f"{launches}")
+    print(f"kernel launches on phase {phase}'s main paths: {launches}")
     print(card)
     return 0
 

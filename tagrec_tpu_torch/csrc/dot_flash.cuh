@@ -18,6 +18,14 @@
 // per column, bwd_col), so the split needs no alignment, and never reads a
 // column off the edges.  Widths dq and dx are at most MAXD = 64.  Plain
 // float32 FMAs on the CUDA cores; no tensor cores.
+//
+// A launch sweeps rows row0 .. row0 + R of its mask (a rank's rows under a
+// mesh; row0 = 0 and every row otherwise): row i of the block is row
+// row0 + i of the attention (bwd_col: column row0 + i), whose q, g, m, z
+// and delta (bwd_col: k, x and the plane row0 + i >= split) the kernel
+// reads at that global row, and whose results it writes at row i of its
+// [R, ...] outputs, so a rank's rows land in its part of a send buffer
+// without a copy.
 
 #pragma once
 
@@ -45,7 +53,8 @@ __device__ __forceinline__ int col_of(int l, int t) {
 }
 
 // Per-row softmax constants from the stats: max(m, NEG) and 1 / z (z == 0
-// -> 1); rows past Ns get (NEG, 0), which makes their P zero.
+// -> 1) of the global row i; rows past Ns get (NEG, 0), which makes their P
+// zero.
 __device__ __forceinline__ void row_consts(float& mc, float& iz,
                                            const float* __restrict__ ms,
                                            const float* __restrict__ zs, int i,

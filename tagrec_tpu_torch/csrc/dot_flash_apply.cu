@@ -2,9 +2,10 @@
 //
 // Replaces the Pallas TPU kernel tagrec_tpu/ops/flash_attention.py::
 // _dot_apply_kernel (launched by dot_flash_apply through _dot_apply).
-// q2 [2, Ns, dq], k [Nd, dq], x [Nd, dx] f32 (dq, dx <= 64), mask [Ns, Nd]
-// int8 (0/1), m, z [Ns] f32 from dot_flash_stats, split (any column offset)
-// -> out [Ns, dx] f32, where for each edge (i, j) (mask > 0)
+// q2 [2, NsAll, dq], k [Nd, dq], x [Nd, dx] f32 (dq, dx <= 64), mask
+// [Ns, Nd] int8 (0/1: rows row0 .. row0 + Ns of the whole, dot_flash.cuh),
+// m, z [NsAll] f32 from dot_flash_stats, split (any column offset) -> out
+// [Ns, dx] f32, where for each edge (i, j) (mask > 0)
 //   S = q2[p(j)][i] . k[j],  p(j) = (j >= split),
 //   P = exp(S - max(m[i], NEG)) * mask / (z[i] == 0 ? 1 : z[i])
 // (dot_flash.cuh's rule); a row with no edge gives 0.  The row max and sum
@@ -43,7 +44,7 @@ apply_kernel(const float* __restrict__ q2, const float* __restrict__ k,
              const int8_t* __restrict__ mask, const float* __restrict__ ms,
              const float* __restrict__ zs, const float* __restrict__ x,
              float* __restrict__ out, int Ns, int Nd, int dq, int dx,
-             int split, int wpr) {
+             int split, int row0, int NsAll, int wpr) {
   using mask_rows::FULL;
   using mask_rows::G;
   using mask_rows::WARPS;
@@ -58,7 +59,7 @@ apply_kernel(const float* __restrict__ q2, const float* __restrict__ k,
   if (i < Ns)  // the row's warps stage its two q rows
     for (int e = p * 32 + lane; e < 2 * dq; e += wpr * 32) {
       const int pl = e / dq, c = e - pl * dq;
-      qrow[pl * QS2 + c] = q2[((size_t)pl * Ns + i) * dq + c];
+      qrow[pl * QS2 + c] = q2[((size_t)pl * NsAll + row0 + i) * dq + c];
     }
   __syncthreads();
 
@@ -67,7 +68,7 @@ apply_kernel(const float* __restrict__ q2, const float* __restrict__ k,
   for (int t = 0; t < CL; ++t) acc[t] = 0.f;
   if (i < Ns) {  // uniform over the row's warps
     float mc, iz;
-    row_consts(mc, iz, ms, zs, i, Ns);
+    row_consts(mc, iz, ms, zs, row0 + i, NsAll);
     auto work = [&](int j, float v, bool valid) {
       const bool on = valid && v > 0.f;
       const float* qp = qrow + (j >= split ? QS2 : 0);
@@ -134,10 +135,10 @@ extern "C" int dot_flash_apply_f32(const float* q2, const float* k,
                                    const int8_t* mask, const float* m,
                                    const float* z, const float* x, float* out,
                                    int Ns, int Nd, int dq, int dx, int split,
-                                   void* stream) {
+                                   int row0, int NsAll, void* stream) {
   using namespace dot_flash;
   if (dq < 1 || dq > MAXD || dx < 0 || dx > MAXD || Nd < 0 ||
-      Nd >= mask_rows::MAX_COLS)
+      Nd >= mask_rows::MAX_COLS || row0 < 0 || Ns > NsAll - row0)
     return (int)cudaErrorInvalidValue;
   if (Ns <= 0) return 0;
   const int wpr = mask_rows::warps_per_row(Nd);
@@ -147,9 +148,9 @@ extern "C" int dot_flash_apply_f32(const float* q2, const float* k,
                    (uintptr_t)x % 16 == 0;
   if (vec)
     apply_kernel<true><<<blocks, mask_rows::NT, 0, st>>>(
-        q2, k, mask, m, z, x, out, Ns, Nd, dq, dx, split, wpr);
+        q2, k, mask, m, z, x, out, Ns, Nd, dq, dx, split, row0, NsAll, wpr);
   else
     apply_kernel<false><<<blocks, mask_rows::NT, 0, st>>>(
-        q2, k, mask, m, z, x, out, Ns, Nd, dq, dx, split, wpr);
+        q2, k, mask, m, z, x, out, Ns, Nd, dq, dx, split, row0, NsAll, wpr);
   return (int)cudaGetLastError();
 }

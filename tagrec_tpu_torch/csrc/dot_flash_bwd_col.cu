@@ -3,10 +3,11 @@
 //
 // Replaces the Pallas TPU kernel tagrec_tpu/ops/flash_attention.py::
 // _dot_bwd_col_kernel (launched by _dot_bwd_col).  q2 [2, Ns, dq],
-// k [Nd, dq], x [Nd, dx], g [Ns, dx] (the cotangent of out) f32 (dq, dx <=
-// 64), mask_t [Nd, Ns] int8 (0/1: the attention mask's contiguous
-// transpose), m, z, delta [Ns] f32, split (any column offset) ->
-// dk [Nd, dq], dx [Nd, dx] f32:
+// k [NdAll, dq], x [NdAll, dx], g [Ns, dx] (the cotangent of out) f32 (dq,
+// dx <= 64), mask_t [Nd, Ns] int8 (0/1: rows row0 .. row0 + Nd of the
+// attention mask's contiguous transpose, dot_flash.cuh), m, z, delta [Ns]
+// f32, split (any column offset of the whole) -> dk [Nd, dq], dx [Nd, dx]
+// f32 (the block's columns):
 //   dS = P * (g x^T - delta),  dk[j] = sum_i dS[i, j] q2[p(j)][i],
 //                              dx[j] = sum_i P[i, j] g[i],
 // with P per edge from the stats (dot_flash.cuh's rule).  Every column is
@@ -23,9 +24,10 @@
 // the mask stream and the gathers in flight.
 //
 // Design (mask_rows.cuh), as dot_flash_bwd_row.cu with rows and columns
-// exchanged: a row-streamed edge sweep over mask_t.  Row j of mask_t is
-// column j of the attention, so its q plane p(j) = (j >= split) is fixed for
-// the whole row and the split needs no alignment.  wpr warps own a column j
+// exchanged: a row-streamed edge sweep over mask_t.  Row j of the block is
+// column J = row0 + j of the attention, so its q plane p(J) = (J >= split)
+// is fixed for the whole row, a block may lie either side of the split or
+// across it, and the split needs no alignment.  wpr warps own a column j
 // (warps_per_row: one warp per 2 KB of row, so 1, 8 and 2 at the three row
 // types), and its k row and x row are staged once in shared memory.  A warp works 8
 // edges (j, i) at a time, 4 lanes an edge: lane l gathers the columns
@@ -51,7 +53,7 @@ bwd_col_kernel(const float* __restrict__ q2, const float* __restrict__ k,
                const float* __restrict__ zs, const float* __restrict__ x,
                const float* __restrict__ g, const float* __restrict__ delta,
                float* __restrict__ dk, float* __restrict__ dxo, int Ns, int Nd,
-               int dq, int dx, int split, int wpr) {
+               int dq, int dx, int split, int row0, int wpr) {
   using mask_rows::FULL;
   using mask_rows::G;
   using mask_rows::WARPS;
@@ -61,15 +63,16 @@ bwd_col_kernel(const float* __restrict__ q2, const float* __restrict__ k,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int slot = warp / wpr, p = warp % wpr;
   const int j = blockIdx.x * (WARPS / wpr) + slot;
+  const size_t J = (size_t)row0 + j;  // the attention's column
   const int l = lane % G;
   float* kr = rs + slot * 2 * QS2;
   float* xr = kr + QS2;
   if (j < Nd)  // the column's warps stage its k row and its x row
     for (int e = p * 32 + lane; e < dq + dx; e += wpr * 32) {
       if (e < dq)
-        kr[e] = k[(size_t)j * dq + e];
+        kr[e] = k[J * dq + e];
       else
-        xr[e - dq] = x[(size_t)j * dx + e - dq];
+        xr[e - dq] = x[J * dx + e - dq];
     }
   __syncthreads();
 
@@ -80,7 +83,7 @@ bwd_col_kernel(const float* __restrict__ q2, const float* __restrict__ k,
     accx[t] = 0.f;
   }
   if (j < Nd) {  // uniform over the column's warps
-    const float* qp = q2 + (j >= split ? (size_t)Ns * dq : 0);
+    const float* qp = q2 + (J >= (size_t)split ? (size_t)Ns * dq : 0);
     auto work = [&](int i, float v, bool valid) {
       const bool on = valid && v > 0.f;
       const float* qrow = qp + (size_t)i * dq;
@@ -182,10 +185,11 @@ extern "C" int dot_flash_bwd_col_f32(const float* q2, const float* k,
                                      const float* z, const float* x,
                                      const float* g, const float* delta,
                                      float* dk, float* dx_out, int Ns, int Nd,
-                                     int dq, int dx, int split, void* stream) {
+                                     int dq, int dx, int split, int row0,
+                                     void* stream) {
   using namespace dot_flash;
   if (dq < 1 || dq > MAXD || dx < 0 || dx > MAXD || Ns < 0 ||
-      Ns >= mask_rows::MAX_COLS)
+      Ns >= mask_rows::MAX_COLS || row0 < 0)
     return (int)cudaErrorInvalidValue;
   if (Nd <= 0) return 0;
   const int wpr = mask_rows::warps_per_row(Ns);
@@ -196,10 +200,10 @@ extern "C" int dot_flash_bwd_col_f32(const float* q2, const float* k,
   if (vec)
     bwd_col_kernel<true><<<blocks, mask_rows::NT, 0, st>>>(
         q2, k, mask_t, m, z, x, g, delta, dk, dx_out, Ns, Nd, dq, dx, split,
-        wpr);
+        row0, wpr);
   else
     bwd_col_kernel<false><<<blocks, mask_rows::NT, 0, st>>>(
         q2, k, mask_t, m, z, x, g, delta, dk, dx_out, Ns, Nd, dq, dx, split,
-        wpr);
+        row0, wpr);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,11 @@
 // dot_flash_bwd_row: dq2 of dot_flash_apply's backward, row by row.
 //
 // Replaces the Pallas TPU kernel tagrec_tpu/ops/flash_attention.py::
-// _dot_bwd_row_kernel (launched by _dot_bwd_row).  q2 [2, Ns, dq],
-// k [Nd, dq], x [Nd, dx], g [Ns, dx] (the cotangent of out) f32 (dq, dx <=
-// 64), mask [Ns, Nd] int8 (0/1), m, z, delta [Ns] f32 (delta =
-// rowsum(g * out)), split (any column offset) -> dq2 [2, Ns, dq] f32:
+// _dot_bwd_row_kernel (launched by _dot_bwd_row).  q2 [2, NsAll, dq],
+// k [Nd, dq], x [Nd, dx], g [NsAll, dx] (the cotangent of out) f32 (dq, dx
+// <= 64), mask [Ns, Nd] int8 (0/1: rows row0 .. row0 + Ns of the whole,
+// dot_flash.cuh), m, z, delta [NsAll] f32 (delta = rowsum(g * out)), split
+// (any column offset) -> dq2 [2, Ns, dq] f32 (the mask's rows):
 //   dS = P * (g x^T - delta),  dq2[0] = dS[:, :split] @ k[:split],
 //                              dq2[1] = dS[:, split:] @ k[split:],
 // with P per edge from the stats (dot_flash.cuh's rule).  Every row and both
@@ -53,7 +54,7 @@ bwd_row_kernel(const float* __restrict__ q2, const float* __restrict__ k,
                const float* __restrict__ zs, const float* __restrict__ x,
                const float* __restrict__ g, const float* __restrict__ delta,
                float* __restrict__ dq2, int Ns, int Nd, int dq, int dx,
-               int split, int wpr) {
+               int split, int row0, int NsAll, int wpr) {
   using mask_rows::FULL;
   using mask_rows::G;
   using mask_rows::WARPS;
@@ -69,9 +70,9 @@ bwd_row_kernel(const float* __restrict__ q2, const float* __restrict__ k,
     for (int e = p * 32 + lane; e < 2 * dq + dx; e += wpr * 32) {
       if (e < 2 * dq) {
         const int pl = e / dq, c = e - pl * dq;
-        row[pl * QS2 + c] = q2[((size_t)pl * Ns + i) * dq + c];
+        row[pl * QS2 + c] = q2[((size_t)pl * NsAll + row0 + i) * dq + c];
       } else {
-        row[2 * QS2 + e - 2 * dq] = g[(size_t)i * dx + e - 2 * dq];
+        row[2 * QS2 + e - 2 * dq] = g[(size_t)(row0 + i) * dx + e - 2 * dq];
       }
     }
   __syncthreads();
@@ -97,8 +98,8 @@ bwd_row_kernel(const float* __restrict__ q2, const float* __restrict__ k,
   };
   if (i < Ns) {  // uniform over the row's warps
     float mc, iz;
-    row_consts(mc, iz, ms, zs, i, Ns);
-    const float dl = delta[i];
+    row_consts(mc, iz, ms, zs, row0 + i, NsAll);
+    const float dl = delta[row0 + i];
     const float* gr = row + 2 * QS2;
     auto work = [&](int j, float v, bool valid) {
       const bool on = valid && v > 0.f;
@@ -186,10 +187,11 @@ extern "C" int dot_flash_bwd_row_f32(const float* q2, const float* k,
                                      const float* z, const float* x,
                                      const float* g, const float* delta,
                                      float* dq2, int Ns, int Nd, int dq,
-                                     int dx, int split, void* stream) {
+                                     int dx, int split, int row0, int NsAll,
+                                     void* stream) {
   using namespace dot_flash;
   if (dq < 1 || dq > MAXD || dx < 0 || dx > MAXD || Nd < 0 ||
-      Nd >= mask_rows::MAX_COLS)
+      Nd >= mask_rows::MAX_COLS || row0 < 0 || Ns > NsAll - row0)
     return (int)cudaErrorInvalidValue;
   if (Ns <= 0) return 0;
   const int wpr = mask_rows::warps_per_row(Nd);
@@ -199,9 +201,11 @@ extern "C" int dot_flash_bwd_row_f32(const float* q2, const float* k,
                    (uintptr_t)x % 16 == 0;
   if (vec)
     bwd_row_kernel<true><<<blocks, mask_rows::NT, 0, st>>>(
-        q2, k, mask, m, z, x, g, delta, dq2, Ns, Nd, dq, dx, split, wpr);
+        q2, k, mask, m, z, x, g, delta, dq2, Ns, Nd, dq, dx, split, row0,
+        NsAll, wpr);
   else
     bwd_row_kernel<false><<<blocks, mask_rows::NT, 0, st>>>(
-        q2, k, mask, m, z, x, g, delta, dq2, Ns, Nd, dq, dx, split, wpr);
+        q2, k, mask, m, z, x, g, delta, dq2, Ns, Nd, dq, dx, split, row0,
+        NsAll, wpr);
   return (int)cudaGetLastError();
 }

@@ -2,9 +2,10 @@
 //
 // Replaces the Pallas TPU kernel tagrec_tpu/ops/flash_attention.py::
 // _dot_stats_kernel (launched by dot_flash_stats through _dot_stats).
-// q2 [2, Ns, dq], k [Nd, dq] f32 (dq <= 64), mask [Ns, Nd] int8 (0/1),
-// split (any column offset) -> m [Ns], z [Ns] f32, where over the row's
-// edges (i, j) (mask > 0)
+// q2 [2, NsAll, dq], k [Nd, dq] f32 (dq <= 64), mask [Ns, Nd] int8 (0/1:
+// rows row0 .. row0 + Ns of the whole, dot_flash.cuh), split (any column
+// offset) -> m [Ns], z [Ns] f32, where over the row's edges (i, j)
+// (mask > 0)
 //   S = q2[p(j)][i] . k[j],  p(j) = (j >= split),
 //   m[i] = max(NEG, max S),  z[i] = sum exp(S - m[i]) * mask
 // (the mask byte is the weight, as JAX multiplies by it); a row with no
@@ -51,7 +52,7 @@ __global__ void __launch_bounds__(mask_rows::NT)
 stats_kernel(const float* __restrict__ q2, const float* __restrict__ k,
              const int8_t* __restrict__ mask, float* __restrict__ mout,
              float* __restrict__ zout, int Ns, int Nd, int dq, int split,
-             int wpr) {
+             int row0, int NsAll, int wpr) {
   using mask_rows::FULL;
   using mask_rows::G;
   using mask_rows::WARPS;
@@ -66,7 +67,7 @@ stats_kernel(const float* __restrict__ q2, const float* __restrict__ k,
   if (i < Ns)  // the row's warps stage its two q rows
     for (int e = p * 32 + lane; e < 2 * dq; e += wpr * 32) {
       const int pl = e / dq, c = e - pl * dq;
-      qrow[pl * QS2 + c] = q2[((size_t)pl * Ns + i) * dq + c];
+      qrow[pl * QS2 + c] = q2[((size_t)pl * NsAll + row0 + i) * dq + c];
     }
   __syncthreads();
 
@@ -135,9 +136,10 @@ stats_kernel(const float* __restrict__ q2, const float* __restrict__ k,
 extern "C" int dot_flash_stats_f32(const float* q2, const float* k,
                                    const int8_t* mask, float* m, float* z,
                                    int Ns, int Nd, int dq, int split,
-                                   void* stream) {
+                                   int row0, int NsAll, void* stream) {
   using namespace dot_flash;
-  if (dq < 1 || dq > MAXD || Nd < 0 || Nd >= mask_rows::MAX_COLS)
+  if (dq < 1 || dq > MAXD || Nd < 0 || Nd >= mask_rows::MAX_COLS ||
+      row0 < 0 || Ns > NsAll - row0)
     return (int)cudaErrorInvalidValue;
   if (Ns <= 0) return 0;
   const int wpr = mask_rows::warps_per_row(Nd);
@@ -145,9 +147,9 @@ extern "C" int dot_flash_stats_f32(const float* q2, const float* k,
   const cudaStream_t st = (cudaStream_t)stream;
   if (dq % 4 == 0 && (uintptr_t)k % 16 == 0)
     stats_kernel<true><<<blocks, mask_rows::NT, 0, st>>>(
-        q2, k, mask, m, z, Ns, Nd, dq, split, wpr);
+        q2, k, mask, m, z, Ns, Nd, dq, split, row0, NsAll, wpr);
   else
     stats_kernel<false><<<blocks, mask_rows::NT, 0, st>>>(
-        q2, k, mask, m, z, Ns, Nd, dq, split, wpr);
+        q2, k, mask, m, z, Ns, Nd, dq, split, row0, NsAll, wpr);
   return (int)cudaGetLastError();
 }

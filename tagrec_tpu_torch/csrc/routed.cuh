@@ -8,9 +8,13 @@
 //   routed_mm      out_f[n] = sum_m P_f[n, m] x_f[m]   (GATHER: an x row an edge)
 //   routed_rowsum  d_f[n]   = sum_m P_f[n, m]          (x_f = 1: no gather)
 // with one per-edge body, so that the two softmaxes cannot drift apart.
-// q [F, N, r], k [F, M, r] f32, mask [N, M] int8 or bool (one byte a pair;
+// q [F, NQ, r], k [F, M, r] f32, mask [N, M] int8 or bool (one byte a pair;
 // multiplied by its value, as the Pallas kernels multiply p * m_tile),
-// x [F, M, dx] f32; F <= 4, r <= 128, dx <= 16.  The softmax runs over the F
+// x [F, M, dx] f32; F <= 4, r <= 128, dx <= 16.  The mask's rows are rows
+// row0 .. row0 + N of the whole (a rank's rows under a mesh, or all of them
+// with row0 = 0 and N = NQ): row n reads q row row0 + n and writes out row
+// n of [F, N, dx] (or [F, N]), so a rank's rows land in its part of a send
+// buffer without a copy.  The softmax runs over the F
 // factors of one (n, m) pair and has no max subtraction: the callers' scores
 // are bounded (DGCF: |S| <= 1 + number of routing iterations), so exp
 // cannot overflow.
@@ -84,8 +88,8 @@ __device__ __forceinline__ void sweep(const float* __restrict__ q,
                                       const int8_t* __restrict__ mask,
                                       const float* __restrict__ x,
                                       float* __restrict__ out, int F, int N,
-                                      int M, int r, int dx, float base,
-                                      int wpr) {
+                                      int M, int r, int dx, int row0, int NQ,
+                                      float base, int wpr) {
   constexpr int ACC = GATHER ? MAXDX : 1;  // accumulators a lane
   __shared__ mask_rows::Warp ws[WARPS];
   __shared__ __align__(16) float qs[WARPS * MAXF * MAXQS];
@@ -100,7 +104,7 @@ __device__ __forceinline__ void sweep(const float* __restrict__ q,
   if (n < N)  // the row's warps stage its q rows
     for (int e = p * 32 + lane; e < F * r; e += wpr * 32) {
       const int ff = e / r, c = e - ff * r;
-      qrow[ff * stride + c] = q[((size_t)ff * N + n) * r + c];
+      qrow[ff * stride + c] = q[((size_t)ff * NQ + row0 + n) * r + c];
     }
   __syncthreads();
 
@@ -165,9 +169,11 @@ __device__ __forceinline__ void sweep(const float* __restrict__ q,
 }
 
 // The shapes both kernels take (0 = ok), as cudaError_t.
-inline int check_shapes(int F, int M, int r, int dx) {
+inline int check_shapes(int F, int N, int M, int r, int dx, int row0,
+                        int NQ) {
   return F < 1 || F > MAXF || r < 1 || r > MAXR || dx < 0 || dx > MAXDX ||
-                 M < 0 || M >= mask_rows::MAX_COLS
+                 M < 0 || M >= mask_rows::MAX_COLS || row0 < 0 ||
+                 N > NQ - row0
              ? (int)cudaErrorInvalidValue
              : 0;
 }

@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas TPU kernel tagrec_tpu/ops/flash_routing.py::_mm_kernel
 // (launched by routed_mm through _mm_call, and by its backward
-// _routed_mm_bwd).  q [F, N, r], k [F, M, r] f32, mask [N, M] int8 or bool,
-// x [F, M, dx] f32 -> out [F, N, dx] f32.  F <= 4, r <= 128, dx <= 16.  The
+// _routed_mm_bwd).  q [F, NQ, r], k [F, M, r] f32, mask [N, M] int8 or bool
+// (rows row0 .. row0 + N of the whole, routed.cuh), x [F, M, dx] f32 ->
+// out [F, N, dx] f32.  F <= 4, r <= 128, dx <= 16.  The
 // backward (ops/flash_routing.py::routed_mm_bwd) is this same launch over
 // the rows of mask^T with q and k swapped and x = the output's gradient:
 // dx_f = P_f^T g_f, at the forward's r and dx.
@@ -27,8 +28,9 @@ __global__ void __launch_bounds__(routed::NT, 3)
 mm_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const int8_t* __restrict__ mask, const float* __restrict__ x,
           float* __restrict__ out, int F, int N, int M, int r, int dx,
-          float base, int wpr) {
-  routed::sweep<VEC, true>(q, k, mask, x, out, F, N, M, r, dx, base, wpr);
+          int row0, int NQ, float base, int wpr) {
+  routed::sweep<VEC, true>(q, k, mask, x, out, F, N, M, r, dx, row0, NQ,
+                           base, wpr);
 }
 
 }  // namespace routed_mm
@@ -36,9 +38,9 @@ mm_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // Launches one routed_mm on `stream`; returns cudaGetLastError() (0 = ok).
 extern "C" int routed_mm_f32(const float* q, const float* k,
                              const int8_t* mask, const float* x, float* out,
-                             int F, int N, int M, int r, int dx, float base,
-                             void* stream) {
-  const int bad = routed::check_shapes(F, M, r, dx);
+                             int F, int N, int M, int r, int dx, int row0,
+                             int NQ, float base, void* stream) {
+  const int bad = routed::check_shapes(F, N, M, r, dx, row0, NQ);
   if (bad) return bad;
   if (N <= 0) return 0;
   const int wpr = mask_rows::warps_per_row(M);
@@ -48,10 +50,10 @@ extern "C" int routed_mm_f32(const float* q, const float* k,
                    (uintptr_t)x % 16 == 0;
   if (vec)
     routed_mm::mm_kernel<true><<<blocks, routed::NT, 0, st>>>(
-        q, k, mask, x, out, F, N, M, r, dx, base, wpr);
+        q, k, mask, x, out, F, N, M, r, dx, row0, NQ, base, wpr);
   else
     routed_mm::mm_kernel<false><<<blocks, routed::NT, 0, st>>>(
-        q, k, mask, x, out, F, N, M, r, dx, base, wpr);
+        q, k, mask, x, out, F, N, M, r, dx, row0, NQ, base, wpr);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 // routed_rowsum: d_f[n] = sum_m (softmax_F(base + q_f k_f^T) * mask)[n, m].
 //
 // Replaces the Pallas TPU kernel tagrec_tpu/ops/flash_routing.py::
-// _rowsum_kernel (launched by routed_rowsum).  q [F, N, r], k [F, M, r] f32,
-// mask [N, M] int8 or bool -> d [F, N] f32: the degree vector of DGCF's
+// _rowsum_kernel (launched by routed_rowsum).  q [F, NQ, r], k [F, M, r] f32,
+// mask [N, M] int8 or bool (rows row0 .. row0 + N of the whole, routed.cuh)
+// -> d [F, N] f32: the degree vector of DGCF's
 // routed adjacency, which the model feeds only to detached paths.  F <= 4,
 // r <= 128, the limits of routed_mm, which DGCF runs on the same q and k.
 //
@@ -26,9 +27,9 @@ template <bool VEC>
 __global__ void __launch_bounds__(routed::NT, 3)
 rowsum_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const int8_t* __restrict__ mask, float* __restrict__ out, int F,
-              int N, int M, int r, float base, int wpr) {
-  routed::sweep<VEC, false>(q, k, mask, nullptr, out, F, N, M, r, 1, base,
-                            wpr);
+              int N, int M, int r, int row0, int NQ, float base, int wpr) {
+  routed::sweep<VEC, false>(q, k, mask, nullptr, out, F, N, M, r, 1, row0, NQ,
+                            base, wpr);
 }
 
 }  // namespace routed_rowsum
@@ -36,8 +37,9 @@ rowsum_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // Launches one routed_rowsum on `stream`; returns cudaGetLastError().
 extern "C" int routed_rowsum_f32(const float* q, const float* k,
                                  const int8_t* mask, float* out, int F, int N,
-                                 int M, int r, float base, void* stream) {
-  const int bad = routed::check_shapes(F, M, r, 1);
+                                 int M, int r, int row0, int NQ, float base,
+                                 void* stream) {
+  const int bad = routed::check_shapes(F, N, M, r, 1, row0, NQ);
   if (bad) return bad;
   if (N <= 0) return 0;
   const int wpr = mask_rows::warps_per_row(M);
@@ -45,10 +47,10 @@ extern "C" int routed_rowsum_f32(const float* q, const float* k,
   const cudaStream_t st = (cudaStream_t)stream;
   if (r % 4 == 0 && (uintptr_t)k % 16 == 0)
     routed_rowsum::rowsum_kernel<true><<<blocks, routed::NT, 0, st>>>(
-        q, k, mask, out, F, N, M, r, base, wpr);
+        q, k, mask, out, F, N, M, r, row0, NQ, base, wpr);
   else
     routed_rowsum::rowsum_kernel<false><<<blocks, routed::NT, 0, st>>>(
-        q, k, mask, out, F, N, M, r, base, wpr);
+        q, k, mask, out, F, N, M, r, row0, NQ, base, wpr);
   return (int)cudaGetLastError();
 }
 

@@ -6,9 +6,10 @@ from __future__ import annotations
 import math
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
-from tagrec_tpu_torch.ops import edgemap
+from tagrec_tpu_torch.ops import dense_adj, edgemap
 from tagrec_tpu_torch.ops import ell as ell_lib
 from tagrec_tpu_torch.ops.losses import bpr_loss, l2reg_loss
 
@@ -133,3 +134,100 @@ class EdgeMapGraph:
             self.edges = None
             self.edges = edgemap.EdgeMapBuffers(
                 edgemap.maps_to_device(self.em_hosts, device, mesh))
+
+
+class MaskGraph(EdgeMapGraph):
+    """The protocol for a model whose kernel tier sweeps dense masks (DGCF,
+    DisenGCN, KGAT ``bi_inter``): ``mask_hosts`` [(leaf path, buffer
+    name, host mask, transposed)] on the host, the buffers on the device;
+    the other tiers (``mask_hosts`` empty) are placed as an
+    ``EdgeMapGraph``.  Its leaves are JAX's (``mask``; ``fmasks.0`` ...),
+    then the port's contiguous transposes (``maskT``; ``fmasksT.0`` ...),
+    each by JAX's rule on its own rows; a transposed entry's buffer holds
+    rows of the host mask's transpose, cut from its columns.
+    ``sweep_mask(name)`` is what the sweeps take: the buffer, or the
+    ``ops.dense_adj.MaskShard`` of the rank's rows where the mesh cuts
+    it."""
+
+    mask_hosts = ()
+    masks_mesh = None
+
+    def graph_leaves(self, mesh) -> Dict[str, Optional[str]]:
+        if not self.mask_hosts:
+            return super().graph_leaves(mesh)
+        return rule_leaves([(path, host.T if t else host)
+                            for path, _, host, t in self.mask_hosts], (), mesh)
+
+    def graph_mesh(self):
+        return self.masks_mesh if self.mask_hosts else super().graph_mesh()
+
+    def place_graph(self, mesh) -> None:
+        if self.mask_hosts:
+            self.place_masks(mesh)
+        else:
+            super().place_graph(mesh)
+
+    def place_masks(self, mesh=None, device=None) -> None:
+        """The masks as buffers on ``device`` (the parameters' by
+        default): whole, or the rows ``mesh``'s rank holds of each that
+        JAX's rule cuts, cut on the host before the upload, the whole
+        buffers let go first."""
+        device = device or next(self.parameters()).device
+        for _, name, _, _ in self.mask_hosts:
+            self._buffers[name] = None
+        self.mask_blocks = {}
+        for _, name, host, t in self.mask_hosts:
+            blk = dense_adj.mask_block(host.shape[1 if t else 0], mesh)
+            self.register_buffer(name, torch.from_numpy(
+                dense_adj.cut_mask(host, blk, t)).to(device))
+            self.mask_blocks[name] = blk
+        self.masks_mesh = mesh
+
+    def sweep_mask(self, name: str):
+        """The buffer ``name``, or the MaskShard of its rows where the
+        mesh cuts it."""
+        mask = getattr(self, name)
+        blk = self.mask_blocks.get(name)
+        if blk is None:
+            return mask
+        return dense_adj.MaskShard(
+            mask, blk[0], blk[1],
+            mask.shape[0] * self.masks_mesh.shape["model"], self.masks_mesh)
+
+    def mask_nbytes(self) -> int:
+        """Bytes of the masks the model holds on its device."""
+        return sum(getattr(self, name).numel()
+                   * getattr(self, name).element_size()
+                   for _, name, _, _ in self.mask_hosts)
+
+
+class RoutingMaskGraph(MaskGraph):
+    """``MaskGraph`` for DGCF's and DisenGCN's dense tier: the joint
+    graph's bool edge mask ``mask`` [N, N] and ``maskT``, its contiguous
+    transpose, None where the mask is symmetric (both None on the EdgeMap
+    tier)."""
+
+    def place_routing_masks(self, coo, mesh, device) -> None:
+        """``mask`` (and ``maskT``) of ``coo`` built on the host: on the
+        kernel tier (``flash``) placed by ``place_masks``, the rank's rows
+        with ``mesh``; under ``dense_xla`` whole, as the chunked tier reads
+        it, with no transpose (its backward is autograd's)."""
+        mask = dense_adj.dense_mask_host(coo.row, coo.col, *coo.shape)
+        if not self.flash:
+            self.mask = torch.from_numpy(mask).to(device)
+            return
+        own_t = not np.array_equal(mask, mask.T)
+        self.mask_hosts = (("mask", "mask", mask, False),) + (
+            (("maskT", "maskT", mask, True),) if own_t else ())
+        self.place_masks(mesh, device)
+
+    @property
+    def mask_t(self):
+        """What ``routed_mm``'s backward sweeps: the mask's transpose."""
+        return self.mask if self.maskT is None else self.maskT
+
+    def routing_masks(self):
+        """What the routing kernels sweep (``sweep_mask``): the mask, and
+        its transpose for ``routed_mm``'s backward."""
+        return (self.sweep_mask("mask"),
+                self.sweep_mask("mask" if self.maskT is None else "maskT"))

@@ -16,8 +16,11 @@ Two tiers, as JAX picks them (``ops.dense_adj.use_dense``):
   Each iteration runs the two routing kernels (``ops.flash_routing``) at
   its true rank, so the [F, N, N] adjacency never exists; gradients reach
   the embeddings through ``routed_mm``'s backward (the sweep over the
-  mask's transpose).  ``adj_mode="dense_xla"`` computes the same
-  iterations on the chunked dense tier (``ops.dense_adj``) instead.
+  mask's transpose).  Under a mesh the mask holds one ``model`` rank's
+  rows (JAX's rule), each kernel sweeps them and its result is
+  all-gathered once (``ops.dense_adj.MaskShard``).
+  ``adj_mode="dense_xla"`` computes the same iterations on the chunked
+  dense tier (``ops.dense_adj``) instead, over the whole mask.
 * EdgeMap (``adj_mode="ell"``, or a graph over the dense budget): S is
   held per degree bucket ([F, Nb, Kb] each); the degree is the per-bucket
   row sums of the routed values (``row_sums``), the aggregation
@@ -40,14 +43,16 @@ from tagrec_tpu_torch.ops import dense_adj, edgemap, flash_routing, losses
 from tagrec_tpu_torch.ops.propagate import l2_normalize
 
 
-class DGCF(base.EdgeMapGraph, nn.Module):
+class DGCF(base.RoutingMaskGraph, nn.Module):
     """``embed`` holds the user, item[, tag] tables, drawn from
     ``generator`` (a CPU ``torch.Generator``).  On the dense tier the edge
     mask of the joint graph is a bool buffer [N, N] on ``device``, and
     ``maskT`` its transpose, None where the mask is symmetric (``mask_t``
-    is the mask then); on the EdgeMap tier both are None, ``em_hosts``
-    keeps the joint graph's EdgeMapHost as ``em`` and ``edges`` holds its
-    EdgeMap, or with ``mesh`` the rank's rows of it
+    is the mask then); on the kernel tier ``mask_hosts`` keeps them on
+    the host and, with ``mesh``, both buffers hold the rank's rows
+    (``models.base.RoutingMaskGraph``); on the EdgeMap tier both are None,
+    ``em_hosts`` keeps the joint graph's EdgeMapHost as ``em`` and
+    ``edges`` holds its EdgeMap, or with ``mesh`` the rank's rows of it
     (``ops.edgemap.shard_edge_map``, ``parallel.sharding.shard_graph``)."""
 
     def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
@@ -65,17 +70,16 @@ class DGCF(base.EdgeMapGraph, nn.Module):
         coo = graph.joint_norm_adj(cfg.norm_type, use_tag)  # 'plain'
         self.dense = dense_adj.use_dense(cfg.adj_mode, *coo.shape)
         self.flash = cfg.adj_mode != "dense_xla"
-        mask = mask_t = None
         self.em_hosts = {}
+        self.register_buffer("mask", None)
+        self.register_buffer("maskT", None)
         if self.dense:
-            mask, mask_t = dense_adj.routing_masks(coo, cfg.adj_mode, dev)
+            self.place_routing_masks(coo, mesh, dev)
         else:
             self.em_hosts = {"em": edgemap.build_edge_map(
                 coo.row, coo.col, coo.val, *coo.shape)}
             self.edges = edgemap.EdgeMapBuffers(
                 edgemap.maps_to_device(self.em_hosts, dev, mesh))
-        self.register_buffer("mask", mask)
-        self.register_buffer("maskT", mask_t)
         self.embed = nn.ParameterList(
             base.init_embeddings(self.num_list, cfg.dim_latent, generator, dev))
 
@@ -87,11 +91,6 @@ class DGCF(base.EdgeMapGraph, nn.Module):
             return "ell"
         return "kernels" if self.flash else "dense_xla"
 
-    @property
-    def mask_t(self):
-        """What ``routed_mm``'s backward sweeps: the mask's transpose."""
-        return self.mask if self.maskT is None else self.maskT
-
     def _iterate_update_dense(self, state, ego_embed):
         """One layer: ``iterate_k`` routing iterations.  ``state`` is the pair
         of lists (u_list, v_list) of [F, n, dk] update factors; iteration t
@@ -101,6 +100,8 @@ class DGCF(base.EdgeMapGraph, nn.Module):
         u_list, v_list = state
         ego_f = torch.stack(torch.split(ego_embed, self.dim_k, dim=1))
         femb = None
+        if self.flash:
+            mask, mask_t = self.routing_masks()
         for _ in range(cfg.iterate_k):
             if u_list:
                 ueff = torch.cat(u_list, dim=2)
@@ -109,8 +110,7 @@ class DGCF(base.EdgeMapGraph, nn.Module):
                 ueff = ego_f.new_zeros((ego_f.shape[0], ego_f.shape[1], 8))
                 veff = torch.zeros_like(ueff)
             if self.flash:
-                d = flash_routing.routed_rowsum(ueff, veff, self.mask,
-                                                base=1.0)
+                d = flash_routing.routed_rowsum(ueff, veff, mask, base=1.0)
             else:
                 d = dense_adj.dgcf_dense_degree(ueff, veff, self.mask)
             # an empty row has degree 0 and gets scale 0, not inf
@@ -118,8 +118,8 @@ class DGCF(base.EdgeMapGraph, nn.Module):
                              0.0)
             scaled = ego_f * dr[:, :, None]
             if self.flash:
-                agg = flash_routing.routed_mm(ueff, veff, self.mask, scaled,
-                                              base=1.0, mask_t=self.mask_t)
+                agg = flash_routing.routed_mm(ueff, veff, mask, scaled,
+                                              base=1.0, mask_t=mask_t)
             else:
                 agg = dense_adj.dgcf_dense_prop(ueff, veff, self.mask, scaled)
             femb = dr[:, :, None] * agg

@@ -35,16 +35,19 @@ from tagrec_tpu_torch.ops import dense_adj, edgemap, flash_routing
 from tagrec_tpu_torch.ops.propagate import l2_normalize, message_dropout
 
 
-class DisenGCN(base.EdgeMapGraph, nn.Module):
+class DisenGCN(base.RoutingMaskGraph, nn.Module):
     """Parameters ``embed.{0,1,2}`` (user, item, tag: the tag table is
     always there, as in the reference) and ``layers.{i}.W``,
     ``layers.{i}.b``, drawn in that order from ``generator`` (a CPU
     ``torch.Generator``), the tree of JAX's params; the edge mask of the
     joint graph is a bool buffer [N, N] on ``device``, and ``maskT`` its
-    transpose, None where the mask is symmetric; on the EdgeMap tier both
-    are None, ``em_hosts`` keeps the joint graph's EdgeMapHost as ``em``
-    and ``edges`` holds its EdgeMap, or with ``mesh`` the rank's rows of
-    it (``ops.edgemap.shard_edge_map``,
+    transpose, None where the mask is symmetric; on the kernel tier
+    ``mask_hosts`` keeps them on the host and, with ``mesh``, both
+    buffers hold the rank's rows (``models.base.RoutingMaskGraph``: each
+    ``routed_mm`` sweeps them and all-gathers its result once); on the
+    EdgeMap tier both are None, ``em_hosts`` keeps the joint graph's
+    EdgeMapHost as ``em`` and ``edges`` holds its EdgeMap, or with
+    ``mesh`` the rank's rows of it (``ops.edgemap.shard_edge_map``,
     ``parallel.sharding.shard_graph``)."""
 
     def __init__(self, graph: HeteroGraph, cfg: ModelConfig, *,
@@ -61,17 +64,16 @@ class DisenGCN(base.EdgeMapGraph, nn.Module):
         coo = graph.joint_norm_adj(cfg.norm_type, cfg.use_tag)  # 'plain'
         self.dense = dense_adj.use_dense(cfg.adj_mode, *coo.shape)
         self.flash = cfg.adj_mode != "dense_xla"
-        mask = mask_t = None
         self.em_hosts = {}
+        self.register_buffer("mask", None)
+        self.register_buffer("maskT", None)
         if self.dense:
-            mask, mask_t = dense_adj.routing_masks(coo, cfg.adj_mode, dev)
+            self.place_routing_masks(coo, mesh, dev)
         else:
             self.em_hosts = {"em": edgemap.build_edge_map(
                 coo.row, coo.col, coo.val, *coo.shape)}
             self.edges = edgemap.EdgeMapBuffers(
                 edgemap.maps_to_device(self.em_hosts, dev, mesh))
-        self.register_buffer("mask", mask)
-        self.register_buffer("maskT", mask_t)
         self.embed = nn.ParameterList(
             base.init_embeddings(self.num_list, cfg.dim_latent, generator, dev))
         # per layer, the per-factor projection W [F, D, dk] and b [F, 1, dk]
@@ -90,11 +92,6 @@ class DisenGCN(base.EdgeMapGraph, nn.Module):
             return "ell"
         return "kernels" if self.flash else "dense_xla"
 
-    @property
-    def mask_t(self):
-        """What ``routed_mm``'s backward sweeps: the mask's transpose."""
-        return self.mask if self.maskT is None else self.maskT
-
     def _layer(self, layer, x: torch.Tensor) -> torch.Tensor:
         """[N, D] -> [N, F * dk]: ``layer``'s projection, then the routing
         rounds."""
@@ -106,6 +103,8 @@ class DisenGCN(base.EdgeMapGraph, nn.Module):
         if not self.dense:
             em = self.edges["em"]
             masks = em.masks(fac.dtype)
+        elif self.flash:
+            mask, mask_t = self.routing_masks()
         for _ in range(self.cfg.iterate_k):
             if not self.dense:
                 # the affinities reach the loss only through the detached
@@ -115,8 +114,8 @@ class DisenGCN(base.EdgeMapGraph, nn.Module):
                         edgemap.edge_dot(em, new_fac, fac), masks))
                 agg = edgemap.edge_reduce(em, p, fac)
             elif self.flash:
-                agg = flash_routing.routed_mm(new_fac, fac, self.mask, fac,
-                                              mask_t=self.mask_t)
+                agg = flash_routing.routed_mm(new_fac, fac, mask, fac,
+                                              mask_t=mask_t)
             else:
                 agg = dense_adj.routed_agg_dense(new_fac, fac, self.mask)
             new_fac = l2_normalize(fac + agg, dim=2)

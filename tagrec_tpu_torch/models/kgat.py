@@ -13,6 +13,9 @@ with NGCF-style bi-interaction, the bias folded into the weight
 attention runs per row type through the flash kernels of
 ``ops.flash_attention``: one stats sweep per row type, then one apply per
 row type per layer, and its backward; the [N, N] attention never exists.
+Under a mesh each flash mask and transpose holds one ``model`` rank's rows
+(JAX's rule), every sweep runs on them and its results are all-gathered
+once (``ops.dense_adj.MaskShard``).
 ``adj_mode="dense_xla"`` takes the chunked dense tier instead: the
 sector-stacked scores softmaxed over the [N, N] edge mask chunk by chunk
 (``ops.dense_adj.dense_row_softmax_scores``) into one attention matrix P,
@@ -67,12 +70,15 @@ def _pad_len(n: int) -> int:
     return -(-n // flash_attention.TILE_I) * flash_attention.TILE_I
 
 
-class KGAT(base.EdgeMapGraph, nn.Module):
+class KGAT(base.MaskGraph, nn.Module):
     """Parameters ``user``, ``entity``, ``relation``, ``transE`` and
     ``mat.{W1,b1,W2,b2}_k``, drawn in that order from ``generator`` (a CPU
     ``torch.Generator``); under ``bi_inter`` the three row types' flash masks
     are int8 buffers ``fmask_0..2`` on ``device``, and their contiguous
-    transposes ``fmaskT_0..2`` (the column backward's masks, built once);
+    transposes ``fmaskT_0..2`` (the column backward's masks, built once),
+    ``mask_hosts`` keeping them on the host, and with ``mesh`` each buffer
+    the rank's rows (JAX's ``fmasks.a``; ``fmasksT.a`` by the same rule on
+    their own rows: ``models.base.MaskGraph``);
     under ``dense_xla`` the joint edge mask is the bool buffer ``mask``
     [N, N] instead; over a KG (``kg=``) the int8 buffer ``rel_id`` [N, N];
     on the EdgeMap tier ``em_hosts`` keeps the maps ``em`` and ``emk``
@@ -150,10 +156,14 @@ class KGAT(base.EdgeMapGraph, nn.Module):
             self.register_buffer("mask", torch.from_numpy(
                 dense_adj.dense_mask_host(rows, cols, self.n, self.n)).to(dev))
             return
-        for a, m in enumerate(self._build_flash_masks(rows, cols, rels)):
-            mask = torch.from_numpy(m).to(dev)
-            self.register_buffer(f"fmask_{a}", mask)
-            self.register_buffer(f"fmaskT_{a}", mask.t().contiguous())
+        masks = self._build_flash_masks(rows, cols, rels)
+        for a in range(3):
+            self.register_buffer(f"fmask_{a}", None)
+            self.register_buffer(f"fmaskT_{a}", None)
+        self.mask_hosts = tuple(
+            (f"fmasks{'T' * t}.{a}", f"fmask{'T' * t}_{a}", m, t)
+            for t in (False, True) for a, m in enumerate(masks))
+        self.place_masks(mesh, dev)
 
     def _build_rel_dense(self, rows, cols, rels, dev) -> bool:
         """The int8 relation-id buffer ``rel_id`` [N, N] of the KG's triples
@@ -241,9 +251,9 @@ class KGAT(base.EdgeMapGraph, nn.Module):
             return flash_attention._pad_axis(t, tile, 0)
 
         plans = []
-        for a, (mask, mask_t, split) in enumerate(zip(
-                self.flash_masks(), self.flash_masks_t(),
-                self.flash_splits())):
+        for a, split in enumerate(self.flash_splits()):
+            mask = self.sweep_mask(f"fmask_{a}")
+            mask_t = self.sweep_mask(f"fmaskT_{a}")
             c1, c2 = [c for c in range(3) if c != a]
             r1, r2 = REL_OF[a][c1], REL_OF[a][c2]
             sa, la = self.segs[a]

@@ -12,16 +12,29 @@ kernels' second, independent computation at full size.  KGAT over a
 knowledge graph has no kernel tier: its relation-dense tier
 (``rel_dense_row_softmax_scores``) is the same chunked form, with the
 relation of each cell read from an int8 matrix.
+
+Under a mesh the kernel tiers' masks (DGCF's and DisenGCN's ``mask``,
+KGAT's flash masks, and the port's transposes of them) hold one
+``model`` rank's rows, cut on the host before the upload by JAX's
+``gdev_sharding`` rule (``mask_block``, ``cut_mask``; on the device a
+``MaskShard``): every edge sweep reads one mask row a result row, so a
+rank's rows are all its rows of a result need, and the sweep's wrapper
+all-gathers the result once (``sweep_gathered``, from
+``ops.flash_routing`` and ``ops.flash_attention``).  The chunked tiers
+keep their masks whole.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from tagrec_tpu_torch.ops import ell as ell_lib
+from tagrec_tpu_torch.ops.propagate import gathered_blocks
 
 # Auto-dense when the full f32 matrix fits this (tagrec_tpu/ops/ell.py).
 DENSE_ADJ_BUDGET_BYTES = 2 << 30
@@ -44,18 +57,58 @@ def dense_mask_host(rows, cols, n_rows: int, n_cols: int) -> np.ndarray:
     return m
 
 
-def routing_masks(coo, adj_mode: str, device
-                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The dense tier's bool edge mask of ``coo`` on ``device``, and the
-    contiguous transpose that ``routed_mm``'s backward sweeps: None where
-    the host finds the mask symmetric (the mask is then its own transpose,
-    with no second buffer), and under ``dense_xla``, whose backward is
-    autograd's."""
-    mask = dense_mask_host(coo.row, coo.col, *coo.shape)
-    mask_t = None
-    if adj_mode != "dense_xla" and not np.array_equal(mask, mask.T):
-        mask_t = torch.from_numpy(np.ascontiguousarray(mask.T)).to(device)
-    return torch.from_numpy(mask).to(device), mask_t
+class MaskShard(NamedTuple):
+    """One ``model`` rank's rows of a mask on the device: rows [start,
+    stop) of the whole ``rows``, the i-th of ``model`` even blocks.  The
+    edge sweeps take it in place of the mask, run over these rows and
+    all-gather their results over ``mesh``'s ``model`` axis."""
+
+    local: torch.Tensor  # rows [start, stop) of the mask
+    start: int
+    stop: int
+    rows: int            # the whole mask's rows
+    mesh: object         # the parallel.Mesh
+
+
+def sweep_gathered(mask: MaskShard, like: torch.Tensor, parts, fill) -> list:
+    """``fill(local, row0, *outs)`` over the rank's rows of ``mask``: each
+    result ([*lead, R, *tail] for each (lead, tail) of ``parts``) written
+    into the rank's part of one send buffer of ``like``'s dtype, and all
+    of them all-gathered whole over ``model`` at once
+    (``propagate.gathered_blocks``)."""
+    rows = mask.stop - mask.start
+    return gathered_blocks(mask.mesh, like,
+                           [(lead, rows, tail) for lead, tail in parts],
+                           lambda *o: fill(mask.local, mask.start, *o))
+
+
+def sweep_rows(mask):
+    """(the rows a sweep reads, the first one's row) of a mask or a
+    MaskShard."""
+    if isinstance(mask, MaskShard):
+        return mask.local, mask.start
+    return mask, 0
+
+
+def mask_block(n_rows: int, mesh):
+    """(start, stop) of ``mesh``'s rank's rows of a mask of ``n_rows``
+    rows where JAX's rule row-shards it (64 rows or more, dividing by
+    ``model``), else None (whole on every rank, as without a mesh)."""
+    if mesh is None:
+        return None
+    m, i = mesh.shape["model"], mesh.index("model")
+    if not ell_lib.row_sharded(n_rows, m):
+        return None
+    return i * (n_rows // m), (i + 1) * (n_rows // m)
+
+
+def cut_mask(host: np.ndarray, block, transpose: bool = False) -> np.ndarray:
+    """Rows ``block`` of ``host`` (of its transpose when ``transpose``),
+    contiguous, cut on the host without building the whole transpose."""
+    if transpose:
+        part = host if block is None else host[:, block[0]:block[1]]
+        return np.ascontiguousarray(part.T)
+    return np.ascontiguousarray(ell_lib.cut_rows(host, block))
 
 
 def _row_map(fn, n: int, chunk: int, *, remat: bool = True):

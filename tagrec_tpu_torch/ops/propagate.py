@@ -36,7 +36,9 @@ whole-shape mask and keeps the rank's rows, so the masks equal one
 device's; the dropped form has no transpose tables, and its backward is
 ``transpose_mm`` over the rank's rows, a partial [N, D] summed by one
 all-reduce over ``model``.  ``gathered_rows`` is that pattern for any
-per-piece row results (the EdgeMap tier's, TGCN's attention), and
+per-piece row results (the EdgeMap tier's, TGCN's attention; all of them
+through ``gathered_blocks``, one all-gather of several results' blocks,
+which the kernel tiers' mask sweeps also use), and
 ``model_sum`` the identity whose backward sums its inputs' gradients
 over ``model`` in one all-reduce.
 """
@@ -290,36 +292,59 @@ def all_gather_parts(full: torch.Tensor, mesh) -> torch.Tensor:
     return full
 
 
+def gathered_blocks(mesh, like: torch.Tensor, shapes, fill) -> list:
+    """Results whole on every ``model`` rank from each rank's block of
+    their rows, in one all-gather over ``model``: ``shapes`` gives each
+    result's block as (lead, rows, tail), its rows on the axis after
+    ``lead`` and split evenly over ``model`` (rank i holding rows [i *
+    rows, (i + 1) * rows)); ``fill(*blocks)`` writes this rank's blocks
+    into their views of one send buffer [model, total] of ``like``'s
+    dtype, which the all-gather then fills (in place on NCCL)."""
+    m, i = mesh.shape["model"], mesh.index("model")
+    dims = [tuple(lead) + (rows,) + tuple(tail) for lead, rows, tail in shapes]
+    sizes = [torch.Size(d).numel() for d in dims]
+    full = like.new_empty((m, sum(sizes)))
+    fill(*(v.view(d) for v, d in zip(full[i].split(sizes), dims)))
+    all_gather_parts(full, mesh)
+    return [part.view((m,) + d).movedim(0, len(lead))
+            .reshape(tuple(lead) + (m * rows,) + tuple(tail))
+            for part, d, (lead, rows, tail) in zip(full.split(sizes, dim=1),
+                                                   dims, shapes)]
+
+
+def gathered_pieces(mesh, blocks, parts, like: torch.Tensor, lead=(),
+                    tail=()) -> list:
+    """Each piece's [*lead, rows, *tail] result, whole on every ``model``
+    rank, from a rank's rows.  ``parts[j](out)`` gives piece j's rows, in
+    piece order: into ``out``, the rank's block of them in one send
+    buffer, for a piece ``blocks[j]`` = (start, stop) row-shards, one
+    all-gather over ``model`` filling every such piece's rows
+    (``gathered_blocks``); returned whole, computed whole on every rank,
+    for a whole one (``blocks[j]`` None)."""
+    outs = [None] * len(parts)
+
+    def fill(*views):
+        cut = iter(views)
+        for j, (part, blk) in enumerate(zip(parts, blocks)):
+            outs[j] = part(None if blk is None else next(cut))
+
+    shapes = [(lead, b[1] - b[0], tail) for b in blocks if b is not None]
+    if not shapes:
+        fill()
+        return outs
+    whole = iter(gathered_blocks(mesh, like, shapes, fill))
+    return [o if blk is None else next(whole) for o, blk in zip(outs, blocks)]
+
+
 def gathered_rows(mesh, blocks, inv, parts, like: torch.Tensor, lead=(),
                   tail=()) -> torch.Tensor:
     """The row-ordered [*lead, n_rows, *tail] result of per-piece row
-    results, whole on every ``model`` rank, from a rank's rows.
-    ``parts[j](out)`` gives piece j's rows: into ``out``, the rank's part
-    of one [model, *lead, R, *tail] send buffer (R the rows the rank holds
-    of the row-sharded pieces), for a piece ``blocks[j]`` = (start, stop)
-    row-shards; returned whole, computed whole on every rank, for a whole
-    one (``blocks[j]`` None).  One all-gather over ``model`` fills the
-    buffer (in place on NCCL); the pieces' rows are then concatenated and
-    put in order by the whole ``inv`` (None: piece order is row order)."""
-    m, i = mesh.shape["model"], mesh.index("model")
+    results, whole on every ``model`` rank, from a rank's rows: the
+    pieces' results (``gathered_pieces``) concatenated and put in order by
+    the whole ``inv`` (None: piece order is row order)."""
     ax = len(lead)
-    rows = [0 if b is None else b[1] - b[0] for b in blocks]
-    r_all = sum(rows)
-    full = like.new_empty((m,) + tuple(lead) + (r_all,) + tuple(tail))
-    outs, off = [], 0
-    for part, blk, r in zip(parts, blocks, rows):
-        outs.append(part(None if blk is None
-                         else full[i].narrow(ax, off, r)))
-        off += r
-    if r_all:
-        all_gather_parts(full, mesh)
-    pieces, off = [], 0
-    for o, blk, r in zip(outs, blocks, rows):
-        pieces.append(o if blk is None else full.narrow(ax + 1, off, r)
-                      .movedim(0, ax).reshape(tuple(lead) + (m * r,)
-                                              + tuple(tail)))
-        off += r
-    out = torch.cat(pieces, dim=ax)
+    out = torch.cat(gathered_pieces(mesh, blocks, parts, like, lead, tail),
+                    dim=ax)
     return out if inv is None else out.index_select(ax, inv)
 
 
@@ -358,38 +383,15 @@ def model_sum(mesh, *xs) -> tuple:
     return _ModelSum.apply(mesh, *xs)
 
 
-def _gathered_products(shard, x: torch.Tensor):
-    """Each piece of a rank's form (``ell.RowShard``) times x, the whole
-    piece's rows in order.  The row-sharded pieces write the rank's rows
-    into its part of one [model * R, D] buffer (R the rows each rank
-    holds of them), which one all-gather over ``model`` fills in place;
-    the whole pieces are computed whole."""
-    mesh, d = shard.mesh, x.shape[1]
-    m, i = mesh.shape["model"], mesh.index("model")
-    rows = [0 if b is None else b[1] - b[0] for b in shard.blocks]
-    r_all = sum(rows)
-    full = x.new_empty((m, r_all, d))
-    outs, off = [], 0
-    for product, blk, r in zip(_pieces(shard.form, x), shard.blocks, rows):
-        outs.append(product(None if blk is None else full[i, off:off + r]))
-        off += r
-    if not r_all:
-        return outs
-    all_gather_parts(full, mesh)
-    res, off = [], 0
-    for o, blk, r in zip(outs, shard.blocks, rows):
-        res.append(o if blk is None
-                   else full[:, off:off + r].reshape(m * r, d))
-        off += r
-    return res
-
-
 def sharded_mm(shard, x: torch.Tensor) -> torch.Tensor:
     """A @ x, whole on every ``model`` rank, from the rank's rows of A
-    (``ell.RowShard``): its pieces' products, one all-gather over
-    ``model``, then the buckets' rows put in order and the pieces
-    summed."""
-    return _assemble(shard.form, _gathered_products(shard, x), x)
+    (``ell.RowShard``): each piece's product (``gathered_pieces``: the
+    row-sharded pieces' rows through one all-gather over ``model``, the
+    whole pieces computed whole), then the buckets' rows put in order and
+    the pieces summed."""
+    return _assemble(shard.form, gathered_pieces(
+        shard.mesh, shard.blocks, _pieces(shard.form, x), x,
+        tail=(x.shape[1],)), x)
 
 
 def sharded_transpose_mm(shard, g: torch.Tensor, n_cols: int) -> torch.Tensor:

@@ -38,9 +38,15 @@ explicit, and the models stay as they are:
   neighbour tables and dedup buckets (``models.tgcn.TGCN.place_tables``):
   its attention runs on them and one all-gather makes it whole, and one
   all-reduce over ``model`` a relation (``ops.propagate.model_sum``)
-  makes its inputs' gradients whole.  The other tiers' graph tables (the
-  dense masks, the flash masks, the KG's relation-id table) stay whole
-  on every rank, and each layer's compute with them: ROADMAP.md queue A.
+  makes its inputs' gradients whole.  The kernel tiers' masks (DGCF's
+  and DisenGCN's ``mask``, KGAT's ``fmasks``, and the port's transposes
+  ``maskT`` and ``fmasksT`` by the same rule on their own rows) keep this
+  rank's rows (``models.base.MaskGraph``): every edge sweep runs on them
+  and one all-gather makes its result whole
+  (``ops.dense_adj.MaskShard``).  The other tiers' graph tables (the
+  chunked dense tiers' masks, DisenHAN's relation masks, the KG's
+  relation-id table) stay whole on every rank, and each layer's compute
+  with them: ROADMAP.md queue A.
 """
 
 from __future__ import annotations
@@ -158,8 +164,9 @@ def gdev_sharding(model: nn.Module, mesh: Mesh) -> Dict[str, Optional[str]]:
     """{graph table: "model" (row-sharded) or None (whole on every rank)},
     as ``shard_graph`` places them, by JAX's rule on JAX's leaf paths: the
     model's ``graph_leaves`` (``models.base.AdjPairGraph``,
-    ``EdgeMapGraph``, TGCN's tables beside its maps).  A tier with none of
-    these tables: its buffers by name, every one whole."""
+    ``EdgeMapGraph``, ``MaskGraph``, TGCN's tables beside its maps).  A
+    tier with none of these tables: its buffers by name, every one
+    whole."""
     return (model.graph_leaves(mesh)
             or {n: None for n, _ in model.named_buffers()})
 

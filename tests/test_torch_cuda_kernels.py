@@ -95,6 +95,51 @@ def test_kernels_reject_what_they_do_not_take(cuda):
             fr.routed_rowsum(wide, wide, mask)
 
 
+# (F, n, m, r, dx, row0, rows): a block of rows past row 0 at DGCF's widths
+# (F = 4, r = 80, dx = 16), and one whose mask rows start off the 16-byte
+# words (m = 301), each inside the transpose's rows too
+ROW_RANGE_CASES = [(4, 301, 277, 80, 16, 37, 200),
+                   (3, 70, 301, 48, 15, 35, 35)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,n,m,r,dx,row0,rows", ROW_RANGE_CASES)
+def test_routing_sweeps_over_a_row_range(cuda, f, n, m, r, dx, row0, rows):
+    """routed_rowsum, routed_mm_rows and routed_mm_bwd over rows row0 ..
+    row0 + rows of the mask (of its transpose): their plain versions over
+    the same rows, and the whole launch's rows bit for bit, also written
+    into a view of a larger buffer (a rank's part of a send buffer)."""
+    q, k, mask, x = _inputs(f, n, m, r, dx, False, cuda)
+    g = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        (f, n, dx)).astype(np.float32)).to(cuda)
+    mask_t = mask.T.contiguous()
+    s = slice(row0, row0 + rows)
+    sweeps = (fr.routed_rowsum, fr.routed_mm, fr.routed_mm_bwd)
+    before = [fn.launches for fn in sweeps]
+    d = fr.routed_rowsum(q, k, mask[s], 1.0, row0=row0)
+    buf = torch.full((2, f, rows, dx), float("nan"), device=cuda)
+    out = fr.routed_mm_rows(q, k, mask[s], x, 1.0, row0=row0, out=buf[1])
+    dxr = fr.routed_mm_bwd(q, k, mask_t[s], g, 1.0, row0=row0)
+    torch.cuda.synchronize()
+    assert out is buf[1] or out.data_ptr() == buf[1].data_ptr()
+    assert [fn.launches for fn in sweeps] == [b + 1 for b in before]
+    torch.testing.assert_close(
+        d, fr.routed_rowsum_plain(q, k, mask[s], 1.0, row0=row0),
+        rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(
+        out, fr.routed_mm_plain(q, k, mask[s], x, 1.0, row0=row0),
+        rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(
+        dxr, fr.routed_mm_plain(k, q, mask_t[s], g, 1.0, row0=row0),
+        rtol=RTOL, atol=ATOL)
+    assert torch.equal(d, fr.routed_rowsum(q, k, mask, 1.0)[:, s])
+    assert torch.equal(buf[1], fr.routed_mm_rows(q, k, mask, x, 1.0)[:, s])
+    assert torch.equal(dxr, fr.routed_mm_bwd(q, k, mask_t, g, 1.0)[:, s])
+    assert torch.isnan(buf[0]).all()  # nothing written outside the view
+    with pytest.raises(ValueError, match="shape mismatch"):
+        fr.routed_rowsum(q, k, mask[s], 1.0, row0=n - rows + 1)
+
+
 def _edge_rows_mask(n, m, seed):
     """A 0/1 mask with the rows an edge sweep must get right: empty first
     and last rows, a row that is all edges, a row whose one edge is the
@@ -283,6 +328,55 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="fewer than"):
         fa.dot_flash_stats(torch.zeros((2, 1, 1), device=cuda), long_k,
                            long_mask, 0)
+
+
+# (Ns, Nd, split, row0, rows, col0, cols): a block of mask rows past row 0,
+# and a block of the transpose's rows (the attention's columns) across the
+# split, at a ragged size and at KGAT's padded one
+FLASH_RANGE_CASES = [(301, 333, 100, 64, 150, 37, 200),
+                     (256, 512, 256, 128, 128, 128, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,nd,split,row0,rows,col0,cols", FLASH_RANGE_CASES)
+def test_flash_sweeps_over_a_row_range(cuda, ns, nd, split, row0, rows, col0,
+                                       cols):
+    """The stats, apply and row-backward sweeps over rows row0 .. row0 +
+    rows of the mask, and the column sweep over rows col0 .. col0 + cols
+    of its transpose, which straddle the split: their plain versions over
+    the same rows, and the whole launches' rows bit for bit."""
+    q2, k, mask, x, g = _flash_inputs(ns, nd, 64, 64, cuda)
+    mask_t = mask.T.contiguous()
+    r, c = slice(row0, row0 + rows), slice(col0, col0 + cols)
+    assert col0 < split < col0 + cols
+    m, z = fa.dot_flash_stats(q2, k, mask, split)
+    out = fa.dot_flash_apply_rows(q2, k, mask, m, z, x, split)
+    delta = torch.sum(g * out, dim=1)
+    args = (m, z, x, g, delta, split)
+    mr, zr = fa.dot_flash_stats(q2, k, mask[r], split, row0=row0)
+    outr = fa.dot_flash_apply_rows(q2, k, mask[r], m, z, x, split, row0=row0)
+    dq2r = fa.dot_bwd_row(q2, k, mask[r], *args, row0=row0)
+    dkc, dxc = fa.dot_bwd_col(q2, k, mask_t[c], *args, row0=col0)
+    torch.cuda.synchronize()
+    want_m, want_z = fa.dot_flash_stats_plain(q2, k, mask[r], split,
+                                              row0=row0)
+    torch.testing.assert_close(mr, want_m, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(zr, want_z, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(
+        outr, fa.dot_flash_apply_plain(q2, k, mask[r], m, z, x, split,
+                                       row0=row0), rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(
+        dq2r, fa.dot_bwd_row_plain(q2, k, mask[r], *args, row0=row0),
+        rtol=GRAD_RTOL, atol=ATOL)
+    want_dk, want_dx = fa.dot_bwd_col_plain(q2, k, mask_t[c].T, *args,
+                                            row0=col0)
+    torch.testing.assert_close(dkc, want_dk, rtol=GRAD_RTOL, atol=ATOL)
+    torch.testing.assert_close(dxc, want_dx, rtol=GRAD_RTOL, atol=ATOL)
+    assert torch.equal(mr, m[r]) and torch.equal(zr, z[r])
+    assert torch.equal(outr, out[r])
+    assert torch.equal(dq2r, fa.dot_bwd_row(q2, k, mask, *args)[:, r])
+    dk, dx = fa.dot_bwd_col(q2, k, mask_t, *args)
+    assert torch.equal(dkc, dk[c]) and torch.equal(dxc, dx[c])
 
 
 # (Nd, split): a row length of 5,000 bytes (four warps a row, row starts off

@@ -314,17 +314,17 @@ def test_shard_graph_is_idempotent_and_refuses_another_mesh():
 
 
 def test_other_families_keep_their_graph_tables_whole():
-    """The tiers with no EdgeMap and no adjacency pair: DGCF's and
-    DisenHAN's dense tiers and KGAT's flash tier: every buffer whole on
-    every rank (ROADMAP.md queue A).  TGCN's tables are row-sharded
-    (tests/test_torch_parallel_tgcn.py)."""
+    """The tiers with no EdgeMap, no adjacency pair and no kernel-tier
+    mask: DisenHAN's dense tier: every buffer whole on every rank
+    (ROADMAP.md queue A).  TGCN's tables are row-sharded
+    (tests/test_torch_parallel_tgcn.py), and so are the masks of DGCF's,
+    DisenGCN's and KGAT's kernel tiers
+    (tests/test_torch_parallel_masks.py)."""
     from tagrec_tpu_torch.parallel import sharding
     from tagrec_tpu_torch.parallel.mesh import make_mesh
 
     for name, over, mode, tier in (
-            ("dgcf", {}, "auto", "kernels"),
-            ("disenhan", {}, "auto", "dense"),
-            ("kgat", {"agg_type": "bi_inter"}, "auto", "kernels")):
+            ("disenhan", {}, "auto", "dense"),):
         model = W.pipeline(name, over, mode).model
         assert model.tier == tier, name
         spec = sharding.shard_graph(model, make_mesh(2, 1))

@@ -791,10 +791,137 @@ def scenario_tgcn_rows(args, tmp):
     return out
 
 
+# ------------------------- the kernel tiers' masks over ``model``
+
+# case -> (family, preset overrides), each on PROP_GRAPH's kernel tier
+# (adj_mode="auto"): DGCF's and DisenGCN's [480, 480] mask (240 and 120
+# rows a rank over 2 and 4), KGAT's flash masks [256, 768], [512, 512],
+# [256, 768] and their transposes, whose 768 rows put a rank's block left
+# of the split at 512, across it, or right of it
+MASK_CASES = {"dgcf": ("dgcf", {"reg": 1e-3}),
+              "disengcn": ("disengcn", {}),
+              "kgat": ("kgat", {"agg_type": "bi_inter", "transe_batch": 64})}
+# the cases whose BPR step is held against JAX's sharded step
+MASK_STEPS = ("dgcf", "kgat")
+# planted faults the gradient hold must catch, with the case each plants
+# into: routed_mm's dx from the rank's rows without the all-gather (the
+# other ranks' rows left zero), or dot_bwd_col sweeping a rank's rows of
+# fmaskT as the attention's columns 0 .. R (its plane and its k and x rows
+# chosen by the row in the block, not by the global column)
+MASK_FAULTS = {"no_gather": "dgcf", "local_columns": "kgat"}
+
+
+def mask_pipeline(case, mesh=None):
+    name, over = MASK_CASES[case]
+    return pipeline(name, over, "auto", mesh, prop_graph())
+
+
+class planted_mask_fault:
+    """Within it, the sweeps' wrappers run with ``fault`` (one of
+    MASK_FAULTS, or None: none)."""
+
+    def __init__(self, fault):
+        from tagrec_tpu_torch.ops import flash_attention, flash_routing
+
+        self.fa, self.fr, self.fault = flash_attention, flash_routing, fault
+        self.saved = (flash_routing.routed_mm_bwd, flash_attention.dot_bwd_col)
+
+    def __enter__(self):
+        bwd, col = self.saved
+        if self.fault == "no_gather":
+            def ungathered(q, k, mask_t, g, base=0.0):
+                out = g.new_zeros((g.shape[0], k.shape[1], g.shape[2]))
+                out[:, mask_t.start:mask_t.stop] = bwd(
+                    q, k, mask_t.local, g, base, row0=mask_t.start)
+                return out
+            self.fr.routed_mm_bwd = ungathered
+        elif self.fault == "local_columns":
+            def local(q2, k, mask_t, ms, zs, x, g, delta, split, row0=0,
+                      out=None):
+                return col(q2, k, mask_t, ms, zs, x, g, delta, split,
+                           out=out)
+            self.fa.dot_bwd_col = local
+        return self
+
+    def __exit__(self, *exc):
+        self.fr.routed_mm_bwd, self.fa.dot_bwd_col = self.saved
+
+
+def mask_step(case, args, mesh=None, fault=None):
+    """One BPR step of ``case`` from the JAX parameters in ``args`` (each
+    case's file) and its batch -> (summed loss terms, the gathered
+    parameters, the gathered gradients the step took)."""
+    import numpy as np
+
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training import checkpoint
+    from tagrec_tpu_torch.training.train import Trainer
+
+    pipe = mask_pipeline(case, mesh)
+    with np.load(wait_for(args["jax_params"][case])) as f:
+        checkpoint.params_from_jax(pipe.model, checkpoint._tree_of(
+            {k: f[k] for k in f.files}))
+    trainer = Trainer(pipe.model, pipe.phases, tcfg(), mesh=mesh,
+                      capture=False,
+                      generator=torch.Generator().manual_seed(1))
+    batch = torch.as_tensor(np.asarray(args["batch"], dtype=np.int64))
+    if case in ("dgcf", "disengcn"):  # the resampling phase's batch
+        batch = {"bpr": batch}
+    if mesh is not None:
+        batch = sharding.constrain_batch(batch, mesh)
+    with planted_mask_fault(fault):
+        parts = trainer.step(pipe.phases[0], batch)
+    return (float(parts.sum()), full_params(pipe.model),
+            full_grads(pipe.model))
+
+
+def mask_runs(args, mesh=None, steps=STEPS):
+    """Each of MASK_CASES: the forward, ``steps`` steps of each phase
+    (losses, the gathered parameters), the masks' placement, leaf shapes
+    and bytes; the cases of MASK_STEPS also ``mask_step``, and under a
+    mesh of ``model`` > 1 with each of MASK_FAULTS planted in its case."""
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training.train import Trainer
+
+    out = {}
+    for case in MASK_CASES:
+        pipe = mask_pipeline(case, mesh)
+        model = pipe.model
+        trainer = Trainer(model, pipe.phases, tcfg(), mesh=mesh,
+                          capture=False,
+                          generator=torch.Generator().manual_seed(1))
+        with torch.no_grad(), sharding.gathered():
+            fwd = [t.numpy().copy() for t in model.forward()]
+        out[case] = {
+            "tier": model.tier, "forward": fwd,
+            "losses": {ph.name: trainer.run_phase(ph, max_steps=steps)
+                       for ph in pipe.phases},
+            "params": full_params(model),
+            "placement": trainer.placement and trainer.placement["graph"],
+            "leaves": {path: tuple(getattr(model, name).shape)
+                       for path, name, _, _ in model.mask_hosts},
+            "bytes": model.mask_nbytes()}
+        if case in MASK_STEPS:
+            out[case]["step"] = mask_step(case, args, mesh)
+    if mesh is not None and mesh.shape["model"] > 1:
+        for fault, case in MASK_FAULTS.items():
+            out[case].setdefault("faults", {})[fault] = mask_step(
+                case, args, mesh, fault)
+    return out
+
+
+def scenario_masks(args, tmp):
+    """``mask_runs`` on the mesh, or without one (``args["plain"]``: the
+    one-device reference)."""
+    if args.get("plain"):
+        return {"cases": mask_runs(args)}
+    return {"cases": mask_runs(args, _mesh(args))}
+
+
 SCENARIOS = {"train": scenario_train, "checkpoint": scenario_checkpoint,
              "scaling": scenario_scaling, "propagate": scenario_propagate,
              "edgemap": scenario_edgemap, "em_models": scenario_em_models,
-             "tgcn_rows": scenario_tgcn_rows}
+             "tgcn_rows": scenario_tgcn_rows, "masks": scenario_masks}
 
 
 # ------------------------------------------------------------ the parent
