@@ -190,7 +190,16 @@ Phases:
    ``bi_inter`` at hetrec, each rank's mask bytes its rows', its peak
    below one device's, each sweep's rows, the forward, evaluation,
    export, losses and parameters bit for bit with one device, the
-   launches one device's over half its mask rows);
+   launches one device's over half its mask rows); R7 the chunked dense
+   tiers' tables (R7a KGAT over phase K's KG, relation-dense, captured on
+   a one-rank NCCL mesh, bit for bit; R7b ``dense-rank`` processes:
+   DisenHAN and the KG at hetrec under ``auto``, DGCF, DisenGCN and KGAT
+   under ``dense_xla``, each rank's table bytes and rows of P as
+   predicted, its peak below one device's, the forward, evaluation and
+   export bit for bit, losses and parameters within R5b's bounds, one
+   float64 step within 1e-9 of scale; KGAT ``dense_xla``'s forward on a
+   rank against its kernel tier's, which launches the flash kernels on
+   the rank's rows);
    TGCN's tables (phase 5) must come from the native sampler;
 10. the ``kernels`` JSON line (launches summed over every path above,
    replays counted; ``gather_reduce`` with its ``edgemap`` record), then
@@ -3112,9 +3121,10 @@ def mesh_graph():
 
 
 def mesh_run(torch, graph, mesh, capture, on_launches=None,
-             family=("dgcf", {"cor_reg": 0.1})):
+             family=("dgcf", {"cor_reg": 0.1}), kg=None):
     """``family`` (name, preset overrides; DGCF with cor_reg 0.1) at the
-    preset's width on ``graph`` through ``build_pipeline(mesh=)`` and
+    preset's width on ``graph`` (KGAT over ``kg`` when given) through
+    ``build_pipeline(mesh=)`` and
     ``Trainer(mesh=)``: HETREC_BPR_STEPS steps, each synchronised and
     timed, ``on_launches(i)`` after each -> {"pipe", "trainer", "losses",
     "params" (gathered, by JAX name, on the host), "ms"}."""
@@ -3127,7 +3137,7 @@ def mesh_run(torch, graph, mesh, capture, on_launches=None,
     tcfg = TrainConfig()
     pipe = build_pipeline(graph, model_preset(family[0], **family[1]), tcfg,
                           generator=torch.Generator().manual_seed(0),
-                          device="cuda", mesh=mesh)
+                          device="cuda", mesh=mesh, kg=kg)
     trainer = Trainer(pipe.model, pipe.phases, tcfg, mesh=mesh,
                       capture=capture,
                       generator=torch.Generator(device="cuda").manual_seed(0))
@@ -3627,12 +3637,13 @@ def row_paths(torch, graphs, mesh):
 
 
 def row_rank_main(argv, paths):
-    """One rank of phase R2, R3b, R4b, R5b or R6b (``chip_smoke.py
-    row-rank GRAPHS OUT``, ``em-rank``, ``em4-rank``, ``tgcn-rank`` or
-    ``mask-rank``, under RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT):
-    gloo over CUDA tensors, eager, model = 2; ``paths`` (``row_paths``,
-    ``em_paths``, ``em4_paths``, ``tgcn_paths`` or ``mask_paths``) over
-    the pickled graphs, pickled to OUT/rank{r}.pkl."""
+    """One rank of phase R2, R3b, R4b, R5b, R6b or R7b (``chip_smoke.py
+    row-rank GRAPHS OUT``, ``em-rank``, ``em4-rank``, ``tgcn-rank``,
+    ``mask-rank`` or ``dense-rank``, under RANK, WORLD_SIZE, MASTER_ADDR
+    and MASTER_PORT): gloo over CUDA tensors, eager, model = 2; ``paths``
+    (``row_paths``, ``em_paths``, ``em4_paths``, ``tgcn_paths``,
+    ``mask_paths`` or ``dense_paths``) over the pickled graphs, pickled
+    to OUT/rank{r}.pkl."""
     import pickle
     from datetime import timedelta
 
@@ -3656,10 +3667,29 @@ def row_rank_main(argv, paths):
     return 0
 
 
+def one_device_main(argv, paths):
+    """The one-device run of phase R7b in a process of its own
+    (``chip_smoke.py dense-one GRAPHS OUT``): ``paths`` without a mesh
+    over the pickled graphs, pickled to OUT/one.pkl."""
+    import pickle
+
+    import torch
+
+    graphs_path, out = argv[0], argv[1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(graphs_path, "rb") as f:
+        graphs = pickle.load(f)
+    res = paths(torch, graphs, None)
+    with open(os.path.join(out, "one.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    return 0
+
+
 def start_row_ranks(graphs_path, out, cmd):
     """The ROW_RANKS ranks of phase R2 (``cmd`` "row-rank"), R3b
-    ("em-rank"), R4b ("em4-rank"), R5b ("tgcn-rank") or R6b ("mask-rank")
-    on this card, each ``chip_smoke.py cmd`` in its own process."""
+    ("em-rank"), R4b ("em4-rank"), R5b ("tgcn-rank"), R6b ("mask-rank")
+    or R7b ("dense-rank") on this card, each ``chip_smoke.py cmd`` in its
+    own process."""
     import socket
 
     with socket.socket() as s:
@@ -3678,11 +3708,13 @@ def start_row_ranks(graphs_path, out, cmd):
     return procs
 
 
-def two_rank_results(torch, graphs, cmd, paths, label):
+def two_rank_results(torch, graphs, cmd, paths, label, one_cmd=None):
     """ROW_RANKS ranks of ``cmd`` on this card and, meanwhile, ``paths``
-    without a mesh in this process -> (the one-device results, each
-    rank's); a rank that fails or outlives ROW_TIMEOUT_S fails the
-    phase."""
+    without a mesh in this process, or with ``one_cmd`` in a process of
+    its own (``one_device_main``: its peak memory then counts from a
+    fresh process's, as the ranks' do, not from this one's, which earlier
+    phases warmed) -> (the one-device results, each rank's); a process
+    that fails or outlives ROW_TIMEOUT_S fails the phase."""
     import pickle
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3690,7 +3722,13 @@ def two_rank_results(torch, graphs, cmd, paths, label):
         with open(path, "wb") as f:
             pickle.dump(graphs, f)
         procs = start_row_ranks(path, tmp, cmd)
-        want = paths(torch, graphs, None)
+        if one_cmd is None:
+            want = paths(torch, graphs, None)
+        else:
+            log = open(os.path.join(tmp, "one.log"), "w+")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), one_cmd, path,
+                 tmp], stdout=log, stderr=subprocess.STDOUT), log))
         end = time.monotonic() + ROW_TIMEOUT_S
         while any(p.poll() is None for p, _ in procs):
             if (any(p.poll() not in (None, 0) for p, _ in procs)
@@ -3712,6 +3750,9 @@ def two_rank_results(torch, graphs, cmd, paths, label):
         for r in range(ROW_RANKS):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
                 ranks.append(pickle.load(f))
+        if one_cmd is not None:
+            with open(os.path.join(tmp, "one.pkl"), "rb") as f:
+                want = pickle.load(f)
     return want, ranks
 
 
@@ -4479,9 +4520,15 @@ def gathered_grads(torch, model):
 
 
 def tgcn_f64_step(torch, graph, mode, mesh):
-    """TGCN on ``mode``'s tier in float64 (``mesh`` None: one device): one
-    BPR step from the initial parameters on the phase's first batch ->
-    (its gradients, the parameters after it), gathered, on the host."""
+    """TGCN on ``mode``'s tier in float64: ``f64_step``."""
+    return f64_step(torch, graph, ("tgcn", {"adj_mode": mode}), mesh)
+
+
+def f64_step(torch, graph, family, mesh, kg=None):
+    """``family`` (name, preset overrides) in float64 (KGAT over ``kg``
+    when given; ``mesh`` None: one device): one BPR step from the initial
+    parameters on the phase's first batch -> (its gradients, the
+    parameters after it), gathered, on the host."""
     from tagrec_tpu_torch.compose import build_pipeline
     from tagrec_tpu_torch.config import TrainConfig, model_preset
     from tagrec_tpu_torch.parallel import sharding
@@ -4489,8 +4536,8 @@ def tgcn_f64_step(torch, graph, mode, mesh):
     from tagrec_tpu_torch.training.train import Trainer
 
     tcfg = TrainConfig()
-    pipe = build_pipeline(graph, model_preset("tgcn", adj_mode=mode), tcfg,
-                          device="cuda", mesh=mesh,
+    pipe = build_pipeline(graph, model_preset(family[0], **family[1]), tcfg,
+                          device="cuda", mesh=mesh, kg=kg,
                           generator=torch.Generator().manual_seed(0))
     pipe.model.to(torch.float64)
     trainer = Trainer(pipe.model, pipe.phases, tcfg, mesh=mesh,
@@ -4682,34 +4729,44 @@ def tgcn_hold(torch, label, got, want, ranks, steps, card):
                   for a, b in zip(got["export"], want["export"])),
               f"R5b {label}: the exported tables differ")
     if "f64" in want:
-        (gg, gp), (wg, wp) = got["f64"], want["f64"]
-        scale = max(float(np.abs(g).max()) for g in wg.values())
-        g_err = max(float(np.abs(gg[n] - g).max()) for n, g in wg.items())
-        p_err = max(float(np.abs(gp[n] - p).max()) for n, p in wp.items())
+        f64_hold(f"R5b {label}", got["f64"], want["f64"])
 
-        floor = R5_F64_FLOOR * scale
-        # each leaf: (max |err| over its bound, max |err| over its max |g|)
-        leaves = sorted(((float(np.abs(gg[n] - g).max())
-                          / (R5_F64_LEAF_BOUND * float(np.abs(g).max())
-                             + floor),
-                          float(np.abs(gg[n] - g).max())
-                          / max(float(np.abs(g).max()), 1e-300), n)
-                         for n, g in wg.items()), reverse=True)
-        residue = [n for n, g in wg.items() if np.abs(g).max() < floor]
-        print(f"R5b {label} float64, one BPR step from the initial "
-              f"parameters: gradients max |err| {g_err:.3e} on the largest "
-              f"gradient {scale:.3e} ({g_err / scale:.3e}, limit "
-              f"{R5_F64_BOUND}); each gradient against "
-              f"{R5_F64_LEAF_BOUND} of its own max |g| + {R5_F64_FLOOR} of "
-              f"the largest, the largest shares of the bound (and of the "
-              f"leaf's own max |g|) "
-              f"{[(n, f'{b:.2e}', f'{e:.2e}') for b, e, n in leaves[:3]]}; "
-              f"gradients under the floor (rounding residue) {residue}; "
-              f"parameters after it max |err| {p_err:.3e} (limit "
-              f"{R5_F64_BOUND})")
-        check(g_err <= R5_F64_BOUND * scale and p_err <= R5_F64_BOUND
-              and leaves[0][0] <= 1.0,
-              f"R5b {label}: the float64 step is outside its hold")
+
+def f64_hold(label, got, want):
+    """A rank's float64 step (gradients, parameters after it) against one
+    device's: every gradient and parameter within R5_F64_BOUND of the
+    largest gradient's scale, and each gradient within R5_F64_LEAF_BOUND
+    of its own scale plus R5_F64_FLOOR of the largest; printed, checked."""
+    import numpy as np
+
+    (gg, gp), (wg, wp) = got, want
+    scale = max(float(np.abs(g).max()) for g in wg.values())
+    g_err = max(float(np.abs(gg[n] - g).max()) for n, g in wg.items())
+    p_err = max(float(np.abs(gp[n] - p).max()) for n, p in wp.items())
+
+    floor = R5_F64_FLOOR * scale
+    # each leaf: (max |err| over its bound, max |err| over its max |g|)
+    leaves = sorted(((float(np.abs(gg[n] - g).max())
+                      / (R5_F64_LEAF_BOUND * float(np.abs(g).max())
+                         + floor),
+                      float(np.abs(gg[n] - g).max())
+                      / max(float(np.abs(g).max()), 1e-300), n)
+                     for n, g in wg.items()), reverse=True)
+    residue = [n for n, g in wg.items() if np.abs(g).max() < floor]
+    print(f"{label} float64, one BPR step from the initial "
+          f"parameters: gradients max |err| {g_err:.3e} on the largest "
+          f"gradient {scale:.3e} ({g_err / scale:.3e}, limit "
+          f"{R5_F64_BOUND}); each gradient against "
+          f"{R5_F64_LEAF_BOUND} of its own max |g| + {R5_F64_FLOOR} of "
+          f"the largest, the largest shares of the bound (and of the "
+          f"leaf's own max |g|) "
+          f"{[(n, f'{b:.2e}', f'{e:.2e}') for b, e, n in leaves[:3]]}; "
+          f"gradients under the floor (rounding residue) {residue}; "
+          f"parameters after it max |err| {p_err:.3e} (limit "
+          f"{R5_F64_BOUND})")
+    check(g_err <= R5_F64_BOUND * scale and p_err <= R5_F64_BOUND
+          and leaves[0][0] <= 1.0,
+          f"{label}: the float64 step is outside its hold")
 
 
 def tgcn_rows_phase(torch, graph, card):
@@ -5194,6 +5251,371 @@ def masks_phase(torch, fr, fa, graph, records, card):
     done()
     gc_cuda(torch)
     print(f"phase R6: {time.perf_counter() - t0:.1f} s (host clock)")
+    return launches
+
+
+# ------ phase R7: the chunked dense tiers over ``model``
+
+R7_WALL_STEPS = 5  # captured KG steps a timed run, with and without the mesh
+R7_STEPS = 3           # BPR steps of each R7b path
+# each path of R7b: (label, family, preset overrides, over phase K's KG,
+# evaluation and trajectory held), at the preset's width on the hetrec
+# graph.  An untrained DisenGCN's tables all but coincide, so its metrics
+# are tie-breaks, which a sharded evaluation breaks in another order, and
+# its BPR gradients lie at Adam's eps (no entry of the first step's at
+# 1e-6 or more), where Adam turns a last-bit change of a gradient into a
+# share of lr: its exported tables are held instead of its metrics, and
+# its first step's gradients and float64 step instead of its float32
+# parameters after the steps
+DENSE_PATHS = (
+    ("DisenHAN hetrec", "disenhan", {}, False, True),
+    ("KGAT over the KG", "kgat", {"agg_type": "bi_inter"}, True, True),
+    ("DGCF dense_xla hetrec", "dgcf", {"adj_mode": "dense_xla"}, False, True),
+    ("DisenGCN dense_xla hetrec", "disengcn", {"adj_mode": "dense_xla"},
+     False, False),
+    ("KGAT dense_xla hetrec", "kgat",
+     {"agg_type": "bi_inter", "adj_mode": "dense_xla"}, False, True))
+# a rank's bytes at model = 2, predicted from the shapes before the run
+# (PERF.md section 6): its tables, and its rows of the attention
+# matrix P where the path builds one
+R7_PREDICTED = {"DisenHAN hetrec": (56_000_000, None),
+                "KGAT over the KG": (144_500_000, 578_000_000),
+                "DGCF dense_xla hetrec": (112_500_000, None),
+                "DisenGCN dense_xla hetrec": (112_500_000, None),
+                "KGAT dense_xla hetrec": (112_500_000, 450_000_000)}
+
+
+def kg_one_rank(torch, graph, kg, card):
+    """R7a: KGAT ``bi_inter`` over phase K's KG (the relation-dense tier
+    under ``auto``) on a one-rank NCCL mesh, ``rel_id`` one row block,
+    captured: bit for bit (losses and parameters) against the same
+    captured run without a mesh; ms a step with and without the mesh, a
+    replay's busy time and operations, and the mesh's own operations."""
+    import torch.distributed as dist
+
+    from tagrec_tpu_torch.ops import dense_adj
+    from tagrec_tpu_torch.parallel.mesh import make_mesh
+
+    family = ("kgat", {"agg_type": "bi_inter"})
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda:0"))
+    try:
+        mesh = make_mesh(1)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        plain = mesh_run(torch, graph, None, capture=True, family=family,
+                         kg=kg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        check(plain["pipe"].model.tier == "kg_rel_dense",
+              f"R7a: KGAT took {plain['pipe'].model.tier}")
+        meshed = mesh_run(torch, graph, mesh, capture=True, family=family,
+                          kg=kg)
+        model = meshed["pipe"].model
+        run = meshed["trainer"].runs["bpr"]
+        placed = meshed["trainer"].placement["graph"]
+        check(run.graph is not None, "R7a: the mesh step was not captured")
+        check(isinstance(model.sweep_mask("rel_id"), dense_adj.MaskShard)
+              and placed == {"rel_id": "model"},
+              f"R7a: rel_id was not placed on the mesh: {placed}")
+        diff = held_equal(torch, meshed["params"], plain["params"])
+        same_loss = (meshed["losses"] == plain["losses"]).all()
+        print(f"R7a KGAT over the KG (relation-dense tier) captured on a "
+              f"one-rank NCCL mesh {mesh}, {HETREC_BPR_STEPS} steps: "
+              f"placement {placed}, block {model.mask_blocks}, "
+              f"{model.mask_nbytes()} table bytes and {model.att_nbytes} "
+              f"of P ({plain['pipe'].model.mask_nbytes()} and "
+              f"{plain['pipe'].model.att_nbytes} without the mesh); losses "
+              f"{'bit for bit' if same_loss else 'DIFFER'} "
+              f"({plain['losses'].sum(axis=1).tolist()}), parameters "
+              f"{'bit for bit' if not diff else 'DIFFER: ' + str(diff)}")
+        check(same_loss and not diff,
+              "R7a: the one-rank mesh's captured run is not bit for bit the "
+              "plain captured run")
+        del model
+        walls = {"plain": [], "mesh": []}
+        for key in ("plain", "mesh", "mesh", "plain"):
+            r = plain if key == "plain" else meshed
+            walls[key].append(phase_wall_ms(torch, r["trainer"],
+                                            r["pipe"].phases[0],
+                                            R7_WALL_STEPS) / R7_WALL_STEPS)
+        plain_run = plain["trainer"].runs["bpr"]
+        run.counter.zero_()
+        plain_run.counter.zero_()
+        m_ops = replay_ops(torch, run.graph)
+        p_ops = replay_ops(torch, plain_run.graph)
+        extra, extra_ms, busy = mesh_ops(m_ops, p_ops)
+        top = sorted(extra.items(), key=lambda kv: -kv[1][1])[:8]
+        print(f"R7a captured KGAT-over-the-KG step ({card}): ms a step over "
+              f"{R7_WALL_STEPS} steps with one sync (plain, mesh, mesh, "
+              f"plain): without the mesh {walls['plain']}, with "
+              f"{walls['mesh']}; per step (host clock, synchronised) "
+              f"without {plain['ms']}, with {meshed['ms']}; a replay "
+              f"(profiler): device busy {busy:.4f} ms with the mesh "
+              f"({sum(n for n, _ in m_ops.values()):.0f} device operations), "
+              f"{sum(ms for _, ms in p_ops.values()):.4f} ms without "
+              f"({sum(n for n, _ in p_ops.values()):.0f}); the mesh's own "
+              f"operations {sum(n for n, _ in extra.values()):.0f} a "
+              f"replay, {extra_ms:.4f} ms ({extra_ms / busy:.4f} of the busy "
+              f"time); largest "
+              f"{[(k[:60], n, round(ms, 4)) for k, (n, ms) in top]}; peak "
+              f"memory of the run without the mesh {peak / 2**30:.3f} GiB")
+    finally:
+        dist.destroy_process_group()
+
+
+def kgat_tier_rows(torch, graph, mesh):
+    """KGAT ``bi_inter`` at hetrec on its kernel tier and on ``dense_xla``
+    from one set of weights, over ``mesh`` (None: one device): each
+    tier's forward (gathered) and one BPR loss's gradients on the holds'
+    batch -> ({tier: (forward, gradients)} on the host, the flash
+    kernels' launches)."""
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.models import model_class
+    from tagrec_tpu_torch.ops import flash_attention as fa
+
+    batch = dense_xla_batch(torch, graph)
+    out = {}
+    reset_counts(fa, FLASH)
+    for tier in ("kernels", "dense_xla"):
+        model = model_class("kgat")(
+            graph, model_preset("kgat", agg_type="bi_inter",
+                                adj_mode=ADJ_MODE[tier]),
+            device="cuda", mesh=mesh,
+            generator=torch.Generator().manual_seed(0))
+        check(model.tier == tier, f"KGAT: tier {model.tier}, not {tier}")
+        with torch.no_grad():
+            fwd = [t.cpu().numpy() for t in model.forward()]
+        sum(model.bpr_loss(batch)).backward()
+        out[tier] = (fwd, {n: p.grad.cpu().numpy()
+                           for n, p in model.named_parameters()
+                           if p.grad is not None})
+        del model
+        gc_cuda(torch)
+    return out, counts(fa, FLASH)
+
+
+def dense_path(torch, graphs, path, mesh):
+    """One path of phase R7b (an entry of DENSE_PATHS) through
+    ``build_pipeline(mesh=)`` and an eager ``Trainer(mesh=)`` on the
+    hetrec graph, or over phase K's KG (``mesh`` None: the one-device
+    run): the tables' bytes on the card, their blocks and P's bytes; from
+    the initial parameters the forward, an evaluation (where the path asks
+    for it) and the exported tables; R7_STEPS BPR steps, each timed (the
+    first step's gradients and parameters kept); one BPR step in float64
+    (``f64_step``); on KGAT ``dense_xla`` both of its tiers'
+    forwards and gradients (``kgat_tier_rows``).  -> the results on the
+    host, with the peak memory above the path's start and the seconds."""
+    from tagrec_tpu_torch import serving
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import TrainConfig, model_preset
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training import checkpoint
+    from tagrec_tpu_torch.training.train import Trainer
+
+    _, name, over, with_kg, answers = path
+    graph, kg = graphs["hetrec"], graphs["kg"] if with_kg else None
+    secs, t0 = {}, time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tcfg = TrainConfig()
+    pipe = build_pipeline(graph, model_preset(name, **over), tcfg,
+                          device="cuda", mesh=mesh, kg=kg,
+                          generator=torch.Generator().manual_seed(0))
+    model = pipe.model
+    out = {"tier": model.tier, "bytes": model.mask_nbytes(),
+           "blocks": dict(model.mask_blocks)}
+    secs["build"] = time.perf_counter() - t0
+
+    def params():  # copies: Adam updates the parameters in place
+        with torch.no_grad(), sharding.gathered():
+            return {n: sharding.value(model, n).detach().cpu().numpy().copy()
+                    for n in checkpoint.jax_leaf_order(model)}
+
+    t0 = time.perf_counter()
+    with torch.no_grad(), sharding.gathered():
+        out["forward"] = [t.cpu().numpy() for t in model.forward()]
+    out["att_bytes"] = getattr(model, "att_nbytes", None)
+    if answers:
+        out["eval"] = pipe.evaluator.run(model)
+    out["export"] = serving.export_tables(model, n_item=graph.n_item)
+    secs["forward_eval_export"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer = Trainer(model, pipe.phases, tcfg, mesh=mesh, capture=False,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    times, last = [], [time.perf_counter()]
+
+    def on_step(i, parts):
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - last[0]) * 1e3)
+        if i == 0:  # the step from the initial parameters
+            out["first"] = (gathered_grads(torch, model), params())
+        last[0] = time.perf_counter()
+
+    out["losses"] = trainer.run_phase(pipe.phases[0], max_steps=R7_STEPS,
+                                      on_step=on_step)
+    out["step_ms"] = times
+    secs["steps"] = time.perf_counter() - t0
+    out["params"] = params()
+    torch.cuda.synchronize()
+    out["peak"] = torch.cuda.max_memory_allocated() - base
+    del trainer, pipe, model
+    gc_cuda(torch)
+    t0 = time.perf_counter()
+    out["f64"] = f64_step(torch, graph, (name, over), mesh, kg)
+    secs["f64"] = time.perf_counter() - t0
+    if name == "kgat" and not with_kg:
+        t0 = time.perf_counter()
+        out["tiers"] = kgat_tier_rows(torch, graph, mesh)
+        secs["tiers"] = time.perf_counter() - t0
+    out["seconds"] = secs
+    return out
+
+
+def dense_paths(torch, graphs, mesh):
+    """Every path of DENSE_PATHS -> {label: ``dense_path``'s results}."""
+    return {path[0]: dense_path(torch, graphs, path, mesh)
+            for path in DENSE_PATHS}
+
+
+def dense_hold(label, got, want, ranks, card):
+    """A rank's R7b path against the one-device run; prints and checks:
+    each rank's table bytes (and its rows of P) exactly R7_PREDICTED, 1 /
+    ROW_RANKS of one device's, and its peak below one device's; the
+    forward, the evaluation and the exported tables bit for bit; the
+    losses within MESH_LOSS_ATOL, the ranks bit for bit; the first step's
+    gradients entry by entry within 5e-4 |g| + 1e-4 max|g| (the parallel
+    tests' rule) and its parameters within 2e-6 wherever Adam's first step
+    is well conditioned (|g| >= 1e-6); where the path holds its
+    trajectory, at most R5_PAST_MAX entries of the parameters after the
+    steps past a hundredth of lr a step; the float64 step by ``f64_hold``;
+    on KGAT ``dense_xla`` its forward against the kernel tier's on the
+    rank (rtol RTOL, atol ATOL).  -> the flash launches of that hold."""
+    import numpy as np
+
+    trajectory = next(p[4] for p in DENSE_PATHS if p[0] == label)
+    tables, att = R7_PREDICTED[label]
+    fwd_exact = all(np.array_equal(a, b)
+                    for a, b in zip(got["forward"], want["forward"]))
+    exp_exact = all(np.array_equal(a, b)
+                    for a, b in zip(got["export"], want["export"]))
+    loss_err = float(np.abs(got["losses"] - want["losses"]).max())
+    (g1, p1), (w1g, w1p) = got["first"], want["first"]
+    first_err = max(float(np.abs(p1[n] - p)[np.abs(w1g[n]) >= 1e-6].max(
+        initial=0.0)) for n, p in w1p.items())
+    conditioned = sum(int((np.abs(g) >= 1e-6).sum()) for g in w1g.values())
+    g32 = sorted(((n, float(np.abs(g1[n] - g).max())
+                   / max(float(np.abs(g).max()), 1e-30))
+                  for n, g in w1g.items()), key=lambda kv: -kv[1])[:3]
+    g_rule = max(float((np.abs(g1[n] - g) / np.maximum(
+        5e-4 * np.abs(g) + 1e-4 * np.abs(g).max(), 1e-38)).max())
+        for n, g in w1g.items())
+    bound = 0.01 * 0.01 * R7_STEPS  # a hundredth of TrainConfig's lr a step
+    param_err, worst = max(
+        (float(np.abs(got["params"][n] - want["params"][n]).max()), n)
+        for n in want["params"])
+    past = sum(int((np.abs(got["params"][n] - want["params"][n])
+                    > bound).sum()) for n in want["params"])
+    total = sum(a.size for a in want["params"].values())
+    agree = all(np.array_equal(r["losses"], got["losses"]) and all(
+        np.array_equal(r["params"][n], got["params"][n])
+        for n in got["params"]) for r in ranks)
+    print(f"R7b {label} (model = {ROW_RANKS}, gloo over CUDA tensors, "
+          f"eager; {card}): tier {got['tier']}; table bytes per rank "
+          f"{[r['bytes'] for r in ranks]} against {want['bytes']} on one "
+          f"device ({[round(r['bytes'] / want['bytes'], 4) for r in ranks]}"
+          f"x; predicted {tables}), blocks {[r['blocks'] for r in ranks]}; "
+          f"P bytes per rank {[r['att_bytes'] for r in ranks]} against "
+          f"{want['att_bytes']} (predicted {att}); peak memory above the "
+          f"path's start per rank "
+          f"{[round(r['peak'] / 2**30, 3) for r in ranks]} GiB against "
+          f"{want['peak'] / 2**30:.3f}; forward "
+          f"{'bit for bit' if fwd_exact else 'DIFFERS'}, evaluation "
+          f"{got.get('eval', 'not run')}, exported tables "
+          f"{'bit for bit' if exp_exact else 'DIFFER'}; |losses - one "
+          f"device| {loss_err:.3e} (bound {MESH_LOSS_ATOL}); ranks "
+          f"{'bit for bit' if agree else 'DIFFER'}; the first step's "
+          f"parameters where |g| >= 1e-6 ({conditioned} entries) max |err| "
+          f"{first_err:.3e} (bound 2e-6), its gradients' largest max |err| "
+          f"/ max |g| {[(n, f'{e:.2e}') for n, e in g32]}, largest share "
+          f"of 5e-4 |g| + 1e-4 max|g| {g_rule:.3e}; after "
+          f"{R7_STEPS} steps |parameters - one device| {param_err:.3e} "
+          f"({worst}), {past} of {total} entries past {bound:.1e} ("
+          f"{f'at most {R5_PAST_MAX}' if trajectory else 'not held'}); ms "
+          f"a BPR step (host clock, synchronised) rank 0 "
+          f"{[round(t, 3) for t in got['step_ms']]}, one device "
+          f"{[round(t, 3) for t in want['step_ms']]}; seconds per rank "
+          f"{[rounded(r['seconds']) for r in ranks]}, one device "
+          f"{rounded(want['seconds'])}")
+    check(all(r["tier"] == want["tier"] and r["bytes"] == tables
+              and r["bytes"] * ROW_RANKS == want["bytes"]
+              and r["att_bytes"] == att
+              and (att is None or r["att_bytes"] * ROW_RANKS
+                   == want["att_bytes"])
+              and r["peak"] < want["peak"]
+              and all(b is not None for b in r["blocks"].values())
+              for r in ranks)
+          and all(b is None for b in want["blocks"].values()),
+          f"R7b {label}: the ranks' tables are not the predicted row shards")
+    check(fwd_exact and exp_exact,
+          f"R7b {label}: the forward or the export is not one device's")
+    check(loss_err <= MESH_LOSS_ATOL and agree and first_err <= 2e-6
+          and g_rule <= 1.0 and (past <= R5_PAST_MAX or not trajectory),
+          f"R7b {label}: a rank is outside its hold against one device")
+    if "eval" in want:
+        check_metrics(got["eval"], want["eval"], True, f"R7b {label}")
+    f64_hold(f"R7b {label}", got["f64"], want["f64"])
+    if "tiers" not in want:
+        return {k: 0 for k in FLASH}
+    launches = {k: sum(r["tiers"][1][k] for r in ranks) for k in FLASH}
+    for who, res in [("one device", want)] + [(f"rank {i}", r) for i, r in
+                                              enumerate(ranks)]:
+        (kf, kg), (xf, xg) = res["tiers"][0]["kernels"], res["tiers"][0][
+            "dense_xla"]
+        f_err = max(float(np.abs(a - b).max()) for a, b in zip(kf, xf))
+        f_ok = all(np.allclose(a, b, rtol=RTOL, atol=ATOL)
+                   for a, b in zip(kf, xf))
+        g_err = sorted(((n, float(np.abs(kg[n] - g).max())
+                         / max(float(np.abs(g).max()), 1e-30))
+                        for n, g in xg.items()), key=lambda kv: -kv[1])[:3]
+        print(f"R7b {label} on {who}: the kernel tier's forward against "
+              f"dense_xla's max abs {f_err:.3e} (rtol {RTOL}, atol {ATOL}) "
+              f"{'ok' if f_ok else 'FAIL'}; BPR gradients' largest max "
+              f"|err| / max |g| {[(n, f'{e:.2e}') for n, e in g_err]}; "
+              f"flash launches {res['tiers'][1]}")
+        check(f_ok, f"R7b {label}: the kernel tier's forward on {who} "
+                    f"differs from dense_xla's")
+    check(all(launches[k] > 0 for k in FLASH),
+          f"R7b {label}: the kernel tier launched {launches} on the ranks")
+    return launches
+
+
+def dense_phase(torch, graph, card):
+    """Phase R7: the chunked dense tiers' tables row-sharded over
+    ``model``: R7a's captured one-rank mesh over the KG, R7b's ranks.
+    -> the flash kernels' launches on R7b's ranks (KGAT ``dense_xla``'s
+    hold against its kernel tier)."""
+    from tagrec_tpu_torch.data.kg import KnowledgeGraph
+
+    t0 = time.perf_counter()
+    kg = KnowledgeGraph.synthetic(graph, **KG_SIZE)
+    done = phase_timer("R7a one-rank NCCL mesh, KGAT over the KG")
+    kg_one_rank(torch, graph, kg, card)
+    done()
+    gc_cuda(torch)
+    done = phase_timer("R7b model = 2 on one card, DisenHAN, the KG, "
+                       "dense_xla")
+    want, ranks = two_rank_results(torch, {"hetrec": graph, "kg": kg},
+                                   "dense-rank", dense_paths, "R7b",
+                                   one_cmd="dense-one")
+    launches = {k: 0 for k in FLASH}
+    for label, *_ in DENSE_PATHS:
+        rs = [r[label] for r in ranks]
+        got = dense_hold(label, rs[0], want[label], rs, card)
+        launches = {k: launches[k] + got[k] for k in FLASH}
+    done()
+    gc_cuda(torch)
+    print(f"phase R7: {time.perf_counter() - t0:.1f} s (host clock)")
     return launches
 
 
@@ -5807,6 +6229,11 @@ def run(torch):
     print(f"sweep launches over phase R6's main paths (R6a's captured mesh "
           f"steps, R6b's ranks): {masked}; over every path: "
           f"{ {k: launches[k] for k in SWEEPS} }")
+    dense = dense_phase(torch, graph, card)
+    launches.update({k: launches[k] + dense[k] for k in FLASH})
+    print(f"flash launches over phase R7b's ranks (KGAT dense_xla's hold "
+          f"against its kernel tier): {dense}; over every path: "
+          f"{ {k: launches[k] for k in FLASH} }")
 
     print(f"capture phase, every path ({card}): {json.dumps(CAPTURED)}")
     slower = [f"{r['path']} {r['phase']}" for r in CAPTURED
@@ -5863,6 +6290,10 @@ def main() -> int:
         return row_rank_main(sys.argv[2:], tgcn_paths)
     if sys.argv[1:2] == ["mask-rank"]:  # a rank of phase R6b, started by it
         return row_rank_main(sys.argv[2:], mask_paths)
+    if sys.argv[1:2] == ["dense-rank"]:  # a rank of phase R7b, started by it
+        return row_rank_main(sys.argv[2:], dense_paths)
+    if sys.argv[1:2] == ["dense-one"]:  # R7b's one-device run, started by it
+        return one_device_main(sys.argv[2:], dense_paths)
     try:
         import torch
     except ImportError:

@@ -10,7 +10,9 @@ time, idle share and operations, the peak) and prints its rows, and the
 largest device operations of a replay of the first phase (profiler), as
 one JSON line.  The paths: ``tgcn_ell`` (TGCN ``adj_mode="ell"`` at hetrec),
 ``dgcf_10x`` and ``kgat_10x`` (DGCF and KGAT ``bi_inter`` on the 10x
-graph, where ``auto`` takes the EdgeMap tier).  ``--tree`` names the
+graph, where ``auto`` takes the EdgeMap tier), ``disenhan`` (DisenHAN
+at hetrec, its dense tier) and ``kg`` (KGAT ``bi_inter`` over
+``chip_smoke.py``'s phase-K KG, the relation-dense tier).  ``--tree`` names the
 checkout whose ``tagrec_tpu_torch`` and ``chip_smoke.py`` run (default:
 this one), so two trees compare in one call on one card, in the order
 parent, change, change, parent:
@@ -28,10 +30,12 @@ import json
 import os
 import sys
 
-# path: (graph, model, preset overrides)
-PATHS = {"tgcn_ell": ("hetrec", "tgcn", {"adj_mode": "ell"}),
-         "dgcf_10x": ("10x", "dgcf", {}),
-         "kgat_10x": ("10x", "kgat", {"agg_type": "bi_inter"})}
+# path: (graph, model, preset overrides, the tier it must take)
+PATHS = {"tgcn_ell": ("hetrec", "tgcn", {"adj_mode": "ell"}, "ell"),
+         "dgcf_10x": ("10x", "dgcf", {}, "ell"),
+         "kgat_10x": ("10x", "kgat", {"agg_type": "bi_inter"}, "ell"),
+         "disenhan": ("hetrec", "disenhan", {}, "dense"),
+         "kg": ("kg", "kgat", {"agg_type": "bi_inter"}, "kg_rel_dense")}
 TOP_OPS = 14  # the replay's largest device operations printed
 
 
@@ -62,16 +66,21 @@ def main() -> int:
     card = cs.gpu_name_and_limit()
     print(card, torch.__version__, torch.version.cuda, tree)
     _build.build(["gather_reduce", "gather_rows"])
-    g, name, over = PATHS[args.path]
-    graph = (synthetic_graph_large(cs.N_USER, cs.N_ITEM, cs.N_TAG,
-                                   cs.N_EDGES, cs.TAG_PER_INTER, seed=0)
-             if g == "hetrec" else
-             synthetic_graph_large(*cs.LGCN_10X, cs.TAG_PER_INTER, seed=0))
+    g, name, over, tier = PATHS[args.path]
+    graph = (synthetic_graph_large(*cs.LGCN_10X, cs.TAG_PER_INTER, seed=0)
+             if g == "10x" else
+             synthetic_graph_large(cs.N_USER, cs.N_ITEM, cs.N_TAG,
+                                   cs.N_EDGES, cs.TAG_PER_INTER, seed=0))
+    kg = None
+    if g == "kg":
+        from tagrec_tpu_torch.data.kg import KnowledgeGraph
+
+        kg = KnowledgeGraph.synthetic(graph, **cs.KG_SIZE)
     tcfg = TrainConfig()
     pipe = build_pipeline(graph, model_preset(name, **over), tcfg,
                           generator=torch.Generator().manual_seed(0),
-                          device="cuda")
-    cs.check(pipe.model.tier == "ell", f"{args.path}: took {pipe.model.tier}")
+                          device="cuda", kg=kg)
+    cs.check(pipe.model.tier == tier, f"{args.path}: took {pipe.model.tier}")
     cs.capture_hold(torch, args.path, pipe.model, pipe.phases, tcfg)
     # the first phase's replay by device operation, from a fresh trainer
     trainer = Trainer(pipe.model, pipe.phases, tcfg,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Phase R3, R4, R5 or R6 of ``chip_smoke.py`` alone: the EdgeMap tier,
-TGCN's tables, or the kernel tiers' masks, row-sharded over ``model`` on
-one NVIDIA GPU.
+"""Phase R3, R4, R5, R6 or R7 of ``chip_smoke.py`` alone: the EdgeMap
+tier, TGCN's tables, the kernel tiers' masks, or the chunked dense
+tiers' tables, row-sharded over ``model`` on one NVIDIA GPU.
 
 Builds the phase's kernels and the hetrec and 10x graphs of
 ``chip_smoke.py``, prints a host report, then runs the phase with every
@@ -12,6 +12,7 @@ hold of the full smoke run.  A quicker loop than the whole
     python3 experiments/torch_edgemap_partition.py R4
     python3 experiments/torch_edgemap_partition.py R5
     python3 experiments/torch_edgemap_partition.py R6
+    python3 experiments/torch_edgemap_partition.py R7
 
 R3 (DGCF's and DisenGCN's maps): the host's build of DGCF 10x's EdgeMap
 and of one rank's cut and exchange plan at ``model`` = 2
@@ -50,6 +51,18 @@ the unmeshed captured run) and R6b (two ``chip_smoke.py mask-rank``
 processes on gloo: DGCF, DisenGCN and KGAT ``bi_inter`` at hetrec,
 against the one-device run).  R6 builds the routing and flash kernels
 and needs no 10x graph.
+
+R7 (the chunked dense tiers' tables: DisenHAN's six relation masks and
+the KG's ``rel_id`` under ``auto``, the ``dense_xla`` mask of DGCF,
+DisenGCN and KGAT): first, for each R7b path, the prediction from the
+shapes: each table's rows and rank 0's rows of it at ``model`` = 2, the
+table bytes rank 0 holds, and its rows of the attention matrix P in
+bytes where the path builds one, against ``chip_smoke.R7_PREDICTED``;
+then ``chip_smoke.dense_phase``: R7a (KGAT over phase K's KG captured on
+a one-rank NCCL mesh against the unmeshed captured run) and R7b (two
+``chip_smoke.py dense-rank`` processes on gloo, against the one-device
+run).  R7 builds the flash kernels (KGAT ``dense_xla``'s hold against
+its kernel tier) and needs no 10x graph.
 
 Needs one NVIDIA GPU; prints the card's name and power limit first and
 last.  Exits non-zero when a hold fails.
@@ -210,6 +223,48 @@ def r6_run(torch, dg, graphs, card):
     return launches
 
 
+def r7_report(graphs) -> None:
+    """Per R7b path, from the shapes: each table's rows and rank 0's rows
+    of it at ``model`` = 2 (JAX's rule), the table bytes rank 0 holds and
+    its bytes of P (rows x N x 4), against ``chip_smoke.R7_PREDICTED``;
+    the tables' host build timed on the host clock."""
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.data.kg import KnowledgeGraph
+    from tagrec_tpu_torch.models import model_class
+    from tagrec_tpu_torch.parallel.mesh import make_mesh
+
+    kg = KnowledgeGraph.synthetic(graphs["hetrec"], **cs.KG_SIZE)
+    for label, name, over, with_kg, _ in cs.DENSE_PATHS:
+        t0 = time.perf_counter()
+        kw = {"kg": kg} if with_kg else {}
+        model = model_class(name)(graphs["hetrec"], model_preset(name, **over),
+                                  device="cpu", **kw,
+                                  generator=torch.Generator().manual_seed(0))
+        built = time.perf_counter() - t0
+        rows = {path: host.shape[0] for path, _, host, _ in model.mask_hosts}
+        whole = model.mask_nbytes()
+        model.place_masks(make_mesh(2, 1, rank=0), "cpu")
+        held = model.mask_nbytes()
+        blocks = dict(model.mask_blocks)
+        p_bytes = None
+        if name == "kgat":  # one table, rows [start, stop) of P
+            start, stop = next(iter(blocks.values()))
+            p_bytes = (stop - start) * model.n * 4
+        same = (held, p_bytes) == cs.R7_PREDICTED[label]
+        print(f"{label} (prediction from the shapes): tables built on the "
+              f"host in {built:.1f} s; rows {rows}, rank 0's blocks at "
+              f"model = 2 {blocks}; rank 0 holds {held} of {whole} table "
+              f"bytes ({held / whole:.4f}), P bytes {p_bytes}; "
+              f"R7_PREDICTED {cs.R7_PREDICTED[label]} "
+              f"{'equal' if same else 'DIFFERENT'}")
+        del model
+
+
+def r7_run(torch, dg, graphs, card):
+    launches = cs.dense_phase(torch, graphs["hetrec"], card)
+    return launches
+
+
 ROUTING_FLASH = ["routed_rowsum", "routed_mm", "dot_flash_stats",
                  "dot_flash_apply", "dot_flash_bwd_row", "dot_flash_bwd_col"]
 GATHERS = ["gather_reduce", "gather_rows"]
@@ -217,7 +272,8 @@ GATHERS = ["gather_reduce", "gather_rows"]
 PHASES = {"R3": (r3_report, cs.em_phase, GATHERS),
           "R4": (r4_report, cs.em4_phase, GATHERS),
           "R5": (r5_report, r5_run, GATHERS),
-          "R6": (r6_report, r6_run, ROUTING_FLASH)}
+          "R6": (r6_report, r6_run, ROUTING_FLASH),
+          "R7": (r7_report, r7_run, ROUTING_FLASH)}
 
 
 def main() -> int:

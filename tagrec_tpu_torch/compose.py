@@ -27,8 +27,8 @@ from tagrec_tpu_torch.training.train import (PhaseSpec, bpr_phase,
 # the families trained by the resampling phase
 RESAMPLED = ("dgcf", "disengcn", "disenhan")
 # the families whose graph tables a mesh row-shards over ``model``: the
-# adjacency pair, the EdgeMap tier's maps, the kernel tiers' masks, or
-# TGCN's tables on every tier (another tier keeps its tables whole)
+# adjacency pair, the EdgeMap tier's maps, the kernel and chunked tiers'
+# masks (and the KG's relation ids), or TGCN's tables on every tier
 GRAPH_SHARDED = ("lightgcn", "ngcf", "dgcf", "disengcn", "disenhan", "kgat",
                  "tgcn")
 
@@ -58,9 +58,10 @@ def build_pipeline(graph: HeteroGraph, mcfg: ModelConfig, tcfg: TrainConfig,
     ``data.kg.KnowledgeGraph``, which puts KGAT over the knowledge graph
     (other families ignore it).  ``mesh``: an optional
     ``parallel.Mesh``, which makes the evaluation sharded and gives
-    LightGCN and NGCF, the other families on the EdgeMap tier or on the
-    kernel tiers (DGCF's, DisenGCN's and KGAT's masks), and TGCN, only
-    this rank's rows of their graph tables, cut before the upload
+    LightGCN and NGCF, the other families on the EdgeMap tier, the
+    kernel tiers or the chunked dense tiers (the masks, the KG's
+    ``rel_id``), and TGCN, only this rank's rows of their graph tables,
+    cut before the upload
     (the Trainer takes the same mesh for training, as JAX's)."""
     cls = model_class(mcfg.name)
     dev = resolve(device)

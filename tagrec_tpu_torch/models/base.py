@@ -12,6 +12,7 @@ import torch
 from tagrec_tpu_torch.ops import dense_adj, edgemap
 from tagrec_tpu_torch.ops import ell as ell_lib
 from tagrec_tpu_torch.ops.losses import bpr_loss, l2reg_loss
+from tagrec_tpu_torch.ops.propagate import RankRows, model_sum
 
 
 def _fan_in_out(shape: Sequence[int]):
@@ -137,17 +138,20 @@ class EdgeMapGraph:
 
 
 class MaskGraph(EdgeMapGraph):
-    """The protocol for a model whose kernel tier sweeps dense masks (DGCF,
-    DisenGCN, KGAT ``bi_inter``): ``mask_hosts`` [(leaf path, buffer
-    name, host mask, transposed)] on the host, the buffers on the device;
-    the other tiers (``mask_hosts`` empty) are placed as an
-    ``EdgeMapGraph``.  Its leaves are JAX's (``mask``; ``fmasks.0`` ...),
-    then the port's contiguous transposes (``maskT``; ``fmasksT.0`` ...),
-    each by JAX's rule on its own rows; a transposed entry's buffer holds
-    rows of the host mask's transpose, cut from its columns.
-    ``sweep_mask(name)`` is what the sweeps take: the buffer, or the
+    """The protocol for a model whose graph is dense masks: the kernel
+    tiers' (DGCF, DisenGCN, KGAT ``bi_inter``) and the chunked tiers'
+    (``dense_xla``'s ``mask``, DisenHAN's ``masks.0..5``, the KG's
+    ``rel_id``): ``mask_hosts`` [(leaf path, buffer name, host mask,
+    transposed)] on the host, the buffers on the device; the other tiers
+    (``mask_hosts`` empty) are placed as an ``EdgeMapGraph``.  Its leaves
+    are JAX's (``mask``; ``fmasks.0`` ...), then the port's contiguous
+    transposes (``maskT``; ``fmasksT.0`` ...), each by JAX's rule on its
+    own rows; a transposed entry's buffer holds rows of the host mask's
+    transpose, cut from its columns.  ``sweep_mask(name)`` is what the
+    sweeps and the chunked functions take: the buffer, or the
     ``ops.dense_adj.MaskShard`` of the rank's rows where the mesh cuts
-    it."""
+    it; a chunked function's rows are made whole by ``rows_whole``, its
+    inputs' gradients by ``mesh_sum``."""
 
     mask_hosts = ()
     masks_mesh = None
@@ -194,6 +198,25 @@ class MaskGraph(EdgeMapGraph):
             mask, blk[0], blk[1],
             mask.shape[0] * self.masks_mesh.shape["model"], self.masks_mesh)
 
+    def rows_whole(self, name: str, out: torch.Tensor,
+                   ax: int = 0) -> torch.Tensor:
+        """``out``, a chunked function's rows over ``sweep_mask(name)``
+        (on axis ``ax``), whole on every rank: under a mesh one all-gather
+        of the rank's rows, a whole mask's result back-propagated on
+        ``model`` rank 0 only (``propagate.RankRows`` of one piece)."""
+        if self.masks_mesh is None:
+            return out
+        return RankRows.apply((self.masks_mesh, [self.mask_blocks[name]],
+                               None, [None], ax), out)
+
+    def mesh_sum(self, *xs) -> tuple:
+        """``xs`` as they are; under a mesh their gradients summed over
+        ``model`` in one all-reduce (``propagate.model_sum``): the inputs
+        a chunked function reads whole on a rank's rows."""
+        if self.masks_mesh is None:
+            return xs
+        return model_sum(self.masks_mesh, *xs)
+
     def mask_nbytes(self) -> int:
         """Bytes of the masks the model holds on its device."""
         return sum(getattr(self, name).numel()
@@ -202,21 +225,17 @@ class MaskGraph(EdgeMapGraph):
 
 
 class RoutingMaskGraph(MaskGraph):
-    """``MaskGraph`` for DGCF's and DisenGCN's dense tier: the joint
+    """``MaskGraph`` for DGCF's and DisenGCN's dense tiers: the joint
     graph's bool edge mask ``mask`` [N, N] and ``maskT``, its contiguous
-    transpose, None where the mask is symmetric (both None on the EdgeMap
-    tier)."""
+    transpose, None where the mask is symmetric or under ``dense_xla``
+    (both None on the EdgeMap tier)."""
 
     def place_routing_masks(self, coo, mesh, device) -> None:
-        """``mask`` (and ``maskT``) of ``coo`` built on the host: on the
-        kernel tier (``flash``) placed by ``place_masks``, the rank's rows
-        with ``mesh``; under ``dense_xla`` whole, as the chunked tier reads
-        it, with no transpose (its backward is autograd's)."""
+        """``mask`` (and ``maskT``) of ``coo`` built on the host, placed by
+        ``place_masks``, the rank's rows with ``mesh``; under ``dense_xla``
+        no transpose (the chunked tier's backward is autograd's)."""
         mask = dense_adj.dense_mask_host(coo.row, coo.col, *coo.shape)
-        if not self.flash:
-            self.mask = torch.from_numpy(mask).to(device)
-            return
-        own_t = not np.array_equal(mask, mask.T)
+        own_t = self.flash and not np.array_equal(mask, mask.T)
         self.mask_hosts = (("mask", "mask", mask, False),) + (
             (("maskT", "maskT", mask, True),) if own_t else ())
         self.place_masks(mesh, device)

@@ -20,7 +20,9 @@ Two tiers, as JAX picks them (``ops.dense_adj.use_dense``):
   rows (JAX's rule), each kernel sweeps them and its result is
   all-gathered once (``ops.dense_adj.MaskShard``).
   ``adj_mode="dense_xla"`` computes the same iterations on the chunked
-  dense tier (``ops.dense_adj``) instead, over the whole mask.
+  dense tier (``ops.dense_adj``) instead; under a mesh over the rank's
+  rows of the mask, the degree and the aggregation gathered whole, the
+  aggregated x's gradient summed over ``model``.
 * EdgeMap (``adj_mode="ell"``, or a graph over the dense budget): S is
   held per degree bucket ([F, Nb, Kb] each); the degree is the per-bucket
   row sums of the routed values (``row_sums``), the aggregation
@@ -49,7 +51,8 @@ class DGCF(base.RoutingMaskGraph, nn.Module):
     mask of the joint graph is a bool buffer [N, N] on ``device``, and
     ``maskT`` its transpose, None where the mask is symmetric (``mask_t``
     is the mask then); on the kernel tier ``mask_hosts`` keeps them on
-    the host and, with ``mesh``, both buffers hold the rank's rows
+    the host and, with ``mesh``, both buffers hold the rank's rows, as
+    the mask does under ``dense_xla``
     (``models.base.RoutingMaskGraph``); on the EdgeMap tier both are None,
     ``em_hosts`` keeps the joint graph's EdgeMapHost as ``em`` and
     ``edges`` holds its EdgeMap, or with ``mesh`` the rank's rows of it
@@ -102,6 +105,8 @@ class DGCF(base.RoutingMaskGraph, nn.Module):
         femb = None
         if self.flash:
             mask, mask_t = self.routing_masks()
+        else:
+            mask = self.sweep_mask("mask")
         for _ in range(cfg.iterate_k):
             if u_list:
                 ueff = torch.cat(u_list, dim=2)
@@ -111,8 +116,9 @@ class DGCF(base.RoutingMaskGraph, nn.Module):
                 veff = torch.zeros_like(ueff)
             if self.flash:
                 d = flash_routing.routed_rowsum(ueff, veff, mask, base=1.0)
-            else:
-                d = dense_adj.dgcf_dense_degree(ueff, veff, self.mask)
+            else:  # the rank's rows, gathered (no gradient)
+                d = self.rows_whole("mask", dense_adj.dgcf_dense_degree(
+                    ueff, veff, mask), ax=1)
             # an empty row has degree 0 and gets scale 0, not inf
             dr = torch.where(d > 0, torch.rsqrt(torch.where(d > 0, d, 1.0)),
                              0.0)
@@ -120,8 +126,10 @@ class DGCF(base.RoutingMaskGraph, nn.Module):
             if self.flash:
                 agg = flash_routing.routed_mm(ueff, veff, mask, scaled,
                                               base=1.0, mask_t=mask_t)
-            else:
-                agg = dense_adj.dgcf_dense_prop(ueff, veff, self.mask, scaled)
+            else:  # the rank's rows of A @ x read all of x
+                x, = self.mesh_sum(scaled)
+                agg = self.rows_whole("mask", dense_adj.dgcf_dense_prop(
+                    ueff, veff, mask, x), ax=1)
             femb = dr[:, :, None] * agg
             # score update factors, stored detached (the routed adjacency is
             # detached, so score gradients never reach the loss)

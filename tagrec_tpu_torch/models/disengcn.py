@@ -13,7 +13,9 @@ through ``routed_mm``'s x (its backward is the sweep over the mask's
 transpose) and the residual; the routing weights get none, as in JAX.
 
 ``adj_mode="dense_xla"`` routes on the chunked dense tier
-(``ops.dense_adj.routed_agg_dense``) instead of the kernel.  Past the
+(``ops.dense_adj.routed_agg_dense``) instead of the kernel; under a mesh
+over the rank's rows of the mask, the aggregation gathered whole and
+the routed factors' gradient summed over ``model``.  Past the
 dense budget, or under ``adj_mode="ell"``, the routing runs on the
 EdgeMap tier (``ops.edgemap``), as JAX picks it: the per-edge affinities
 by ``edge_dot``, their factor softmax detached, the aggregation by
@@ -41,10 +43,11 @@ class DisenGCN(base.RoutingMaskGraph, nn.Module):
     ``layers.{i}.b``, drawn in that order from ``generator`` (a CPU
     ``torch.Generator``), the tree of JAX's params; the edge mask of the
     joint graph is a bool buffer [N, N] on ``device``, and ``maskT`` its
-    transpose, None where the mask is symmetric; on the kernel tier
+    transpose, None where the mask is symmetric; on the dense tiers
     ``mask_hosts`` keeps them on the host and, with ``mesh``, both
     buffers hold the rank's rows (``models.base.RoutingMaskGraph``: each
-    ``routed_mm`` sweeps them and all-gathers its result once); on the
+    ``routed_mm``, or each ``dense_xla`` aggregation, runs on them and
+    all-gathers its result once); on the
     EdgeMap tier both are None, ``em_hosts`` keeps the joint graph's
     EdgeMapHost as ``em`` and ``edges`` holds its EdgeMap, or with
     ``mesh`` the rank's rows of it (``ops.edgemap.shard_edge_map``,
@@ -105,6 +108,8 @@ class DisenGCN(base.RoutingMaskGraph, nn.Module):
             masks = em.masks(fac.dtype)
         elif self.flash:
             mask, mask_t = self.routing_masks()
+        else:
+            mask = self.sweep_mask("mask")
         for _ in range(self.cfg.iterate_k):
             if not self.dense:
                 # the affinities reach the loss only through the detached
@@ -116,8 +121,10 @@ class DisenGCN(base.RoutingMaskGraph, nn.Module):
             elif self.flash:
                 agg = flash_routing.routed_mm(new_fac, fac, mask, fac,
                                               mask_t=mask_t)
-            else:
-                agg = dense_adj.routed_agg_dense(new_fac, fac, self.mask)
+            else:  # head reaches only the detached routing weights
+                tail, = self.mesh_sum(fac)
+                agg = self.rows_whole("mask", dense_adj.routed_agg_dense(
+                    new_fac, tail, mask), ax=1)
             new_fac = l2_normalize(fac + agg, dim=2)
         return torch.cat(list(new_fac), dim=1)
 

@@ -19,7 +19,11 @@
 
 Two tiers, as JAX picks them (``ops.dense_adj.use_dense``): within the
 dense budget each relation is a rectangular bool edge mask
-(``ops.dense_adj.disenhan_dense_rela``); under ``adj_mode="ell"``, or past
+(``ops.dense_adj.disenhan_dense_rela``; under a mesh each mask JAX's
+rule cuts holds the rank's source rows, the relation's aggregation runs
+on them and is gathered whole once, a whole mask's back-propagated on
+``model`` rank 0 only, and its inputs' gradients are summed over
+``model``); under ``adj_mode="ell"``, or past
 the budget, each relation is an EdgeMap (``ops.edgemap``): the separable
 scores from ``rows_gather`` and ``edge_gather``, ``edge_softmax`` over each
 source's edges, and ``edge_reduce`` (the ``gather_reduce`` kernel per
@@ -49,12 +53,15 @@ INCIDENT = ((0, 2), (1, 4), (3, 5))
 ROUNDS = 2
 
 
-class DisenHAN(base.EdgeMapGraph, nn.Module):
+class DisenHAN(base.MaskGraph, nn.Module):
     """Parameters ``embed.{0,1,2}`` (user, item, tag) and per layer
     ``layers.{i}.{Wtk,at,W,q_rela}``, drawn in that order from
     ``generator`` (a CPU ``torch.Generator``), the tree of JAX's params;
     on the dense tier the six relation masks are bool buffers
-    ``mask_0..5`` on ``device``; on the EdgeMap tier ``em_hosts`` keeps
+    ``mask_0..5`` on ``device``, ``mask_hosts`` keeping them on the host
+    under JAX's leaf paths ``masks.0..5``, or with ``mesh`` the rank's
+    rows of each that JAX's rule cuts (``models.base.MaskGraph``); on
+    the EdgeMap tier ``em_hosts`` keeps
     the six relations' EdgeMapHosts ``ems.0..5`` (JAX's leaf prefixes)
     and ``edges`` their EdgeMaps, or with ``mesh`` the rank's rows of
     them (``parallel.sharding.shard_graph``)."""
@@ -76,9 +83,11 @@ class DisenHAN(base.EdgeMapGraph, nn.Module):
                     it.transpose())
         self.em_hosts = {}
         if self.dense:
-            for e, c in enumerate(rel_coos):
-                self.register_buffer(f"mask_{e}", torch.from_numpy(
-                    dense_adj.dense_mask_host(c.row, c.col, *c.shape)).to(dev))
+            self.mask_hosts = tuple(
+                (f"masks.{e}", f"mask_{e}",
+                 dense_adj.dense_mask_host(c.row, c.col, *c.shape), False)
+                for e, c in enumerate(rel_coos))
+            self.place_masks(mesh, dev)
         else:
             self.em_hosts = {f"ems.{e}": edgemap.build_edge_map(
                 c.row, c.col, c.val, *c.shape) for e, c in enumerate(rel_coos)}
@@ -103,9 +112,10 @@ class DisenHAN(base.EdgeMapGraph, nn.Module):
         return "dense" if self.dense else "ell"
 
     def masks(self):
-        """The six relations' masks (dense tier) or EdgeMaps."""
+        """The six relations' masks (dense tier: ``sweep_mask``'s, the
+        rank's rows under a mesh) or EdgeMaps."""
         if self.dense:
-            return [getattr(self, f"mask_{e}") for e in range(6)]
+            return [self.sweep_mask(f"mask_{e}") for e in range(6)]
         return [self.edges[f"ems.{e}"] for e in range(6)]
 
     def _rela_update(self, lp, e, mask, new_src, old_dst, r_src):
@@ -117,8 +127,11 @@ class DisenHAN(base.EdgeMapGraph, nn.Module):
         head = torch.einsum("fnd,fd->fn", new_src, a[:, :self.dim_k])
         tail = torch.einsum("fnd,fd->fn", old_dst, a[:, self.dim_k:])
         if self.dense:
-            zk = dense_adj.disenhan_dense_rela(head, tail, r_src, old_dst,
-                                               mask)
+            # the rank's source rows read head and r_src there, tail and
+            # old_dst whole: their gradients summed over ``model``
+            name = f"mask_{e}"
+            zk = self.rows_whole(name, dense_adj.disenhan_dense_rela(
+                *self.mesh_sum(head, tail, r_src, old_dst), mask), ax=1)
         else:
             # the score relu(head + tail) is separable: per-node values
             # gathered per slot, never a [F, Nb, Kb, dk] tail tensor

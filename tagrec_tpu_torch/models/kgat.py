@@ -19,14 +19,19 @@ once (``ops.dense_adj.MaskShard``).
 ``adj_mode="dense_xla"`` takes the chunked dense tier instead: the
 sector-stacked scores softmaxed over the [N, N] edge mask chunk by chunk
 (``ops.dense_adj.dense_row_softmax_scores``) into one attention matrix P,
-which the layers reuse (``P @ x``).
+which the layers reuse (``P @ x`` in blocks of the chunk's rows,
+``ops.dense_adj.rows_mm``).
 
 Over a true knowledge graph (``kg=``, a ``data.kg.KnowledgeGraph``) the
 entities and relations are the KG's, and the relation is per edge: the
 relation-dense tier keeps an int8 relation id per cell (``rel_id``, -1 for
 no edge) and builds P chunk by chunk from the per-relation score planes
 (``ops.dense_adj.rel_dense_row_softmax_scores``; bf16 planes under
-``adj_dtype="bf16"``); the layers reuse P.
+``adj_dtype="bf16"``); the layers reuse P.  Under a mesh both dense
+tables (``mask``, ``rel_id``) hold the rank's rows (JAX's rule,
+``models.base.MaskGraph``): P is built for those rows only, each layer's
+product runs on them and is gathered whole once, and the inputs read
+whole on them (q, k, x) have their gradients summed over ``model``.
 
 Past the dense budget, under ``adj_mode="ell"``, and over a KG that the
 relation-dense tier cannot hold (parallel (h, t) edges, more than 127
@@ -81,6 +86,7 @@ class KGAT(base.MaskGraph, nn.Module):
     their own rows: ``models.base.MaskGraph``);
     under ``dense_xla`` the joint edge mask is the bool buffer ``mask``
     [N, N] instead; over a KG (``kg=``) the int8 buffer ``rel_id`` [N, N];
+    each, with ``mesh``, the rank's rows (``mask_hosts`` on the host);
     on the EdgeMap tier ``em_hosts`` keeps the maps ``em`` and ``emk``
     and their slot tables ``k2n`` and ``n2k`` (JAX's leaf prefixes) and
     ``edges`` holds them on ``device``, or with ``mesh`` the rank's rows
@@ -142,7 +148,7 @@ class KGAT(base.MaskGraph, nn.Module):
                                    for k in range(6)])
         fits = dense_adj.use_dense(cfg.adj_mode, self.n, self.n)
         if kg is not None and fits and self._build_rel_dense(rows, cols,
-                                                             rels, dev):
+                                                             rels, dev, mesh):
             return
         self.dense = kg is None and fits
         if not self.dense:
@@ -153,8 +159,9 @@ class KGAT(base.MaskGraph, nn.Module):
                      (graph.n_user, graph.n_item),
                      (graph.n_user + graph.n_item, graph.n_tag))
         if not self.flash:
-            self.register_buffer("mask", torch.from_numpy(
-                dense_adj.dense_mask_host(rows, cols, self.n, self.n)).to(dev))
+            self.mask_hosts = (("mask", "mask", dense_adj.dense_mask_host(
+                rows, cols, self.n, self.n), False),)
+            self.place_masks(mesh, dev)
             return
         masks = self._build_flash_masks(rows, cols, rels)
         for a in range(3):
@@ -165,16 +172,18 @@ class KGAT(base.MaskGraph, nn.Module):
             for t in (False, True) for a, m in enumerate(masks))
         self.place_masks(mesh, dev)
 
-    def _build_rel_dense(self, rows, cols, rels, dev) -> bool:
+    def _build_rel_dense(self, rows, cols, rels, dev, mesh) -> bool:
         """The int8 relation-id buffer ``rel_id`` [N, N] of the KG's triples
-        and the static row segments: user rows with the relations seen on a
-        user head (relation 0), entity rows with the rest.  False, with
-        nothing built, where one cell cannot hold the KG's edges."""
+        (with ``mesh`` the rank's rows where JAX's rule cuts it) and the
+        static row segments: user rows with the relations seen on a user
+        head (relation 0), entity rows with the rest.  False, with nothing
+        built, where one cell cannot hold the KG's edges."""
         rel_id = dense_adj.rel_id_host(rows, cols, rels, self.n, self.n)
         if rel_id is None:
             return False
         self.kg_rel_dense = True
-        self.register_buffer("rel_id", torch.from_numpy(rel_id).to(dev))
+        self.mask_hosts = (("rel_id", "rel_id", rel_id, False),)
+        self.place_masks(mesh, dev)
         user = rows < self.num_user
         self._kg_row_segments = (
             (0, self.num_user, tuple(int(r) for r in np.unique(rels[user]))),
@@ -279,6 +288,25 @@ class KGAT(base.MaskGraph, nn.Module):
 
         return att_mm
 
+    def _dense_att_mm(self, name, chunk, scores, q, k):
+        """The chunked tiers' propagation: P = ``scores(q, k, mask)`` over
+        ``sweep_mask(name)``, then ``att_mm(x)`` = P @ x in blocks of
+        ``chunk`` rows (``dense_adj.rows_mm``).  Under a mesh P is the
+        rank's rows [N / model, N], each product its rows, gathered whole
+        once; q, k and each x read whole on the rank's rows, so their
+        gradients are summed over ``model``.  ``att_nbytes``: P's bytes."""
+        mask = self.sweep_mask(name)
+        _, row0 = dense_adj.sweep_rows(mask)
+        p_att = scores(*self.mesh_sum(q, k), mask)
+        self.att_nbytes = p_att.numel() * p_att.element_size()
+
+        def att_mm(x):
+            x, = self.mesh_sum(x)
+            return self.rows_whole(name, dense_adj.rows_mm(p_att, x, chunk,
+                                                           row0))
+
+        return att_mm
+
     def _propagate(self, all_embed, training: bool, generator):
         """Bi-interaction propagation over the attention adjacency."""
         cfg = self.cfg
@@ -286,16 +314,15 @@ class KGAT(base.MaskGraph, nn.Module):
         proj = torch.einsum("nd,rde->rne", all_embed, self.transE)
         q = torch.tanh(proj + self.relation[:, None, :])
         if self.kg_rel_dense:
-            # one [N, N] attention matrix from the relation score planes,
-            # reused by every layer
-            p_att = dense_adj.rel_dense_row_softmax_scores(
-                q, proj, self.rel_id,
-                score_dtype=(torch.bfloat16 if cfg.adj_dtype == "bf16"
-                             else q.dtype),
-                row_segments=self._kg_row_segments)
-
-            def att_mm(x):
-                return p_att @ x
+            # one attention matrix from the relation score planes (the
+            # rank's rows of it under a mesh), reused by every layer
+            att_mm = self._dense_att_mm(
+                "rel_id", dense_adj.REL_CHUNK,
+                lambda q, k, rel_id: dense_adj.rel_dense_row_softmax_scores(
+                    q, k, rel_id,
+                    score_dtype=(torch.bfloat16 if cfg.adj_dtype == "bf16"
+                                 else q.dtype),
+                    row_segments=self._kg_row_segments), q, proj)
         elif not self.dense:
             # scores over the (relation, node)-keyed map, then the node-keyed
             # layout: gathers both ways, no scatter in the step
@@ -311,13 +338,11 @@ class KGAT(base.MaskGraph, nn.Module):
         elif self.flash:
             att_mm = self._flash_att_mm(q, proj)
         else:
-            # sector-stacked scores -> one [N, N] row-softmax attention P,
-            # reused by every layer
-            qhat, khat = dense_adj.sector_stack(q, proj, self.segs, REL_OF)
-            p_att = dense_adj.dense_row_softmax_scores(qhat, khat, self.mask)
-
-            def att_mm(x):
-                return p_att @ x
+            # sector-stacked scores -> one row-softmax attention P (the
+            # rank's rows of it under a mesh), reused by every layer
+            att_mm = self._dense_att_mm(
+                "mask", dense_adj.CHUNK, dense_adj.dense_row_softmax_scores,
+                *dense_adj.sector_stack(q, proj, self.segs, REL_OF))
         x = all_embed
         outs = [x]
         for k in range(cfg.num_layer):

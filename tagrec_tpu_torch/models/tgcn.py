@@ -69,9 +69,8 @@ from tagrec_tpu_torch.models import base
 from tagrec_tpu_torch.ops import edgemap
 from tagrec_tpu_torch.ops import ell as ell_lib
 from tagrec_tpu_torch.ops import losses
-from tagrec_tpu_torch.ops.propagate import (gathered_rows, l2_normalize,
-                                            leads, message_dropout,
-                                            model_sum)
+from tagrec_tpu_torch.ops.propagate import (RankRows, l2_normalize,
+                                            message_dropout, model_sum)
 
 DEDUP_WIDTHS = (4, 8, 12, 16, 20, 25)
 # neighbour-table order (data/tgcn_load.py:29): ui, ut, iu, it, tu, ti
@@ -220,41 +219,14 @@ def _atten1_dedup(ap, ev, ej, ew, buckets, inv):
     return torch.cat(outs)[inv].to(_wide(dt))
 
 
-class _RankRows(torch.autograd.Function):
-    """Per-piece attention rows on a ``model`` rank -> the whole
-    row-ordered [N, d] on every rank (``propagate.gathered_rows``: one
-    all-gather of the row-sharded pieces' rows).  Backward: each piece's
-    rows of the cotangent, a whole piece's on the leading rank only
-    (``propagate.leads``; none elsewhere), so that a sum over ``model``
-    counts every row once."""
-
-    @staticmethod
-    def forward(ctx, plan, *outs):
-        mesh, blocks, inv, rows = plan
-        ctx.plan = plan
-        parts = [lambda out, o=o: o if out is None else out.copy_(o)
-                 for o in outs]
-        return gathered_rows(mesh, blocks, inv, parts, outs[0],
-                             tail=outs[0].shape[1:])
-
-    @staticmethod
-    def backward(ctx, g):
-        mesh, blocks, inv, rows = ctx.plan
-        lead = leads(mesh)
-        return (None, *(None if blk is None and not lead
-                        else ell_lib.cut_rows(g, blk) if r is None
-                        else g.index_select(0, r)
-                        for r, blk in zip(rows, blocks)))
-
-
 def _atten1_split(ap, ev, ej, ew, pieces, blocks, inv, mesh):
     """Attention1 on a ``model`` rank's rows: ``_atten1`` (``inv`` None:
     one piece, the (v_j, v_w) table) or ``_atten1_dedup`` (``pieces`` the
     buckets) over the rows the rank holds of each piece that row-shards
     (``blocks``), a whole piece whole; one all-gather makes the result
-    whole on every rank (``_RankRows``).  Each rank's gradients of the
-    inputs (the centre rows, both tables, W1, W2, b, v) are its rows'
-    part, so the inputs pass through ``model_sum``: one all-reduce over
+    whole on every rank (``propagate.RankRows``).  Each rank's gradients
+    of the inputs (the centre rows, both tables, W1, W2, b, v) are its
+    rows' part, so the inputs pass through ``model_sum``: one all-reduce over
     ``model`` a relation makes them whole before anything reads them."""
     ev, ej, ew, *ws = model_sum(mesh, ev, ej, ew,
                                 *(ap[k] for k in ("W1", "W2", "b", "v")))
@@ -271,7 +243,7 @@ def _atten1_split(ap, ev, ej, ew, pieces, blocks, inv, mesh):
         outs = [_dedup_bucket(w, evd[r], ej, ew, ids, wids, mult).to(
                     _wide(dt)) for r, ids, wids, mult in pieces]
         rows = [p[0] for p in pieces]
-    return _RankRows.apply((mesh, blocks, inv, rows), *outs)
+    return RankRows.apply((mesh, blocks, inv, rows, 0), *outs)
 
 
 def _atten1_em(ap, ev, ej0, ew0, em_j, em_w):

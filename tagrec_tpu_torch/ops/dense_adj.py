@@ -20,8 +20,17 @@ KGAT's flash masks, and the port's transposes of them) hold one
 ``MaskShard``): every edge sweep reads one mask row a result row, so a
 rank's rows are all its rows of a result need, and the sweep's wrapper
 all-gathers the result once (``sweep_gathered``, from
-``ops.flash_routing`` and ``ops.flash_attention``).  The chunked tiers
-keep their masks whole.
+``ops.flash_routing`` and ``ops.flash_attention``).  The chunked tiers'
+tables (the ``dense_xla`` mask, DisenHAN's six relation masks, the KG's
+``rel_id``) are cut by the same rule, and each chunked function takes
+a ``MaskShard`` too: it runs the chunks that hold the rank's rows,
+reads the inputs indexed by row at their global rows, and returns the
+rank's block of rows, which the model makes whole by one all-gather
+(``propagate.RankRows``).  Its chunks are JAX's: a fixed row count,
+the last padded, at the multiples of the chunk from the first row (of a
+segment, on the KG), so a rank's rows get one device's products and
+bits; ``rows_mm`` takes the product with the attention matrix P in the
+same blocks.
 """
 
 from __future__ import annotations
@@ -39,6 +48,8 @@ from tagrec_tpu_torch.ops.propagate import gathered_blocks
 # Auto-dense when the full f32 matrix fits this (tagrec_tpu/ops/ell.py).
 DENSE_ADJ_BUDGET_BYTES = 2 << 30
 NEG = -1e30
+# JAX's row chunks: the chunked tier's, the relation-dense tier's
+CHUNK, REL_CHUNK = 1024, 512
 
 
 def use_dense(adj_mode: str, n_rows: int, n_cols: int) -> bool:
@@ -111,18 +122,75 @@ def cut_mask(host: np.ndarray, block, transpose: bool = False) -> np.ndarray:
     return np.ascontiguousarray(ell_lib.cut_rows(host, block))
 
 
-def _row_map(fn, n: int, chunk: int, *, remat: bool = True):
-    """[fn(start, stop) for each row chunk], each chunk recomputed in the
-    backward rather than saved (``remat``).  No chunk draws a random
-    number, so the recompute needs no RNG state stashed (reading it would
-    break a CUDA graph's capture)."""
+def _row_map(fn, start: int, stop: int, chunk: int, *, base: int = 0,
+             dim: int = 0, remat: bool = True):
+    """fn over the row chunks that hold rows [start, stop): chunks of
+    ``chunk`` rows at ``base`` + k * ``chunk``, as one device chunks all
+    the rows from ``base``.  ``fn(c0, lo, hi)`` computes chunk [c0, c0 +
+    chunk), whose real rows are [lo, hi) (the rest padded: ``_rows``),
+    and returns its result, rows on ``dim``, which is cut to [lo, hi).
+    Every chunk has one shape and holds a row at one place, on one device
+    and on a ``model`` rank holding any block of the rows, so a library
+    product's kernel and its order of sums are one device's and the row
+    gets one device's bits.  Each chunk is recomputed in the backward
+    rather than saved (``remat``); no chunk draws a random number, so the
+    recompute needs no RNG state stashed (reading it would break a CUDA
+    graph's capture), and none runs a collective (a recompute would run it
+    again, out of step with the other ranks)."""
     outs = []
-    for i in range(0, n, chunk):
-        stop = min(i + chunk, n)
-        outs.append(checkpoint(fn, i, stop, use_reentrant=False,
-                               preserve_rng_state=False) if remat
-                    else fn(i, stop))
+    for c0 in range(base + (start - base) // chunk * chunk, stop, chunk):
+        lo, hi = max(c0, start), min(c0 + chunk, stop)
+        out = (checkpoint(fn, c0, lo, hi, use_reentrant=False,
+                          preserve_rng_state=False) if remat
+               else fn(c0, lo, hi))
+        outs.append(out if hi - lo == chunk
+                    else out.narrow(dim, lo - c0, hi - lo))
     return outs
+
+
+def _rows(t: torch.Tensor, c0: int, lo: int, hi: int, chunk: int,
+          dim: int = 0, first: int = 0, value=0) -> torch.Tensor:
+    """Chunk [c0, c0 + chunk) of ``t``'s rows on ``dim``: its rows [lo,
+    hi) (``t`` holding rows from ``first`` on), padded with ``value``
+    before and after, as JAX pads its last chunk."""
+    part = t.narrow(dim, lo - first, hi - lo)
+    if hi - lo == chunk:
+        return part
+    return F.pad(part, [0, 0] * (t.dim() - 1 - dim) + [lo - c0,
+                                                       c0 + chunk - hi],
+                 value=value)
+
+
+class _RowsMm(torch.autograd.Function):
+    """p @ x over blocks of ``chunk`` rows (``rows_mm``); the backward
+    is the plain product's, two products (g @ x^T, p^T @ g): the blocks'
+    own backward would build a zero-filled gradient of the whole p for
+    each block."""
+
+    @staticmethod
+    def forward(ctx, p, x, chunk, row0):
+        ctx.save_for_backward(p, x)
+
+        def f(c0, lo, hi):
+            return _rows(p, c0, lo, hi, chunk, first=row0) @ x
+
+        return torch.cat(_row_map(f, row0, row0 + p.shape[0], chunk,
+                                  remat=False))
+
+    @staticmethod
+    def backward(ctx, g):
+        p, x = ctx.saved_tensors
+        return (g @ x.T if ctx.needs_input_grad[0] else None,
+                p.T @ g if ctx.needs_input_grad[1] else None, None, None)
+
+
+def rows_mm(p: torch.Tensor, x: torch.Tensor, chunk: int,
+            row0: int = 0) -> torch.Tensor:
+    """p @ x for ``p`` the rows [row0, row0 + len(p)) of a matrix, over
+    blocks of ``chunk`` of its rows at the multiples of ``chunk``
+    (``_row_map``): one device's products, however many rows ``p``
+    holds.  Differentiable in p and x."""
+    return _RowsMm.apply(p, x, chunk, row0)
 
 
 def masked_row_softmax(s: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -162,14 +230,18 @@ def sector_stack(q: torch.Tensor, k: torch.Tensor,
 
 
 def dense_row_softmax_scores(qhat: torch.Tensor, khat: torch.Tensor,
-                             mask: torch.Tensor,
-                             chunk: int = 1024) -> torch.Tensor:
+                             mask, chunk: int = CHUNK) -> torch.Tensor:
     """P [N, M] = masked row softmax of qhat @ khat^T, chunked over rows;
-    differentiable in qhat and khat."""
-    def f(i, j):
-        return masked_row_softmax(qhat[i:j] @ khat.T, mask[i:j])
+    differentiable in qhat and khat.  ``mask`` a MaskShard: the rank's
+    rows of P, qhat read at their global rows."""
+    local, row0 = sweep_rows(mask)
 
-    return torch.cat(_row_map(f, qhat.shape[0], chunk))
+    def f(c0, lo, hi):
+        return masked_row_softmax(
+            _rows(qhat, c0, lo, hi, chunk) @ khat.T,
+            _rows(local, c0, lo, hi, chunk, first=row0))
+
+    return torch.cat(_row_map(f, row0, row0 + local.shape[0], chunk))
 
 
 # ------------------------------------------------------------ KGAT, true KG
@@ -197,7 +269,7 @@ def rel_id_host(rows, cols, rels, n_rows: int, n_cols: int):
 
 
 def rel_dense_row_softmax_scores(q: torch.Tensor, k: torch.Tensor,
-                                 rel_id: torch.Tensor, chunk: int = 512,
+                                 rel_id, chunk: int = REL_CHUNK,
                                  score_dtype=torch.float32,
                                  row_segments=None) -> torch.Tensor:
     """P [N, M] = masked row softmax of S, S[h, t] = q[r, h] . k[r, t] with
@@ -209,10 +281,15 @@ def rel_dense_row_softmax_scores(q: torch.Tensor, k: torch.Tensor,
     is recomputed in the backward.  ``row_segments``: optional
     ((start, length, rels), ...) tiling [0, N) in order, each row range
     with the relations that occur on its rows (KGAT's user rows carry
-    relation 0 only).  ``score_dtype=torch.bfloat16`` runs the score
-    planes and the select chain in bf16."""
+    relation 0 only); each segment is chunked from its start, as JAX
+    chunks it, its last chunk padded with relation id -1.
+    ``score_dtype=torch.bfloat16`` runs the score planes and the select
+    chain in bf16.  ``rel_id`` a MaskShard: the rank's rows of P, each
+    segment's chunks over its rows within the rank's block."""
     r_, n, _ = q.shape
     m = k.shape[1]
+    local, row0 = sweep_rows(rel_id)
+    stop = row0 + local.shape[0]
     if row_segments is None:
         row_segments = ((0, n, tuple(range(r_))),)
     q = q.to(score_dtype)
@@ -221,31 +298,41 @@ def rel_dense_row_softmax_scores(q: torch.Tensor, k: torch.Tensor,
 
     parts = []
     for start, length, rels in row_segments:
-        def f(i, j, start=start, rels=rels):
-            rc = rel_id[start + i:start + j]
-            s = torch.zeros((j - i, m), dtype=score_dtype, device=q.device)
+        def f(c0, lo, hi, rels=rels):
+            rc = _rows(local, c0, lo, hi, chunk, first=row0, value=-1)
+            s = torch.zeros((chunk, m), dtype=score_dtype, device=q.device)
             for r in rels:  # only this segment's planes
-                s = torch.where(rc == r, q[r, start + i:start + j] @ kt[r], s)
+                s = torch.where(rc == r,
+                                _rows(q[r], c0, lo, hi, chunk) @ kt[r], s)
             return masked_row_softmax(s.to(soft_dtype), rc >= 0)
 
-        parts += _row_map(f, length, chunk)
+        lo, hi = max(start, row0), min(start + length, stop)
+        if lo < hi:
+            parts += _row_map(f, lo, hi, chunk, base=start)
     return torch.cat(parts)
 
 
 # ----------------------------------------------------------------- DisenGCN
 
-def routed_agg_dense(head: torch.Tensor, tail: torch.Tensor,
-                     mask: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+def routed_agg_dense(head: torch.Tensor, tail: torch.Tensor, mask,
+                     chunk: int = CHUNK) -> torch.Tensor:
     """agg[f] = (detach(softmax_F(head_f @ tail_f^T)) * mask) @ tail_f.
 
     head, tail: [F, N, dk]; mask [N, N] bool.  The routing weights are
-    detached, so the gradient reaches ``tail`` through the product only."""
-    def f(i, j):
-        s = torch.einsum("fcd,fnd->fcn", head[:, i:j], tail)
-        p = torch.softmax(s, dim=0).detach() * mask[None, i:j]
+    detached, so the gradient reaches ``tail`` through the product only.
+    ``mask`` a MaskShard: the rank's rows [F, R, dk], head read at their
+    global rows."""
+    local, row0 = sweep_rows(mask)
+
+    def f(c0, lo, hi):
+        s = torch.einsum("fcd,fnd->fcn", _rows(head, c0, lo, hi, chunk, 1),
+                         tail)
+        p = torch.softmax(s, dim=0).detach() * _rows(
+            local, c0, lo, hi, chunk, first=row0)[None]
         return torch.einsum("fcn,fnd->fcd", p, tail)
 
-    return torch.cat(_row_map(f, head.shape[1], chunk), dim=1)
+    return torch.cat(_row_map(f, row0, row0 + local.shape[0], chunk, dim=1),
+                     dim=1)
 
 
 # --------------------------------------------------------------------- DGCF
@@ -260,45 +347,63 @@ def _dgcf_scores(uc, v, mc):
     return torch.softmax(s, dim=0) * mc[None]
 
 
-def dgcf_dense_degree(u: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
-                      chunk: int = 1024) -> torch.Tensor:
-    """Row sums d[f, n] of the routed adjacency A_f; no gradient."""
+def dgcf_dense_degree(u: torch.Tensor, v: torch.Tensor, mask,
+                      chunk: int = CHUNK) -> torch.Tensor:
+    """Row sums d[f, n] of the routed adjacency A_f; no gradient.
+    ``mask`` a MaskShard: the rank's rows [F, R]."""
     u, v = u.detach(), v.detach()
+    local, row0 = sweep_rows(mask)
+
+    def f(c0, lo, hi):
+        return _dgcf_scores(_rows(u, c0, lo, hi, chunk, 1), v, _rows(
+            local, c0, lo, hi, chunk, first=row0)).sum(-1)
+
     with torch.no_grad():
-        outs = _row_map(
-            lambda i, j: _dgcf_scores(u[:, i:j], v, mask[i:j]).sum(-1),
-            u.shape[1], chunk, remat=False)
+        outs = _row_map(f, row0, row0 + local.shape[0], chunk, dim=1,
+                        remat=False)
     return torch.cat(outs, dim=1)
 
 
-def dgcf_dense_prop(u: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
-                    x: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+def dgcf_dense_prop(u: torch.Tensor, v: torch.Tensor, mask,
+                    x: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
     """A @ x per factor with A = softmax_F(S) * mask (detached): x
-    [F, N, dx], differentiated."""
+    [F, N, dx], differentiated.  ``mask`` a MaskShard: the rank's rows
+    [F, R, dx]."""
     u, v = u.detach(), v.detach()
+    local, row0 = sweep_rows(mask)
 
-    def f(i, j):
-        return torch.einsum("fcn,fnd->fcd",
-                            _dgcf_scores(u[:, i:j], v, mask[i:j]), x)
+    def f(c0, lo, hi):
+        return torch.einsum("fcn,fnd->fcd", _dgcf_scores(
+            _rows(u, c0, lo, hi, chunk, 1), v,
+            _rows(local, c0, lo, hi, chunk, first=row0)), x)
 
-    return torch.cat(_row_map(f, u.shape[1], chunk), dim=1)
+    return torch.cat(_row_map(f, row0, row0 + local.shape[0], chunk, dim=1),
+                     dim=1)
 
 
 # ----------------------------------------------------------------- DisenHAN
 
 def disenhan_dense_rela(hs: torch.Tensor, ts: torch.Tensor,
                         r_src: torch.Tensor, old_dst: torch.Tensor,
-                        mask: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+                        mask, chunk: int = CHUNK) -> torch.Tensor:
     """One relation's attention aggregation on its rectangular block.
 
     hs [F, Ns], ts [F, Nd]: the separable head and tail score terms;
     r_src [F, Ns] the relation-factor distribution; old_dst [F, Nd, dk];
     mask [Ns, Nd].  Scores e = sum_f relu(hs + ts) * r, row-softmaxed over
-    the mask, fully differentiable.  Returns zk [F, Ns, dk]."""
-    def f(i, j):
-        e = torch.relu(hs[:, i:j, None] + ts[:, None, :])       # [F, C, Nd]
-        er = torch.sum(e * r_src[:, i:j, None], dim=0)          # [C, Nd]
-        p = masked_row_softmax(er, mask[i:j])
+    the mask, fully differentiable.  Returns zk [F, Ns, dk]; ``mask`` a
+    MaskShard: the rank's source rows [F, R, dk], hs and r_src read at
+    their global rows."""
+    local, row0 = sweep_rows(mask)
+
+    def f(c0, lo, hi):
+        e = torch.relu(_rows(hs, c0, lo, hi, chunk, 1)[:, :, None]
+                       + ts[:, None, :])                         # [F, C, Nd]
+        er = torch.sum(e * _rows(r_src, c0, lo, hi, chunk, 1)[:, :, None],
+                       dim=0)                                    # [C, Nd]
+        p = masked_row_softmax(er, _rows(local, c0, lo, hi, chunk,
+                                         first=row0))
         return torch.einsum("cn,fnd->fcd", p, old_dst)
 
-    return torch.cat(_row_map(f, hs.shape[1], chunk), dim=1)
+    return torch.cat(_row_map(f, row0, row0 + local.shape[0], chunk, dim=1),
+                     dim=1)

@@ -38,9 +38,11 @@ device's; the dropped form has no transpose tables, and its backward is
 all-reduce over ``model``.  ``gathered_rows`` is that pattern for any
 per-piece row results (the EdgeMap tier's, TGCN's attention; all of them
 through ``gathered_blocks``, one all-gather of several results' blocks,
-which the kernel tiers' mask sweeps also use), and
-``model_sum`` the identity whose backward sums its inputs' gradients
-over ``model`` in one all-reduce.
+which the kernel tiers' mask sweeps also use), ``RankRows`` its
+differentiable form (the cotangent's rows of each piece backward, a
+whole piece's on ``model`` rank 0 only: TGCN's attention, the chunked
+dense tiers), and ``model_sum`` the identity whose backward sums its
+inputs' gradients over ``model`` in one all-reduce.
 """
 
 from __future__ import annotations
@@ -353,6 +355,42 @@ def leads(mesh) -> bool:
     ``model`` rank: ``model`` rank 0 alone, so that a sum over ``model``
     counts the piece once."""
     return mesh.index("model") == 0
+
+
+def _cut(g: torch.Tensor, blk, ax: int) -> torch.Tensor:
+    """Rows ``blk`` = (start, stop) of ``g`` on axis ``ax`` (None: all)."""
+    return g if blk is None else g.narrow(ax, blk[0], blk[1] - blk[0])
+
+
+class RankRows(torch.autograd.Function):
+    """Per-piece row results on a ``model`` rank -> the whole row-ordered
+    result on every rank (``gathered_rows``: one all-gather of the
+    row-sharded pieces' rows).  ``plan`` = (mesh, blocks, inv, rows, ax):
+    each piece's block (None: computed whole), the whole ``inv`` (None:
+    piece order is row order), each piece's global rows where ``inv`` is
+    given (else None), and the rows' axis.  Backward: each piece's rows
+    of the cotangent, a whole piece's on the leading rank only
+    (``leads``; none elsewhere), so that a sum over ``model`` counts
+    every row once."""
+
+    @staticmethod
+    def forward(ctx, plan, *outs):
+        mesh, blocks, inv, rows, ax = plan
+        ctx.plan = plan
+        parts = [lambda out, o=o: o if out is None else out.copy_(o)
+                 for o in outs]
+        shape = outs[0].shape
+        return gathered_rows(mesh, blocks, inv, parts, outs[0],
+                             lead=shape[:ax], tail=shape[ax + 1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, blocks, inv, rows, ax = ctx.plan
+        lead = leads(mesh)
+        return (None, *(None if blk is None and not lead
+                        else _cut(g, blk, ax) if r is None
+                        else g.index_select(ax, r)
+                        for r, blk in zip(rows, blocks)))
 
 
 class _ModelSum(torch.autograd.Function):

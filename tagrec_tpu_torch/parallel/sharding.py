@@ -43,10 +43,14 @@ explicit, and the models stay as they are:
   ``maskT`` and ``fmasksT`` by the same rule on their own rows) keep this
   rank's rows (``models.base.MaskGraph``): every edge sweep runs on them
   and one all-gather makes its result whole
-  (``ops.dense_adj.MaskShard``).  The other tiers' graph tables (the
-  chunked dense tiers' masks, DisenHAN's relation masks, the KG's
-  relation-id table) stay whole on every rank, and each layer's compute
-  with them: ROADMAP.md queue A.
+  (``ops.dense_adj.MaskShard``).  So do the chunked tiers' tables
+  (``dense_xla``'s ``mask``, DisenHAN's ``masks.0..5``, the KG's
+  ``rel_id``): each chunked function runs its row chunks on the rank's
+  rows, one all-gather makes its result whole, and one all-reduce over
+  ``model`` (``model_sum``) makes the gradients of the inputs it reads
+  whole.  Every graph leaf is then placed as JAX's ``gdev_sharding``
+  places it, but the few that stay whole on purpose (ROADMAP.md
+  section C).
 """
 
 from __future__ import annotations
@@ -236,16 +240,17 @@ def constrain_batch(batch, mesh: Mesh, whole=WHOLE):
     return c(batch)
 
 
-def data_mean_(tensors, mesh: Mesh) -> None:
-    """In place: each of ``tensors`` its mean over the ``data`` axis, one
-    all-reduce a dtype.  Over one rank the tensors come back unchanged."""
+def data_mean_(tensors, mesh: Mesh, axis: str = "data") -> None:
+    """In place: each of ``tensors`` its mean over the ``axis`` axis
+    (``data`` by default), one all-reduce a dtype.  Over one rank the
+    tensors come back unchanged."""
     by_dtype: Dict[torch.dtype, list] = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     for ts in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in ts])
-        dist.all_reduce(flat, group=mesh.group("data"))
-        flat.div_(mesh.shape["data"])
+        dist.all_reduce(flat, group=mesh.group(axis))
+        flat.div_(mesh.shape[axis])
         for t, piece in zip(ts, flat.split([t.numel() for t in ts])):
             t.copy_(piece.view_as(t))
 

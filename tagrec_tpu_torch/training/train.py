@@ -258,8 +258,8 @@ class Trainer:
     eager.  The generator is registered with every graph.
 
     ``mesh``: an optional ``parallel.Mesh`` with its process groups; the
-    Trainer row-shards the model's tables, and LightGCN's and NGCF's
-    graph tables, every family's EdgeMaps and TGCN's tables, over it
+    Trainer row-shards the model's tables, and its graph tables (JAX's
+    ``gdev_sharding`` rule, ``parallel.sharding.shard_graph``), over it
     (``placement``:
     ``params`` and ``graph``) and every rank of it runs the same calls.  A capture on the card needs
     the mesh's group to be NCCL: a gloo group raises here, and a caller
@@ -288,6 +288,11 @@ class Trainer:
             self.placement = {
                 "params": sharding.shard_params(model, mesh),
                 "graph": sharding.shard_graph(model, mesh)}
+        # the replicated parameters, whose gradients are averaged over
+        # ``model`` where it has more than one rank (``step``)
+        self.replicated = [] if mesh is None or mesh.shape["model"] == 1 \
+            else [p for n, p in model.named_parameters()
+                  if not self.placement["params"][sharding.jax_name(n)]]
         self.opt = optim.make_optimizer(model.parameters(), cfg)
         self.runs: Dict[str, PhaseRun] = {}
         self._side = None
@@ -297,7 +302,12 @@ class Trainer:
         Clearing the grads to None makes a captured backward allocate its
         own: a second phase's graph never adds into the first one's.  Under
         a mesh ``batch`` is this rank's slice, and the gradients and loss
-        terms are averaged over ``data`` before Adam's step."""
+        terms are averaged over ``data`` before Adam's step; the replicated
+        parameters' gradients also over ``model``: each ``model`` rank
+        computes them whole, but a backward over the rank's rows may sum
+        them in another order, and the rank's own copy must take the same
+        step as the others' (with equal gradients the mean is the
+        gradient, bit for bit)."""
         self.opt.zero_grad(set_to_none=True)
         with sharding.gathered():
             parts = phase.loss_fn(batch, self.generator)
@@ -308,6 +318,9 @@ class Trainer:
                                  for p in g["params"]
                                  if p.grad is not None], self.mesh)
             sharding.data_mean_([parts], self.mesh)
+            rep = [p.grad for p in self.replicated if p.grad is not None]
+            if rep:
+                sharding.data_mean_(rep, self.mesh, "model")
         if self.cfg.adam_impl == "global":
             optim.fill_missing_grads(self.opt)
         self.opt.step()

@@ -314,20 +314,37 @@ def test_shard_graph_is_idempotent_and_refuses_another_mesh():
 
 
 def test_other_families_keep_their_graph_tables_whole():
-    """The tiers with no EdgeMap, no adjacency pair and no kernel-tier
-    mask: DisenHAN's dense tier: every buffer whole on every rank
-    (ROADMAP.md queue A).  TGCN's tables are row-sharded
+    """What JAX's rule keeps whole stays whole on every rank: KGAT's
+    shipped ``bi_agg`` preset reads no adjacency and holds no graph table;
+    on the tiny graph DisenHAN's dense tier keeps its masks of fewer than
+    64 rows (40 users, 25 tags) whole, and cuts the 90-row item masks
+    (tests/test_torch_parallel_dense.py holds every chunked tier against
+    JAX's placement).  TGCN's tables are row-sharded
     (tests/test_torch_parallel_tgcn.py), and so are the masks of DGCF's,
     DisenGCN's and KGAT's kernel tiers
     (tests/test_torch_parallel_masks.py)."""
+    from tagrec_tpu_torch.ops import dense_adj
     from tagrec_tpu_torch.parallel import sharding
     from tagrec_tpu_torch.parallel.mesh import make_mesh
 
-    for name, over, mode, tier in (
-            ("disenhan", {}, "auto", "dense"),):
-        model = W.pipeline(name, over, mode).model
-        assert model.tier == tier, name
-        spec = sharding.shard_graph(model, make_mesh(2, 1))
-        assert spec and set(spec.values()) == {None}, name
-        assert set(spec) == {n for n, _ in model.named_buffers()}, name
-        assert sharding.graph_mesh(model) is None, name
+    model = W.pipeline("kgat", {}, "auto").model
+    assert model.tier == "none"
+    assert sharding.shard_graph(model, make_mesh(2, 1)) == {}
+    assert sharding.graph_mesh(model) is None
+    assert not list(model.named_buffers())
+
+    model = W.pipeline("disenhan", {}, "auto").model
+    assert model.tier == "dense"
+    mesh = make_mesh(2, 1)
+    spec = sharding.shard_graph(model, mesh)
+    assert spec == {f"masks.{e}": ("model" if e in (1, 4) else None)
+                    for e in range(6)}
+    assert sharding.graph_mesh(model) is mesh
+    for path, name, host, _ in model.mask_hosts:
+        held = model.sweep_mask(name)
+        if spec[path] is None:
+            assert torch.equal(held, torch.from_numpy(host)), path
+        else:
+            assert isinstance(held, dense_adj.MaskShard), path
+            assert torch.equal(held.local, torch.from_numpy(
+                host[:host.shape[0] // 2])), path

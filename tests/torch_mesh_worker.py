@@ -695,24 +695,28 @@ def wait_for(path: str, deadline_s: float = DEADLINE_S) -> str:
 
 
 class planted:
-    """Within it, ``models.tgcn`` runs with ``fault`` (one of TGCN_FAULTS,
-    or None: none)."""
+    """Within it, the port runs with ``fault`` (one of TGCN_FAULTS, or
+    None: none): ``propagate.leads`` true on every rank, or no sum over
+    ``model`` in ``sum_owner`` (the module whose ``model_sum`` the path
+    calls: ``models.tgcn`` by default)."""
 
-    def __init__(self, fault):
+    def __init__(self, fault, sum_owner=None):
         from tagrec_tpu_torch.models import tgcn
+        from tagrec_tpu_torch.ops import propagate
 
-        self.mod, self.saved = tgcn, (tgcn.leads, tgcn.model_sum)
+        self.prop, self.mod = propagate, sum_owner or tgcn
+        self.saved = (propagate.leads, self.mod.model_sum)
         self.fault = fault
 
     def __enter__(self):
         if self.fault == "whole_on_every_rank":
-            self.mod.leads = lambda mesh: True
+            self.prop.leads = lambda mesh: True
         elif self.fault == "no_model_sum":
             self.mod.model_sum = lambda mesh, *xs: xs
         return self
 
     def __exit__(self, *exc):
-        self.mod.leads, self.mod.model_sum = self.saved
+        self.prop.leads, self.mod.model_sum = self.saved
 
 
 def tgcn_step(case, args, mesh=None, fault=None):
@@ -918,10 +922,134 @@ def scenario_masks(args, tmp):
     return {"cases": mask_runs(args, _mesh(args))}
 
 
+# ------------------------- the chunked dense tiers over ``model``
+
+# case -> (family, preset overrides, adj_mode, over a KG), on PROP_GRAPH:
+# DisenHAN's dense tier (one layer: JAX's sharded step compiles in half
+# the time of two layers'; masks [120, 300], [300, 120] and [300, 60] cut
+# over 2, the tag masks' 60 rows whole), KGAT over a KG of 520 nodes
+# (``rel_id`` [520, 520]: a rank's 260 rows hold the 120 user rows and
+# entity rows), and the dense_xla tier's [480, 480] mask
+DENSE_CASES = {
+    "disenhan": ("disenhan", {"reg": 1e-3, "dim_layer_list": (64,)}, "auto",
+                 False),
+    "kgat_kg": ("kgat", {"agg_type": "bi_inter", "transe_batch": 64}, "auto",
+                True),
+    "dgcf": ("dgcf", {"reg": 1e-3}, "dense_xla", False),
+    "disengcn": ("disengcn", {}, "dense_xla", False),
+    "kgat": ("kgat", {"agg_type": "bi_inter", "transe_batch": 64},
+             "dense_xla", False)}
+# the cases whose BPR step is held against JAX's sharded step
+DENSE_STEPS = ("disenhan", "kgat_kg")
+# planted faults the gradient hold must catch, with the case each plants
+# into: a whole mask's relation back-propagated on every rank (DisenHAN's
+# tag masks, whose relations reach the loss through a second layer only),
+# or no sum over ``model`` of the inputs read whole
+DENSE_FAULTS = {"whole_on_every_rank": "disenhan2",
+                "no_model_sum": "kgat_kg"}
+# the cases that run only a step, sound and with their fault
+DENSE_FAULT_CASES = {
+    "disenhan2": ("disenhan", {"reg": 1e-3, "dim_layer_list": (64, 64)},
+                  "auto", False)}
+
+
+def dense_pipeline(case, mesh=None):
+    from tagrec_tpu_torch.compose import build_pipeline
+    from tagrec_tpu_torch.config import model_preset
+    from tagrec_tpu_torch.data.kg import KnowledgeGraph
+
+    name, over, adj_mode, with_kg = {**DENSE_CASES,
+                                     **DENSE_FAULT_CASES}[case]
+    graph = prop_graph()
+    kg = KnowledgeGraph.synthetic(graph, **KG_TINY) if with_kg else None
+    return build_pipeline(graph, model_preset(name, adj_mode=adj_mode,
+                                              **over),
+                          tcfg(), device="cpu", mesh=mesh, kg=kg,
+                          generator=torch.Generator().manual_seed(0))
+
+
+def dense_step(case, args, mesh=None, fault=None):
+    """One BPR step of ``case`` from its initial parameters on the batch
+    in ``args`` -> (summed loss terms, the gathered parameters, the
+    gathered gradients the step took)."""
+    import numpy as np
+
+    from tagrec_tpu_torch.models import base
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training.train import Trainer
+
+    pipe = dense_pipeline(case, mesh)
+    trainer = Trainer(pipe.model, pipe.phases, tcfg(), mesh=mesh,
+                      capture=False,
+                      generator=torch.Generator().manual_seed(1))
+    batch = torch.as_tensor(np.asarray(args["batch"], dtype=np.int64))
+    if pipe.model.cfg.name in ("dgcf", "disengcn", "disenhan"):
+        batch = {"bpr": batch}  # the resampling phase's batch
+    if mesh is not None:
+        batch = sharding.constrain_batch(batch, mesh)
+    with planted(fault, base):
+        parts = trainer.step(pipe.phases[0], batch)
+    return (float(parts.sum()), full_params(pipe.model),
+            full_grads(pipe.model))
+
+
+def dense_runs(args, mesh=None, steps=STEPS):
+    """Each of DENSE_CASES: the forward and the exported tables, ``steps``
+    BPR steps (losses, each step's gathered gradients, the gathered
+    parameters), the tables' placement, blocks, leaf shapes and bytes;
+    the cases of DENSE_STEPS also ``dense_step``, and under a mesh of
+    ``model`` > 1 with each of DENSE_FAULTS planted in its case."""
+    from tagrec_tpu_torch import serving
+    from tagrec_tpu_torch.parallel import sharding
+    from tagrec_tpu_torch.training.train import Trainer
+
+    out = {}
+    for case in DENSE_CASES:
+        pipe = dense_pipeline(case, mesh)
+        model = pipe.model
+        trainer = Trainer(model, pipe.phases, tcfg(), mesh=mesh,
+                          capture=False,
+                          generator=torch.Generator().manual_seed(1))
+        with torch.no_grad(), sharding.gathered():
+            fwd = [t.numpy().copy() for t in model.forward()]
+        grads = []
+        res = out[case] = {
+            "tier": model.tier, "forward": fwd,
+            "export": serving.export_tables(model,
+                                            n_item=pipe.graph.n_item),
+            "losses": trainer.run_phase(
+                pipe.phases[0], max_steps=steps,
+                on_step=lambda i, parts: grads.append(full_grads(model))),
+            "grads": grads, "params": full_params(model),
+            "placement": trainer.placement and trainer.placement["graph"],
+            "blocks": dict(model.mask_blocks),
+            "leaves": {path: tuple(getattr(model, name).shape)
+                       for path, name, _, _ in model.mask_hosts},
+            "bytes": model.mask_nbytes()}
+        if case in DENSE_STEPS:
+            res["step"] = dense_step(case, args, mesh)
+    for case in DENSE_FAULT_CASES:
+        out[case] = {"step": dense_step(case, args, mesh)}
+    if mesh is not None and mesh.shape["model"] > 1:
+        for fault, case in DENSE_FAULTS.items():
+            out[case].setdefault("faults", {})[fault] = dense_step(
+                case, args, mesh, fault)
+    return out
+
+
+def scenario_dense(args, tmp):
+    """``dense_runs`` on the mesh, or without one (``args["plain"]``: the
+    one-device reference)."""
+    if args.get("plain"):
+        return {"cases": dense_runs(args)}
+    return {"cases": dense_runs(args, _mesh(args))}
+
+
 SCENARIOS = {"train": scenario_train, "checkpoint": scenario_checkpoint,
              "scaling": scenario_scaling, "propagate": scenario_propagate,
              "edgemap": scenario_edgemap, "em_models": scenario_em_models,
-             "tgcn_rows": scenario_tgcn_rows, "masks": scenario_masks}
+             "tgcn_rows": scenario_tgcn_rows, "masks": scenario_masks,
+             "dense": scenario_dense}
 
 
 # ------------------------------------------------------------ the parent
