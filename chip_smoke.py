@@ -311,24 +311,36 @@ def reset_counts(mod, names):
 
 
 def launch_checker(mod, names, want, label):
-    """A per-step callback for ``training_steps``: the step's launches of
-    ``mod``'s kernels, checked against ``want``; the counters reset."""
-    def on_launches(i):
+    """A callback for ``training_steps``: the launches of ``mod``'s kernels
+    over ``steps`` steps, checked against ``want`` a step, and, where the
+    phase's ``run`` (its ``PhaseRun``) holds a captured step, that step's
+    own launches against ``want``; the counters reset.  The Trainer adds an
+    epoch's replays to the counters once its steps are queued, so they are
+    read when ``run_phase`` returns."""
+    from tagrec_tpu_torch.training.train import COUNTED
+
+    def on_launches(steps, run):
         got = counts(mod, names)
         reset_counts(mod, names)
-        check(got == want, f"{label} step {i}: launches {got}, expected "
-                           f"{want}")
+        each = {k: v * steps for k, v in want.items()}
+        check(got == each, f"{label}: launches {got} over {steps} steps, "
+                           f"expected {want} a step")
+        if run.graph is not None:
+            one = {n: run.launches[COUNTED.index(getattr(mod, n))]
+                   for n in names}
+            check(one == want, f"{label}: the captured step launches {one},"
+                               f" expected {want}")
         return got
     return on_launches
 
 
 def training_steps(torch, trainer, phase, steps, label, on_launches=None):
     """``steps`` steps of ``phase`` through the Trainer, each synchronised,
-    timed and checked finite (losses and every parameter); ``on_launches(i)``
-    after each step checks and returns its launch counts.  Returns the
-    launches summed over the steps."""
+    timed and checked finite (losses and every parameter);
+    ``on_launches(steps, run)`` after them checks and returns their launch
+    counts (``run``: the phase's ``PhaseRun``).  Returns the launches summed over the steps."""
     params = list(trainer.model.parameters())
-    times, last, total = [], [0.0], {}
+    times, last = [], [0.0]
 
     def on_step(i, parts):
         torch.cuda.synchronize()
@@ -337,13 +349,13 @@ def training_steps(torch, trainer, phase, steps, label, on_launches=None):
               f"{label} step {i}: loss {parts.tolist()}")
         check(all(bool(torch.isfinite(p).all()) for p in params),
               f"{label} step {i}: a parameter is not finite")
-        for name, v in (on_launches(i) if on_launches else {}).items():
-            total[name] = total.get(name, 0) + v
         last[0] = time.perf_counter()
 
     torch.cuda.synchronize()
     last[0] = time.perf_counter()
     losses = trainer.run_phase(phase, max_steps=steps, on_step=on_step)
+    total = on_launches(steps, trainer.runs[phase.name]) \
+        if on_launches else {}
     check(len(times) == steps, f"{label}: {len(times)} steps run")
     print(f"{label}: {steps} steps, ms per step (host clock, synchronised): "
           f"{', '.join(f'{t:.3f}' for t in times)}; median "
@@ -3126,8 +3138,8 @@ def mesh_run(torch, graph, mesh, capture, on_launches=None,
     preset's width on ``graph`` (KGAT over ``kg`` when given) through
     ``build_pipeline(mesh=)`` and
     ``Trainer(mesh=)``: HETREC_BPR_STEPS steps, each synchronised and
-    timed, ``on_launches(i)`` after each -> {"pipe", "trainer", "losses",
-    "params" (gathered, by JAX name, on the host), "ms"}."""
+    timed, ``on_launches(steps, run)`` after them -> {"pipe", "trainer",
+    "losses", "params" (gathered, by JAX name, on the host), "ms"}."""
     from tagrec_tpu_torch.compose import build_pipeline
     from tagrec_tpu_torch.config import TrainConfig, model_preset
     from tagrec_tpu_torch.parallel import sharding
@@ -3147,14 +3159,14 @@ def mesh_run(torch, graph, mesh, capture, on_launches=None,
         torch.cuda.synchronize()
         now = time.perf_counter()
         times.append((now - last[0]) * 1e3)
-        if on_launches is not None:
-            on_launches(i)
         last[0] = time.perf_counter()
 
     torch.cuda.synchronize()
     last[0] = time.perf_counter()
     losses = trainer.run_phase(pipe.phases[0], max_steps=HETREC_BPR_STEPS,
                                on_step=on_step)
+    if on_launches is not None:
+        on_launches(HETREC_BPR_STEPS, trainer.runs[pipe.phases[0].name])
     with torch.no_grad(), sharding.gathered():
         params = {n: sharding.value(pipe.model, n).detach().cpu()
                   for n in checkpoint.jax_leaf_order(pipe.model)}
@@ -3254,8 +3266,8 @@ def one_rank_mesh(torch, fr, graph, card):
         total = {k: 0 for k in ROUTING}
         checker = launch_checker(fr, ROUTING, want, "P1 mesh step")
 
-        def on_launches(i):
-            for k, v in checker(i).items():
+        def on_launches(steps, run):
+            for k, v in checker(steps, run).items():
                 total[k] += v
 
         meshed = mesh_run(torch, graph, mesh, capture=True,
@@ -3778,8 +3790,8 @@ def row_one_rank(torch, dg, graph, card):
         total = {k: 0 for k in GATHER}
         checker = launch_checker(dg, GATHER, ROW_STEP, "R1 mesh step")
 
-        def on_launches(i):
-            for k, v in checker(i).items():
+        def on_launches(steps, run):
+            for k, v in checker(steps, run).items():
                 total[k] += v
 
         meshed = mesh_run(torch, graph, mesh, capture=True,
@@ -4120,8 +4132,8 @@ def em_one_rank(torch, dg, graph, card):
         total = {k: 0 for k in names}
         checker = launch_checker(dg, names, EM_STEP, "R3a mesh step")
 
-        def on_launches(i):
-            for k, v in checker(i).items():
+        def on_launches(steps, run):
+            for k, v in checker(steps, run).items():
                 total[k] += v
 
         meshed = mesh_run(torch, graph, mesh, capture=True,
@@ -4267,8 +4279,8 @@ def kgat_10x_one_rank(torch, dg, graph, card):
         total = {k: 0 for k in names}
         checker = launch_checker(dg, names, want, "R4a mesh step")
 
-        def on_launches(i):
-            for k, v in checker(i).items():
+        def on_launches(steps, run):
+            for k, v in checker(steps, run).items():
                 total[k] += v
 
         meshed = mesh_run(torch, graph, mesh, capture=True,
@@ -5165,8 +5177,8 @@ def mask_one_rank(torch, fr, graph, card):
         total = {k: 0 for k in ROUTING}
         checker = launch_checker(fr, ROUTING, DGCF_STEP, "R6a mesh step")
 
-        def on_launches(i):
-            for k, v in checker(i).items():
+        def on_launches(steps, run):
+            for k, v in checker(steps, run).items():
                 total[k] += v
 
         meshed = mesh_run(torch, graph, mesh, capture=True,

@@ -20,7 +20,10 @@ rank writes its own shards of the ``--resume`` directory.  ``--adj_mode dense_xl
 chunked dense tier for DGCF, DisenGCN and KGAT, and TGCN's plain table
 takes (``dense`` for LightGCN and NGCF); ``--adj_mode ell`` the EdgeMap
 tier for DGCF, DisenGCN, DisenHAN, KGAT and TGCN, which ``auto`` also
-takes for a graph over the dense budget.
+takes for a graph over the dense budget.  The last line gives each stage's
+seconds, from the ``cli.*`` spans; ``--profile DIR`` writes a
+``torch.profiler`` trace of the training into DIR and the program's spans
+of the whole run beside it (``program_spans.json``).
 """
 
 from __future__ import annotations
@@ -89,7 +92,8 @@ def parse_args(argv=None):
                    help="train-state file for save/resume across restarts")
     p.add_argument("--profile", type=str, default="",
                    help="capture a CPU and CUDA trace of the training run "
-                        "into this directory (utils/profiling.py)")
+                        "into this directory, and the program's spans of "
+                        "the whole run beside it (utils/profiling.py)")
     p.add_argument("--export", type=str, default="",
                    help="after training, freeze the best model into a serving "
                         "artifact (.npz + meta) at this path; query it with "
@@ -97,6 +101,12 @@ def parse_args(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
     return p.parse_args(argv)
+
+
+def _sync(dev) -> None:
+    """Wait for the card's queued work: a stage's span ends after it."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def main(argv=None):
@@ -138,6 +148,9 @@ def main(argv=None):
     try:
         return _train(args, mcfg, tcfg, dev, mesh, say, show)
     finally:
+        if args.profile:  # its spans are written: off and cleared
+            profiling.disable()
+            profiling.reset()
         if mesh is not None:
             launch.shutdown()
 
@@ -150,30 +163,39 @@ def _train(args, mcfg, tcfg, dev, mesh, say, show):
                            time.strftime("%m-%d-%H-%M"))
     if writer:
         os.makedirs(out_dir, exist_ok=True)
+    profile = args.profile and writer
+    if profile:  # the set-up's spans too
+        profiling.enable()
 
     seconds = {}
-    t0 = profiling.clock(dev)
-    kg = None
-    if args.dataset == "synthetic":
-        graph = synthetic_graph(seed=args.seed)
-    elif args.dataset == "synthetic_large":
-        # hetrec movielens-2k scale benchmark graph
-        graph = synthetic_graph_large(n_user=2000, n_item=10000, n_tag=3000,
-                                      n_edges=400_000, tag_per_inter=0.3,
-                                      seed=args.seed)
-    else:
-        graph = HeteroGraph.load(args.data_root, args.dataset,
-                                 has_val=args.has_val, use_tag=not args.no_tag)
-        kg_path = os.path.join(args.data_root, args.dataset, "kg_final.txt")
-        if args.model == "kgat" and args.use_kg and os.path.exists(kg_path):
-            kg = KnowledgeGraph(graph, args.data_root, args.dataset)
-            say(f"knowledge graph: {kg.num_entity} entities, "
-                f"{kg.num_relation} relations, {len(kg.all_triplet)} triples")
-    say(f"graph ready: {graph.num}")
+    with profiling.timed("cli.build") as stage:
+        kg = None
+        if args.dataset == "synthetic":
+            graph = synthetic_graph(seed=args.seed)
+        elif args.dataset == "synthetic_large":
+            # hetrec movielens-2k scale benchmark graph
+            graph = synthetic_graph_large(n_user=2000, n_item=10000,
+                                          n_tag=3000, n_edges=400_000,
+                                          tag_per_inter=0.3, seed=args.seed)
+        else:
+            graph = HeteroGraph.load(args.data_root, args.dataset,
+                                     has_val=args.has_val,
+                                     use_tag=not args.no_tag)
+            kg_path = os.path.join(args.data_root, args.dataset,
+                                   "kg_final.txt")
+            if (args.model == "kgat" and args.use_kg
+                    and os.path.exists(kg_path)):
+                kg = KnowledgeGraph(graph, args.data_root, args.dataset)
+                say(f"knowledge graph: {kg.num_entity} entities, "
+                    f"{kg.num_relation} relations, {len(kg.all_triplet)} "
+                    "triples")
+        say(f"graph ready: {graph.num}")
 
-    pipe = build_pipeline(graph, mcfg, tcfg, device=dev, kg=kg, mesh=mesh,
-                          generator=torch.Generator().manual_seed(tcfg.seed))
-    seconds["build"] = profiling.clock(dev) - t0
+        pipe = build_pipeline(
+            graph, mcfg, tcfg, device=dev, kg=kg, mesh=mesh,
+            generator=torch.Generator().manual_seed(tcfg.seed))
+        _sync(dev)
+    seconds["build"] = stage.seconds
 
     ckpt_path = os.path.join(out_dir, "model.npz")
     metrics = MetricsWriter(out_dir) if writer else None
@@ -185,18 +207,18 @@ def _train(args, mcfg, tcfg, dev, mesh, say, show):
     trainer = Trainer(pipe.model, pipe.phases, tcfg, mesh=mesh,
                       generator=torch.Generator(device=dev).manual_seed(
                           tcfg.seed))
-    profile = args.profile and writer
     if profile:
         profiling.start_trace(args.profile)
-    t0 = profiling.clock(dev)
-    try:
-        trainer.run(pipe.evaluator, stop, metrics=metrics, log=say,
-                    state_path=args.resume or None)
-    finally:
-        if profile:
-            profiling.stop_trace()
-            say(f"device trace written to {args.profile}")
-    seconds["train"] = profiling.clock(dev) - t0
+    with profiling.timed("cli.train") as stage:
+        try:
+            trainer.run(pipe.evaluator, stop, metrics=metrics, log=say,
+                        state_path=args.resume or None)
+        finally:
+            if profile:
+                profiling.stop_trace()
+                say(f"device trace written to {args.profile}")
+        _sync(dev)
+    seconds["train"] = stage.seconds
 
     # reload the best checkpoint for the final report (main.py:24); the
     # model holds the last epoch's parameters.  On a mesh every rank takes
@@ -207,13 +229,16 @@ def _train(args, mcfg, tcfg, dev, mesh, say, show):
         with torch.no_grad():
             for name, p in pipe.model.named_parameters():
                 p.copy_(stop.best_params[name])
-    t0 = profiling.clock(dev)
-    results = pipe.evaluator.run(pipe.model, istest=True)
-    seconds["test"] = profiling.clock(dev) - t0
+    with profiling.timed("cli.test") as stage:
+        results = pipe.evaluator.run(pipe.model, istest=True)
+        _sync(dev)
+    seconds["test"] = stage.seconds
     show(f"test result: {results}")
-    t0 = profiling.clock(dev)
-    groups = pipe.evaluator.run(pipe.model, istest=True, group_k=args.group_k)
-    seconds["group"] = profiling.clock(dev) - t0
+    with profiling.timed("cli.group") as stage:
+        groups = pipe.evaluator.run(pipe.model, istest=True,
+                                    group_k=args.group_k)
+        _sync(dev)
+    seconds["group"] = stage.seconds
     show(f"group result: {groups}")
     if writer:
         metrics.text("final", json.dumps(results, default=float))
@@ -227,16 +252,22 @@ def _train(args, mcfg, tcfg, dev, mesh, say, show):
     if args.export:
         from tagrec_tpu_torch import serving
 
-        t0 = profiling.clock(dev)
-        u_t, i_t = serving.export_tables(pipe.model, n_item=graph.n_item)
+        with profiling.timed("cli.export") as stage:
+            u_t, i_t = serving.export_tables(pipe.model, n_item=graph.n_item)
+            if writer:
+                meta = serving.save_export(
+                    args.export, u_t, i_t, model_name=args.model,
+                    train_pos=graph.user_items["train"],
+                    extra={"dataset": args.dataset,
+                           "best_epoch": stop.best_epoch})
+            _sync(dev)
         if writer:
-            meta = serving.save_export(
-                args.export, u_t, i_t, model_name=args.model,
-                train_pos=graph.user_items["train"],
-                extra={"dataset": args.dataset,
-                       "best_epoch": stop.best_epoch})
-            seconds["export"] = profiling.clock(dev) - t0
+            seconds["export"] = stage.seconds
             show(f"serving artifact: {args.export} {meta}")
+    if profile:
+        spans = os.path.join(args.profile, "program_spans.json")
+        profiling.write(spans)
+        say(f"program spans written to {spans}")
     say(f"stage seconds (host clock): {json.dumps(seconds)}")
     return results
 

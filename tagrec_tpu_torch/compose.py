@@ -23,6 +23,7 @@ from tagrec_tpu_torch.ops import sampling
 from tagrec_tpu_torch.training.evaluate import Evaluator
 from tagrec_tpu_torch.training.train import (PhaseSpec, bpr_phase,
                                              resampling_phase, triple_phase)
+from tagrec_tpu_torch.utils import profiling
 
 # the families trained by the resampling phase
 RESAMPLED = ("dgcf", "disengcn", "disenhan")
@@ -62,16 +63,32 @@ def build_pipeline(graph: HeteroGraph, mcfg: ModelConfig, tcfg: TrainConfig,
     kernel tiers or the chunked dense tiers (the masks, the KG's
     ``rel_id``), and TGCN, only this rank's rows of their graph tables,
     cut before the upload
-    (the Trainer takes the same mesh for training, as JAX's)."""
+    (the Trainer takes the same mesh for training, as JAX's).  Its stages
+    are the spans ``build.model``, ``build.pos_table``, ``build.phases``
+    and ``build.evaluator`` under ``build_pipeline``."""
     cls = model_class(mcfg.name)
     dev = resolve(device)
-    over_kg = mcfg.name == "kgat" and kg is not None
-    kw = {"kg": kg} if over_kg else {}
+    kw = {"kg": kg} if mcfg.name == "kgat" and kg is not None else {}
     if mesh is not None and mcfg.name in GRAPH_SHARDED:
         kw["mesh"] = mesh
-    model = cls(graph, mcfg, generator=generator, device=dev, **kw)
-    pt = sampling.build_pos_table(graph.user_items["train"], graph.n_user,
-                                  graph.n_item, device=dev)
+    with profiling.span("build_pipeline"):
+        with profiling.span("build.model"):
+            model = cls(graph, mcfg, generator=generator, device=dev, **kw)
+        with profiling.span("build.pos_table"):
+            pt = sampling.build_pos_table(graph.user_items["train"],
+                                          graph.n_user, graph.n_item,
+                                          device=dev)
+        with profiling.span("build.phases"):
+            phases = _phases(graph, mcfg, tcfg, model, pt, kg, dev)
+        with profiling.span("build.evaluator"):
+            evaluator = Evaluator(graph, tcfg, mesh=mesh, device=dev)
+    return Pipeline(model=model, phases=phases, graph=graph,
+                    evaluator=evaluator)
+
+
+def _phases(graph, mcfg, tcfg, model, pt, kg, dev) -> List[PhaseSpec]:
+    """The family's training phases over ``model``."""
+    over_kg = mcfg.name == "kgat" and kg is not None
     edges = graph.edge_index["train"]
     if mcfg.name in RESAMPLED:
         def routed_loss_fn(batch, gen):
@@ -118,5 +135,4 @@ def build_pipeline(graph: HeteroGraph, mcfg: ModelConfig, tcfg: TrainConfig,
             "transtag", graph.uit_data[:, [0, 2, 1]].astype(np.int64),
             graph.n_tag, graph.n_item, mcfg.transtag_batch, transtag_loss_fn,
             neg_rounds=tcfg.neg_resample_rounds, device=dev))
-    return Pipeline(model=model, phases=phases, graph=graph,
-                    evaluator=Evaluator(graph, tcfg, mesh=mesh, device=dev))
+    return phases

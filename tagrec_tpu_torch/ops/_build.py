@@ -18,6 +18,8 @@ import tempfile
 import threading
 from typing import Dict, Sequence
 
+from tagrec_tpu_torch.utils import profiling
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
@@ -56,10 +58,16 @@ def build(names: Sequence[str]) -> Dict[str, str]:
     compiler's output if one fails.  Each library is written to a temporary
     name and renamed into place, so a concurrent loader never sees half.
     Returns the compiler's output (ptxas's register and spill report) of
-    each library built."""
+    each library built.  The compiles are one ``native.build`` span."""
     todo = [n for n in names if _stale(n)]
     if not todo:
         return {}
+    profiling.count("native.builds", len(todo))
+    with profiling.span("native.build", libs=todo):
+        return _compile(todo)
+
+
+def _compile(todo: Sequence[str]) -> Dict[str, str]:
     os.makedirs(BUILD, exist_ok=True)
     exe = nvcc()
     procs = []
@@ -90,6 +98,7 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if stale."""
     with _lock:
         if name not in _loaded:
-            build([name])
-            _loaded[name] = ctypes.CDLL(_lib_path(name))
+            with profiling.span("native.load", lib=name):
+                build([name])
+                _loaded[name] = ctypes.CDLL(_lib_path(name))
         return _loaded[name]

@@ -30,6 +30,7 @@ from tagrec_tpu_torch.device import resolve
 from tagrec_tpu_torch.ops import metrics as M
 from tagrec_tpu_torch.parallel import sharding
 from tagrec_tpu_torch.parallel import topk as ptopk
+from tagrec_tpu_torch.utils import profiling
 
 
 def _padded(lists: Dict[int, List[int]], n_user: int, fill: int, device):
@@ -64,20 +65,24 @@ class Evaluator:
         """{metric: [value per k]} plus {"auc": [mean]}; with ``group_k`` > 1,
         one such dict per user group, keyed ``inter<{bound}-{n_users}`` as
         the reference keys them."""
-        split = "val" if (not istest and self.cfg.has_val) else "test"
-        true_ui = self.true_ui[split]
-        with torch.no_grad(), sharding.gathered():
-            embs = model.forward()
-        u_all, i_all = embs[0], embs[1]
-        n_valid = None
-        if self.mesh is not None:
-            i_all, n_valid = ptopk.shard_items(i_all, self.mesh)
-        if group_k > 1:
-            return {f"inter<{bound}-{len(users)}":
-                    self._eval_users(u_all, i_all, split, users, n_valid)
-                    for bound, users in user_group_split(
-                        true_ui, self.pos_ui, group_k).items()}
-        return self._eval_users(u_all, i_all, split, sorted(true_ui), n_valid)
+        profiling.count("eval.passes")
+        with profiling.span("eval.pass"):
+            split = "val" if (not istest and self.cfg.has_val) else "test"
+            true_ui = self.true_ui[split]
+            with profiling.span("eval.forward"), torch.no_grad(), \
+                    sharding.gathered():
+                embs = model.forward()
+            u_all, i_all = embs[0], embs[1]
+            n_valid = None
+            if self.mesh is not None:
+                i_all, n_valid = ptopk.shard_items(i_all, self.mesh)
+            if group_k > 1:
+                return {f"inter<{bound}-{len(users)}":
+                        self._eval_users(u_all, i_all, split, users, n_valid)
+                        for bound, users in user_group_split(
+                            true_ui, self.pos_ui, group_k).items()}
+            return self._eval_users(u_all, i_all, split, sorted(true_ui),
+                                    n_valid)
 
     def _block(self, u_all, i_all, u, test_pad, test_deg, n_valid):
         """One block's sums, on one device or over the mesh's shards."""
@@ -88,7 +93,8 @@ class Evaluator:
                 u_all[u], i_all, self._train_pad[u], te, td,
                 self._train_deg[u], topks, self.mesh, n_valid=n_valid)
         scores = torch.sigmoid(u_all[u] @ i_all.T)
-        masked = M.mask_train_positives(scores, self._train_pad[u])
+        with profiling.span("eval.sync"):  # its boolean index waits
+            masked = M.mask_train_positives(scores, self._train_pad[u])
         top = torch.topk(masked, max(topks), dim=1).indices
         block = M.batch_metric_sums(M.hit_labels(top, te), td, topks)
         block["auc"] = M.batch_auc_sum(masked, te, td,
@@ -103,16 +109,21 @@ class Evaluator:
         users_t = torch.as_tensor(np.asarray(users, dtype=np.int64),
                                   device=u_all.device)
         sums = []
+        profiling.count("eval.users", len(users))
         for i in range(0, len(users), self.cfg.test_batch):
-            block = self._block(u_all, i_all,
-                                users_t[i:i + self.cfg.test_batch],
-                                test_pad, test_deg, n_valid)
-            sums.append(torch.cat([block[k] for k in
-                                   ("recall", "precision", "hr", "ndcg",
-                                    "auc")]))
+            u = users_t[i:i + self.cfg.test_batch]
+            profiling.count("eval.blocks")
+            with profiling.span("eval.block", users=len(u)):
+                block = self._block(u_all, i_all, u, test_pad, test_deg,
+                                    n_valid)
+                sums.append(torch.cat([block[k] for k in
+                                       ("recall", "precision", "hr", "ndcg",
+                                        "auc")]))
         # one transfer per pass; blocks summed in order in float32, as JAX
         acc = np.zeros(4 * len(topks) + 1, dtype=np.float32)
-        for row in torch.stack(sums).cpu().numpy():
+        with profiling.span("eval.sync"):
+            rows = torch.stack(sums).cpu().numpy()
+        for row in rows:
             acc += row
         n, nk = len(users), len(topks)
         out = {name: [float(v) / n for v in acc[j * nk:(j + 1) * nk]]

@@ -53,9 +53,10 @@ from tagrec_tpu_torch.ops import dma_gather, flash_attention, flash_routing
 from tagrec_tpu_torch.ops import sampling
 from tagrec_tpu_torch.parallel import sharding
 from tagrec_tpu_torch.training import checkpoint, optim
+from tagrec_tpu_torch.utils import profiling
 
 # every kernel wrapper's launch counter; a replay runs no Python, so the
-# Trainer adds each graph's launches to them itself
+# Trainer adds each graph's launches to them itself, once an epoch
 COUNTED = (flash_routing.routed_rowsum, flash_routing.routed_mm,
            flash_routing.routed_mm_bwd, flash_attention.dot_flash_stats,
            flash_attention.dot_flash_apply, flash_attention.dot_bwd_row,
@@ -205,7 +206,7 @@ class PhaseRun:
     warm:     eager steps run so far
     graph:    the captured step, or None
     launches: each ``COUNTED`` wrapper's launches in one replay
-    capture_s: the capture's host seconds
+    capture_s: the capture's host seconds (the ``trainer.capture`` span)
     """
 
     counter: torch.Tensor
@@ -285,15 +286,17 @@ class Trainer:
                     f"a CUDA graph cannot capture the collectives of a "
                     f"{mesh.backend!r} process group (only NCCL's run on a "
                     "CUDA stream); pass capture=False to step eagerly")
-            self.placement = {
-                "params": sharding.shard_params(model, mesh),
-                "graph": sharding.shard_graph(model, mesh)}
-        # the replicated parameters, whose gradients are averaged over
-        # ``model`` where it has more than one rank (``step``)
-        self.replicated = [] if mesh is None or mesh.shape["model"] == 1 \
-            else [p for n, p in model.named_parameters()
-                  if not self.placement["params"][sharding.jax_name(n)]]
-        self.opt = optim.make_optimizer(model.parameters(), cfg)
+        with profiling.span("trainer.init"):
+            if mesh is not None:
+                self.placement = {
+                    "params": sharding.shard_params(model, mesh),
+                    "graph": sharding.shard_graph(model, mesh)}
+            # the replicated parameters, whose gradients are averaged over
+            # ``model`` where it has more than one rank (``step``)
+            self.replicated = [] if mesh is None or mesh.shape["model"] == 1 \
+                else [p for n, p in model.named_parameters()
+                      if not self.placement["params"][sharding.jax_name(n)]]
+            self.opt = optim.make_optimizer(model.parameters(), cfg)
         self.runs: Dict[str, PhaseRun] = {}
         self._side = None
 
@@ -345,15 +348,17 @@ class Trainer:
         """One eager step; before a capture, on a side stream, as CUDA
         graphs want their warm-up."""
         run.warm += 1
-        if not self.capture:
-            return self._body(phase, run)
-        if self._side is None:
-            self._side = torch.cuda.Stream(self.device)
-        main = torch.cuda.current_stream(self.device)
-        self._side.wait_stream(main)
-        with torch.cuda.stream(self._side):
-            self._body(phase, run)
-        main.wait_stream(self._side)
+        profiling.count("trainer.eager_steps")
+        with profiling.span("trainer.eager"):
+            if not self.capture:
+                return self._body(phase, run)
+            if self._side is None:
+                self._side = torch.cuda.Stream(self.device)
+            main = torch.cuda.current_stream(self.device)
+            self._side.wait_stream(main)
+            with torch.cuda.stream(self._side):
+                self._body(phase, run)
+            main.wait_stream(self._side)
 
     def _capture(self, phase: PhaseSpec, run: PhaseRun) -> None:
         """Capture ``phase``'s step into ``run.graph``; nothing runs.  The
@@ -361,9 +366,10 @@ class Trainer:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
         before = [f.launches for f in COUNTED]
-        t0 = time.perf_counter()
+        profiling.count("trainer.captures")
         try:
-            with torch.cuda.graph(graph):
+            with profiling.timed("trainer.capture", phase=phase.name) as sp, \
+                    torch.cuda.graph(graph):
                 self._body(phase, run)
         except Exception as e:  # any op that cannot be captured
             raise RuntimeError(
@@ -373,42 +379,54 @@ class Trainer:
             after = [f.launches for f in COUNTED]
             for f, n in zip(COUNTED, before):
                 f.launches = n
-        run.capture_s = time.perf_counter() - t0
+        run.capture_s = sp.seconds
         run.launches = tuple(a - b for a, b in zip(after, before))
         run.graph = graph
-
-    def _replay(self, run: PhaseRun) -> None:
-        run.graph.replay()
-        for f, n in zip(COUNTED, run.launches):
-            f.launches += n
 
     def run_phase(self, phase: PhaseSpec, max_steps: Optional[int] = None,
                   on_step: Optional[Callable] = None) -> np.ndarray:
         """One epoch of ``phase``, cut to ``max_steps`` steps when given ->
         the loss terms [steps, n_terms]; raises on a non-finite loss.
-        ``on_step(i, parts)``, when given, runs after each step."""
-        run = self.runs.get(phase.name)
-        if run is None:
-            run = self.runs[phase.name] = PhaseRun(
-                counter=torch.zeros(1, dtype=torch.int64, device=self.device))
-        run.state = _into(run.state, phase.epoch_reset(self.generator,
-                                                       phase.data))
-        run.counter.zero_()
+        ``on_step(i, parts)``, when given, runs after each step.  A replay
+        runs no Python: the launch counters take an epoch's replays once
+        its steps are queued."""
         steps = phase.steps_per_epoch
         if max_steps is not None:
             steps = min(steps, max_steps)
-        for i in range(steps):
-            if (self.capture and run.graph is None
-                    and run.warm >= WARMUP_STEPS):
-                self._capture(phase, run)
-            if run.graph is not None:
-                self._replay(run)
-            else:
+        profiling.count("trainer.epochs")
+        with profiling.span("trainer.epoch", phase=phase.name,
+                            steps=steps):
+            run = self.runs.get(phase.name)
+            if run is None:
+                run = self.runs[phase.name] = PhaseRun(counter=torch.zeros(
+                    1, dtype=torch.int64, device=self.device))
+            with profiling.span("trainer.epoch_reset"):
+                run.state = _into(run.state, phase.epoch_reset(
+                    self.generator, phase.data))
+                run.counter.zero_()
+            i = 0
+            while i < steps and run.graph is None:
+                if self.capture and run.warm >= WARMUP_STEPS:
+                    self._capture(phase, run)
+                    break
                 self._eager(phase, run)
-            if on_step is not None:
-                on_step(i, run.losses[i])
-        parts = run.losses[:steps].cpu().numpy()
-        if not np.isfinite(parts).all():
+                if on_step is not None:
+                    on_step(i, run.losses[i])
+                i += 1
+            replays = steps - i
+            if replays:
+                with profiling.span("trainer.replays", n=replays):
+                    for i in range(i, steps):
+                        run.graph.replay()
+                        if on_step is not None:
+                            on_step(i, run.losses[i])
+                for f, n in zip(COUNTED, run.launches):
+                    f.launches += n * replays
+                profiling.count("trainer.replays", replays)
+            with profiling.span("trainer.readback"):
+                parts = run.losses[:steps].cpu().numpy()
+                finite = np.isfinite(parts).all()
+        if not finite:
             raise FloatingPointError(f"non-finite loss in phase {phase.name}")
         return parts
 

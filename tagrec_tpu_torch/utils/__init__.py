@@ -1,6 +1,6 @@
 from tagrec_tpu_torch.utils.logging import MetricsWriter, printc
-from tagrec_tpu_torch.utils.profiling import (StepTimer, trace, start_trace,
-                                              stop_trace)
+from tagrec_tpu_torch.utils.profiling import (count, enable, snapshot, span,
+                                              start_trace, stop_trace, write)
 
-__all__ = ["MetricsWriter", "printc", "StepTimer", "trace", "start_trace",
-           "stop_trace"]
+__all__ = ["MetricsWriter", "printc", "span", "count", "enable", "snapshot",
+           "write", "start_trace", "stop_trace"]

@@ -197,6 +197,14 @@ def test_profile_writes_a_trace(tmp_path):
         "--profile", trace, "--out_dir", str(tmp_path / "run")])
     assert f"device trace written to {trace}" in out
     assert glob.glob(os.path.join(trace, "*.pt.trace.json"))
+    # the program's spans of the whole run beside it, the stages' among them
+    with open(os.path.join(trace, "program_spans.json")) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]}
+    assert {"cli.build", "build_pipeline", "cli.train", "trainer.epoch",
+            "eval.pass", "cli.test", "cli.group"} <= names
+    (line,) = [x for x in out.splitlines() if x.startswith("stage seconds")]
+    assert list(json.loads(line.split(": ", 1)[1])) == [
+        "build", "train", "test", "group"]
 
 
 @pytest.mark.parametrize("argv", [

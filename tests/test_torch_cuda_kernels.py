@@ -1122,24 +1122,22 @@ def test_captured_training_matches_eager(cuda, name, cfg):
 @pytest.mark.cuda
 def test_replays_move_the_launch_counters(cuda):
     """DGCF: every step of an epoch, eager or replayed, counts its 6
-    routed_rowsum, 6 routed_mm and 3 backward launches."""
+    routed_rowsum, 6 routed_mm and 3 backward launches once ``run_phase``
+    returns (the replays are added once an epoch, the eager steps as they
+    launch)."""
     from tagrec_tpu_torch.training.train import Trainer
 
     pipe, tcfg = _capture_pipeline("dgcf", dict(reg=1e-3))
     trainer = Trainer(pipe.model, pipe.phases, tcfg,
                       generator=torch.Generator(device="cuda").manual_seed(0))
     counters = (fr.routed_rowsum, fr.routed_mm, fr.routed_mm_bwd)
-    seen, last = [], [[c.launches for c in counters]]
-
-    def on_step(i, parts):
-        now = [c.launches for c in counters]
-        seen.append([x - y for x, y in zip(now, last[0])])
-        last[0] = now
-
+    seen = []
     for _ in range(2):
-        trainer.run_phase(pipe.phases[0], max_steps=5, on_step=on_step)
+        before = [c.launches for c in counters]
+        trainer.run_phase(pipe.phases[0], max_steps=5)
+        seen.append([c.launches - b for c, b in zip(counters, before)])
     assert trainer.runs["bpr"].graph is not None
-    assert seen == [[6, 6, 3]] * 10
+    assert seen == [[30, 30, 15]] * 2
     assert trainer.runs["bpr"].launches[:3] == (6, 6, 3)
 
 

@@ -1,7 +1,7 @@
 """The port's copies of JAX's jax-free modules on the CPU: offline
 preprocessing (the same files byte for byte), the graph's load-time
 ``summary`` and ``COO.row_degrees``, the metrics stream (the same JSONL
-records apart from their time), and the profiling utilities."""
+records apart from their time), and the profiler capture."""
 
 import glob
 import json
@@ -18,8 +18,7 @@ from tagrec_tpu.utils import logging as jlogging
 from tagrec_tpu_torch.data import preprocess as pp
 from tagrec_tpu_torch.data.graph import HeteroGraph
 from tagrec_tpu_torch.data.synthetic import synthetic_graph
-from tagrec_tpu_torch.utils import (MetricsWriter, StepTimer, printc,
-                                    profiling)
+from tagrec_tpu_torch.utils import MetricsWriter, printc, profiling
 
 DATASET = "hetrec2011-lastfm-2k"
 TINY = dict(n_user=40, n_item=90, n_tag=25, avg_deg=8, seed=7)
@@ -108,29 +107,24 @@ def test_printc_prints_as_jax(capsys):
     assert got == capsys.readouterr().out == "\033[0;33;40mx\033[0m\n"
 
 
-def test_step_timer_counts_steps_and_examples():
-    timer = StepTimer()
-    for _ in range(3):
-        with timer.step(n_examples=512):
-            sum(range(1000))
-    s = timer.summary()
-    assert s["steps"] == 3 and s["avg_step_ms"] > 0
-    assert timer.total_examples == 1536
-    assert timer.examples_per_sec == pytest.approx(1536 / timer.total_time)
-
-
 def test_trace_writes_a_file_with_the_annotations(tmp_path):
+    """A span opened during a capture is in the profiler's file; the
+    capture turns the recorder on, and off again when it stops."""
     import torch
 
     d = str(tmp_path / "trace")
+    assert not profiling.enabled()
     profiling.start_trace(d)
     with pytest.raises(RuntimeError, match="already"):
         profiling.start_trace(d)
     try:
-        with profiling.trace("tagrec_step"):
+        with profiling.span("tagrec_step"):
             torch.ones(8, 8) @ torch.ones(8, 8)
     finally:
         profiling.stop_trace()
+    assert not profiling.enabled()
+    assert [s["name"] for s in profiling.snapshot()["spans"]] == ["tagrec_step"]
+    profiling.reset()
     with pytest.raises(RuntimeError, match="no trace"):
         profiling.stop_trace()
     (path,) = glob.glob(os.path.join(d, "*.pt.trace.json"))

@@ -26,6 +26,7 @@ from tagrec_tpu_torch.models import model_class
 from tagrec_tpu_torch.ops import dense_adj, flash_attention, flash_routing
 from tagrec_tpu_torch.training import checkpoint
 from tagrec_tpu_torch.training.checkpoint import params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 OP_GRAD_RTOL, OP_GRAD_ATOL = 1e-4, 1e-5

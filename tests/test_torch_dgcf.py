@@ -25,6 +25,7 @@ from tagrec_tpu_torch.models import model_class
 from tagrec_tpu_torch.ops import flash_routing
 from tagrec_tpu_torch.training import checkpoint
 from tagrec_tpu_torch.training.checkpoint import params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 TINY = dict(n_user=40, n_item=90, n_tag=25, avg_deg=8, seed=7)  # = tiny_graph

@@ -31,6 +31,7 @@ from tagrec_tpu_torch.ops import losses, sampling
 from tagrec_tpu_torch.training.train import resampling_phase
 from torch_routed_parity import (STEPS, first_step, jax_trajectory,
                                  port_pipeline, trajectory)
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 GRAD_RTOL, GRAD_ATOL = 5e-4, 1e-5

@@ -37,6 +37,7 @@ from tagrec_tpu_torch.ops import flash_routing
 from tagrec_tpu_torch.training import checkpoint
 from torch_routed_parity import (STEPS, TINY, first_step, jax_trajectory,
                                  numpy_tree, port_pipeline, trajectory)
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 GRAD_RTOL, GRAD_ATOL = 5e-4, 1e-5

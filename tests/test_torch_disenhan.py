@@ -19,6 +19,7 @@ from tagrec_tpu_torch.models import model_class
 from tagrec_tpu_torch.models.disenhan import REL_TYPES
 from torch_routed_parity import (STEPS, TINY, first_step, jax_trajectory,
                                  port_pipeline, trajectory)
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 GRAD_RTOL = 5e-4

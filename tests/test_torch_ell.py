@@ -21,6 +21,7 @@ from tagrec_tpu_torch.data import synthetic as tsyn
 from tagrec_tpu_torch.data.graph import COO
 from tagrec_tpu_torch.ops import ell
 from tagrec_tpu_torch.ops import propagate as prop
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 TINY = dict(n_user=40, n_item=90, n_tag=25, avg_deg=8, seed=7)  # = tiny_graph

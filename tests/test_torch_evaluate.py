@@ -31,6 +31,7 @@ from tagrec_tpu_torch.ops import metrics as M
 from tagrec_tpu_torch.training.checkpoint import params_from_jax
 from tagrec_tpu_torch.training.early_stop import EarlyStop
 from tagrec_tpu_torch.training.evaluate import Evaluator, user_group_split
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-6
 GRAPHS = {"tiny": dict(n_user=40, n_item=90, n_tag=25, avg_deg=8, seed=7),

@@ -27,6 +27,7 @@ from tagrec_tpu_torch.models import model_class
 from tagrec_tpu_torch.ops import flash_attention
 from tagrec_tpu_torch.training import checkpoint
 from tagrec_tpu_torch.training.checkpoint import params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 GRAD_RTOL, GRAD_ATOL = 5e-4, 1e-5

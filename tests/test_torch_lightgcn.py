@@ -37,6 +37,7 @@ from tagrec_tpu_torch.training import checkpoint
 from tagrec_tpu_torch.training.early_stop import EarlyStop
 from tagrec_tpu_torch.training.evaluate import Evaluator
 from tagrec_tpu_torch.training.train import Trainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 GRAD_RTOL = 5e-4

@@ -35,6 +35,7 @@ from tagrec_tpu_torch.models import model_class
 from tagrec_tpu_torch.ops import dma_gather, ell, propagate
 from tagrec_tpu_torch.training import checkpoint
 from tagrec_tpu_torch.training.train import Trainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 GRAD_RTOL = 5e-4

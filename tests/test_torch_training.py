@@ -30,6 +30,7 @@ from tagrec_tpu_torch.data import synthetic as tsyn
 from tagrec_tpu_torch.ops import sampling
 from tagrec_tpu_torch.training.checkpoint import params_from_jax
 from tagrec_tpu_torch.training.train import Trainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 TRAJ_RTOL = 5e-3
 TINY = dict(n_user=40, n_item=90, n_tag=25, avg_deg=8, seed=7)  # = tiny_graph
