@@ -671,20 +671,21 @@ def plain_bwd64(torch, fr, q, k, mask, g, base):
     return dx64
 
 
-def routing_cases(torch, fr, q, k, mask, mask_t, x, g, base):
+def routing_cases(torch, fr, q, k, mask, mask_t, x, g, base, e, et):
     """{kernel: (kernel call, float32 plain call, float64 reference)} of the
-    routing kernels on one set of inputs (the backward's plain call is what
+    routing kernels on one set of inputs, the kernels over the edge lists
+    ``e`` of mask and ``et`` of mask_t (the backward's plain call is what
     the CPU path runs: the forward's plain version over mask^T)."""
     q64, k64, x64 = q.double(), k.double(), x.double()
     return {
-        "routed_rowsum": (lambda: fr.routed_rowsum(q, k, mask, base),
+        "routed_rowsum": (lambda: fr.routed_rowsum(q, k, mask, base, edges=e),
                           lambda: fr.routed_rowsum_plain(q, k, mask, base),
                           lambda: fr.routed_rowsum_plain(q64, k64, mask, base)),
-        "routed_mm": (lambda: fr.routed_mm(q, k, mask, x, base),
+        "routed_mm": (lambda: fr.routed_mm(q, k, mask, x, base, edges=e),
                       lambda: fr.routed_mm_plain(q, k, mask, x, base),
                       lambda: fr.routed_mm_plain(q64, k64, mask, x64, base)),
         "routed_mm_bwd": (
-            lambda: fr.routed_mm_bwd(q, k, mask_t, g, base),
+            lambda: fr.routed_mm_bwd(q, k, mask_t, g, base, edges=et),
             lambda: fr.routed_mm_plain(k, q, mask_t, g, base),
             lambda: plain_bwd64(torch, fr, q, k, mask, g, base)),
     }
@@ -716,8 +717,10 @@ def check_routing(torch, name, label, kern, plain, plain64):
 
 def routing_bound(name, q, k, mask, x, nnz):
     """(bytes time, operations time) in ms of one launch: each input read
-    and output written once, and the operations of the mask's edges only
-    (the backward is the forward's launch over mask^T, with g for x)."""
+    and output written once, the dense mask among them (the kernels read
+    its edge list instead, which ``routing_roofline`` counts), and the
+    operations of the mask's edges only (the backward is the forward's
+    launch over mask^T, with g for x)."""
     f, r, dx = q.shape[0], q.shape[2], x.shape[2]
     io_bytes = (q.numel() + k.numel()) * 4 + mask.numel()
     ops_per_edge = f * (2 * r + 4)  # scores, exp, sum over F, scale, row sum
@@ -730,9 +733,10 @@ def routing_bound(name, q, k, mask, x, nnz):
             nnz * ops_per_edge / PEAK_F32_OPS_PER_S * 1e3)
 
 
-def kernel_phase(torch, fr, mask, mask_t):
-    """Each routing kernel (the backward over ``mask_t``) against its plain
-    version at every rank of one DGCF forward; returns the per-kernel
+def kernel_phase(torch, fr, mask, mask_t, e, et):
+    """Each routing kernel (the backward over ``mask_t``; the kernels over
+    their edge lists ``e`` and ``et``) against its plain version at every
+    rank of one DGCF forward; returns the per-kernel
     records, ms, plain_ms and bound_ms summed over one forward's six
     launches (one per rank) or, for the backward, one BPR step's three
     (DGCF_BWD_RANKS), with the r=80 launch's own numbers under "r80"."""
@@ -744,6 +748,12 @@ def kernel_phase(torch, fr, mask, mask_t):
     print(f"mask: {n}x{m}, {nnz} edges ({100.0 * nnz / (n * m):.3f}% dense); "
           f"{int(tiles.sum())} of {tiles.numel()} 32x32 tiles hold an edge "
           f"({100.0 * float(tiles.float().mean()):.2f}%)")
+    deg = e.indptr.diff()
+    print(f"edge list: {e.nnz} entries, {e.segs.shape[0]} segments of at "
+          f"most {e.seg_len} edges, {e.splits.shape[0]} rows split over "
+          f"{e.slots} of them (heaviest row {int(deg.max())} edges, "
+          f"{int((deg > e.seg_len).sum())} rows past {e.seg_len})")
+    check(e.nnz == nnz, f"the edge list holds {e.nnz} edges, the mask {nnz}")
     records = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                       "bound_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0,
                       "library_ms": None} for name in ROUTING}
@@ -751,10 +761,13 @@ def kernel_phase(torch, fr, mask, mask_t):
         q, k, x = kernel_inputs(torch, f, n, r, dx, seed=r)
         g = torch.randn((f, n, dx), device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(r))
-        cases = routing_cases(torch, fr, q, k, mask, mask_t, x, g, base)
+        cases = routing_cases(torch, fr, q, k, mask, mask_t, x, g, base, e,
+                              et)
         for name, (kern, plain, plain64) in cases.items():
-            _, max_abs = check_routing(torch, name, f"r={r}", kern, plain,
-                                       plain64)
+            got, max_abs = check_routing(torch, name, f"r={r}", kern, plain,
+                                         plain64)
+            check(torch.equal(got, kern()),
+                  f"{name} r={r}: two launches differ")
             records[name]["max_abs_err"] = max(
                 records[name]["max_abs_err"], max_abs)
             if name == "routed_mm_bwd" and r not in DGCF_BWD_RANKS:
@@ -790,7 +803,7 @@ def kernel_phase(torch, fr, mask, mask_t):
     return records
 
 
-def disengcn_kernel_phase(torch, fr, mask, mask_t, records):
+def disengcn_kernel_phase(torch, fr, mask, mask_t, e, et, records):
     """routed_mm and its backward at DisenGCN's shapes (F=4, r = dx = 16,
     base 0; q, k and x unit rows, as new_fac and fac are) against their
     plain versions; their ms, plain_ms and bound_ms per DisenGCN BPR step
@@ -806,7 +819,7 @@ def disengcn_kernel_phase(torch, fr, mask, mask_t, records):
                                      device="cuda"), dim=2).contiguous()
             for _ in range(2))
     g = torch.randn((f, n, dk), generator=gen, device="cuda")
-    cases = routing_cases(torch, fr, q, k, mask, mask_t, k, g, 0.0)
+    cases = routing_cases(torch, fr, q, k, mask, mask_t, k, g, 0.0, e, et)
     # per BPR step: 3 layers x 2 routing rounds forward; backward, the
     # last round of each layer (the first feeds only the next round's q)
     per_step = {"routed_mm": 6, "routed_mm_bwd": 3}
@@ -842,12 +855,14 @@ def asymmetric_mask_check(torch, fr, records):
     mask[7], mask[:, 11] = False, False
     mask[9], mask[:, 13] = True, True
     mask_t = mask.t().contiguous()
+    e, et = fr.mask_edges(mask), fr.mask_edges(mask_t)
     for r, base in ((16, 0.0), (80, 1.0)):
         q = torch.randn((f, n, r), generator=gen, device="cuda") / r ** 0.5
         k = torch.randn((f, m, r), generator=gen, device="cuda") / r ** 0.5
         x = torch.randn((f, m, dx), generator=gen, device="cuda")
         g = torch.randn((f, n, dx), generator=gen, device="cuda")
-        cases = routing_cases(torch, fr, q, k, mask, mask_t, x, g, base)
+        cases = routing_cases(torch, fr, q, k, mask, mask_t, x, g, base, e,
+                              et)
         for name, (kern, plain, plain64) in cases.items():
             _, max_abs = check_routing(
                 torch, name, f"non-symmetric {n}x{m} r={r} base={base}",
@@ -1048,6 +1063,7 @@ def routed_training_phase(torch, fr, graph, name, want):
                    {"routed_mm::mm_kernel": "routed_mm (forward, then "
                                             "routed_mm_bwd)",
                     "routed_rowsum::rowsum_kernel": "routed_rowsum",
+                    "routed::combine_kernel": "routing split rows' sums",
                     "multi_tensor_apply": "adam (foreach)",
                     "gemm": "matmul (cuBLAS)"})
     return pipe, total
@@ -4856,17 +4872,17 @@ def mask_sweep_rows(torch, fr, fa, model):
                 else mask.shape[0])
 
     if model.cfg.name in ("dgcf", "disengcn"):
-        mask, mask_t = model.routing_masks()
+        mask, mask_t, e, et = model.routing_masks()
         r, base = (80, 1.0) if model.cfg.name == "dgcf" else (16, 0.0)
         q, k, x = kernel_inputs(torch, 4, whole(mask), r, 16, MASK_SEED)
         g = torch.randn(x.shape, device="cuda", generator=torch.Generator(
             device="cuda").manual_seed(MASK_SEED + 1))
         rows("routed_rowsum", mask, 1, lambda m, r0: fr.routed_rowsum(
-            q, k, m, base, row0=r0))
+            q, k, m, base, row0=r0, edges=e))
         rows("routed_mm", mask, 1, lambda m, r0: fr.routed_mm_rows(
-            q, k, m, x, base, row0=r0))
+            q, k, m, x, base, row0=r0, edges=e))
         rows("routed_mm_bwd", mask_t, 1, lambda m, r0: fr.routed_mm_bwd(
-            q, k, m, g, base, row0=r0))
+            q, k, m, g, base, row0=r0, edges=et))
         return out
     for a, split in enumerate(model.flash_splits()):
         mask = model.sweep_mask(f"fmask_{a}")
@@ -5072,22 +5088,26 @@ def mask_block_holds(torch, fr, fa, graph, records):
     g = torch.randn(x.shape, device="cuda", generator=torch.Generator(
         device="cuda").manual_seed(MASK_SEED + 1))
     q64, k64, x64 = q.double(), k.double(), x.double()
+    e = fr.mask_edges(mask)
+    es = fr.mask_edges(mask[s], s0, e.seg_len)  # rows cut as the whole's
     cases = {
         "routed_rowsum": (
-            lambda: fr.routed_rowsum(q, k, mask[s], 1.0, row0=s0),
+            lambda: fr.routed_rowsum(q, k, mask[s], 1.0, row0=s0, edges=es),
             lambda: fr.routed_rowsum_plain(q, k, mask[s], 1.0, row0=s0),
             lambda: fr.routed_rowsum_plain(q64, k64, mask[s], 1.0, row0=s0),
-            lambda: fr.routed_rowsum(q, k, mask, 1.0)[:, s]),
+            lambda: fr.routed_rowsum(q, k, mask, 1.0, edges=e)[:, s]),
         "routed_mm": (
-            lambda: fr.routed_mm_rows(q, k, mask[s], x, 1.0, row0=s0),
+            lambda: fr.routed_mm_rows(q, k, mask[s], x, 1.0, row0=s0,
+                                      edges=es),
             lambda: fr.routed_mm_plain(q, k, mask[s], x, 1.0, row0=s0),
             lambda: fr.routed_mm_plain(q64, k64, mask[s], x64, 1.0, row0=s0),
-            lambda: fr.routed_mm_rows(q, k, mask, x, 1.0)[:, s]),
+            lambda: fr.routed_mm_rows(q, k, mask, x, 1.0, edges=e)[:, s]),
         "routed_mm_bwd": (  # the joint mask is its own transpose
-            lambda: fr.routed_mm_bwd(q, k, mask[s], g, 1.0, row0=s0),
+            lambda: fr.routed_mm_bwd(q, k, mask[s], g, 1.0, row0=s0,
+                                     edges=es),
             lambda: fr.routed_mm_plain(k, q, mask[s], g, 1.0, row0=s0),
             lambda: plain_bwd64(torch, fr, q, k, mask, g, 1.0)[:, s],
-            lambda: fr.routed_mm_bwd(q, k, mask, g, 1.0)[:, s])}
+            lambda: fr.routed_mm_bwd(q, k, mask, g, 1.0, edges=e)[:, s])}
     for name, (kern, plain, plain64, whole) in cases.items():
         got, max_abs = check_routing(torch, name, f"rows [{s0}, {n})", kern,
                                      plain, plain64)
@@ -6145,8 +6165,10 @@ def run(torch):
     print(f"graph {graph.num} and DGCF built in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    records = kernel_phase(torch, fr, model.mask, model.mask_t)
-    disengcn_kernel_phase(torch, fr, model.mask, model.mask_t, records)
+    mask, mask_t, e, et = model.routing_masks()
+    records = kernel_phase(torch, fr, mask, mask_t, e, et)
+    disengcn_kernel_phase(torch, fr, mask, mask_t, e, et, records)
+    del mask, mask_t, e, et
     asymmetric_mask_check(torch, fr, records)
     with tempfile.TemporaryDirectory() as tmp:
         launches = serving_phase(torch, fr, graph, model, tmp)

@@ -33,17 +33,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 
-def _zeroed(orig, *args):
-    return torch.zeros_like(orig(*args))
+def _zeroed(orig, *args, **kw):
+    return torch.zeros_like(orig(*args, **kw))
 
 
-def _unswapped(orig, q, k, mask_t, g, base=0.0):
-    return orig(k, q, mask_t, g, base)
+def _unswapped(orig, q, k, mask_t, g, base=0.0, **kw):
+    return orig(k, q, mask_t, g, base, **kw)
 
 
 def _zero_part(part):
-    def fault(orig, *args):
-        out = list(orig(*args))
+    def fault(orig, *args, **kw):
+        out = list(orig(*args, **kw))
         out[part] = torch.zeros_like(out[part])
         return tuple(out)
     return fault
@@ -67,8 +67,8 @@ def planted(mod, name, fault):
     ``<name>.launches += 1`` then increments."""
     orig = getattr(mod, name)
 
-    def wrapper(*args):
-        return fault(orig, *args)
+    def wrapper(*args, **kw):  # the routing wrappers take edges=
+        return fault(orig, *args, **kw)
 
     wrapper.launches = 0
     setattr(mod, name, wrapper)

@@ -7,7 +7,8 @@ graph, then times each sweep over its whole mask at the main path's
 shapes by ``chip_smoke.device_ms`` (10 calls captured in a CUDA graph,
 its replays timed by CUDA events): ``routed_rowsum``, ``routed_mm`` and
 ``routed_mm_bwd`` over DGCF's joint mask at F = 4, r = 80, dx = 16 (the
-mask is its own transpose); ``dot_flash_stats``, ``dot_flash_apply``,
+mask is its own transpose; over its edge list where the tree's routing
+wrappers take one, ``edges=``); ``dot_flash_stats``, ``dot_flash_apply``,
 ``dot_bwd_row`` and ``dot_bwd_col`` summed over KGAT ``bi_inter``'s three
 row types at dq = dx = 64.  Prints one JSON line of ms a call.
 ``--tree`` names the checkout whose ``tagrec_tpu_torch`` and
@@ -65,15 +66,18 @@ def main() -> int:
     q, k, x = cs.kernel_inputs(torch, 4, mask.shape[0], 80, 16, SEED)
     g = torch.randn(x.shape, device="cuda", generator=torch.Generator(
         device="cuda").manual_seed(SEED))
+    # a tree from before the edge lists sweeps the dense mask
+    kw = {"edges": fr.mask_edges(mask)} if hasattr(fr, "mask_edges") else {}
     out = {}
     with torch.no_grad():
         for name, fn in (
-                ("routed_rowsum", lambda: fr.routed_rowsum(q, k, mask, 1.0)),
-                ("routed_mm", lambda: fr.routed_mm(q, k, mask, x, 1.0)),
+                ("routed_rowsum",
+                 lambda: fr.routed_rowsum(q, k, mask, 1.0, **kw)),
+                ("routed_mm", lambda: fr.routed_mm(q, k, mask, x, 1.0, **kw)),
                 ("routed_mm_bwd",
-                 lambda: fr.routed_mm_bwd(q, k, mask, g, 1.0))):
+                 lambda: fr.routed_mm_bwd(q, k, mask, g, 1.0, **kw))):
             out[name] = cs.device_ms(torch, fn)
-        del mask, q, k, x, g
+        del mask, q, k, x, g, kw
         kgat = model_class("kgat")(graph, model_preset(
             "kgat", agg_type="bi_inter"), device="cuda",
             generator=torch.Generator().manual_seed(0))

@@ -9,7 +9,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from tagrec_tpu_torch.ops import dense_adj, edgemap
+from tagrec_tpu_torch.ops import dense_adj, edgemap, flash_routing
 from tagrec_tpu_torch.ops import ell as ell_lib
 from tagrec_tpu_torch.ops.losses import bpr_loss, l2reg_loss
 from tagrec_tpu_torch.ops.propagate import RankRows, model_sum
@@ -228,17 +228,37 @@ class RoutingMaskGraph(MaskGraph):
     """``MaskGraph`` for DGCF's and DisenGCN's dense tiers: the joint
     graph's bool edge mask ``mask`` [N, N] and ``maskT``, its contiguous
     transpose, None where the mask is symmetric or under ``dense_xla``
-    (both None on the EdgeMap tier)."""
+    (both None on the EdgeMap tier).  On the kernel tier ``edge_coords``
+    keeps the coordinates the masks came from and ``routing_edges`` each
+    placed mask's ``ops.flash_routing.RoutingEdges``, built from them over
+    the rows its buffer holds: what the routing kernels sweep."""
+
+    edge_coords = None
 
     def place_routing_masks(self, coo, mesh, device) -> None:
         """``mask`` (and ``maskT``) of ``coo`` built on the host, placed by
         ``place_masks``, the rank's rows with ``mesh``; under ``dense_xla``
-        no transpose (the chunked tier's backward is autograd's)."""
+        no transpose (the chunked tier's backward is autograd's) and no
+        edge list."""
         mask = dense_adj.dense_mask_host(coo.row, coo.col, *coo.shape)
         own_t = self.flash and not np.array_equal(mask, mask.T)
         self.mask_hosts = (("mask", "mask", mask, False),) + (
             (("maskT", "maskT", mask, True),) if own_t else ())
+        self.edge_coords = ((coo.row, coo.col, coo.shape) if self.flash
+                            else None)
         self.place_masks(mesh, device)
+
+    def place_masks(self, mesh=None, device=None) -> None:
+        """``MaskGraph.place_masks``, then on the kernel tier each placed
+        mask's edge list over the rows its buffer holds, uploaded beside
+        it."""
+        super().place_masks(mesh, device)
+        self.routing_edges = {}
+        if self.edge_coords is not None:
+            for _, name, _, t in self.mask_hosts:
+                self.routing_edges[name] = flash_routing.coo_edges(
+                    *self.edge_coords, self.mask_blocks[name], t,
+                    getattr(self, name).device)
 
     @property
     def mask_t(self):
@@ -246,7 +266,8 @@ class RoutingMaskGraph(MaskGraph):
         return self.mask if self.maskT is None else self.maskT
 
     def routing_masks(self):
-        """What the routing kernels sweep (``sweep_mask``): the mask, and
-        its transpose for ``routed_mm``'s backward."""
-        return (self.sweep_mask("mask"),
-                self.sweep_mask("mask" if self.maskT is None else "maskT"))
+        """What the routing kernels sweep: the mask and its transpose for
+        ``routed_mm``'s backward (``sweep_mask``), then their edge lists."""
+        t = "mask" if self.maskT is None else "maskT"
+        return (self.sweep_mask("mask"), self.sweep_mask(t),
+                self.routing_edges["mask"], self.routing_edges[t])

@@ -14,7 +14,8 @@ Two tiers, as JAX picks them (``ops.dense_adj.use_dense``):
 * dense (a graph within the dense budget): S is the low-rank series
   S_t = 1 + sum_tau U_tau V_tau^T, kept as the lists of update factors.
   Each iteration runs the two routing kernels (``ops.flash_routing``) at
-  its true rank, so the [F, N, N] adjacency never exists; gradients reach
+  its true rank over the mask's edge list (built once at set-up), so the
+  [F, N, N] adjacency never exists; gradients reach
   the embeddings through ``routed_mm``'s backward (the sweep over the
   mask's transpose).  Under a mesh the mask holds one ``model`` rank's
   rows (JAX's rule), each kernel sweeps them and its result is
@@ -104,7 +105,7 @@ class DGCF(base.RoutingMaskGraph, nn.Module):
         ego_f = torch.stack(torch.split(ego_embed, self.dim_k, dim=1))
         femb = None
         if self.flash:
-            mask, mask_t = self.routing_masks()
+            mask, mask_t, edges, edges_t = self.routing_masks()
         else:
             mask = self.sweep_mask("mask")
         for _ in range(cfg.iterate_k):
@@ -115,7 +116,8 @@ class DGCF(base.RoutingMaskGraph, nn.Module):
                 ueff = ego_f.new_zeros((ego_f.shape[0], ego_f.shape[1], 8))
                 veff = torch.zeros_like(ueff)
             if self.flash:
-                d = flash_routing.routed_rowsum(ueff, veff, mask, base=1.0)
+                d = flash_routing.routed_rowsum(ueff, veff, mask, base=1.0,
+                                                edges=edges)
             else:  # the rank's rows, gathered (no gradient)
                 d = self.rows_whole("mask", dense_adj.dgcf_dense_degree(
                     ueff, veff, mask), ax=1)
@@ -125,7 +127,8 @@ class DGCF(base.RoutingMaskGraph, nn.Module):
             scaled = ego_f * dr[:, :, None]
             if self.flash:
                 agg = flash_routing.routed_mm(ueff, veff, mask, scaled,
-                                              base=1.0, mask_t=mask_t)
+                                              base=1.0, mask_t=mask_t,
+                                              edges=edges, edges_t=edges_t)
             else:  # the rank's rows of A @ x read all of x
                 x, = self.mesh_sum(scaled)
                 agg = self.rows_whole("mask", dense_adj.dgcf_dense_prop(

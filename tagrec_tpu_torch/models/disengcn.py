@@ -107,7 +107,7 @@ class DisenGCN(base.RoutingMaskGraph, nn.Module):
             em = self.edges["em"]
             masks = em.masks(fac.dtype)
         elif self.flash:
-            mask, mask_t = self.routing_masks()
+            mask, mask_t, edges, edges_t = self.routing_masks()
         else:
             mask = self.sweep_mask("mask")
         for _ in range(self.cfg.iterate_k):
@@ -120,7 +120,8 @@ class DisenGCN(base.RoutingMaskGraph, nn.Module):
                 agg = edgemap.edge_reduce(em, p, fac)
             elif self.flash:
                 agg = flash_routing.routed_mm(new_fac, fac, mask, fac,
-                                              mask_t=mask_t)
+                                              mask_t=mask_t, edges=edges,
+                                              edges_t=edges_t)
             else:  # head reaches only the detached routing weights
                 tail, = self.mesh_sum(fac)
                 agg = self.rows_whole("mask", dense_adj.routed_agg_dense(

@@ -8,7 +8,9 @@ machine they run without the JAX test configuration:
 
 Tolerance: rtol 1e-4, atol 1e-5 (float32 on both sides, sums taken in
 another order); rtol 5e-4 for the flash backward, whose sums are longer,
-and for LightGCN's gradients; the row gather must match bit for bit.
+and for LightGCN's gradients; the row gather must match bit for bit.  The
+routing kernels take the mask's edge list (``fr.mask_edges``, ``_edges``
+here), built once a mask.
 """
 
 import numpy as np
@@ -27,6 +29,11 @@ RTOL, ATOL = 1e-4, 1e-5
 CASES = [(3, 70, 50, 8, 5, 0.0, False), (3, 70, 50, 48, 15, 1.0, False),
          (3, 70, 50, 8, 5, 1.0, True), (4, 301, 277, 80, 16, 1.0, False),
          (1, 33, 31, 16, 8, 1.0, False)]
+
+
+def _edges(mask, row0=0):
+    """The routing kernels' edge list of a mask on the card."""
+    return fr.mask_edges(mask, row0)
 
 
 @pytest.fixture
@@ -53,10 +60,11 @@ def _inputs(f, n, m, r, dx, zero, device):
 def test_kernels_match_plain(cuda, f, n, m, r, dx, base, zero):
     q, k, mask, x = _inputs(f, n, m, r, dx, zero, cuda)
     before = (fr.routed_rowsum.launches, fr.routed_mm.launches)
+    e, mask8 = _edges(mask), mask.to(torch.int8)
     with torch.no_grad():
-        d = fr.routed_rowsum(q, k, mask, base)
-        out = fr.routed_mm(q, k, mask, x, base)
-        d8 = fr.routed_rowsum(q, k, mask.to(torch.int8), base)
+        d = fr.routed_rowsum(q, k, mask, base, edges=e)
+        out = fr.routed_mm(q, k, mask, x, base, edges=e)
+        d8 = fr.routed_rowsum(q, k, mask8, base, edges=_edges(mask8))
     torch.cuda.synchronize()
     assert (fr.routed_rowsum.launches, fr.routed_mm.launches) == (
         before[0] + 2, before[1] + 1)
@@ -71,28 +79,34 @@ def test_kernels_match_plain(cuda, f, n, m, r, dx, base, zero):
 @pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take(cuda):
     q, k, mask, x = _inputs(4, 40, 40, 16, 16, False, cuda)
+    e = _edges(mask)
     with torch.no_grad():
         with pytest.raises(ValueError, match="contiguous"):
             fr.routed_mm(q.transpose(1, 2).contiguous().transpose(1, 2),
-                         k, mask, x)
+                         k, mask, x, edges=e)
         with pytest.raises(TypeError, match="float32"):
-            fr.routed_rowsum(q.double(), k.double(), mask)
+            fr.routed_rowsum(q.double(), k.double(), mask, edges=e)
         with pytest.raises(ValueError, match="too wide"):
-            fr.routed_mm(q, k, mask, torch.cat([x, x], dim=2))
+            fr.routed_mm(q, k, mask, torch.cat([x, x], dim=2), edges=e)
         with pytest.raises(ValueError, match="factors"):
             fr.routed_mm(torch.cat([q, q[:1]]), torch.cat([k, k[:1]]), mask,
-                         torch.cat([x, x[:1]]))
+                         torch.cat([x, x[:1]]), edges=e)
         with pytest.raises(ValueError, match="out of range"):
             wide = torch.zeros((4, 40, 129), device=cuda)
-            fr.routed_mm(wide, wide, mask, x)
+            fr.routed_mm(wide, wide, mask, x, edges=e)
         with pytest.raises(ValueError, match="one device"):
-            fr.routed_rowsum(q, k.cpu(), mask)
+            fr.routed_rowsum(q, k.cpu(), mask, edges=e)
         # routed_rowsum has routed_mm's limits: the same edge sweep
         with pytest.raises(ValueError, match="factors"):
             fr.routed_rowsum(torch.cat([q, q[:1]]), torch.cat([k, k[:1]]),
-                             mask)
+                             mask, edges=e)
         with pytest.raises(ValueError, match="out of range"):
-            fr.routed_rowsum(wide, wide, mask)
+            fr.routed_rowsum(wide, wide, mask, edges=e)
+        # the list must be on q's device and of the rows swept
+        with pytest.raises(ValueError, match="lies on"):
+            fr.routed_rowsum(q, k, mask, edges=_edges(mask.cpu()))
+        with pytest.raises(ValueError, match="not the mask's"):
+            fr.routed_mm_rows(q, k, mask[1:], x, row0=1, edges=e)
 
 
 # (F, n, m, r, dx, row0, rows): a block of rows past row 0 at DGCF's widths
@@ -116,10 +130,14 @@ def test_routing_sweeps_over_a_row_range(cuda, f, n, m, r, dx, row0, rows):
     s = slice(row0, row0 + rows)
     sweeps = (fr.routed_rowsum, fr.routed_mm, fr.routed_mm_bwd)
     before = [fn.launches for fn in sweeps]
-    d = fr.routed_rowsum(q, k, mask[s], 1.0, row0=row0)
+    e, et = _edges(mask), _edges(mask_t)
+    es = fr.mask_edges(mask[s], row0, e.seg_len)  # rows cut as the whole's
+    ets = fr.mask_edges(mask_t[s], row0, et.seg_len)
+    d = fr.routed_rowsum(q, k, mask[s], 1.0, row0=row0, edges=es)
     buf = torch.full((2, f, rows, dx), float("nan"), device=cuda)
-    out = fr.routed_mm_rows(q, k, mask[s], x, 1.0, row0=row0, out=buf[1])
-    dxr = fr.routed_mm_bwd(q, k, mask_t[s], g, 1.0, row0=row0)
+    out = fr.routed_mm_rows(q, k, mask[s], x, 1.0, row0=row0, out=buf[1],
+                            edges=es)
+    dxr = fr.routed_mm_bwd(q, k, mask_t[s], g, 1.0, row0=row0, edges=ets)
     torch.cuda.synchronize()
     assert out is buf[1] or out.data_ptr() == buf[1].data_ptr()
     assert [fn.launches for fn in sweeps] == [b + 1 for b in before]
@@ -132,9 +150,12 @@ def test_routing_sweeps_over_a_row_range(cuda, f, n, m, r, dx, row0, rows):
     torch.testing.assert_close(
         dxr, fr.routed_mm_plain(k, q, mask_t[s], g, 1.0, row0=row0),
         rtol=RTOL, atol=ATOL)
-    assert torch.equal(d, fr.routed_rowsum(q, k, mask, 1.0)[:, s])
-    assert torch.equal(buf[1], fr.routed_mm_rows(q, k, mask, x, 1.0)[:, s])
-    assert torch.equal(dxr, fr.routed_mm_bwd(q, k, mask_t, g, 1.0)[:, s])
+    # each row's sums are its own segments', whoever else shares the launch
+    assert torch.equal(d, fr.routed_rowsum(q, k, mask, 1.0, edges=e)[:, s])
+    assert torch.equal(buf[1], fr.routed_mm_rows(q, k, mask, x, 1.0,
+                                                 edges=e)[:, s])
+    assert torch.equal(dxr, fr.routed_mm_bwd(q, k, mask_t, g, 1.0,
+                                             edges=et)[:, s])
     assert torch.isnan(buf[0]).all()  # nothing written outside the view
     with pytest.raises(ValueError, match="shape mismatch"):
         fr.routed_rowsum(q, k, mask[s], 1.0, row0=n - rows + 1)
@@ -167,9 +188,10 @@ def test_routed_mm_edge_rows(cuda, m):
                for shape in ((f, n, r), (f, m, r), (f, m, dx)))
     mask = torch.from_numpy(_edge_rows_mask(n, m, seed=m)).to(cuda)
     before = fr.routed_mm.launches
+    mask8 = mask.to(torch.int8)
     with torch.no_grad():
-        out = fr.routed_mm(q, k, mask, x, 1.0)
-        out8 = fr.routed_mm(q, k, mask.to(torch.int8), x, 1.0)
+        out = fr.routed_mm(q, k, mask, x, 1.0, edges=_edges(mask))
+        out8 = fr.routed_mm(q, k, mask8, x, 1.0, edges=_edges(mask8))
     torch.cuda.synchronize()
     assert fr.routed_mm.launches == before + 2
     # the plain version in float64: row 1 sums 15,000 terms, and a float32
@@ -193,14 +215,96 @@ def test_routed_rowsum_edge_rows(cuda, m):
             for shape in ((f, n, r), (f, m, r)))
     mask = torch.from_numpy(_edge_rows_mask(n, m, seed=m)).to(cuda)
     before = fr.routed_rowsum.launches
-    d = fr.routed_rowsum(q, k, mask, 1.0)
-    d8 = fr.routed_rowsum(q, k, mask.to(torch.int8), 1.0)
+    mask8 = mask.to(torch.int8)
+    d = fr.routed_rowsum(q, k, mask, 1.0, edges=_edges(mask))
+    d8 = fr.routed_rowsum(q, k, mask8, 1.0, edges=_edges(mask8))
     torch.cuda.synchronize()
     assert fr.routed_rowsum.launches == before + 2
     want = fr.routed_rowsum_plain(q.double(), k.double(), mask, 1.0)
     torch.testing.assert_close(d, want.float(), rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(d8, d, rtol=0, atol=0)
     assert torch.all(d[:, [0, n - 1]] == 0)
+
+
+def _segment_mask(n, m, seed):
+    """Sparse rows (3%), empty rows, and two rows of every column: each of
+    those is cut into several segments of the list (many at seg_edges'
+    floor of 32), the row past the split rows' block an empty one."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random((n, m)) < 0.03
+    mask[[0, 7, n - 1]] = False
+    mask[[5, n // 2 + 3]] = True
+    return torch.from_numpy(mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [8, 16, 32, 48, 64, 80])
+def test_segment_sweeps_match_plain_at_dgcf_ranks(cuda, r):
+    """The three sweeps over the edge list at DGCF's ranks (r = 8 all
+    zeros, as its first iteration), F = 4, dx = 16, against their plain
+    versions in float64, over the whole mask and a rank's rows (the second
+    half): rows split over 3 or more segments, empty rows; two launches
+    give the same bits; bytes of the dense mask overwritten once the lists
+    are built change no result (the kernels read none)."""
+    f, n, m, dx = 4, 600, 700, 16
+    rng = np.random.default_rng(r)
+    q, k, x, g = (torch.from_numpy((rng.standard_normal(shape) / np.sqrt(
+        shape[2])).astype(np.float32)).to(cuda) for shape in (
+        (f, n, r), (f, m, r), (f, m, dx), (f, n, dx)))
+    if r == 8:
+        q.zero_()
+        k.zero_()
+    mask = _segment_mask(n, m, seed=r).to(cuda)
+    mask_t = mask.T.contiguous()
+    s0 = n // 2
+    e, et, es = _edges(mask), _edges(mask_t), _edges(mask[s0:], s0)
+    assert int(e.splits[:, 2].max()) >= 3 and int(es.splits[:, 2].max()) >= 3
+
+    def sweeps(mk, mk_t, mk_s):
+        with torch.no_grad():
+            return (fr.routed_rowsum(q, k, mk, 1.0, edges=e),
+                    fr.routed_mm_rows(q, k, mk, x, 1.0, edges=e),
+                    fr.routed_mm_bwd(q, k, mk_t, g, 1.0, edges=et),
+                    fr.routed_rowsum(q, k, mk_s, 1.0, row0=s0, edges=es),
+                    fr.routed_mm_rows(q, k, mk_s, x, 1.0, row0=s0, edges=es))
+
+    got = sweeps(mask, mask_t, mask[s0:])
+    q64, k64, x64 = q.double(), k.double(), x.double()
+    x0 = torch.zeros_like(x64, requires_grad=True)
+    (dx64,) = torch.autograd.grad(fr.routed_mm_plain(q64, k64, mask, x0, 1.0),
+                                  x0, g.double())
+    want = (fr.routed_rowsum_plain(q64, k64, mask, 1.0),
+            fr.routed_mm_plain(q64, k64, mask, x64, 1.0), dx64,
+            fr.routed_rowsum_plain(q64, k64, mask[s0:], 1.0, row0=s0),
+            fr.routed_mm_plain(q64, k64, mask[s0:], x64, 1.0, row0=s0))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b.float(), rtol=RTOL, atol=ATOL)
+    for rows in (got[0][:, [0, 7, n - 1]], got[1][:, [0, 7, n - 1]]):
+        assert torch.all(rows == 0)
+    for a, b in zip(got, sweeps(mask, mask_t, mask[s0:])):
+        assert torch.equal(a, b)  # no atomics: the same bits
+    junk = torch.ones_like(mask)
+    for a, b in zip(got, sweeps(junk, junk.T.contiguous(), junk[s0:])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_routing_kernels_need_the_edge_list_on_the_card(cuda):
+    q, k, mask, x = _inputs(4, 40, 40, 16, 16, False, cuda)
+    counters = (fr.routed_rowsum, fr.routed_mm, fr.routed_mm_bwd)
+    before = [c.launches for c in counters]
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="routed_rowsum on the card "
+                                             "needs edges="):
+            fr.routed_rowsum(q, k, mask, 1.0)
+        with pytest.raises(ValueError, match="needs edges="):
+            fr.routed_mm(q, k, mask, x, 1.0, mask_t=mask)
+        with pytest.raises(ValueError, match="needs edges="):
+            fr.routed_mm_rows(q, k, mask[10:], x, 1.0, row0=10)
+        with pytest.raises(ValueError, match="routed_mm_bwd on the card "
+                                             "needs edges="):
+            fr.routed_mm_bwd(q, k, mask, x, 1.0)
+    assert [c.launches for c in counters] == before
 
 
 # --------------------------------------- two-segment flash attention (KGAT)
@@ -506,9 +610,10 @@ def test_edge_sweeps_never_read_columns_off_the_edges(cuda):
     q, k, _, x = _inputs(4, 9, 301, 16, 16, False, cuda)
     k[:, 100, 0] = float("nan")
     x[:, 100, 0] = float("nan")
+    mask_d = torch.from_numpy(mask).to(cuda)
     with torch.no_grad():
-        out = fr.routed_mm(q, k, torch.from_numpy(mask).to(cuda), x)
-        d = fr.routed_rowsum(q, k, torch.from_numpy(mask).to(cuda))
+        out = fr.routed_mm(q, k, mask_d, x, edges=_edges(mask_d))
+        d = fr.routed_rowsum(q, k, mask_d, edges=_edges(mask_d))
     assert torch.isfinite(out).all() and torch.isfinite(d).all()
     q2, kf, _, xf, g = _flash_inputs(9, 301, 64, 64, cuda)
     mask8 = torch.from_numpy(mask.astype(np.int8)).to(cuda)
@@ -734,7 +839,9 @@ def test_routed_mm_backward_matches_plain_autograd(cuda, n, m, r, base):
     q.requires_grad_()
     x.requires_grad_()
     before = (fr.routed_mm.launches, fr.routed_mm_bwd.launches)
-    fr.routed_mm(q, k, mask, x, base, mask_t=mask_t).backward(g)
+    e, et = _edges(mask), _edges(mask_t)
+    fr.routed_mm(q, k, mask, x, base, mask_t=mask_t, edges=e,
+                 edges_t=et).backward(g)
     torch.cuda.synchronize()
     assert (fr.routed_mm.launches, fr.routed_mm_bwd.launches) == (
         before[0] + 1, before[1] + 1)
@@ -745,16 +852,24 @@ def test_routed_mm_backward_matches_plain_autograd(cuda, n, m, r, base):
     torch.testing.assert_close(x.grad, x64.grad.float(), rtol=RTOL, atol=ATOL)
     assert torch.all(x.grad[:, 3] == 0)
     # the wrapper called directly gives the same, from an int8 mask_t too
-    direct = fr.routed_mm_bwd(q.detach(), k, mask_t.to(torch.int8), g, base)
+    mask_t8 = mask_t.to(torch.int8)
+    direct = fr.routed_mm_bwd(q.detach(), k, mask_t8, g, base,
+                              edges=_edges(mask_t8))
     torch.testing.assert_close(direct, x.grad, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
 def test_routed_mm_backward_needs_mask_t_on_the_card(cuda):
     q, k, mask, x = _inputs(4, 40, 30, 16, 16, False, cuda)
-    out = fr.routed_mm(q, k, mask, x.requires_grad_(), 1.0)
+    e = _edges(mask)
+    out = fr.routed_mm(q, k, mask, x.requires_grad_(), 1.0, edges=e)
     before = fr.routed_mm_bwd.launches
     with pytest.raises(ValueError, match="mask_t"):
+        out.sum().backward()
+    # and its edge list, whose absence the forward does not catch
+    mask_t = mask.T.contiguous()
+    out = fr.routed_mm(q, k, mask, x, 1.0, mask_t=mask_t, edges=e)
+    with pytest.raises(ValueError, match="edges_t"):
         out.sum().backward()
     assert fr.routed_mm_bwd.launches == before
 

@@ -142,9 +142,9 @@ def test_backward_sweeps_only_what_reaches_the_loss(monkeypatch, name):
     calls = []
     bwd = tfr.routed_mm_bwd
 
-    def counted(q, k, mask_t, g, base=0.0):
+    def counted(q, k, mask_t, g, base=0.0, edges=None):
         calls.append(q.shape[2])
-        return bwd(q, k, mask_t, g, base)
+        return bwd(q, k, mask_t, g, base, edges=edges)
 
     monkeypatch.setattr(tfr, "routed_mm_bwd", counted)
     pipe, _ = port_pipeline(name, {})

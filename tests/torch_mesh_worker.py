@@ -833,10 +833,11 @@ class planted_mask_fault:
     def __enter__(self):
         bwd, col = self.saved
         if self.fault == "no_gather":
-            def ungathered(q, k, mask_t, g, base=0.0):
+            def ungathered(q, k, mask_t, g, base=0.0, edges=None):
                 out = g.new_zeros((g.shape[0], k.shape[1], g.shape[2]))
                 out[:, mask_t.start:mask_t.stop] = bwd(
-                    q, k, mask_t.local, g, base, row0=mask_t.start)
+                    q, k, mask_t.local, g, base, row0=mask_t.start,
+                    edges=edges)
                 return out
             self.fr.routed_mm_bwd = ungathered
         elif self.fault == "local_columns":
