@@ -71,6 +71,7 @@ from tagrec_tpu_torch.ops import ell as ell_lib
 from tagrec_tpu_torch.ops import losses
 from tagrec_tpu_torch.ops.propagate import (RankRows, l2_normalize,
                                             message_dropout, model_sum)
+from tagrec_tpu_torch.utils import profiling
 
 DEDUP_WIDTHS = (4, 8, 12, 16, 20, 25)
 # neighbour-table order (data/tgcn_load.py:29): ui, ut, iu, it, tu, ti
@@ -320,7 +321,9 @@ class TGCN(base.EdgeMapGraph, nn.Module):
     leaf prefixes, and ``edges`` holds them on ``device``, or with
     ``mesh`` the rank's rows of them; with ``mesh`` the tables too hold
     the rank's rows (``place_tables``; both by ``place_graph``,
-    ``parallel.sharding.shard_graph``)."""
+    ``parallel.sharding.shard_graph``).  The draw and the tier's build of
+    the tables are the span ``tgcn.tables`` (attrs ``sampler``, ``tier``)
+    of ``utils.profiling``, with its counters (``_build_tables``)."""
 
     REL_ORDER = REL_ORDER
 
@@ -370,17 +373,30 @@ class TGCN(base.EdgeMapGraph, nn.Module):
         adjs = [graph.ui_adj, graph.ut_adj, graph.ui_adj.transpose(),
                 graph.it_adj, graph.ut_adj.transpose(),
                 graph.it_adj.transpose()]
+        self.dedup = cfg.adj_mode == "auto" and not resample_each_layer
+        self.ell = cfg.adj_mode == "ell" and not resample_each_layer
         # which sampler drew the tables: "native", "numpy", or "given"
-        self.sampler = "given"
+        self.sampler = "given" if tables is not None else runtime.sampler()
+        with profiling.span("tgcn.tables", sampler=self.sampler,
+                            tier=self.tier):
+            self._build_tables(cfg, adjs, tables, sample_seed,
+                               resample_each_layer, mesh, dev)
+        # rows each relation fed to its attention in the last forward,
+        # over its layers (a rank's rows under a mesh)
+        self.attention_rows = {}
+
+    def _build_tables(self, cfg, adjs, tables, sample_seed,
+                      resample_each_layer, mesh, dev) -> None:
+        """The six neighbour tables drawn (unless given), the tier's forms
+        of them built and placed on ``dev``; the counters ``tgcn.slots``
+        (N x k over the relations), and on ``auto`` ``tgcn.pairs`` (the
+        distinct (neighbour, weight) pairs) and ``tgcn.buckets``."""
         if tables is None:
             rng = np.random.default_rng(sample_seed)
             tables = [_sample_neighbor_table(a, cfg.neighbor_k, rng)
                       for a in adjs]
-            self.sampler = runtime.sampler()
         self.tables_host = tables
-
-        self.dedup = cfg.adj_mode == "auto" and not resample_each_layer
-        self.ell = cfg.adj_mode == "ell" and not resample_each_layer
+        profiling.count("tgcn.slots", sum(idx.size for idx, _ in tables))
         # (JAX's leaf path, buffer name, whole host array) of every table,
         # in JAX's leaf order (its dicts' keys sorted): the CSR lists, the
         # dedup buckets, then the [N, k] tables (the maps of ``ell`` are
@@ -405,6 +421,9 @@ class TGCN(base.EdgeMapGraph, nn.Module):
             for name in sorted(REL_ORDER):
                 buckets, inv = dedup[name]
                 self._n_buckets[name] = len(buckets)
+                profiling.count("tgcn.buckets", len(buckets))
+                profiling.count("tgcn.pairs", sum(
+                    int(np.count_nonzero(b[3])) for b in buckets))
                 self._leaves += [
                     (f"dedup.{name}.0.{b}.{j}", f"{name}_b{b}_{part}", arr)
                     for b, bucket in enumerate(buckets)
@@ -436,9 +455,6 @@ class TGCN(base.EdgeMapGraph, nn.Module):
                             n_cols, pad_multiple=1))
             self.edges = edgemap.EdgeMapBuffers(
                 edgemap.maps_to_device(self.em_hosts, dev, mesh))
-        # rows each relation fed to its attention in the last forward,
-        # over its layers (a rank's rows under a mesh)
-        self.attention_rows = {}
 
     # ----------------------------------------------------- tables on a mesh
     def leaf_blocks(self, mesh=None) -> Dict[str, Optional[Tuple[int, int]]]:
